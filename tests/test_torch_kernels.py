@@ -1,0 +1,143 @@
+"""The kernels' plain versions against the reference's Pallas kernels,
+run the way tests/test_kernels.py runs them on the CPU (interpret mode).
+
+On CPU tensors the wrappers take their plain versions, so these tests
+hold the plain arithmetic the CUDA kernels are compared with on the card
+(chip_smoke.py) to the TPU kernels' semantics: float32 within 1e-5
+(decode) and 2e-5 (prefill), bfloat16 within 2e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tpu_inference.kernels.paged_attention import paged_attention as j_decode
+from tpu_inference.kernels.prefill_attention import (
+    paged_prefill_attention as j_prefill)
+from tpu_inference_torch.kernels import _build
+from tpu_inference_torch.kernels import paged_attention as pa
+from tpu_inference_torch.kernels import prefill_attention as pfa
+
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _pool(rng, num_pages, pg, hkv, d, b, mp):
+    k = rng.standard_normal((num_pages, pg, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((num_pages, pg, hkv, d)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, num_pages))[:b * mp]
+    return k, v, perm.reshape(b, mp).astype(np.int32)
+
+
+def _both(arr, dt):
+    """(jax array, torch tensor) of the same values in dtype ``dt``; the
+    torch copy goes through float32 of the jax-rounded values, so bf16
+    inputs are bit-identical."""
+    j = jnp.asarray(arr, JDT[dt])
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(TDT[dt])
+    return j, t
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt,hq,hkv,kv_lens,window", [
+    ("f32", 8, 2, None, 0),
+    ("bf16", 8, 2, None, 0),
+    ("f32", 8, 2, (1, 1, 1), 0),          # softmax of one
+    ("f32", 4, 4, None, 0),               # MHA
+    ("f32", 8, 2, (30, 9, 17), 8),        # sliding window
+    ("bf16", 8, 2, (30, 3, 32), 12),
+])
+def test_decode_plain_matches_pallas(dt, hq, hkv, kv_lens, window):
+    rng = np.random.default_rng(0)
+    b, d, pg, npg, mp = 3, 64, 8, 32, 4
+    k, v, bt = _pool(rng, npg, pg, hkv, d, b, mp)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    if kv_lens is None:
+        kv_lens = rng.integers(1, pg * mp + 1, size=b)
+    kl = np.asarray(kv_lens, np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dt) for x in (q, k, v))
+    got = pa.paged_attention(tq, tk, tv, torch.from_numpy(bt),
+                             torch.from_numpy(kl), sliding_window=window)
+    want = j_decode(jq, jk, jv, jnp.asarray(bt), jnp.asarray(kl),
+                    sliding_window=window)
+    assert got.dtype == TDT[dt] and got.shape == (b, hq, d)
+    _close(got, want, 1e-5 if dt == "f32" else 2e-2)
+
+
+@pytest.mark.parametrize("dt,s,hq,hkv,q_offsets,prompts,window", [
+    ("f32", 32, 8, 2, (5, 0), (20, 32), 0),     # test_kernels.py shapes
+    ("f32", 32, 8, 2, (0, 13), (20, 32), 0),
+    ("f32", 24, 4, 4, (0,), (24,), 0),          # non-power-of-two S, MHA
+    ("bf16", 32, 8, 2, (5, 0), (20, 32), 0),
+    ("f32", 32, 8, 2, (5, 0), (20, 32), 6),     # sliding window
+    ("f32", 24, 8, 2, (16, 40), (24, 10), 9),
+    ("f32", 1, 8, 2, (0, 7), (1, 1), 0),        # one-token chunks
+])
+def test_prefill_plain_matches_pallas(dt, s, hq, hkv, q_offsets, prompts,
+                                      window):
+    rng = np.random.default_rng(7)
+    d, pg, npg, mp = 64, 8, 64, 8
+    b = len(prompts)
+    k, v, bt = _pool(rng, npg, pg, hkv, d, b, mp)
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    q_off = np.asarray(q_offsets, np.int32)
+    kl = q_off + np.asarray(prompts, np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dt) for x in (q, k, v))
+    got = pfa.paged_prefill_attention(
+        tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(kl),
+        torch.from_numpy(q_off), sliding_window=window)
+    want = j_prefill(jq, jk, jv, jnp.asarray(bt), jnp.asarray(kl),
+                     jnp.asarray(q_off), sliding_window=window)
+    assert got.dtype == TDT[dt] and got.shape == (b, s, hq, d)
+    _close(got, want, 2e-5 if dt == "f32" else 2e-2)
+
+
+def test_page_ids_out_of_range_clamp_into_the_pool():
+    """A corrupt block-table entry reads a page inside the pool (clamped,
+    as the reference's gather clamps) instead of faulting."""
+    rng = np.random.default_rng(3)
+    k, v, bt = _pool(rng, 16, 8, 2, 32, 1, 2)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 32)).astype(np.float32))
+    kl = torch.tensor([12], dtype=torch.int32)
+    bad = bt.copy()
+    bad[0, 1] = 999
+    clamped = bt.copy()
+    clamped[0, 1] = 15
+    args = (torch.from_numpy(k), torch.from_numpy(v))
+    torch.testing.assert_close(
+        pa.paged_attention(q, *args, torch.from_numpy(bad), kl),
+        pa.paged_attention(q, *args, torch.from_numpy(clamped), kl))
+
+
+def test_cpu_path_never_builds_or_counts(monkeypatch):
+    """The kernel modules import and serve CPU tensors on a machine with
+    neither nvcc nor a GPU: the plain versions run, nothing builds, the
+    launch counters stay put."""
+    def no_build(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    before = (pa.launches, pfa.launches)
+    q = torch.zeros((1, 2, 16))
+    pool = torch.zeros((4, 8, 1, 16))
+    bt = torch.tensor([[1]], dtype=torch.int32)
+    one = torch.tensor([1], dtype=torch.int32)
+    pa.paged_attention(q, pool, pool, bt, one)
+    pfa.paged_prefill_attention(q[:, None], pool, pool, bt, one,
+                                torch.tensor([0], dtype=torch.int32))
+    assert (pa.launches, pfa.launches) == before
+
+
+def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library("paged_attention")

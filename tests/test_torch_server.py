@@ -1,0 +1,206 @@
+"""The port's Ollama server, booted on the CPU on an ephemeral port: the
+NDJSON wire contract of /api/generate (streamed and unary), the aux
+routes, and greedy ``context`` equal to the JAX InferenceServer's on the
+same weights. Every blocking call has its own timeout and the server is
+shut down in a finalizer."""
+
+import asyncio
+import http.client
+import json
+
+import pytest
+
+import jax
+from aiohttp.test_utils import TestClient, TestServer
+
+from tpu_inference import config as jcfg
+from tpu_inference.engine.engine import InferenceEngine as JEngine
+from tpu_inference.models import build_model as j_build
+from tpu_inference.server.http import InferenceServer as JServer
+from tpu_inference_torch import config as tcfg
+from tpu_inference_torch.engine.engine import InferenceEngine
+from tpu_inference_torch.models.weights import params_from_numpy
+from tpu_inference_torch.server.http import InferenceServer
+
+TIMEOUT = 60
+FINAL_FIELDS = {"model", "created_at", "response", "done", "done_reason",
+                "context", "total_duration", "load_duration",
+                "prompt_eval_count", "prompt_eval_duration", "eval_count",
+                "eval_duration"}
+ENGINE = dict(page_size=8, num_pages=128, max_pages_per_seq=8,
+              max_batch_size=4, prefill_buckets=(16, 32, 64))
+PROMPTS = ["Hello GPU", "determinism", "x" * 40]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params, _ = j_build(jcfg.tiny_llama(vocab_size=512), seed=0)
+    return params
+
+
+@pytest.fixture(scope="module")
+def port_server(weights):
+    mcfg = tcfg.tiny_llama(vocab_size=512)
+    cfg = tcfg.FrameworkConfig(
+        model=mcfg, engine=tcfg.EngineConfig(**ENGINE),
+        server=tcfg.ServerConfig(model_name="tiny-llama", tokenizer="byte"))
+    engine = InferenceEngine(
+        mcfg, cfg.engine, device="cpu",
+        params=params_from_numpy(jax.device_get(weights), mcfg, "cpu"))
+    server = InferenceServer(cfg, engine=engine)
+    port = server.start(host="127.0.0.1", port=0)
+    yield server, port
+    server.shutdown(timeout=TIMEOUT)
+
+
+def _post(port, body, path="/api/generate"):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TIMEOUT)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TIMEOUT)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def test_streaming_ndjson_contract(port_server):
+    _, port = port_server
+    status, headers, raw = _post(port, {
+        "model": "tiny-llama", "prompt": "Hello GPU", "temperature": 0.0,
+        "max_tokens": 8, "stream": True})
+    assert status == 200
+    assert headers["Content-Type"].startswith("application/x-ndjson")
+    assert headers["Transfer-Encoding"] == "chunked"
+    lines = [json.loads(x) for x in raw.splitlines()]
+    assert len(lines) >= 2
+    for line in lines[:-1]:
+        assert line["done"] is False
+        assert set(line) == {"model", "created_at", "response", "done"}
+        assert line["model"] == "tiny-llama"
+    final = lines[-1]
+    assert final["done"] is True and FINAL_FIELDS <= set(final)
+    assert final["eval_count"] == 8 or final["done_reason"] == "stop"
+    assert final["prompt_eval_count"] == len("Hello GPU") + 1     # +BOS
+    assert final["prompt_eval_duration"] > 0
+    assert final["total_duration"] > 0
+    assert len(final["context"]) == (final["prompt_eval_count"]
+                                     + final["eval_count"])
+    assert final["request_id"] == headers["X-Request-Id"]
+
+
+def test_unary_single_object(port_server):
+    _, port = port_server
+    status, headers, raw = _post(port, {"prompt": "abc", "stream": False,
+                                        "options": {"num_predict": 5}})
+    assert status == 200 and headers["Content-Type"] == "application/json"
+    body = json.loads(raw)
+    assert body["done"] is True and isinstance(body["response"], str)
+    assert FINAL_FIELDS <= set(body)
+    assert body["eval_count"] == 5 or body["done_reason"] == "stop"
+
+
+def test_aux_routes_and_bad_requests(port_server):
+    _, port = port_server
+    status, _, raw = _get(port, "/api/tags")
+    assert status == 200
+    assert json.loads(raw)["models"][0]["details"]["family"] == "llama"
+    status, _, raw = _get(port, "/api/version")
+    assert status == 200 and "version" in json.loads(raw)
+    status, _, raw = _get(port, "/healthz")
+    assert status == 200 and json.loads(raw)["status"] == "ok"
+    status, headers, raw = _get(port, "/metrics")
+    assert status == 200 and headers["Content-Type"].startswith("text/plain")
+    text = raw.decode()
+    assert "# TYPE tpu_inf_ttft_seconds histogram" in text
+    assert 'tpu_inf_kv_pages_total{replica="0"} 127' in text
+    status, _, raw = _get(port, "/metrics?format=json")
+    assert status == 200 and json.loads(raw)["attn_backend"] == "kernel"
+    assert _post(port, {"stream": False})[0] == 400          # no prompt
+    assert _post(port, {"prompt": "a", "options": [1]})[0] == 400
+    assert _post(port, {"prompt": "a", "context": [1, 99999]})[0] == 400
+    status, _, raw = _post(port, {"prompt": ""})             # load probe
+    assert status == 200 and json.loads(raw)["done_reason"] == "load"
+    assert _get(port, "/nope")[0] == 404
+
+
+def test_stop_sequence_cuts_the_stream(port_server):
+    _, port = port_server
+    _, _, raw = _post(port, {"prompt": "stop probe", "stream": False,
+                             "max_tokens": 12, "temperature": 0.0})
+    full = json.loads(raw)["response"]
+    assert len(full) >= 2          # fixed weights: a fixed greedy text
+    stop = full[1]
+    _, _, raw = _post(port, {"prompt": "stop probe", "stream": True,
+                             "max_tokens": 12, "options": {"stop": stop}})
+    lines = [json.loads(x) for x in raw.splitlines()]
+    text = "".join(x["response"] for x in lines)
+    assert stop not in text and lines[-1]["done_reason"] == "stop"
+
+
+def test_greedy_context_matches_reference_server(port_server, weights):
+    """Same weights, same prompts: the port's greedy context equals the
+    JAX InferenceServer's, streamed and unary."""
+    _, port = port_server
+    jm = jcfg.tiny_llama(vocab_size=512)
+    jcfg_all = jcfg.FrameworkConfig(
+        model=jm, engine=jcfg.EngineConfig(**ENGINE),
+        server=jcfg.ServerConfig(model_name="tiny-llama", tokenizer="byte",
+                                 warmup=False))
+    jserver = JServer(jcfg_all, engine=JEngine(jm, jcfg_all.engine,
+                                               params=weights,
+                                               attn_backend="dense"))
+
+    async def reference(bodies):
+        async with TestClient(TestServer(jserver.make_app())) as client:
+            out = []
+            for body in bodies:
+                resp = await asyncio.wait_for(
+                    client.post("/api/generate", json=body), TIMEOUT)
+                raw = await asyncio.wait_for(resp.read(), TIMEOUT)
+                out.append(json.loads(raw.splitlines()[-1])["context"])
+            return out
+
+    bodies = [{"prompt": p, "max_tokens": 10, "temperature": 0.0,
+               "stream": stream}
+              for p in PROMPTS for stream in (True, False)]
+    want = asyncio.run(reference(bodies))
+    got = [json.loads(_post(port, b)[2].splitlines()[-1])["context"]
+           for b in bodies]
+    assert got == want
+
+
+def test_client_disconnect_cancels_the_request(port_server):
+    """A client that hangs up mid-stream leaves nothing behind (the
+    request is cancelled at the failed write, or finishes first) and the
+    server keeps serving."""
+    import socket
+    import time
+
+    server, port = port_server
+    sched = server.group.schedulers[0]
+    sock = socket.create_connection(("127.0.0.1", port), timeout=TIMEOUT)
+    body = json.dumps({"prompt": "hang up", "max_tokens": 60,
+                       "stream": True}).encode()
+    sock.sendall(b"POST /api/generate HTTP/1.1\r\nHost: x\r\n"
+                 b"Content-Type: application/json\r\n"
+                 + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    assert sock.recv(64).startswith(b"HTTP/1.1 200")   # first token out
+    sock.close()
+    deadline = time.monotonic() + TIMEOUT
+    while sched.load and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert sched.load == 0
+    assert all(s is None for s in server.engine.slots)
+    assert _post(port, {"prompt": "after", "max_tokens": 2,
+                        "stream": False})[0] == 200

@@ -1,0 +1,391 @@
+"""Continuous-batching scheduler: the host loop that feeds the card.
+
+Twin of ``tpu_inference/engine/scheduler.py`` at the default path:
+
+- One engine thread runs the device loop; the HTTP server submits
+  requests from any thread, and token/finish callbacks fire on the
+  engine thread.
+- FCFS admission (class-aware: interactive before batch before
+  background) with **worst-case page reservation**: a request is
+  admitted only when a decode slot is free and the pool can hold its
+  prompt plus its full generation budget.
+- Join/leave at step boundaries: same-bucket arrivals batch into one
+  prefill dispatch; a multi-chunk prompt prefills one chunk per loop
+  iteration so decode keeps running in between.
+- Latency mode: with at most ``latency_decode_threshold`` sequences
+  decoding and nothing queued, one step per call so every token streams
+  as it is sampled; otherwise K fused steps per call.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+import traceback
+from typing import Callable, Deque, Dict, List, Optional
+
+from tpu_inference_torch import telemetry
+from tpu_inference_torch.config import class_rank
+from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+
+# on_token(seq, token_id); on_finish(seq)
+TokenCallback = Callable[[Sequence, int], None]
+FinishCallback = Callable[[Sequence], None]
+
+
+@dataclasses.dataclass
+class SchedulerStats:
+    """Server-side counters (scheduler snapshot, /metrics)."""
+
+    steps: int = 0
+    prefills: int = 0
+    tokens_generated: int = 0
+    tokens_prefix_cached: int = 0
+    requests_finished: int = 0
+    requests_rejected: int = 0
+    step_failures: int = 0
+    batch_occupancy_sum: float = 0.0
+    peak_pages_in_use: int = 0
+
+    def snapshot(self, engine: InferenceEngine) -> Dict:
+        total = engine.engine_cfg.num_pages - 1
+        out = {
+            "steps": self.steps,
+            "prefills": self.prefills,
+            "tokens_generated": self.tokens_generated,
+            "tokens_prefix_cached": self.tokens_prefix_cached,
+            "requests_finished": self.requests_finished,
+            "requests_rejected": self.requests_rejected,
+            "step_failures": self.step_failures,
+            "admission": engine.admission,
+            "pool_pressure": round(engine.pool_pressure, 4),
+            "mean_batch_occupancy": (self.batch_occupancy_sum / self.steps
+                                     if self.steps else 0.0),
+            "kv_pages_total": total,
+            "kv_pages_in_use": total - engine.allocator.num_free,
+            "peak_pages_in_use": self.peak_pages_in_use,
+            "model_params": engine.n_params,
+            "attn_backend": engine.attn_backend,
+            "device": str(engine.device),
+            "phases": engine.telemetry.phase_snapshot(),
+        }
+        if engine.prefix_cache is not None:
+            out["prefix_cache"] = engine.prefix_cache.stats()
+        return out
+
+
+@dataclasses.dataclass
+class _Pending:
+    seq: Sequence
+    on_token: TokenCallback
+    on_finish: FinishCallback
+
+
+class EngineScheduler:
+    """Threaded continuous-batching loop around an InferenceEngine."""
+
+    # Loop pause while requests wait for pages or slots.
+    IDLE_SLEEP_S = 0.001
+
+    def __init__(self, engine: InferenceEngine):
+        self.engine = engine
+        # A burst of arrivals shares one [P, S] prefill dispatch.
+        self.max_prefills_per_step = engine.engine_cfg.max_prefill_batch
+        self.stats = SchedulerStats()
+        engine.telemetry.bind_scheduler(self)
+        self._waiting: Deque[_Pending] = collections.deque()
+        self._callbacks: Dict[int, _Pending] = {}
+        # At most one multi-chunk prompt prefills incrementally.
+        self._prefilling: Optional[_Pending] = None
+        self._lock = threading.Lock()
+        self._work = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Supervision hooks (set by EngineGroup), fired on the engine
+        # thread after every dispatch.
+        self.on_step_ok: Optional[Callable[[], None]] = None
+        self.on_step_error: Optional[Callable[[BaseException], None]] = None
+
+    # -------------------------------------------------- submission API
+
+    @property
+    def load(self) -> int:
+        """Queued + admitted (not yet finished) requests."""
+        return len(self._waiting) + len(self._callbacks)
+
+    def submit(self, seq: Sequence, on_token: TokenCallback,
+               on_finish: FinishCallback) -> None:
+        """Queue a request; callbacks fire on the engine thread."""
+        if len(self._waiting) >= self.engine.engine_cfg.max_queue_len:
+            self.stats.requests_rejected += 1
+            seq.done, seq.finish_reason = True, "queue_full"
+            on_finish(seq)
+            return
+        if not self.engine.can_ever_admit(seq):
+            self.stats.requests_rejected += 1
+            seq.done, seq.finish_reason = True, "too_large"
+            on_finish(seq)
+            return
+        seq.enqueue_time = time.perf_counter()
+        with self._lock:
+            # Insert before any strictly-lower class; FCFS within a class.
+            rank = class_rank(seq.priority_class)
+            idx = len(self._waiting)
+            while idx > 0 and class_rank(
+                    self._waiting[idx - 1].seq.priority_class) > rank:
+                idx -= 1
+            self._waiting.insert(idx, _Pending(seq, on_token, on_finish))
+        self._work.set()
+
+    def cancel(self, request_id: int) -> None:
+        """Cancel a queued or running request (client disconnect)."""
+        with self._lock:
+            for p in list(self._waiting):
+                if p.seq.request_id == request_id:
+                    self._waiting.remove(p)
+                    p.seq.done, p.seq.finish_reason = True, "cancelled"
+                    return
+            p = self._callbacks.get(request_id)
+            if p is not None and not p.seq.done:
+                p.seq.done = True
+                p.seq.finish_reason = "cancelled"
+
+    # -------------------------------------------------- engine loop
+
+    def start(self) -> "EngineScheduler":
+        self._stop.clear()
+        self._thread = threading.Thread(target=self.run, name="engine-loop",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Graceful shutdown; with drain=True finish in-flight work first.
+        Requests still unfinished at the deadline end with
+        ``finish_reason="shutdown"``, so no client stream hangs."""
+        if drain:
+            deadline = time.monotonic() + timeout
+            while (time.monotonic() < deadline
+                   and (self._waiting or self._prefilling is not None
+                        or self._callbacks)):
+                time.sleep(0.01)
+        self._stop.set()
+        self._work.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+        self._cancel_stragglers()
+
+    def _cancel_stragglers(self) -> None:
+        with self._lock:
+            stragglers = list(self._waiting) + list(self._callbacks.values())
+            for p in self._waiting:
+                self._callbacks[p.seq.request_id] = p
+            self._waiting.clear()
+        for p in stragglers:
+            if not p.seq.done:
+                p.seq.done, p.seq.finish_reason = True, "shutdown"
+                p.seq.finish_time = time.perf_counter()
+            self._finish(p.seq)
+
+    def _note_ok(self) -> None:
+        if self.on_step_ok is not None:
+            self.on_step_ok()
+
+    def _step_failed(self, phase: str, exc: BaseException,
+                     seqs: List[Sequence]) -> None:
+        """One structured error record per failed dispatch; the affected
+        requests finish with reason "error"."""
+        self.stats.step_failures += 1
+        telemetry.log_event(
+            "step_error", level="error", phase=phase, error=repr(exc),
+            request_ids=[s.trace_id or str(s.request_id) for s in seqs],
+            traceback="".join(traceback.format_exception(
+                type(exc), exc, exc.__traceback__, limit=8)))
+        if self.on_step_error is not None:
+            self.on_step_error(exc)
+        for s in seqs:
+            if not s.done:
+                s.done, s.finish_reason = True, "error"
+                s.finish_time = time.perf_counter()
+            self._finish(s)
+
+    def _needs_chunking(self, seq: Sequence) -> bool:
+        ecfg = self.engine.engine_cfg
+        return (min(len(seq.prompt_tokens), ecfg.max_context - 1)
+                > ecfg.chunk_tokens_cap)
+
+    def _prefill_done(self, pending: _Pending) -> None:
+        seq = pending.seq
+        self.stats.prefills += 1
+        self.stats.tokens_generated += 1
+        self.stats.tokens_prefix_cached += seq.cached_tokens
+        if seq.enqueue_time:
+            self.engine.telemetry.queue_wait_s.observe(
+                max(0.0, seq.prefill_start - seq.enqueue_time))
+        pending.on_token(seq, seq.generated[-1])
+        if seq.done:
+            self._finish(seq)
+
+    def _step_incremental_prefill(self) -> None:
+        """Advance the in-progress multi-chunk prefill by ONE chunk."""
+        pending = self._prefilling
+        seq = pending.seq
+        if seq.done:                          # cancelled mid-prefill
+            self._prefilling = None
+            self._finish(seq)
+            return
+        try:
+            finished = self.engine.prefill_step(seq)
+        except Exception as exc:  # noqa: BLE001 — keep the engine loop alive
+            self._prefilling = None
+            self._step_failed("incremental_prefill", exc, [seq])
+            return
+        self._note_ok()
+        if finished:
+            self._prefilling = None
+            self._prefill_done(pending)
+
+    def _admit(self) -> None:
+        """Admit up to max_prefills_per_step waiting requests in one
+        batched prefill; a multi-chunk prompt starts an incremental
+        prefill instead (one at a time)."""
+        if self._prefilling is not None:
+            self._step_incremental_prefill()
+        batch: List[_Pending] = []
+        start_chunked: Optional[_Pending] = None
+        reserved = 0
+        with self._lock:
+            free_slots = len(self.engine.free_slots())
+            while (len(batch) < self.max_prefills_per_step
+                   and len(batch) < free_slots and self._waiting):
+                pending = self._waiting[0]
+                if pending.seq.done:          # cancelled while queued
+                    self._waiting.popleft()
+                    continue
+                need = self.engine._pages_reserved(pending.seq)
+                if self.engine._free_plus_evictable() < reserved + need:
+                    break
+                if self._needs_chunking(pending.seq):
+                    if self._prefilling is not None or batch:
+                        break
+                    self._waiting.popleft()
+                    self._callbacks[pending.seq.request_id] = pending
+                    start_chunked = pending
+                    break
+                self._waiting.popleft()
+                # Register before releasing the lock so cancel() always
+                # finds the request in _waiting or _callbacks.
+                self._callbacks[pending.seq.request_id] = pending
+                reserved += need
+                batch.append(pending)
+        if start_chunked is not None:
+            try:
+                self.engine.prefill_begin(start_chunked.seq)
+            except Exception as exc:  # noqa: BLE001
+                self._step_failed("prefill_begin", exc, [start_chunked.seq])
+                return
+            self._prefilling = start_chunked
+            self._step_incremental_prefill()
+            return
+        if not batch:
+            return
+        try:
+            self.engine.prefill_many([p.seq for p in batch])
+        except Exception as exc:  # noqa: BLE001 — keep the engine loop alive
+            self._step_failed("batched_prefill", exc, [p.seq for p in batch])
+            return
+        self._note_ok()
+        for pending in batch:
+            self._prefill_done(pending)
+
+    def _finish(self, seq: Sequence) -> None:
+        with self._lock:
+            if seq.reaped:
+                return
+            seq.reaped = True
+            pending = self._callbacks.pop(seq.request_id, None)
+        self.engine.release(seq)
+        self.stats.requests_finished += 1
+        self._observe_finish(seq)
+        if pending is not None:
+            pending.on_finish(seq)
+
+    def _observe_finish(self, seq: Sequence) -> None:
+        """Fold one finished request into the phase histograms and the
+        structured log (queue + prefill + decode sums to e2e)."""
+        tel = self.engine.telemetry
+        tel.request_finished(seq.finish_reason)
+        fin = seq.finish_time or time.perf_counter()
+        first = seq.first_token_time or fin
+        start = seq.prefill_start or fin
+        enq = seq.enqueue_time or start
+        if seq.enqueue_time:
+            tel.prefill_phase_s.observe(max(0.0, first - start))
+            tel.decode_phase_s.observe(max(0.0, fin - first))
+            tel.ttft_s.observe(max(0.0, first - enq))
+            tel.e2e_s.observe(max(0.0, fin - enq))
+        telemetry.log_event(
+            "request_finish", level="info",
+            request_id=seq.trace_id or str(seq.request_id),
+            reason=seq.finish_reason,
+            prompt_tokens=len(seq.prompt_tokens),
+            output_tokens=len(seq.generated),
+            queue_wait_s=round(max(0.0, start - enq), 6),
+            prefill_s=round(max(0.0, first - start), 6),
+            decode_s=round(max(0.0, fin - first), 6),
+            e2e_s=round(max(0.0, fin - enq), 6))
+
+    def _deliver(self, new_tokens: Dict[int, List[int]]) -> None:
+        for rid, toks in new_tokens.items():
+            pending = self._callbacks.get(rid)
+            if pending is not None:
+                for tok in toks:
+                    pending.on_token(pending.seq, tok)
+
+    def _reapable(self) -> List[Sequence]:
+        """Finished sequences the loop may finish now (a sequence still
+        owned by the incremental prefill is finished by that path)."""
+        own = self._prefilling.seq if self._prefilling is not None else None
+        return [s for s in self.engine.slots
+                if s is not None and s.done and s is not own]
+
+    def run(self) -> None:
+        engine = self.engine
+        while not self._stop.is_set():
+            self._admit()
+            active = engine.active_sequences()
+            if not active:
+                for s in self._reapable():
+                    self._finish(s)
+                if self._prefilling is not None:
+                    continue          # next iteration runs the next chunk
+                if not self._waiting:
+                    self._work.clear()
+                    self._work.wait(timeout=0.1)
+                else:
+                    time.sleep(self.IDLE_SLEEP_S)
+                continue
+            thresh = engine.engine_cfg.latency_decode_threshold
+            try:
+                if (0 < len(active) <= thresh and not self._waiting
+                        and self._prefilling is None):
+                    new_tokens = engine.decode_steps(max_steps=1)
+                else:
+                    new_tokens = engine.decode_steps_pipelined()
+            except Exception as exc:  # noqa: BLE001 — keep the loop alive
+                self._step_failed("decode", exc, active)
+                continue
+            self._note_ok()
+            self.stats.steps += 1
+            self.stats.batch_occupancy_sum += len(active)
+            self.stats.tokens_generated += sum(
+                len(toks) for toks in new_tokens.values())
+            in_use = (engine.engine_cfg.num_pages - 1
+                      - engine.allocator.num_free)
+            self.stats.peak_pages_in_use = max(self.stats.peak_pages_in_use,
+                                               in_use)
+            self._deliver(new_tokens)
+            for s in self._reapable():
+                self._finish(s)

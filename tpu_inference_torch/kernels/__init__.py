@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels (CUDA C++ in csrc/, built with nvcc for
+sm_90a, bound through ctypes), one module each, with the plain PyTorch
+version beside every kernel. Importing builds nothing; see _build.py.
+
+- paged_attention.paged_attention: paged decode attention.
+- prefill_attention.paged_prefill_attention: paged prefill attention.
+"""
+
+# csrc/<name>.cu of every kernel library on the serving path.
+KERNEL_SOURCES = ("paged_attention", "prefill_attention")
+
+
+def build_kernels() -> dict:
+    """Build every kernel library (nvcc processes run in parallel) and
+    load them; returns {name: build seconds} (0.0 = already built)."""
+    from tpu_inference_torch.kernels import _build, paged_attention
+    from tpu_inference_torch.kernels import prefill_attention
+
+    secs = _build.build_all(list(KERNEL_SOURCES))
+    paged_attention._library()
+    prefill_attention._library()
+    return secs

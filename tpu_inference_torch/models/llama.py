@@ -1,0 +1,155 @@
+"""Llama-family decoder (RMSNorm + RoPE + GQA + SwiGLU) in PyTorch.
+
+Twin of ``tpu_inference/models/llama.py``: one module serves vanilla
+Llama, Mistral (sliding_window, masked in the attention backend), Qwen2
+(qkv_bias) and Gemma (norm_offset, gelu_tanh gate, embed_scale,
+decoupled head_dim). Parameters are a plain dict in the reference's
+layout: per-layer weights stacked along a leading layer axis, matrices
+``[in, out]``. The reference's ``lax.scan`` over layers is a Python loop
+here; each layer reads a view of the stacked tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from tpu_inference_torch.config import ModelConfig
+from tpu_inference_torch.models.common import (
+    AttentionFn,
+    apply_rope_tables,
+    qdot,
+    rms_norm,
+    rope_tables,
+    swiglu,
+)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random init (normal, 0.02 std) with stacked layer weights.
+
+    Stacked tensors fill one layer at a time, so the float32 draw never
+    holds more than one layer's slab beside the cfg.dtype weights."""
+    cfg.validate()
+    d, f, hd, L = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_layers
+    device = generator.device if device is None else torch.device(device)
+
+    def normal(shape):
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        slabs = out if len(shape) == 3 else out[None]
+        for slab in slabs:
+            slab.copy_(0.02 * torch.randn(slab.shape, generator=generator,
+                                          dtype=torch.float32, device=device))
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    params = {
+        "embed": normal((cfg.vocab_size, d)),
+        "blocks": {
+            "attn_norm": ones((L, d)),
+            "wq": normal((L, d, cfg.n_heads * hd)),
+            "wk": normal((L, d, cfg.n_kv_heads * hd)),
+            "wv": normal((L, d, cfg.n_kv_heads * hd)),
+            "wo": normal((L, cfg.n_heads * hd, d)),
+            "ffn_norm": ones((L, d)),
+            "w_gate": normal((L, d, f)),
+            "w_up": normal((L, d, f)),
+            "w_down": normal((L, f, d)),
+        },
+        "final_norm": ones((d,)),
+    }
+    if cfg.qkv_bias:
+        zeros = lambda n: torch.zeros((L, n), dtype=cfg.dtype,  # noqa: E731
+                                      device=device)
+        params["blocks"]["bq"] = zeros(cfg.n_heads * hd)
+        params["blocks"]["bk"] = zeros(cfg.n_kv_heads * hd)
+        params["blocks"]["bv"] = zeros(cfg.n_kv_heads * hd)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size))
+    return params
+
+
+def layer_params(params: dict, layer_idx: int) -> dict:
+    """One layer's weights as views of the stacked tensors."""
+    return {k: v[layer_idx] for k, v in params["blocks"].items()}
+
+
+def decoder_block(cfg: ModelConfig, layer_idx: int, lp: dict,
+                  x: torch.Tensor, positions: torch.Tensor, kv: Any,
+                  attn: AttentionFn,
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One transformer block. x: [B, S, D]. ``rope`` = precomputed
+    (cos, sin) tables for ``positions`` (models/common.py rope_tables);
+    computed here when omitted."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    if rope is None:
+        rope = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_offset)
+    q, k, v = qdot(h, lp["wq"]), qdot(h, lp["wk"]), qdot(h, lp["wv"])
+    if cfg.qkv_bias:
+        q = q + lp["bq"].float()
+        k = k + lp["bk"].float()
+        v = v + lp["bv"].float()
+    q = q.to(x.dtype).reshape(b, s, cfg.n_heads, hd)
+    k = k.to(x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.to(x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rope_tables(q, *rope)
+    k = apply_rope_tables(k, *rope)
+
+    attn_out, kv = attn(layer_idx, q, k, v, kv)
+    attn_out = attn_out.reshape(b, s, cfg.n_heads * hd)
+    x = x + qdot(attn_out, lp["wo"]).to(x.dtype)
+
+    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps, cfg.norm_offset)
+    x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"],
+                   act=cfg.hidden_act)
+    return x, kv
+
+
+def embed_tokens(params: dict, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids -> input embeddings. Ids clamp into the table, as the
+    reference's XLA gather does (an out-of-range index would fault on the
+    card instead)."""
+    ids = tokens.clamp(0, cfg.vocab_size - 1)
+    x = params["embed"][ids].to(cfg.dtype)
+    if cfg.embed_scale:
+        # Gemma: the sqrt(d) normalizer rounds to the activation dtype.
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+    return x
+
+
+def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, kv: Any,
+                   attn: AttentionFn) -> Tuple[torch.Tensor, Any]:
+    """Token ids -> final hidden states. tokens, positions: [B, S]."""
+    x = embed_tokens(params, cfg, tokens)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                       cfg.rope_scaling)
+    for i in range(cfg.n_layers):
+        x, kv = decoder_block(cfg, i, layer_params(params, i), x, positions,
+                              kv, attn, rope=rope)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
+    return x, kv
+
+
+def unembed(params: dict, cfg: ModelConfig,
+            hidden: torch.Tensor) -> torch.Tensor:
+    """Hidden states -> f32 logits."""
+    if cfg.tie_embeddings:
+        return qdot(hidden, params["embed"].t())
+    return qdot(hidden, params["lm_head"])
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor, kv: Any,
+            attn: AttentionFn) -> Tuple[torch.Tensor, Any]:
+    """Convenience: full-sequence logits (tests / tiny models)."""
+    hidden, kv = forward_hidden(params, cfg, tokens, positions, kv, attn)
+    return unembed(params, cfg, hidden), kv

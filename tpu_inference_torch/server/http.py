@@ -1,0 +1,554 @@
+"""Ollama-protocol HTTP server over the port's engine.
+
+Twin of ``tpu_inference/server/http.py`` on the standard library's
+threading HTTP server (one thread per connection; the engine runs on its
+own scheduler thread). Wire contract, as the reference's:
+
+- ``POST /api/generate`` with JSON ``{"model", "prompt", "temperature",
+  "max_tokens", "stream"}``; ``options.temperature`` /
+  ``options.num_predict`` (and top_p, top_k, seed, repeat_penalty,
+  repeat_last_n, stop) are honored too.
+- stream=true: ``200`` with ``Content-Type: application/x-ndjson`` and
+  chunked transfer; one JSON line per text delta
+  ``{"model", "created_at", "response", "done": false}``; the terminal
+  line adds ``done_reason``, ``context`` (token ids) and the ns-duration
+  counters ``total_duration, load_duration, prompt_eval_count,
+  prompt_eval_duration, eval_count, eval_duration``.
+- stream=false: one JSON object, ``response`` = full text + same counters.
+- **Headers are withheld until the first token is ready**, so client-side
+  TTFT (first streamed chunk ~ header arrival) measures model latency.
+
+Also serves ``GET /api/tags``, ``/api/version``, ``/healthz`` and
+``/metrics`` (Prometheus text; ``?format=json`` for the stats snapshot).
+``/api/chat`` and ``/api/embeddings`` are ROADMAP items 1.10 and 1.11.
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import json
+import queue
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs, urlsplit
+
+from tpu_inference_torch import telemetry
+from tpu_inference_torch.config import (PRIORITY_CLASSES, EngineConfig,
+                                        FrameworkConfig, ParallelConfig,
+                                        PRESETS, ServerConfig)
+from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+from tpu_inference_torch.engine.sampling import PENALTY_WINDOW
+from tpu_inference_torch.server.replicas import (EngineGroup, FleetSaturated,
+                                                 FleetUnavailable)
+from tpu_inference_torch.server.tokenizer import (IncrementalDecoder,
+                                                  StopMatcher,
+                                                  build_tokenizer)
+
+
+def _now_iso() -> str:
+    return (datetime.datetime.now(datetime.timezone.utc)
+            .strftime("%Y-%m-%dT%H:%M:%S.%f000Z"))
+
+
+class HTTPError(Exception):
+    """An error response: status, JSON body, extra headers."""
+
+    def __init__(self, status: int, error: str,
+                 headers: Optional[dict] = None):
+        super().__init__(error)
+        self.status = status
+        self.body = {"error": error}
+        self.headers = headers or {}
+
+
+def check_server_config(cfg: FrameworkConfig) -> None:
+    """Raise NotImplementedError for server-side features this slice
+    does not serve."""
+    if cfg.parallel.n_devices > 1:
+        raise NotImplementedError(
+            f"dp/tp/sp = {cfg.parallel.dp}/{cfg.parallel.tp}/"
+            f"{cfg.parallel.sp}: multi-GPU serving is not ported yet "
+            "(ROADMAP 1.16); the port serves one card")
+    if cfg.server.fleet != "in-process":
+        raise NotImplementedError(
+            f"fleet={cfg.server.fleet!r} is not ported yet (ROADMAP 1.15: "
+            "process fleet)")
+    if cfg.checkpoint_path:
+        raise NotImplementedError(
+            "checkpoint loading is not ported yet (ROADMAP 1.9); the port "
+            "serves random weights made from the seed")
+    if cfg.server.enable_debug:
+        raise NotImplementedError(
+            "debug endpoints are not ported yet (ROADMAP 1.18)")
+    if cfg.server.chaos_failure_rate or cfg.server.chaos_delay_s:
+        raise NotImplementedError(
+            "HTTP fault injection is not ported yet (ROADMAP 1.13)")
+
+
+class InferenceServer:
+    """One engine + scheduler + tokenizer behind the Ollama HTTP protocol."""
+
+    def __init__(self, cfg: FrameworkConfig,
+                 engine: Optional[InferenceEngine] = None,
+                 load_duration_ns: Optional[int] = None,
+                 device="cuda"):
+        """``engine``: a prebuilt engine (tests); otherwise one is built
+        from ``cfg`` on ``device`` with random weights from ``cfg.seed``.
+        ``load_duration_ns`` feeds the Ollama ``load_duration`` field."""
+        check_server_config(cfg)
+        self.cfg = cfg
+        self.tokenizer = build_tokenizer(cfg.server.tokenizer,
+                                         vocab_size=cfg.model.vocab_size)
+        if self.tokenizer.vocab_size > cfg.model.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab ({self.tokenizer.vocab_size}) exceeds "
+                f"model vocab ({cfg.model.vocab_size})")
+        t0 = time.perf_counter()
+        if engine is None:
+            engine = InferenceEngine(cfg.model, cfg.engine, seed=cfg.seed,
+                                     device=device)
+        self.group = EngineGroup([engine], cfg.server)
+        self.load_duration_ns = (load_duration_ns
+                                 if load_duration_ns is not None else
+                                 int((time.perf_counter() - t0) * 1e9))
+        self._ids = itertools.count()
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def engine(self) -> InferenceEngine:
+        return self.group.engine
+
+    # ------------------------------------------------------- lifecycle
+
+    def start(self, host: Optional[str] = None,
+              port: Optional[int] = None) -> int:
+        """Warm up (when configured), start the scheduler, and serve on a
+        background thread. ``port=0`` binds an ephemeral port. Returns
+        the bound port."""
+        if self.cfg.server.warmup:
+            secs = self.group.warmup()
+            print(f"engine warmup on {self.engine.device} "
+                  f"(attn_backend={self.engine.attn_backend}): {secs:.1f}s",
+                  flush=True)
+        self.group.start()
+        host = self.cfg.server.host if host is None else host
+        port = self.cfg.server.port if port is None else port
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self._httpd.app = self
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="http", daemon=True)
+        self._thread.start()
+        return self._httpd.server_address[1]
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Stop serving and stop the scheduler (unfinished requests end
+        with reason "shutdown")."""
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            self._thread = None
+        self.group.stop(drain=False, timeout=timeout)
+
+    # ------------------------------------------------------- routes
+
+    def _parameter_size(self) -> str:
+        n = self.engine.n_params
+        for div, suffix in ((1e9, "B"), (1e6, "M"), (1e3, "K")):
+            if n >= div:
+                return f"{n / div:.1f}{suffix}"
+        return str(n)
+
+    def _quantization_level(self) -> str:
+        import torch
+        return {torch.bfloat16: "BF16", torch.float16: "F16"}.get(
+            self.cfg.model.dtype, "F32")
+
+    def tags(self) -> dict:
+        return {"models": [{
+            "name": self.cfg.server.model_name,
+            "model": self.cfg.server.model_name,
+            "details": {"family": self.cfg.model.family,
+                        "parameter_size": self._parameter_size(),
+                        "quantization_level": self._quantization_level()},
+        }]}
+
+    def _retry_after_headers(self, retry_after_s: float) -> dict:
+        return {"Retry-After": str(max(1, int(-(-retry_after_s // 1))))}
+
+    def parse_generate(self, body: dict, headers) -> tuple:
+        """Validate a /api/generate body -> (Sequence, stream, model name,
+        stop strings, warnings). Raises HTTPError(400) on bad input."""
+        prompt = body.get("prompt")
+        if not isinstance(prompt, str):
+            raise HTTPError(400, "missing 'prompt'")
+        opts = body.get("options") or {}
+        if not isinstance(opts, dict):
+            raise HTTPError(400, "'options' must be an object")
+        ecfg = self.cfg.engine
+        try:
+            temperature = float(opts.get(
+                "temperature", body.get("temperature", ecfg.temperature)))
+            max_tokens = int(opts.get(
+                "num_predict", body.get("max_tokens", ecfg.max_new_tokens)))
+            max_tokens = max(1, min(max_tokens, ecfg.max_context - 1))
+            top_p = float(opts.get("top_p", body.get("top_p", ecfg.top_p)))
+            top_k = opts.get("top_k", body.get("top_k"))
+            top_k = int(top_k) if top_k is not None else None
+            seed = opts.get("seed", body.get("seed"))
+            seed = int(seed) if seed is not None else None
+            warnings: list = []
+            repeat_penalty = float(opts.get("repeat_penalty", 1.0))
+            if repeat_penalty <= 0:
+                raise ValueError("'repeat_penalty' must be > 0")
+            repeat_last_n = int(opts.get("repeat_last_n", 64))
+            if repeat_penalty != 1.0 and (repeat_last_n > PENALTY_WINDOW
+                                          or repeat_last_n < 0):
+                warnings.append(
+                    f"repeat_last_n={repeat_last_n} clamped to the static "
+                    f"penalty window {PENALTY_WINDOW}")
+            stop = opts.get("stop", body.get("stop"))
+            if stop is None:
+                stop = []
+            elif isinstance(stop, str):
+                stop = [stop]
+            elif not (isinstance(stop, list)
+                      and all(isinstance(s, str) for s in stop)):
+                raise ValueError("'stop' must be a string or list of strings")
+            stop = [s for s in stop if s]
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, f"invalid sampling options: {e}")
+        prompt_ids = self.tokenizer.encode(prompt)
+        # Stateful continuation: a prior response's context ids prepend.
+        ctx_ids = body.get("context")
+        if ctx_ids is not None:
+            if not (isinstance(ctx_ids, list)
+                    and all(isinstance(t, int) and not isinstance(t, bool)
+                            and 0 <= t for t in ctx_ids)):
+                raise HTTPError(400, "'context' must be a list of token ids")
+            vocab = self.cfg.model.vocab_size
+            if any(t >= vocab for t in ctx_ids):
+                raise HTTPError(400, f"'context' token id out of range "
+                                     f"(vocab_size={vocab})")
+        if ctx_ids:
+            if (prompt_ids and self.tokenizer.bos_token_id is not None
+                    and prompt_ids[0] == self.tokenizer.bos_token_id):
+                prompt_ids = prompt_ids[1:]
+            prompt_ids = list(ctx_ids) + prompt_ids
+        trace_id = (headers.get("X-Request-Id") or "").strip()
+        trace_id = ("".join(c for c in trace_id if c.isprintable())[:64]
+                    or uuid.uuid4().hex[:16])
+        pcls = (headers.get("X-Priority") or "").strip().lower()
+        pcls = pcls or self.cfg.server.default_class
+        if pcls not in PRIORITY_CLASSES:
+            raise HTTPError(400, f"unknown X-Priority {pcls!r} (expected one "
+                                 f"of {', '.join(PRIORITY_CLASSES)})")
+        seq = Sequence(request_id=next(self._ids), prompt_tokens=prompt_ids,
+                       max_new_tokens=max_tokens, temperature=temperature,
+                       top_p=top_p, top_k=top_k, seed=seed,
+                       repeat_penalty=repeat_penalty,
+                       repeat_last_n=repeat_last_n,
+                       eos_token_id=self.tokenizer.eos_token_id,
+                       trace_id=trace_id, priority_class=pcls)
+        stream = bool(body.get("stream", True))
+        model_name = body.get("model") or self.cfg.server.model_name
+        return seq, stream, model_name, stop, warnings
+
+    def submit(self, seq: Sequence) -> queue.Queue:
+        """Submit; events ("token", id) / ("finish", seq) arrive on the
+        returned queue from the engine thread."""
+        events: queue.Queue = queue.Queue()
+        try:
+            self.group.submit(seq,
+                              lambda s, tok: events.put(("token", tok)),
+                              lambda s: events.put(("finish", s)))
+        except FleetSaturated as e:
+            raise HTTPError(429, str(e),
+                            self._retry_after_headers(e.retry_after_s))
+        except FleetUnavailable as e:
+            raise HTTPError(503, str(e),
+                            self._retry_after_headers(e.retry_after_s))
+        telemetry.log_event("request_received", level="info",
+                            request_id=seq.trace_id,
+                            prompt_tokens=len(seq.prompt_tokens),
+                            max_tokens=seq.max_new_tokens)
+        return events
+
+    def token_line(self, model_name: str, chunk: str) -> dict:
+        return {"model": model_name, "created_at": _now_iso(),
+                "response": chunk, "done": False}
+
+    def final_record(self, seq: Sequence, model_name: str, recv_t: float,
+                     warnings: Optional[list] = None) -> dict:
+        now = time.perf_counter()
+        prompt_eval_ns = max(0, int((seq.first_token_time - seq.prefill_start)
+                                    * 1e9)) if seq.first_token_time else 0
+        finish = seq.finish_time or now
+        eval_ns = max(0, int((finish - (seq.first_token_time or finish))
+                             * 1e9))
+        rec = {
+            "model": model_name,
+            "created_at": _now_iso(),
+            "request_id": seq.trace_id,
+            "response": "",
+            "done": True,
+            "done_reason": seq.finish_reason or "stop",
+            "context": list(seq.prompt_tokens) + list(seq.generated),
+            "total_duration": int((now - recv_t) * 1e9),
+            "load_duration": self.load_duration_ns,
+            "prompt_eval_count": len(seq.prompt_tokens),
+            "prompt_eval_duration": prompt_eval_ns,
+            "eval_count": len(seq.generated),
+            "eval_duration": eval_ns,
+        }
+        if warnings:
+            rec["warnings"] = list(warnings)
+        return rec
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    @property
+    def app(self) -> InferenceServer:
+        return self.server.app
+
+    def log_message(self, format, *args) -> None:   # noqa: A002
+        telemetry.log_event("http_access", level="debug",
+                            line=format % args)
+
+    # ------------------------------------------------------- plumbing
+
+    def _send_json(self, status: int, obj, headers: Optional[dict] = None
+                   ) -> None:
+        self._send_body(status, json.dumps(obj).encode(), "application/json",
+                        headers)
+
+    def _send_body(self, status: int, data: bytes, ctype: str,
+                   headers: Optional[dict] = None) -> None:
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _write_chunk(self, data: bytes) -> None:
+        self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+        self.wfile.flush()
+
+    def _read_json(self) -> dict:
+        n = int(self.headers.get("Content-Length") or 0)
+        raw = self.rfile.read(n) if n > 0 else b""
+        try:
+            body = json.loads(raw or b"null")
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            raise HTTPError(400, "invalid JSON body")
+        if not isinstance(body, dict):
+            raise HTTPError(400, "invalid JSON body")
+        return body
+
+    # ------------------------------------------------------- routes
+
+    def do_GET(self) -> None:   # noqa: N802
+        url = urlsplit(self.path)
+        app = self.app
+        if url.path == "/api/tags":
+            self._send_json(200, app.tags())
+        elif url.path == "/api/version":
+            from tpu_inference_torch import __version__
+            self._send_json(200, {"version": __version__})
+        elif url.path == "/healthz":
+            snap = app.group.health_snapshot()
+            if snap["status"] == "unavailable":
+                self._send_json(503, snap, app._retry_after_headers(
+                    app.cfg.server.retry_after_s))
+            else:
+                self._send_json(200, snap)
+        elif url.path == "/metrics":
+            if parse_qs(url.query).get("format") == ["json"]:
+                self._send_json(200, app.group.stats_snapshot())
+            else:
+                self._send_body(200, app.group.prometheus_text().encode(),
+                                telemetry.PROMETHEUS_CONTENT_TYPE)
+        else:
+            self._send_json(404, {"error": f"no route {url.path}"})
+
+    def do_POST(self) -> None:   # noqa: N802
+        path = urlsplit(self.path).path
+        try:
+            body = self._read_json()
+            if path != "/api/generate":
+                raise HTTPError(404, f"no route {path}")
+            self._generate(body)
+        except HTTPError as e:
+            self._send_json(e.status, e.body, e.headers)
+
+    def _generate(self, body: dict) -> None:
+        app = self.app
+        recv_t = time.perf_counter()
+        if body.get("prompt") == "" and not body.get("context"):
+            # Ollama load/ping contract: an empty prompt acks at once.
+            self._send_json(200, {
+                "model": body.get("model") or app.cfg.server.model_name,
+                "created_at": _now_iso(), "response": "", "done": True,
+                "done_reason": "load"})
+            return
+        seq, stream, model_name, stop, warnings = app.parse_generate(
+            body, self.headers)
+        events = app.submit(seq)
+        try:
+            if stream:
+                self._stream(events, seq, model_name, recv_t, stop, warnings)
+            else:
+                self._unary(events, seq, model_name, recv_t, stop, warnings)
+        except (BrokenPipeError, ConnectionResetError):
+            app.group.cancel(seq.request_id)     # client went away
+            self.close_connection = True
+
+    def _next_event(self, events: queue.Queue, seq: Sequence) -> tuple:
+        try:
+            return events.get(timeout=self.app.cfg.server.request_timeout_s)
+        except queue.Empty:
+            self.app.group.cancel(seq.request_id)
+            raise HTTPError(504, "request timed out")
+
+    def _stream(self, events, seq, model_name, recv_t, stop, warnings):
+        app = self.app
+        decoder = IncrementalDecoder(app.tokenizer,
+                                     prompt_tail=seq.prompt_tokens[-8:])
+        matcher = StopMatcher(stop)
+        consumed: list = []
+        started = False
+
+        def begin() -> None:
+            # First token ready -> now send headers (TTFT contract).
+            nonlocal started
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("X-Request-Id", seq.trace_id)
+            self.end_headers()
+            started = True
+
+        def line(obj) -> None:
+            self._write_chunk(json.dumps(obj).encode() + b"\n")
+
+        def finish(fseq: Sequence, stopped: bool) -> None:
+            final = app.final_record(fseq, model_name, recv_t, warnings)
+            if stopped:
+                # Report only what this handler consumed: the engine may
+                # append more before the cancel lands.
+                final["done_reason"] = "stop"
+                final["eval_count"] = len(consumed)
+                final["context"] = list(seq.prompt_tokens) + consumed
+            line(final)
+            self._write_chunk(b"")
+
+        while True:
+            try:
+                kind, payload = self._next_event(events, seq)
+            except HTTPError:
+                if not started:
+                    raise
+                self.close_connection = True   # headers out: just end
+                return
+            if kind == "token":
+                consumed.append(payload)
+                emit, stopped = matcher.push(decoder.push(payload))
+                if not started:
+                    begin()
+                if stopped:
+                    if emit:
+                        line(app.token_line(model_name, emit))
+                    app.group.cancel(seq.request_id)
+                    finish(seq, stopped=True)
+                    return
+                line(app.token_line(model_name, emit))
+                continue
+            if (payload.finish_reason in ("error", "unavailable")
+                    and not consumed and not started):
+                raise HTTPError(503, "replica failure before first token",
+                                app._retry_after_headers(
+                                    app.cfg.server.retry_after_s))
+            if not started:
+                begin()
+            tail, stopped = matcher.push(decoder.flush())
+            if not stopped:
+                tail += matcher.flush()
+            if tail:
+                line(app.token_line(model_name, tail))
+            finish(payload, stopped)
+            return
+
+    def _unary(self, events, seq, model_name, recv_t, stop, warnings):
+        app = self.app
+        decoder = IncrementalDecoder(app.tokenizer,
+                                     prompt_tail=seq.prompt_tokens[-8:])
+        matcher = StopMatcher(stop)
+        parts: list = []
+        consumed: list = []
+
+        def respond(fseq: Sequence, stopped: bool) -> None:
+            final = app.final_record(fseq, model_name, recv_t, warnings)
+            if stopped:
+                final["done_reason"] = "stop"
+                final["eval_count"] = len(consumed)
+                final["context"] = list(seq.prompt_tokens) + consumed
+            final["response"] = "".join(parts)
+            self._send_json(200, final, {"X-Request-Id": seq.trace_id})
+
+        while True:
+            kind, payload = self._next_event(events, seq)
+            if kind == "token":
+                consumed.append(payload)
+                emit, stopped = matcher.push(decoder.push(payload))
+                parts.append(emit)
+                if stopped:
+                    app.group.cancel(seq.request_id)
+                    respond(seq, stopped=True)
+                    return
+                continue
+            if (payload.finish_reason in ("error", "unavailable")
+                    and not consumed):
+                raise HTTPError(503, "replica failure before first token",
+                                app._retry_after_headers(
+                                    app.cfg.server.retry_after_s))
+            tail, stopped = matcher.push(decoder.flush())
+            parts.append(tail)
+            if not stopped:
+                parts.append(matcher.flush())
+            respond(payload, stopped)
+            return
+
+
+def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
+                 warmup: bool = True, device="cuda", seed: int = 0,
+                 server_overrides: Optional[dict] = None,
+                 **engine_overrides) -> InferenceServer:
+    """Convenience constructor used by the CLI, tests and chip_smoke.py.
+    ``model`` is a preset name (random weights from ``seed``);
+    ``engine_overrides`` are EngineConfig fields, ``server_overrides``
+    ServerConfig fields."""
+    if model not in PRESETS:
+        raise NotImplementedError(
+            f"model {model!r}: the port serves the presets "
+            f"({', '.join(sorted(PRESETS))}); checkpoint directories are "
+            "ROADMAP 1.9")
+    cfg = FrameworkConfig(
+        model=PRESETS[model](),
+        engine=EngineConfig(**engine_overrides),
+        parallel=ParallelConfig(),
+        server=ServerConfig(model_name=model, tokenizer=tokenizer,
+                            warmup=warmup, **(server_overrides or {})),
+        seed=seed)
+    return InferenceServer(cfg, device=device)
