@@ -7,26 +7,32 @@ failing loudly (any failure exits non-zero before the result line):
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile every kernel of the serving path from
    tpu_inference_torch/csrc/ with nvcc (in parallel), print build times.
-3. kernels: each kernel against its plain PyTorch version on the card at
+3. kernels: each kernel variant (bf16 and float32 pools, int8 pools,
+   packed int4 pools) against its plain PyTorch version on the card at
    the main path's shapes (Llama-3-8B: Hq 32, Hkv 8, D 128, page 16,
-   bf16, batch 8; a sliding-window case; a float32 case), with the
-   kernel's time, the plain version's time, one PyTorch library call's
-   time (scaled_dot_product_attention over the pre-gathered KV) and the
-   roofline bound of the card for the same work; then a correctness
-   sweep over shapes off the main path (edge_phase).
-4. engine: tiny-llama and tiny-mistral (float32) on the card, greedy
-   tokens of the "kernel" backend identical to the "dense" backend.
-5. main path: the Ollama server in-process with llama-3-8b at full width
-   (32 layers, bf16, random weights from a seed, byte tokenizer),
-   concurrent streamed /api/generate requests over localhost (one long
-   enough to prefill in chunks); every request must finish normally
-   (done_reason "length" with all its tokens, or "stop"), the server
-   must count no failed dispatch, and both kernels' launch counts must
-   rise.
+   batch 8; a sliding-window case; float32-q cases), with the kernel's
+   time, the plain version's time, one PyTorch library call's time
+   (scaled_dot_product_attention over KV gathered, and for quantized
+   pools dequantized, beforehand and untimed) and the roofline bound of
+   the card for the same work; then a correctness sweep over shapes off
+   the main path for every pool kind (edge_phase).
+4. engine: tiny-llama and tiny-mistral (float32) on the card, unquantized
+   and with int8/int4 weights and int8/int4 KV pools, greedy tokens of
+   the "kernel" backend identical to the "dense" backend.
+5. main paths: the Ollama server in-process with llama-3-8b at full
+   width (32 layers, bf16 activations, random weights from a seed, byte
+   tokenizer), concurrent streamed /api/generate requests over localhost
+   (one long enough to prefill in chunks), three times: bf16 weights and
+   pool; int8 weights over an int8 pool (the reference's own chip
+   configuration); int8 weights over a packed int4 pool (its KV-tier
+   A/B). Each server is freed before the next boots. Every request must
+   finish with done_reason "length" and all its tokens, the server must
+   count no failed dispatch, greedy output must reproduce, and both
+   kernels must launch the path's variant and no other.
 
-Then it prints one JSON line {"kernels": [...]}, the card line, and as
-the last line {"ok": true, "device": {...}}. A copy of every number goes
-to build/chip_smoke.json.
+Then it prints one JSON line {"kernels": [...]} (one entry per kernel
+variant), the card line, and as the last line {"ok": true, "device":
+{...}}. A copy of every number goes to build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 SEED = 0
+# What library_ms times: one PyTorch call computing the same attention.
+LIBRARY_NOTE = ("scaled_dot_product_attention (enable_gqa) over KV "
+                "gathered, and for quantized pools dequantized, beforehand "
+                "(untimed)")
 
 
 def log(msg: str) -> None:
@@ -97,22 +107,43 @@ def library_call(q, k, v, mask):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def paged_pool(gen, b, mp, pg, hkv, d, dtype):
+def paged_pool(gen, b, mp, pg, hkv, d, dtype, kv="none"):
+    """K/V pools of b * mp pages (+ the trash page) and a block table of
+    distinct pages. ``kv`` "int8"/"int4": standard-normal K/V quantized
+    as the engine writes them (engine/kv_cache.py), codes plus scales.
+    Returns (k, v, k_scale, v_scale, block_tables)."""
+    from tpu_inference_torch.engine import kv_cache as kvc
     num_pages = b * mp + 1
     shape = (num_pages, pg, hkv, d)
-    k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(shape, generator=gen, device="cuda")
+    v = torch.randn(shape, generator=gen, device="cuda")
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     bt = perm[:b * mp].reshape(b, mp).to(torch.int32).contiguous()
-    return k, v, bt
+    if kv == "none":
+        return k.to(dtype), v.to(dtype), None, None, bt
+    qfn = kvc.quantize_kv_int4 if kv == "int4" else kvc.quantize_kv
+    (kq, ks), (vq, vs) = qfn(k), qfn(v)
+    return kq, vq, ks, vs, bt
 
 
-def gathered(k_pages, v_pages, bt):
-    b, mp = bt.shape
-    _, pg, hkv, d = k_pages.shape
-    k = k_pages[bt.long()].reshape(b, mp * pg, hkv, d).transpose(1, 2)
-    v = v_pages[bt.long()].reshape(b, mp * pg, hkv, d).transpose(1, 2)
+def gathered(k_pages, v_pages, k_scale, v_scale, bt, dtype):
+    """KV of each sequence gathered (and dequantized) into [B, Hkv, T, D]
+    in q's dtype, for the library call."""
+    from tpu_inference_torch.engine.kv_cache import gather_pages
+    k = gather_pages(k_pages, k_scale, bt).to(dtype).transpose(1, 2)
+    v = gather_pages(v_pages, v_scale, bt).to(dtype).transpose(1, 2)
     return k.contiguous(), v.contiguous()
+
+
+def kv_bytes(tokens, hkv, d, k_pages, elem) -> float:
+    """Bytes of K and V for ``tokens`` positions: codes (1 byte each for
+    int8, half a byte for int4) plus 4 bytes of scale per token and
+    head, or the float pool's elements."""
+    if k_pages.dtype == torch.int8:
+        return 2.0 * tokens * hkv * (d + 4)
+    if k_pages.dtype == torch.uint8:
+        return 2.0 * tokens * hkv * (d / 2 + 4)
+    return 2.0 * tokens * hkv * d * elem
 
 
 def check_close(name, got, want, dtype) -> float:
@@ -125,19 +156,20 @@ def check_close(name, got, want, dtype) -> float:
     return err.max().item()
 
 
-def decode_case(name, b, kv_lens, window, dtype, flush, gen):
+def decode_case(name, b, kv_lens, window, dtype, flush, gen, kv="none"):
     from tpu_inference_torch.kernels import paged_attention as pa
     hq, hkv, d, pg = 32, 8, 128, 16
     mp = max(-(-n // pg) for n in kv_lens)
-    k_pages, v_pages, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype)
+    k_pages, v_pages, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype,
+                                              kv)
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
     kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-    args = (q, k_pages, v_pages, bt, kv_len)
+    args = (q, k_pages, v_pages, bt, kv_len, ks, vs)
     got = pa.paged_attention(*args, sliding_window=window)
     want = pa.paged_attention_plain(*args, sliding_window=window)
     torch.cuda.synchronize()
     err = check_close(name, got, want, dtype)
-    kg, vg = gathered(k_pages, v_pages, bt)
+    kg, vg = gathered(k_pages, v_pages, ks, vs, bt, dtype)
     pos = torch.arange(mp * pg, device="cuda")[None, :]
     valid = pos < kv_len[:, None]
     if window:
@@ -147,12 +179,13 @@ def decode_case(name, b, kv_lens, window, dtype, flush, gen):
     lib_err = (lib()[:, :, 0].float() - want.float()).abs().max().item()
     attended = sum(min(n, window) if window else n for n in kv_lens)
     elem = q.element_size()
-    nbytes = (2 * q.numel() * elem + 2 * attended * hkv * d * elem
+    nbytes = (2 * q.numel() * elem + kv_bytes(attended, hkv, d, k_pages, elem)
               + bt.numel() * 4 + b * 4)
     flops = 4.0 * attended * hq * d
     b_ms, b_by = bound(nbytes, flops, dtype)
     return {
         "variant": name, "dtype": str(dtype).replace("torch.", ""),
+        "kv": kv,
         "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page": pg,
                   "kv_len": kv_lens, "sliding_window": window},
         "max_abs_err": err, "tolerance": TOL[dtype],
@@ -162,25 +195,28 @@ def decode_case(name, b, kv_lens, window, dtype, flush, gen):
         "plain_ms": time_ms(lambda: pa.paged_attention_plain(
             *args, sliding_window=window), iters=5, flush=flush),
         "library_ms": time_ms(lib, flush=flush), "library_max_abs_err": lib_err,
+        "library": LIBRARY_NOTE, "bytes": nbytes, "flops": flops,
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
 
-def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen):
+def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
+                 kv="none"):
     from tpu_inference_torch.kernels import prefill_attention as pfa
     hq, hkv, d, pg = 32, 8, 128, 16
     b = len(kv_lens)
     mp = max(-(-n // pg) for n in kv_lens)
-    k_pages, v_pages, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype)
+    k_pages, v_pages, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype,
+                                              kv)
     q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
     kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     q_off = torch.tensor(q_offsets, dtype=torch.int32, device="cuda")
-    args = (q, k_pages, v_pages, bt, kv_len, q_off)
+    args = (q, k_pages, v_pages, bt, kv_len, q_off, ks, vs)
     got = pfa.paged_prefill_attention(*args, sliding_window=window)
     want = pfa.paged_prefill_attention_plain(*args, sliding_window=window)
     torch.cuda.synchronize()
     err = check_close(name, got, want, dtype)
-    kg, vg = gathered(k_pages, v_pages, bt)
+    kg, vg = gathered(k_pages, v_pages, ks, vs, bt, dtype)
     q_pos = q_off[:, None] + torch.arange(s, device="cuda")[None, :]
     k_pos = torch.arange(mp * pg, device="cuda")[None, None, :]
     valid = (k_pos <= q_pos[:, :, None]) & (k_pos < kv_len[:, None, None])
@@ -198,12 +234,13 @@ def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen):
         lo = max(0, off - window + 1) if window else 0
         keys += max(0, min(n, off + s) - lo)
     elem = q.element_size()
-    nbytes = (2 * q.numel() * elem + 2 * keys * hkv * d * elem
+    nbytes = (2 * q.numel() * elem + kv_bytes(keys, hkv, d, k_pages, elem)
               + bt.numel() * 4 + 2 * b * 4)
     flops = 4.0 * pairs * hq * d
     b_ms, b_by = bound(nbytes, flops, dtype)
     return {
         "variant": name, "dtype": str(dtype).replace("torch.", ""),
+        "kv": kv,
         "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "page": pg,
                   "q_offset": q_offsets, "kv_len": kv_lens,
                   "sliding_window": window},
@@ -213,37 +250,53 @@ def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen):
         "plain_ms": time_ms(lambda: pfa.paged_prefill_attention_plain(
             *args, sliding_window=window), iters=3, flush=flush),
         "library_ms": time_ms(lib, flush=flush), "library_max_abs_err": lib_err,
+        "library": LIBRARY_NOTE, "bytes": nbytes, "flops": flops,
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
 
 def kernel_phase() -> dict:
+    """Every variant of both kernels at the main paths' shapes. The first
+    case of each pool kind is its headline (the kernels line)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     bf16, f32 = torch.bfloat16, torch.float32
-    decode = [
-        decode_case("decode bs8 ctx1024", 8, [1024] * 8, 0, bf16, flush, gen),
-        decode_case("decode bs8 mixed ctx", 8,
-                    [1, 17, 128, 333, 512, 700, 1000, 1500], 0, bf16, flush,
-                    gen),
-        decode_case("decode bs8 ctx2048 swa256", 8, [2048] * 8, 256, bf16,
-                    flush, gen),
+    mixed = [1, 17, 128, 333, 512, 700, 1000, 1500]
+    decode, prefill = [], []
+    for kv in ("none", "int8", "int4"):
+        tag = "" if kv == "none" else f" {kv} pool"
+        decode += [
+            decode_case(f"decode bs8 ctx1024{tag}", 8, [1024] * 8, 0, bf16,
+                        flush, gen, kv),
+            decode_case(f"decode bs8 mixed ctx{tag}", 8, mixed, 0, bf16,
+                        flush, gen, kv),
+            decode_case(f"decode bs8 ctx2048 swa256{tag}", 8, [2048] * 8,
+                        256, bf16, flush, gen, kv),
+        ]
+        prefill += [
+            prefill_case(f"prefill 4 lanes x 512 fresh{tag}", 512,
+                         [0, 0, 0, 0], [512, 300, 450, 129], 0, bf16, flush,
+                         gen, kv),
+            prefill_case(f"prefill chunk 512 at offset 1024{tag}", 512,
+                         [1024], [1500], 0, bf16, flush, gen, kv),
+        ]
+    decode += [
         decode_case("decode bs8 mixed ctx f32", 8,
                     [1, 40, 300, 1024, 7, 64, 65, 999], 0, f32, flush, gen),
         decode_case("decode bs8 ctx1024 f32", 8, [1024] * 8, 0, f32, flush,
                     gen),
+        decode_case("decode bs8 ctx1024 f32 int8 pool", 8, [1024] * 8, 0,
+                    f32, flush, gen, "int8"),
     ]
-    prefill = [
-        prefill_case("prefill 4 lanes x 512 fresh", 512, [0, 0, 0, 0],
-                     [512, 300, 450, 129], 0, bf16, flush, gen),
-        prefill_case("prefill chunk 512 at offset 1024", 512, [1024],
-                     [1500], 0, bf16, flush, gen),
+    prefill += [
         prefill_case("prefill 1024 fresh swa256", 1024, [0], [1024], 256,
                      bf16, flush, gen),
         prefill_case("prefill 2 lanes x 200 f32 cached prefix", 200, [37, 0],
                      [237, 150], 0, f32, flush, gen),
         prefill_case("prefill chunk 512 at offset 1024 f32", 512, [1024],
                      [1500], 0, f32, flush, gen),
+        prefill_case("prefill chunk 512 at offset 1024 f32 int8 pool", 512,
+                     [1024], [1500], 0, f32, flush, gen, "int8"),
     ]
     del flush
     return {"decode": decode, "prefill": prefill}
@@ -253,69 +306,102 @@ def edge_phase() -> tuple:
     """Both kernels against their plain versions (correctness only) over
     shapes off the main path: MHA to n_rep 8, head_dim 48 to 256, pages
     of 8 to 32 tokens, one-token contexts, page-boundary lengths, ragged
-    query tiles, cached-prefix offsets and sliding windows. Returns the
-    number of shapes checked and the largest error by dtype."""
+    query tiles, cached-prefix offsets and sliding windows, for float
+    pools, int8 pools and packed int4 pools (head_dim 64 to 256: the
+    int4 page load takes 32 codes at a time). Returns the number of
+    shapes checked and the largest error by q dtype and pool kind."""
     from tpu_inference_torch.kernels import paged_attention as pa
     from tpu_inference_torch.kernels import prefill_attention as pfa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     checked = 0
-    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst: dict = {}
     shapes = [(8, 8, 64, 8), (16, 2, 128, 32), (4, 4, 256, 16),
               (4, 2, 48, 8)]
-    for dtype in (torch.bfloat16, torch.float32):
-        for hq, hkv, d, pg in shapes:
-            for window in (0, 3 * pg // 2):
-                kv_lens = [1, pg, pg + 1, 5 * pg - 1, 7 * pg]
-                b, mp = len(kv_lens), 7
-                k, v, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype)
-                q = torch.randn((b, hq, d), generator=gen,
-                                device="cuda").to(dtype)
-                kl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-                name = f"edge decode {hq}/{hkv}x{d} pg{pg} w{window}"
-                worst[dtype] = max(worst[dtype], check_close(
-                    name, pa.paged_attention(
-                        q, k, v, bt, kl, sliding_window=window),
-                    pa.paged_attention_plain(q, k, v, bt, kl,
-                                             sliding_window=window), dtype))
-                for s_len, offs, prompts in ((1, [0, 9], [1, 1]),
-                                             (13, [0, 2 * pg + 3], [13, 7]),
-                                             (100, [0, pg], [100, 77])):
-                    kv = [o + n for o, n in zip(offs, prompts)]
-                    mp = max(-(-n // pg) for n in kv)
-                    k, v, bt = paged_pool(gen, 2, mp, pg, hkv, d, dtype)
-                    q = torch.randn((2, s_len, hq, d), generator=gen,
+    for kv in ("none", "int8", "int4"):
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{str(dtype).replace('torch.', '')}/{kv}"
+            worst[key] = 0.0
+            for hq, hkv, d, pg in shapes:
+                if kv != "none" and d % 32:
+                    continue
+                for window in (0, 3 * pg // 2):
+                    kv_lens = [1, pg, pg + 1, 5 * pg - 1, 7 * pg]
+                    b, mp = len(kv_lens), 7
+                    k, v, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d,
+                                                  dtype, kv)
+                    q = torch.randn((b, hq, d), generator=gen,
                                     device="cuda").to(dtype)
-                    args = (q, k, v, bt,
-                            torch.tensor(kv, dtype=torch.int32,
-                                         device="cuda"),
-                            torch.tensor(offs, dtype=torch.int32,
-                                         device="cuda"))
-                    name = (f"edge prefill {hq}/{hkv}x{d} pg{pg} S{s_len} "
-                            f"w{window}")
-                    worst[dtype] = max(worst[dtype], check_close(
-                        name, pfa.paged_prefill_attention(
-                            *args, sliding_window=window),
-                        pfa.paged_prefill_attention_plain(
-                            *args, sliding_window=window), dtype))
+                    kl = torch.tensor(kv_lens, dtype=torch.int32,
+                                      device="cuda")
+                    name = (f"edge decode {hq}/{hkv}x{d} pg{pg} w{window} "
+                            f"{key}")
+                    worst[key] = max(worst[key], check_close(
+                        name, pa.paged_attention(
+                            q, k, v, bt, kl, ks, vs, sliding_window=window),
+                        pa.paged_attention_plain(
+                            q, k, v, bt, kl, ks, vs,
+                            sliding_window=window), dtype))
                     checked += 1
-                checked += 1
+                    for s_len, offs, prompts in (
+                            (1, [0, 9], [1, 1]),
+                            (13, [0, 2 * pg + 3], [13, 7]),
+                            (100, [0, pg], [100, 77])):
+                        kvl = [o + n for o, n in zip(offs, prompts)]
+                        mp = max(-(-n // pg) for n in kvl)
+                        k, v, ks, vs, bt = paged_pool(gen, 2, mp, pg, hkv,
+                                                      d, dtype, kv)
+                        q = torch.randn((2, s_len, hq, d), generator=gen,
+                                        device="cuda").to(dtype)
+                        args = (q, k, v, bt,
+                                torch.tensor(kvl, dtype=torch.int32,
+                                             device="cuda"),
+                                torch.tensor(offs, dtype=torch.int32,
+                                             device="cuda"), ks, vs)
+                        name = (f"edge prefill {hq}/{hkv}x{d} pg{pg} "
+                                f"S{s_len} w{window} {key}")
+                        worst[key] = max(worst[key], check_close(
+                            name, pfa.paged_prefill_attention(
+                                *args, sliding_window=window),
+                            pfa.paged_prefill_attention_plain(
+                                *args, sliding_window=window), dtype))
+                        checked += 1
     torch.cuda.synchronize()
-    return checked, {str(k).replace("torch.", ""): v
-                     for k, v in worst.items()}
+    return checked, worst
 
 
-def engine_phase() -> None:
+# (preset, quant, kv_quant) of the tiny engines: unquantized, each KV
+# tier, each weight tier, int8 over int8 as on the main path, and an
+# int8 pool under a sliding window.
+ENGINE_CASES = (("tiny_llama", "none", "none"),
+                ("tiny_mistral", "none", "none"),
+                ("tiny_llama", "none", "int8"),
+                ("tiny_llama", "none", "int4"),
+                ("tiny_llama", "int8", "none"),
+                ("tiny_llama", "int4", "none"),
+                ("tiny_llama", "int8", "int8"),
+                ("tiny_mistral", "none", "int8"))
+
+
+def engine_phase() -> list:
+    """Tiny engines on the card: the "kernel" backend's greedy tokens
+    identical to the "dense" backend's on the same weights, for every
+    case of ENGINE_CASES (the reference's own contract between its two
+    backends, tests/test_kv_quant.py)."""
+    import dataclasses
+
     import numpy as np
     from tpu_inference_torch import config as cfgs
     from tpu_inference_torch.engine.engine import InferenceEngine
     from tpu_inference_torch.models.registry import build_model
 
-    ecfg = cfgs.EngineConfig(page_size=8, num_pages=64, max_pages_per_seq=16,
+    base = cfgs.EngineConfig(page_size=8, num_pages=64, max_pages_per_seq=16,
                              max_batch_size=4, prefill_buckets=(16, 32),
                              decode_steps_per_call=4)
-    for preset in (cfgs.tiny_llama, cfgs.tiny_mistral):
-        mcfg = preset(vocab_size=256)
-        params, _ = build_model(mcfg, seed=SEED, device="cuda")
+    done = []
+    for preset, quant, kv_quant in ENGINE_CASES:
+        mcfg = getattr(cfgs, preset)(vocab_size=256)
+        ecfg = dataclasses.replace(base, quant=quant, kv_quant=kv_quant)
+        params, _ = build_model(mcfg, seed=SEED, device="cuda", quant=quant)
         rng = np.random.default_rng(3)
         prompts = [rng.integers(0, 256, size=n).tolist()
                    for n in (5, 12, 27, 70)]
@@ -324,11 +410,14 @@ def engine_phase() -> None:
             eng = InferenceEngine(mcfg, ecfg, params=params,
                                   attn_backend=backend, device="cuda")
             out[backend] = eng.generate(prompts, max_new_tokens=12)
+        label = f"{mcfg.name} quant={quant} kv_quant={kv_quant}"
         if out["dense"] != out["kernel"]:
-            raise AssertionError(f"{mcfg.name}: kernel backend tokens differ "
+            raise AssertionError(f"{label}: kernel backend tokens differ "
                                  f"from dense: {out}")
-        log(f"engine {mcfg.name}: kernel backend greedy-identical to dense "
+        log(f"engine {label}: kernel backend greedy-identical to dense "
             f"({sum(len(t) for t in out['kernel'])} tokens)")
+        done.append(label)
+    return done
 
 
 def _stream_request(port: int, prompt: str, max_tokens: int) -> dict:
@@ -427,6 +516,8 @@ def _kernel_class(name: str) -> str:
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet",
                                        "cublas")):
         return "matmul"
+    if "copy_kernel" in name:     # dtype conversions (int8 codes -> bf16)
+        return "copy_convert"
     return "other"
 
 
@@ -473,62 +564,93 @@ def profile_requests(port: int, prompts: list, max_tokens: int) -> dict:
                             for n, ms, c in kernels[:12]]}
 
 
-def main_path_phase() -> dict:
+# The served paths: (label, quant, kv_quant, the kernels' variant).
+MAIN_PATHS = (("bf16", "none", "none", "bf16"),
+              ("int8 weights + int8 KV", "int8", "int8", "int8"),
+              ("int8 weights + int4 KV", "int8", "int4", "int4"))
+
+
+def _prompts() -> list:
+    """Six prompts spread over the buckets. Byte tokenizer: n bytes ->
+    n + 1 tokens (BOS); 1500 > the 1024 bucket, so that one prefills in
+    two chunks."""
     import random
+    rng = random.Random(SEED)
+    words = ["tensor", "page", "kernel", "hopper", "token", "cache",
+             "stream", "batch", "warp", "prefill", "decode", "softmax"]
+
+    def text(n_bytes: int) -> str:
+        out = ""
+        while len(out) < n_bytes:
+            out += rng.choice(words) + " "
+        return out[:n_bytes]
+
+    return [text(n) for n in (40, 100, 200, 400, 900, 1500)]
+
+
+def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
+                    profile: bool = True) -> dict:
+    """Boot llama-3-8b at full width with these quant modes, serve the six
+    concurrent requests with every kernel count set to 0 just before and
+    read just after, check every gate, and free the server."""
+    import gc
 
     from tpu_inference_torch.kernels import paged_attention as pa
     from tpu_inference_torch.kernels import prefill_attention as pfa
     from tpu_inference_torch.server.http import build_server
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server = build_server("llama-3-8b", device="cuda", seed=SEED,
                           max_pages_per_seq=128, num_pages=512,
-                          max_batch_size=8)
+                          max_batch_size=8, quant=quant, kv_quant=kv_quant)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    boot_peak = torch.cuda.max_memory_allocated()
     try:
         port = server.start(port=0)
-        rng = random.Random(SEED)
-        words = ["tensor", "page", "kernel", "hopper", "token", "cache",
-                 "stream", "batch", "warp", "prefill", "decode", "softmax"]
-
-        def text(n_bytes: int) -> str:
-            out = ""
-            while len(out) < n_bytes:
-                out += rng.choice(words) + " "
-            return out[:n_bytes]
-
-        # Byte tokenizer: n bytes -> n + 1 tokens (BOS). Spread over the
-        # buckets; 1500 > the 1024 bucket, so it prefills in two chunks.
-        lengths = [40, 100, 200, 400, 900, 1500]
-        prompts = [text(n) for n in lengths]
+        prompts = _prompts()
         max_tokens = 48
-        pa.launches = 0
-        pfa.launches = 0
+        pa.reset_counts()
+        pfa.reset_counts()
         results, wall = run_requests(port, prompts, max_tokens)
+        by_variant = {"paged_attention": dict(pa.launches_by_variant),
+                      "prefill_attention": dict(pfa.launches_by_variant)}
         launches = {"paged_attention": pa.launches,
                     "prefill_attention": pfa.launches}
-        if launches["paged_attention"] <= 0 or \
-                launches["prefill_attention"] <= 0:
-            raise AssertionError(f"main path skipped a kernel: {launches}")
+        for name, counts in by_variant.items():
+            others = {k: n for k, n in counts.items() if k != variant and n}
+            if counts[variant] <= 0 or others:
+                raise AssertionError(
+                    f"{label}: {name} launched {counts}; the path must run "
+                    f"its {variant} variant and no other")
         phases = engine_phases(server_stats(port))
         # Greedy determinism: the shortest prompt again, alone.
         again = _stream_request(port, prompts[0], max_tokens)
         if again["context"] != results[0]["context"]:
-            raise AssertionError("greedy output not reproducible")
-        profile = profile_requests(port, prompts, max_tokens)
+            raise AssertionError(f"{label}: greedy output not reproducible")
+        prof = (profile_requests(port, prompts, max_tokens) if profile
+                else {"error": "not profiled on this path"})
         server_stats(port)
         n_layers = server.engine.model_cfg.n_layers
         weight_bytes = server.engine.weight_bytes
+        kv_pool_bytes = sum(t.numel() * t.element_size()
+                            for t in server.engine.kv if t is not None)
     finally:
         server.shutdown()
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
     ttfts = sorted(r["ttft_s"] for r in results)
     total_eval = sum(r["eval_count"] for r in results)
     per_req = [r["eval_count"] / r["eval_duration_s"] for r in results
                if r["eval_duration_s"] > 0]
     return {
-        "model": "llama-3-8b", "layers": n_layers, "dtype": "bfloat16",
-        "boot_s": boot_s, "requests": len(results),
+        "label": label, "model": "llama-3-8b", "layers": n_layers,
+        "activations": "bfloat16", "quant": quant, "kv_quant": kv_quant,
+        "variant": variant,
+        "boot_s": boot_s, "boot_peak_bytes": boot_peak,
+        "requests": len(results),
         "prompt_tokens": [r["prompt_tokens"] for r in results],
         "max_tokens": max_tokens,
         "ttft_s": [r["ttft_s"] for r in results],
@@ -536,14 +658,39 @@ def main_path_phase() -> dict:
         "decode_tok_s_per_request": per_req,
         "aggregate_tok_s": total_eval / wall, "wall_s": wall,
         "eval_tokens": total_eval, "launches": launches,
+        "launches_by_variant": by_variant,
         "launches_per_forward": n_layers,
         "done_reasons": [r["done_reason"] for r in results],
-        "weight_bytes": weight_bytes,
+        "weight_bytes": weight_bytes, "kv_pool_bytes": kv_pool_bytes,
         "weight_read_bound_ms_per_step": weight_bytes / HBM_BYTES_PER_S * 1e3,
         "decode_ms_per_token_per_request": [1e3 / x for x in per_req],
         "engine_phases": phases,
-        "profile": profile,
+        "profile": prof,
     }
+
+
+def log_main_path(mp: dict, card: str) -> None:
+    for name, ph in mp["engine_phases"].items():
+        if ph["count"]:
+            log(f"[{mp['label']}] phase {name}: {ph['count']} x, "
+                f"{ph['sum_s']:.4f} s total")
+    prof = mp["profile"]
+    if "by_class_ms" in prof:
+        log(f"[{mp['label']}] profile ({prof['window_s']:.2f}s window): "
+            f"device busy share {prof['device_busy_share']:.3f}; by class "
+            f"(ms) {json.dumps(prof['by_class_ms'])}")
+        for k in prof["top_kernels"]:
+            log(f"  {k['ms']:9.2f} ms x{k['count']:<6} {k['name']}")
+    else:
+        log(f"[{mp['label']}] profile: not measured ({prof['error']})")
+    log(f"main path llama-3-8b [{mp['label']}] on {card}: TTFT p50 "
+        f"{mp['ttft_p50_s']:.3f}s max {mp['ttft_max_s']:.3f}s; decode "
+        f"{min(mp['decode_tok_s_per_request']):.1f}-"
+        f"{max(mp['decode_tok_s_per_request']):.1f} tok/s per request, "
+        f"{mp['aggregate_tok_s']:.1f} aggregate over {mp['requests']} "
+        f"requests; weights {mp['weight_bytes'] / 1e9:.2f} GB (read bound "
+        f"{mp['weight_read_bound_ms_per_step']:.2f} ms/step); launches "
+        f"{json.dumps(mp['launches_by_variant'])}")
 
 
 def main() -> int:
@@ -583,25 +730,13 @@ def main() -> int:
     n_edge, edge_err = edge_phase()
     log(f"kernel edge cases: {n_edge} shapes within tolerance of their "
         f"plain versions (max abs err {json.dumps(edge_err)})")
-    engine_phase()
-    main_path = main_path_phase()
-    for name, ph in main_path["engine_phases"].items():
-        if ph["count"]:
-            log(f"phase {name}: {ph['count']} x, {ph['sum_s']:.4f} s total")
-    prof = main_path["profile"]
-    if "by_class_ms" in prof:
-        log(f"profile ({prof['window_s']:.2f}s window): device busy share "
-            f"{prof['device_busy_share']:.3f}; by class (ms) "
-            f"{json.dumps(prof['by_class_ms'])}")
-        for k in prof["top_kernels"]:
-            log(f"  {k['ms']:9.2f} ms x{k['count']:<6} {k['name']}")
-    else:
-        log(f"profile: not measured ({prof['error']})")
-    log(f"main path llama-3-8b on {card}: TTFT p50 "
-        f"{main_path['ttft_p50_s']:.3f}s max {main_path['ttft_max_s']:.3f}s;"
-        f" aggregate decode {main_path['aggregate_tok_s']:.1f} tok/s over "
-        f"{main_path['requests']} requests; launches "
-        f"{json.dumps(main_path['launches'])}")
+    engines = engine_phase()
+    main_paths = {}
+    for label, quant, kv_quant, variant in MAIN_PATHS:
+        mp = main_path_phase(label, quant, kv_quant, variant,
+                             profile=variant != "int4")
+        log_main_path(mp, card)
+        main_paths[variant] = mp
 
     entries = []
     for kind, name, src, replaces in (
@@ -611,24 +746,36 @@ def main() -> int:
             ("prefill", "prefill_attention",
              "tpu_inference_torch/csrc/prefill_attention.cu",
              "tpu_inference/kernels/prefill_attention.py:46")):
-        head = kernels[kind][0]
-        entries.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": main_path["launches"][name],
-            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "variant": head["variant"], "cases": kernels[kind]})
+        for variant, kv in (("bf16", "none"), ("int8", "int8"),
+                            ("int4", "int4")):
+            cases = [c for c in kernels[kind]
+                     if c["kv"] == kv and c["dtype"] == "bfloat16"]
+            head = cases[0]
+            entries.append({
+                "name": name if variant == "bf16" else f"{name}_{variant}",
+                "route": "cuda", "source": src, "replaces": replaces,
+                "launches": main_paths[variant]["launches_by_variant"][
+                    name][variant],
+                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
+                "variant": head["variant"], "pool": variant,
+                "main_path": main_paths[variant]["label"]})
     report = {"card": card, "torch": torch.__version__,
-              "kernels": entries, "main_path": main_path,
+              "kernels": entries, "kernel_cases": kernels,
+              "main_paths": main_paths,
+              "engine_cases": engines, "edge": {"checked": n_edge,
+                                                "max_abs_err": edge_err},
               "build_s": build_s,
               "total_s": time.perf_counter() - t_all}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    log(json.dumps({"main_path": {k: v for k, v in main_path.items()
-                                  if k != "ttft_s"}, "card": card}))
+    log(json.dumps({"main_paths": {
+        v: {k: x for k, x in mp.items() if k not in ("ttft_s", "profile")}
+        for v, mp in main_paths.items()}, "card": card}))
+    log(f"total_s {report['total_s']:.1f}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -105,8 +105,8 @@ def test_warmup_writes_only_the_trash_page():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("quant", "int8", "1.12"),
-    ("kv_quant", "int4", "2.1"),
+    ("role", "prefill", "1.15"),
+    ("slo_ttft_ms", 250.0, "1.18"),
     ("hybrid_prefill", True, "1.13"),
     ("decode_pipeline_depth", 2, "1.13"),
     ("host_cache_pages", 8, "1.13"),

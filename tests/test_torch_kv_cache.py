@@ -78,12 +78,6 @@ def test_write_then_gather_matches_reference(layer):
     np.testing.assert_array_equal(gv_t.numpy(), np.asarray(gv_j))
 
 
-def test_quantized_pool_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.1"):
-        tkv.alloc_kv_pages(tcfg.tiny_llama(),
-                           tcfg.EngineConfig(kv_quant="int8"), device="cpu")
-
-
 @pytest.mark.parametrize("n,pg,already", [(0, 4, 0), (1, 4, 0), (4, 4, 0),
                                           (5, 4, 3), (9, 16, 7), (3, 4, 4)])
 def test_pages_needed_matches_reference(n, pg, already):

@@ -204,3 +204,37 @@ def test_client_disconnect_cancels_the_request(port_server):
     assert all(s is None for s in server.engine.slots)
     assert _post(port, {"prompt": "after", "max_tokens": 2,
                         "stream": False})[0] == 200
+
+
+@pytest.mark.parametrize("quant,level", [("int8", "Q8_0"), ("int4", "Q4_0")])
+def test_tags_report_weight_quantization(quant, level):
+    """/api/tags reports Ollama's Q8_0/Q4_0 for int8/int4 weights, as the
+    reference server does; the quantized server (int8 KV pool beside)
+    still answers /api/generate. The unquantized server reports F32."""
+    mcfg = tcfg.tiny_llama(vocab_size=512)
+    cfg = tcfg.FrameworkConfig(
+        model=mcfg,
+        engine=tcfg.EngineConfig(**ENGINE, quant=quant, kv_quant="int8"),
+        server=tcfg.ServerConfig(model_name="tiny-llama", tokenizer="byte",
+                                 warmup=False))
+    server = InferenceServer(cfg, device="cpu")
+    port = server.start(host="127.0.0.1", port=0)
+    try:
+        status, _, raw = _get(port, "/api/tags")
+        assert status == 200
+        details = json.loads(raw)["models"][0]["details"]
+        assert details["quantization_level"] == level
+        status, _, raw = _post(port, {"prompt": "int", "max_tokens": 3,
+                                      "stream": False, "temperature": 0.0})
+        body = json.loads(raw)
+        assert status == 200 and body["done"] is True
+        assert body["eval_count"] == 3 or body["done_reason"] == "stop"
+    finally:
+        server.shutdown(timeout=TIMEOUT)
+
+
+def test_tags_report_dtype_when_unquantized(port_server):
+    _, port = port_server
+    _, _, raw = _get(port, "/api/tags")
+    assert json.loads(raw)["models"][0]["details"][
+        "quantization_level"] == "F32"

@@ -6,11 +6,18 @@
 // block_tables[b, p] (page 0 = trash page), with online softmax (m, l,
 // acc) in float32, positions >= kv_len masked, GQA folded in (each KV
 // head serves its n_rep query heads) and an optional sliding window.
+// The pool holds q's type, or int8 codes, or packed int4 codes (uint8),
+// the quantized kinds with per-(token, head) float32 scales; the TPU
+// kernel's `quantized` and `packed` branches dequantize after each
+// page's DMA, this one as each page tile enters shared memory
+// (load_page_tile in attention_common.cuh).
 //
 // What bounds it on this card: bytes. Each sequence's K and V pages are
 // read once per step and every element feeds 2 * n_rep flops, about 4
 // flops per bf16 byte at n_rep 4, far under the ~295 the H100 needs
-// before its tensor cores become the limit (3.35 TB/s HBM).
+// before its tensor cores become the limit (3.35 TB/s HBM). int8 codes
+// halve those bytes and int4 quarters them (plus 4 bytes of scale per
+// token and head).
 //
 // Design: one thread block per (sequence, kv-head). The block reads its
 // own block-table row and kv_len and walks the pages in a loop, which
@@ -34,11 +41,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q,              // [B, Hq, D]
-    const T* __restrict__ k_pages,        // [P, pg, Hkv, D]
-    const T* __restrict__ v_pages,        // [P, pg, Hkv, D]
+    const KV* __restrict__ k_pages,       // [P, pg, Hkv, D or D/2]
+    const KV* __restrict__ v_pages,       // [P, pg, Hkv, D or D/2]
+    const float* __restrict__ k_scale,    // [P, pg, Hkv] or null
+    const float* __restrict__ v_scale,    // [P, pg, Hkv] or null
     const int* __restrict__ block_tables, // [B, MP]
     const int* __restrict__ kv_len,       // [B]
     T* __restrict__ out,                  // [B, Hq, D]
@@ -75,15 +84,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int first =
       sliding_window > 0 ? max(len - sliding_window, 0) / page_size : 0;
   const int last = min((len + page_size - 1) / page_size, max_pages);
-  const int64_t row_stride = (int64_t)hkv * d;
 
   for (int p = first; p < last; ++p) {
     const int page =
         checked_page(block_tables, (int64_t)b * max_pages + p, num_pages);
     __syncthreads();  // the previous page's readers are done with the tiles
-    load_page_tile(k_pages, v_pages,
-                   (int64_t)page * page_size * row_stride + (int64_t)h * d,
-                   row_stride, page_size, d, d, k_s, v_s, tid, kThreads);
+    load_page_tile(k_pages, v_pages, k_scale, v_scale, page, h, hkv,
+                   page_size, d, d, k_s, v_s, tid, kThreads);
     __syncthreads();
     const int page_start = p * page_size;
     for (int j = warp; j < R * page_size; j += kWarps) {
@@ -148,44 +155,59 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bt, const void* kv_len, void* out, int batch,
-                   int hq, int hkv, int d, int num_pages, int page_size,
-                   int max_pages, int sliding_window, float scale,
-                   cudaStream_t stream) {
-  const int n_rep = hq / hkv;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)n_rep * d + 2 * (size_t)page_size * d +
-                       (size_t)n_rep * page_size + 3 * (size_t)n_rep);
-  cudaError_t err = prepare_smem(paged_decode_kernel<T>, smem);
+struct Args {
+  const void *q, *k, *v, *k_scale, *v_scale, *bt, *kv_len;
+  void* out;
+  int batch, hq, hkv, d, num_pages, page_size, max_pages, sliding_window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV>
+cudaError_t launch(const Args& a) {
+  const int n_rep = a.hq / a.hkv;
+  const size_t r = n_rep, d = a.d, pg = a.page_size;
+  const size_t smem = sizeof(float) * (2 * r * d + 2 * pg * d + r * pg + 3 * r);
+  cudaError_t err = prepare_smem(paged_decode_kernel<T, KV>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(batch, hkv);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(bt),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), num_pages,
-      page_size, hkv, n_rep, d, max_pages, sliding_window, scale);
+  dim3 grid(a.batch, a.hkv);
+  paged_decode_kernel<T, KV><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.kv_len), static_cast<T*>(a.out),
+      a.num_pages, a.page_size, a.hkv, n_rep, a.d, a.max_pages,
+      a.sliding_window, a.scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_kind(int kv_kind, const Args& a) {
+  if (kv_kind == kKvFloat) return launch<T, T>(a);
+  if ((a.k_scale == nullptr) || (a.v_scale == nullptr))
+    return cudaErrorInvalidValue;
+  if (kv_kind == kKvInt8) return launch<T, int8_t>(a);
+  if (kv_kind == kKvInt4) return launch<T, uint8_t>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace tpuinf
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype (of q and out): 0 = float32, 1 = bfloat16. kv_kind: 0 = pool in
+// q's type (scales unused), 1 = int8 codes, 2 = packed int4 codes in
+// uint8, both with float32 scales. Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* kv_len, void* out, int dtype,
-    int batch, int hq, int hkv, int d, int num_pages, int page_size,
-    int max_pages, int sliding_window, float scale, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return tpuinf::launch<float>(q, k_pages, v_pages, block_tables, kv_len,
-                                 out, batch, hq, hkv, d, num_pages, page_size,
-                                 max_pages, sliding_window, scale, s);
-  if (dtype == 1)
-    return tpuinf::launch<__nv_bfloat16>(
-        q, k_pages, v_pages, block_tables, kv_len, out, batch, hq, hkv, d,
-        num_pages, page_size, max_pages, sliding_window, scale, s);
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* kv_len, void* out, int dtype, int kv_kind, int batch,
+    int hq, int hkv, int d, int num_pages, int page_size, int max_pages,
+    int sliding_window, float scale, void* stream) {
+  const tpuinf::Args a{q, k_pages, v_pages, k_scale, v_scale,
+                       block_tables, kv_len, out, batch, hq, hkv, d,
+                       num_pages, page_size, max_pages, sliding_window,
+                       scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return tpuinf::launch_kind<float>(kv_kind, a);
+  if (dtype == 1) return tpuinf::launch_kind<__nv_bfloat16>(kv_kind, a);
   return cudaErrorInvalidValue;
 }

@@ -6,7 +6,11 @@
 // that hold the cached prefix plus the chunk's own KV (already written).
 // One fused mask: causal (k_pos <= q_pos), k_pos < kv_len, and
 // k_pos > q_pos - sliding_window when a window is set. Rows with no
-// valid key output 0. Online softmax (m, l, acc) in float32.
+// valid key output 0. Online softmax (m, l, acc) in float32. The pool
+// holds q's type, or int8 codes, or packed int4 codes (uint8), the
+// quantized kinds with per-(token, head) float32 scales, dequantized as
+// each page tile enters shared memory (load_page_tile in
+// attention_common.cuh), where the TPU kernel dequantizes in VMEM.
 //
 // What bounds it on this card: operations. A tile of query rows reuses
 // every K/V page it loads across all its rows, so the work is
@@ -36,11 +40,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileRows = 64;
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const T* __restrict__ q,              // [B, S, Hq, D]
-    const T* __restrict__ k_pages,        // [P, pg, Hkv, D]
-    const T* __restrict__ v_pages,        // [P, pg, Hkv, D]
+    const KV* __restrict__ k_pages,       // [P, pg, Hkv, D or D/2]
+    const KV* __restrict__ v_pages,       // [P, pg, Hkv, D or D/2]
+    const float* __restrict__ k_scale,    // [P, pg, Hkv] or null
+    const float* __restrict__ v_scale,    // [P, pg, Hkv] or null
     const int* __restrict__ block_tables, // [B, MP]
     const int* __restrict__ kv_len,       // [B]
     const int* __restrict__ q_offset,     // [B]
@@ -92,15 +98,13 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       sliding_window > 0 ? max(q_lo - sliding_window + 1, 0) / page_size : 0;
   const int kv_end = min(len, q_hi + 1);  // keys at or past this are masked
   const int last = min((kv_end + page_size - 1) / page_size, max_pages);
-  const int64_t row_stride = (int64_t)hkv * d;
 
   for (int p = first; p < last; ++p) {
     const int page =
         checked_page(block_tables, (int64_t)b * max_pages + p, num_pages);
     __syncthreads();  // the previous page's readers are done with the tiles
-    load_page_tile(k_pages, v_pages,
-                   (int64_t)page * page_size * row_stride + (int64_t)h * d,
-                   row_stride, page_size, d, ks, k_s, v_s, tid, kThreads);
+    load_page_tile(k_pages, v_pages, k_scale, v_scale, page, h, hkv,
+                   page_size, d, ks, k_s, v_s, tid, kThreads);
     __syncthreads();
     const int page_start = p * page_size;
     for (int i = tid; i < rows * page_size; i += kThreads) {
@@ -160,50 +164,66 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bt, const void* kv_len, const void* q_offset,
-                   void* out, int batch, int s_len, int hq, int hkv, int d,
-                   int num_pages, int page_size, int max_pages,
-                   int sliding_window, float scale, cudaStream_t stream) {
-  const int n_rep = hq / hkv;
+struct Args {
+  const void *q, *k, *v, *k_scale, *v_scale, *bt, *kv_len, *q_offset;
+  void* out;
+  int batch, s_len, hq, hkv, d, num_pages, page_size, max_pages,
+      sliding_window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV>
+cudaError_t launch(const Args& a) {
+  const int n_rep = a.hq / a.hkv;
   const int block_q = max(1, kTileRows / n_rep);
   const size_t rows = (size_t)block_q * n_rep;
-  const size_t smem =
-      sizeof(float) * (rows * (d + 1) + rows * d + (size_t)page_size * (d + 1) +
-                       (size_t)page_size * d + rows * page_size + 3 * rows);
-  cudaError_t err = prepare_smem(paged_prefill_kernel<T>, smem);
+  const size_t d = a.d, pg = a.page_size;
+  const size_t smem = sizeof(float) * (rows * (d + 1) + rows * d +
+                                       pg * (d + 1) + pg * d + rows * pg +
+                                       3 * rows);
+  cudaError_t err = prepare_smem(paged_prefill_kernel<T, KV>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((s_len + block_q - 1) / block_q, hkv, batch);
-  paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(bt),
-      static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
-      static_cast<T*>(out), s_len, block_q, num_pages, page_size, hkv, n_rep,
-      d, max_pages, sliding_window, scale);
+  dim3 grid((a.s_len + block_q - 1) / block_q, a.hkv, a.batch);
+  paged_prefill_kernel<T, KV><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.kv_len), static_cast<const int*>(a.q_offset),
+      static_cast<T*>(a.out), a.s_len, block_q, a.num_pages, a.page_size,
+      a.hkv, n_rep, a.d, a.max_pages, a.sliding_window, a.scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_kind(int kv_kind, const Args& a) {
+  if (kv_kind == kKvFloat) return launch<T, T>(a);
+  if ((a.k_scale == nullptr) || (a.v_scale == nullptr))
+    return cudaErrorInvalidValue;
+  if (kv_kind == kKvInt8) return launch<T, int8_t>(a);
+  if (kv_kind == kKvInt4) return launch<T, uint8_t>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace tpuinf
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype (of q and out): 0 = float32, 1 = bfloat16. kv_kind: 0 = pool in
+// q's type (scales unused), 1 = int8 codes, 2 = packed int4 codes in
+// uint8, both with float32 scales. Returns a cudaError_t (0 = launched).
 extern "C" int paged_prefill_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* kv_len, const void* q_offset,
-    void* out, int dtype, int batch, int s_len, int hq, int hkv, int d,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* kv_len, const void* q_offset, void* out, int dtype,
+    int kv_kind, int batch, int s_len, int hq, int hkv, int d,
     int num_pages, int page_size, int max_pages, int sliding_window,
     float scale, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return tpuinf::launch<float>(q, k_pages, v_pages, block_tables, kv_len,
-                                 q_offset, out, batch, s_len, hq, hkv, d,
-                                 num_pages, page_size, max_pages,
-                                 sliding_window, scale, s);
-  if (dtype == 1)
-    return tpuinf::launch<__nv_bfloat16>(
-        q, k_pages, v_pages, block_tables, kv_len, q_offset, out, batch,
-        s_len, hq, hkv, d, num_pages, page_size, max_pages, sliding_window,
-        scale, s);
+  const tpuinf::Args a{q, k_pages, v_pages, k_scale, v_scale,
+                       block_tables, kv_len, q_offset, out, batch, s_len,
+                       hq, hkv, d, num_pages, page_size, max_pages,
+                       sliding_window, scale,
+                       static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return tpuinf::launch_kind<float>(kv_kind, a);
+  if (dtype == 1) return tpuinf::launch_kind<__nv_bfloat16>(kv_kind, a);
   return cudaErrorInvalidValue;
 }

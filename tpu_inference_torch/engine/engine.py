@@ -17,6 +17,14 @@ path, in eager PyTorch:
   them back.
 - The pool is updated in place (engine/kv_cache.py write_kv), which is
   what the reference's buffer donation achieves under XLA.
+- ``EngineConfig.quant`` stores the matmul weights as int8 or int4 codes
+  with scales (models/quant.py); ``kv_quant`` makes the pool int8 or
+  packed int4 with per-(token, head) scales, which both kernels
+  dequantize as they load each page. The reference's boot gate for int4
+  KV on a TPU (``int4_mosaic_validated``, which reads records of Mosaic
+  validation runs) has no counterpart: on the card, chip_smoke.py holds
+  the int4 variants of both kernels against their plain versions on
+  every run.
 
 Index ranges the reference gets for free from XLA's clamping gathers
 are kept in range explicitly: positions clamp at ``max_context - 1``
@@ -49,6 +57,7 @@ from tpu_inference_torch.engine.sampling import (
     sample,
 )
 from tpu_inference_torch.models.common import dense_causal_attention
+from tpu_inference_torch.models.quant import QuantizedArray, quantize_params
 from tpu_inference_torch.models.registry import build_model, get_model_fns
 
 # EngineConfig fields this slice does not serve: a value other than the
@@ -57,8 +66,6 @@ _UNPORTED = {
     "decode_ladder": "1.13 (engine breadth: decode batch ladder)",
     "ladder_admit_headroom_pages": "1.13 (engine breadth: decode batch "
                                    "ladder)",
-    "quant": "1.12 (weight-only quantization)",
-    "kv_quant": "2.1/2.2 (int8 and int4 variants of both kernels)",
     "decode_pipeline_depth": "1.13 (engine breadth: dispatch-ahead "
                              "pipeline)",
     "hybrid_prefill": "1.13 (engine breadth: hybrid prefill-decode steps)",
@@ -121,15 +128,18 @@ def make_paged_attn(cfg: ModelConfig, page_size: int,
 
     def attn(layer_idx, q, k, v, kv: kvc.KVPages):
         kv = kvc.write_kv(kv, layer_idx, k, v, slots)
+        ks, vs = ((kv.k_scale[layer_idx], kv.v_scale[layer_idx])
+                  if kv.quantized else (None, None))
         if attn_backend == "kernel" and q.shape[1] == 1:
             out = paged_attention(q[:, 0].contiguous(), kv.k[layer_idx],
                                   kv.v[layer_idx], block_tables, kv_len,
-                                  sliding_window=win)
+                                  ks, vs, sliding_window=win)
             return out[:, None], kv
         if attn_backend == "kernel":
             return paged_prefill_attention(
                 q.contiguous(), kv.k[layer_idx], kv.v[layer_idx],
-                block_tables, kv_len, q_offset, sliding_window=win), kv
+                block_tables, kv_len, q_offset, ks, vs,
+                sliding_window=win), kv
         k_all, v_all = kvc.gather_kv(kv, layer_idx, block_tables)
         out = dense_causal_attention(q, k_all, v_all, q_offset=q_offset,
                                      kv_len=kv_len, sliding_window=win)
@@ -202,9 +212,14 @@ class InferenceEngine:
                              "expected 'auto', 'dense' or 'kernel'")
         self.attn_backend = backend
         if params is None:
-            params, _ = build_model(model_cfg, seed=seed, device=self.device)
-        self.params = params
-        leaves = _leaves(params)
+            # With a quant mode, leaf-by-leaf init + quantize: peak card
+            # memory stays near the quantized model's size.
+            params, _ = build_model(model_cfg, seed=seed, device=self.device,
+                                    quant=engine_cfg.quant)
+        # No-op on leaves already quantized (init above, or a caller's).
+        self.params = quantize_params(params, engine_cfg.quant)
+        # Quantized leaves count their codes and their scales.
+        leaves = _leaves(self.params)
         self.n_params = int(sum(t.numel() for t in leaves))
         self.weight_bytes = int(sum(t.numel() * t.element_size()
                                     for t in leaves))
@@ -810,4 +825,6 @@ class InferenceEngine:
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, QuantizedArray):
+        return [tree.q, tree.scale]
     return [tree]

@@ -15,6 +15,10 @@ Twin of the device half of ``tpu_inference/engine/kv_cache.py`` plus its
   what the donation achieved.
 - Reads gather a sequence's pages into a contiguous view for the dense
   path; the Hopper kernels (kernels/) read pages where they lie.
+- Quantized pools (int8 codes, or uint8 nibble-packed int4, with
+  per-(token, head) float32 scales) quantize on write in plain PyTorch,
+  as the reference does in XLA outside its kernels; codes and scales
+  are byte-identical to the reference's (tests/test_torch_kv_quant.py).
 
 Host side, ``PageAllocator`` is a free-list with refcounts so shared
 prompt prefixes map the same physical pages. The host KV tier and its
@@ -23,7 +27,7 @@ serialization are ROADMAP item 1.13.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,23 +35,98 @@ from tpu_inference_torch.config import EngineConfig, ModelConfig
 
 
 class KVPages(NamedTuple):
-    """Device-side KV pool. k, v: [L, num_pages, page_size, Hkv, head_dim]."""
+    """Device-side KV pool. k, v: [L, num_pages, page_size, Hkv, head_dim].
+
+    With KV quantization (EngineConfig.kv_quant) k/v hold int8 codes and
+    ``k_scale``/``v_scale`` per-(token, kv-head) float32 scales
+    ``[L, num_pages, page_size, Hkv]``: symmetric quantization over
+    head_dim. With "int4" k/v hold **uint8 nibble-packed** codes
+    ``[..., head_dim // 2]``: byte i carries code i (low nibble) and code
+    i + head_dim/2 (high nibble), so unpacking is a concat. The mode is
+    carried by the pool dtype (uint8 = packed int4, int8 = int8), as in
+    the reference. ``None`` scales = unquantized pool. Dequantization
+    happens where the pool is read: in the kernels' page loads, and after
+    the gather on the dense path.
+    """
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def packed_int4(self) -> bool:
+        return self.k.dtype == torch.uint8
 
 
 def alloc_kv_pages(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                    dtype=None, device="cuda") -> KVPages:
-    if engine_cfg.kv_quant != "none":
-        raise NotImplementedError(
-            f"kv_quant={engine_cfg.kv_quant!r} is not ported yet (ROADMAP "
-            "2.1/2.2: the int8 and int4 variants of both kernels)")
     shape = (model_cfg.n_layers, engine_cfg.num_pages, engine_cfg.page_size,
              model_cfg.n_kv_heads, model_cfg.head_dim)
     dtype = dtype or model_cfg.dtype
-    return KVPages(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    mode = engine_cfg.kv_quant
+    if mode not in ("none", "int8", "int4"):
+        raise ValueError(f"unknown kv_quant mode {mode!r}; "
+                         "one of ('none', 'int8', 'int4')")
+    if mode == "int4" and model_cfg.head_dim % 2:
+        raise ValueError("kv_quant='int4' needs an even head_dim to "
+                         f"nibble-pack, got {model_cfg.head_dim}")
+    if mode == "none":
+        return KVPages(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
+    code_dtype = torch.uint8 if mode == "int4" else torch.int8
+    code_shape = shape[:-1] + (
+        shape[-1] // 2 if mode == "int4" else shape[-1],)
+
+    def zeros(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    return KVPages(k=zeros(code_shape, code_dtype),
+                   v=zeros(code_shape, code_dtype),
+                   k_scale=zeros(shape[:-1], torch.float32),
+                   v_scale=zeros(shape[:-1], torch.float32))
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 over head_dim.
+
+    x: [B, S, Hkv, D] -> (codes int8 [B,S,Hkv,D], scale f32 [B,S,Hkv]).
+    """
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_kv_int4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int4 over head_dim, nibble-packed.
+
+    x: [B, S, Hkv, D] -> (packed uint8 [B,S,Hkv,D//2], scale f32
+    [B,S,Hkv]). Codes live in [-7, 7]; byte i = code i (low nibble) |
+    code i+D/2 (high nibble), so unpacking is a concat along D.
+    """
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 7.0
+    q = torch.round(xf / scale[..., None]).clamp(-7, 7).to(torch.int32)
+    half = x.shape[-1] // 2
+    lo, hi = q[..., :half], q[..., half:]
+    packed = ((hi << 4) | (lo & 0xF)) & 0xFF
+    return packed.to(torch.uint8), scale
+
+
+def unpack_int4_kv(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 nibble-packed codes [..., D//2] -> int32 codes [..., D], by
+    compare/select sign extension (the reference's contract)."""
+    p = packed.to(torch.int32)
+    lo = p & 0xF
+    hi = (p >> 4) & 0xF
+    lo = torch.where(lo > 7, lo - 16, lo)
+    hi = torch.where(hi > 7, hi - 16, hi)
+    return torch.cat([lo, hi], dim=-1)
 
 
 def slot_mapping(block_tables: torch.Tensor, positions: torch.Tensor,
@@ -68,25 +147,52 @@ def slot_mapping(block_tables: torch.Tensor, positions: torch.Tensor,
 def write_kv(kv: KVPages, layer_idx: int, k_new: torch.Tensor,
              v_new: torch.Tensor, slots: torch.Tensor) -> KVPages:
     """Write new K/V ([B, S, Hkv, D]) into the pool at flat ``slots``
-    [B, S], in place. Several invalid tokens may share slot 0; the trash
-    page's contents are unspecified, as in the reference."""
-    L, P, pg, H, D = kv.k.shape
+    [B, S], in place. Quantized pools quantize on the way in (codes and
+    per-token-head scales to the same flat slots). Several invalid
+    tokens may share slot 0; the trash page's contents (codes and scales
+    alike) are unspecified and only ever read under a mask, as in the
+    reference."""
+    L, P, pg, H, Dp = kv.k.shape
     flat = slots.reshape(-1)
+    if kv.quantized:
+        qfn = quantize_kv_int4 if kv.packed_int4 else quantize_kv
+        k_new, ks = qfn(k_new)
+        v_new, vs = qfn(v_new)
+        for pool, s in ((kv.k_scale, ks), (kv.v_scale, vs)):
+            pool[layer_idx].view(P * pg, H).index_copy_(
+                0, flat, s.reshape(-1, H))
     for pool, new in ((kv.k, k_new), (kv.v, v_new)):
-        pool[layer_idx].view(P * pg, H, D).index_copy_(
-            0, flat, new.reshape(-1, H, D).to(pool.dtype))
+        pool[layer_idx].view(P * pg, H, Dp).index_copy_(
+            0, flat, new.reshape(-1, H, Dp).to(pool.dtype))
     return kv
 
 
-def gather_kv(kv: KVPages, layer_idx: int, block_tables: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gather each sequence's pages into contiguous [B, max_pages*pg, H, D]."""
+def gather_pages(pages: torch.Tensor, scale: Optional[torch.Tensor],
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """One layer's pool ``[P, pg, Hkv, d_pool]`` gathered by
+    ``block_tables`` [B, MP] into [B, MP*pg, Hkv, D]. Page ids clamp into
+    the pool (the kernels' bounds check). A quantized pool (``scale``
+    [P, pg, Hkv] given) unpacks int4 and dequantizes to float32 after the
+    gather; a float pool keeps its dtype."""
     b, mp = block_tables.shape
-    _, P, pg, H, D = kv.k.shape
-    idx = block_tables.long().clamp(0, P - 1)
-    k = kv.k[layer_idx][idx].reshape(b, mp * pg, H, D)
-    v = kv.v[layer_idx][idx].reshape(b, mp * pg, H, D)
-    return k, v
+    num_pages, pg, hkv, d_pool = pages.shape
+    idx = block_tables.long().clamp(0, num_pages - 1)
+    x = pages[idx].reshape(b, mp * pg, hkv, d_pool)
+    if pages.dtype == torch.uint8:
+        x = unpack_int4_kv(x)
+    if scale is not None:
+        x = x.float() * scale[idx].reshape(b, mp * pg, hkv)[..., None]
+    return x
+
+
+def gather_kv(kv: KVPages, layer_idx: int, block_tables: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather each sequence's pages into contiguous [B, max_pages*pg, H,
+    head_dim]; quantized pools come back dequantized in float32."""
+    ks = kv.k_scale[layer_idx] if kv.quantized else None
+    vs = kv.v_scale[layer_idx] if kv.quantized else None
+    return (gather_pages(kv.k[layer_idx], ks, block_tables),
+            gather_pages(kv.v[layer_idx], vs, block_tables))
 
 
 class PageAllocator:

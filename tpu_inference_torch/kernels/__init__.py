@@ -4,6 +4,10 @@ version beside every kernel. Importing builds nothing; see _build.py.
 
 - paged_attention.paged_attention: paged decode attention.
 - prefill_attention.paged_prefill_attention: paged prefill attention.
+
+Each takes a float pool in q's dtype, an int8 pool, or a packed int4
+pool (the last two with per-(token, head) scales; _pool.py has the
+rules) and counts its launches per pool kind.
 """
 
 # csrc/<name>.cu of every kernel library on the serving path.

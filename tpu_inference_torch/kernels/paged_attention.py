@@ -1,34 +1,49 @@
 """Paged decode attention: the Hopper kernel, its plain version, and its
-launch count.
+launch counts.
 
 Replaces ``tpu_inference/kernels/paged_attention.py`` (``_decode_kernel``
 via ``paged_attention``): one query token per sequence attends over its
 KV pages in the pool, followed through ``block_tables`` (page 0 = trash
 page), online softmax in float32, positions ``>= kv_len`` masked, GQA
-folded in, optional sliding window. The CUDA source is
-``csrc/paged_attention.cu``; its header comment says what bounds it on
-the H100 and how its design answers that.
+folded in, optional sliding window. The pool holds q's float dtype, or
+int8 codes, or uint8 nibble-packed int4 codes, the last two with
+per-(token, head) float32 scales that the kernel applies as each page
+enters shared memory (kernels/_pool.py has the operand rules). The CUDA
+source is ``csrc/paged_attention.cu``; its header comment says what
+bounds it on the H100 and how its design answers that.
 
 ``paged_attention`` launches the kernel for CUDA tensors (building it on
 first use) and raises if it cannot; for CPU tensors it runs
 ``paged_attention_plain``, the same function written out step by step in
-PyTorch. ``launches`` counts kernel launches and nothing else.
+PyTorch. ``launches`` counts kernel launches and nothing else;
+``launches_by_variant`` splits them by pool kind (``f32``, ``bf16``,
+``int8``, ``int4``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
-from tpu_inference_torch.kernels import _build
+from tpu_inference_torch.engine.kv_cache import gather_pages
+from tpu_inference_torch.kernels import _build, _pool
 
 NEG_INF = -1e30
 launches = 0
+launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+
+
+def reset_counts() -> None:
+    """Set ``launches`` and every ``launches_by_variant`` count to 0."""
+    global launches
+    launches = 0
+    for k in launches_by_variant:
+        launches_by_variant[k] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -37,7 +52,7 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library("paged_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode_attention.argtypes = [
-            vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i,
             ctypes.c_float, vp]
         lib.paged_decode_attention.restype = i
         _lib = lib
@@ -47,17 +62,19 @@ def _library() -> ctypes.CDLL:
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_tables: torch.Tensor,
                           kv_len: torch.Tensor,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None,
                           sliding_window: int = 0) -> torch.Tensor:
-    """Gather each sequence's pages, mask, softmax in float32. Same
+    """Gather each sequence's pages (dequantized after the gather, as
+    engine/kv_cache.py gather_kv does), mask, softmax in float32. Same
     contract as ``paged_attention``; rows with no valid key output 0."""
     b, hq, d = q.shape
-    num_pages, pg, hkv, _ = k_pages.shape
+    pg, hkv = k_pages.shape[1], k_pages.shape[2]
     mp = block_tables.shape[1]
     n_rep = hq // hkv
     # Gather: page ids clamp into the pool (the kernel's bounds check).
-    idx = block_tables.long().clamp(0, num_pages - 1)
-    k = k_pages[idx].reshape(b, mp * pg, hkv, d).float()
-    v = v_pages[idx].reshape(b, mp * pg, hkv, d).float()
+    k = gather_pages(k_pages, k_scale, block_tables).float()
+    v = gather_pages(v_pages, v_scale, block_tables).float()
     qg = q.float().reshape(b, hkv, n_rep, d)
     scores = torch.einsum("bhrd,bthd->bhrt", qg, k) / math.sqrt(d)
     pos = torch.arange(mp * pg, device=q.device)[None, :]
@@ -77,59 +94,60 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     kv_len: torch.Tensor,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None,
                     sliding_window: int = 0) -> torch.Tensor:
     """Decode attention over one layer's paged pool.
 
     q:            [B, Hq, D]   (one query token per sequence)
-    k/v_pages:    [P, page_size, Hkv, D], q's dtype (float32 or bfloat16)
+    k/v_pages:    [P, page_size, Hkv, D] in q's dtype (float32 or
+                  bfloat16), or int8 codes, or uint8 packed int4 codes
+                  [P, page_size, Hkv, D/2]
     block_tables: [B, MP] int32 physical page ids (0 = trash page)
     kv_len:       [B] int32 valid tokens per sequence (incl. current)
+    k/v_scale:    [P, page_size, Hkv] float32, given exactly when the
+                  pool is int8 or packed int4
     sliding_window > 0: only the last ``sliding_window`` positions count,
     and only their pages are read.
     Returns [B, Hq, D] in q.dtype.
     """
     global launches
+    variant = _pool.check_pool("paged_attention", q, k_pages, v_pages,
+                               k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
-                                     kv_len, sliding_window)
+                                     kv_len, k_scale, v_scale,
+                                     sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     b, hq, d = q.shape
-    num_pages, pg, hkv, dk = k_pages.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged_attention: dtype {q.dtype} not supported "
-                        "(float32 or bfloat16)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_attention: q and the pools must share a dtype")
-    if v_pages.shape != k_pages.shape or dk != d or hq % hkv:
-        raise ValueError(f"paged_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
+    num_pages, pg, hkv, _ = k_pages.shape
     if (block_tables.dtype != torch.int32 or kv_len.dtype != torch.int32
             or block_tables.dim() != 2 or block_tables.shape[0] != b
             or kv_len.shape != (b,)):
         raise ValueError("paged_attention: block_tables [B, MP] and kv_len "
                          "[B] must be int32")
-    vec = 16 // q.element_size()
-    if d % vec:
-        raise ValueError(f"paged_attention: head_dim {d} must be a "
-                         f"multiple of {vec} for 16-byte page loads")
-    tensors = (q, k_pages, v_pages, block_tables, kv_len)
+    _pool.check_kernel_alignment("paged_attention", variant, k_pages,
+                                 v_pages)
+    tensors = [q, k_pages, v_pages, block_tables, kv_len]
+    tensors += [t for t in (k_scale, v_scale) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attention: all operands on one device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: operands must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_attention: pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if b == 0:
         return out
     lib = _library()
     err = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
         block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, hq, hkv, d, num_pages, pg,
-        block_tables.shape[1], int(sliding_window), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _pool.Q_DTYPE_CODES[q.dtype], _pool.KV_KINDS[variant], b, hq, hkv,
+        d, num_pages, pg, block_tables.shape[1], int(sliding_window),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "paged_attention")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

@@ -1,35 +1,48 @@
 """Paged prefill attention: the Hopper kernel, its plain version, and its
-launch count.
+launch counts.
 
 Replaces ``tpu_inference/kernels/prefill_attention.py``
 (``_prefill_kernel`` via ``paged_prefill_attention``): a chunk of S
 queries at absolute positions ``q_offset[b] + i`` attends over pool pages
 holding the cached prefix plus the chunk's own KV (written before the
 call). One fused mask: causal, ``< kv_len``, and the sliding window;
-rows with no valid key output 0. The CUDA source is
+rows with no valid key output 0. The pool holds q's float dtype, int8
+codes, or uint8 nibble-packed int4 codes, the last two with
+per-(token, head) float32 scales applied as each page enters shared
+memory (kernels/_pool.py). The CUDA source is
 ``csrc/prefill_attention.cu``; its header comment says what bounds it on
 the H100 and how its design answers that.
 
 ``paged_prefill_attention`` launches the kernel for CUDA tensors (building
 it on first use) and raises if it cannot; for CPU tensors it runs
 ``paged_prefill_attention_plain``. ``launches`` counts kernel launches
-and nothing else.
+and nothing else; ``launches_by_variant`` splits them by pool kind.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
-from tpu_inference_torch.kernels import _build
+from tpu_inference_torch.engine.kv_cache import gather_pages
+from tpu_inference_torch.kernels import _build, _pool
 
 NEG_INF = -1e30
 launches = 0
+launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+
+
+def reset_counts() -> None:
+    """Set ``launches`` and every ``launches_by_variant`` count to 0."""
+    global launches
+    launches = 0
+    for k in launches_by_variant:
+        launches_by_variant[k] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -38,8 +51,8 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library("prefill_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_prefill_attention.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+            i, i, ctypes.c_float, vp]
         lib.paged_prefill_attention.restype = i
         _lib = lib
     return _lib
@@ -50,16 +63,18 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                   block_tables: torch.Tensor,
                                   kv_len: torch.Tensor,
                                   q_offset: torch.Tensor,
+                                  k_scale: Optional[torch.Tensor] = None,
+                                  v_scale: Optional[torch.Tensor] = None,
                                   sliding_window: int = 0) -> torch.Tensor:
-    """Gather each sequence's pages, apply the fused mask, softmax in
+    """Gather each sequence's pages (dequantized after the gather, as
+    engine/kv_cache.py gather_kv does), apply the fused mask, softmax in
     float32. Same contract as ``paged_prefill_attention``."""
     b, s, hq, d = q.shape
-    num_pages, pg, hkv, _ = k_pages.shape
+    pg, hkv = k_pages.shape[1], k_pages.shape[2]
     mp = block_tables.shape[1]
     n_rep = hq // hkv
-    idx = block_tables.long().clamp(0, num_pages - 1)
-    k = k_pages[idx].reshape(b, mp * pg, hkv, d).float()
-    v = v_pages[idx].reshape(b, mp * pg, hkv, d).float()
+    k = gather_pages(k_pages, k_scale, block_tables).float()
+    v = gather_pages(v_pages, v_scale, block_tables).float()
     qg = q.float().reshape(b, s, hkv, n_rep, d)
     scores = torch.einsum("bshrd,bthd->bhrst", qg, k) / math.sqrt(d)
     dev = q.device
@@ -82,37 +97,36 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor,
                             block_tables: torch.Tensor,
                             kv_len: torch.Tensor, q_offset: torch.Tensor,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
                             sliding_window: int = 0) -> torch.Tensor:
     """Prefill attention over one layer's paged pool.
 
     q:            [B, S, Hq, D]  (the current chunk's queries)
-    k/v_pages:    [P, page_size, Hkv, D], q's dtype (float32 or bfloat16);
-                  the chunk's own KV is already written
+    k/v_pages:    [P, page_size, Hkv, D] in q's dtype (float32 or
+                  bfloat16), or int8 codes, or uint8 packed int4 codes
+                  [P, page_size, Hkv, D/2]; the chunk's own KV is
+                  already written
     block_tables: [B, MP] int32 physical page ids (0 = trash page)
     kv_len:       [B] int32 total valid tokens (cached prefix + chunk)
     q_offset:     [B] int32 absolute position of q[:, 0]
+    k/v_scale:    [P, page_size, Hkv] float32, given exactly when the
+                  pool is int8 or packed int4
     Returns [B, S, Hq, D] in q.dtype.
     """
     global launches
+    variant = _pool.check_pool("paged_prefill_attention", q, k_pages,
+                               v_pages, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pages, v_pages,
                                              block_tables, kv_len, q_offset,
+                                             k_scale, v_scale,
                                              sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device "
                          f"{q.device}")
     b, s, hq, d = q.shape
-    num_pages, pg, hkv, dk = k_pages.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged_prefill_attention: dtype {q.dtype} not "
-                        "supported (float32 or bfloat16)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_prefill_attention: q and the pools must "
-                        "share a dtype")
-    if v_pages.shape != k_pages.shape or dk != d or hq % hkv:
-        raise ValueError(f"paged_prefill_attention: shapes q "
-                         f"{tuple(q.shape)}, k {tuple(k_pages.shape)}, "
-                         f"v {tuple(v_pages.shape)}")
+    num_pages, pg, hkv, _ = k_pages.shape
     if (any(t.dtype != torch.int32 for t in (block_tables, kv_len, q_offset))
             or block_tables.dim() != 2 or block_tables.shape[0] != b
             or kv_len.shape != (b,) or q_offset.shape != (b,)):
@@ -120,30 +134,30 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          "kv_len [B] and q_offset [B] must be int32")
     if b > 65535:
         raise ValueError("paged_prefill_attention: batch above 65535")
-    vec = 16 // q.element_size()
-    if d % vec:
-        raise ValueError(f"paged_prefill_attention: head_dim {d} must be a "
-                         f"multiple of {vec} for 16-byte page loads")
-    tensors = (q, k_pages, v_pages, block_tables, kv_len, q_offset)
+    _pool.check_kernel_alignment("paged_prefill_attention", variant, k_pages,
+                                 v_pages)
+    tensors = [q, k_pages, v_pages, block_tables, kv_len, q_offset]
+    tensors += [t for t in (k_scale, v_scale) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_prefill_attention: all operands on one "
                          "device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("paged_prefill_attention: operands must be "
                          "contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_prefill_attention: pools must be 16-byte "
-                         "aligned")
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
     lib = _library()
     err = lib.paged_prefill_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
         block_tables.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], b, s, hq, hkv, d, num_pages,
-        pg, block_tables.shape[1], int(sliding_window), 1.0 / math.sqrt(d),
+        out.data_ptr(), _pool.Q_DTYPE_CODES[q.dtype],
+        _pool.KV_KINDS[variant], b, s, hq, hkv, d, num_pages, pg,
+        block_tables.shape[1], int(sliding_window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "paged_prefill_attention")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

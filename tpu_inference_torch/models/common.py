@@ -19,6 +19,8 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from tpu_inference_torch.models import quant
+
 # attn(layer_idx, q, k, v, kv_state) -> (attn_out, kv_state)
 AttentionFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor, Any],
                        Tuple[torch.Tensor, Any]]
@@ -146,12 +148,12 @@ def make_dense_attn(sliding_window: int = 0) -> AttentionFn:
     return attn
 
 
-def qdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` returned in float32 (the unquantized branch of the
-    reference's quant.qdot). w: [in, out]. Float32 operands multiply in
-    float32; bf16 operands multiply on the tensor cores with float32
+def qdot(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` returned in float32; w: [in, out], or a
+    ``QuantizedArray`` (models/quant.py qdot). Float32 operands multiply
+    in float32; bf16 operands multiply on the tensor cores with float32
     accumulation and a bf16-rounded product."""
-    return torch.matmul(x, w).float()
+    return quant.qdot(x, w)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

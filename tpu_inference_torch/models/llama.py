@@ -26,55 +26,62 @@ from tpu_inference_torch.models.common import (
 )
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's layout: leaf name -> shape, per-layer
+    weights stacked along a leading layer axis, matrices ``[in, out]``."""
+    cfg.validate()
+    d, f, hd, L = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_layers
+    blocks = {
+        "attn_norm": (L, d),
+        "wq": (L, d, cfg.n_heads * hd),
+        "wk": (L, d, cfg.n_kv_heads * hd),
+        "wv": (L, d, cfg.n_kv_heads * hd),
+        "wo": (L, cfg.n_heads * hd, d),
+        "ffn_norm": (L, d),
+        "w_gate": (L, d, f),
+        "w_up": (L, d, f),
+        "w_down": (L, f, d),
+    }
+    if cfg.qkv_bias:
+        blocks.update(bq=(L, cfg.n_heads * hd), bk=(L, cfg.n_kv_heads * hd),
+                      bv=(L, cfg.n_kv_heads * hd))
+    shapes = {"embed": (cfg.vocab_size, d), "blocks": blocks,
+              "final_norm": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """Random init (normal, 0.02 std) with stacked layer weights.
+    """Random init (normal, 0.02 std; norms ones, biases zeros) with
+    stacked layer weights.
 
     Stacked tensors fill one layer at a time, so the float32 draw never
     holds more than one layer's slab beside the cfg.dtype weights."""
-    cfg.validate()
-    d, f, hd, L = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_layers
     device = generator.device if device is None else torch.device(device)
 
-    def normal(shape):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        slabs = out if len(shape) == 3 else out[None]
-        for slab in slabs:
+    def leaf(name, shape):
+        if "norm" in name:
+            return torch.ones(shape, dtype=cfg.dtype, device=device)
+        out = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        if name in ("bq", "bk", "bv"):
+            return out
+        for slab in (out if len(shape) == 3 else out[None]):
             slab.copy_(0.02 * torch.randn(slab.shape, generator=generator,
                                           dtype=torch.float32, device=device))
         return out
 
-    def ones(shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=device)
+    def build(tree):
+        return {k: build(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in tree.items()}
 
-    params = {
-        "embed": normal((cfg.vocab_size, d)),
-        "blocks": {
-            "attn_norm": ones((L, d)),
-            "wq": normal((L, d, cfg.n_heads * hd)),
-            "wk": normal((L, d, cfg.n_kv_heads * hd)),
-            "wv": normal((L, d, cfg.n_kv_heads * hd)),
-            "wo": normal((L, cfg.n_heads * hd, d)),
-            "ffn_norm": ones((L, d)),
-            "w_gate": normal((L, d, f)),
-            "w_up": normal((L, d, f)),
-            "w_down": normal((L, f, d)),
-        },
-        "final_norm": ones((d,)),
-    }
-    if cfg.qkv_bias:
-        zeros = lambda n: torch.zeros((L, n), dtype=cfg.dtype,  # noqa: E731
-                                      device=device)
-        params["blocks"]["bq"] = zeros(cfg.n_heads * hd)
-        params["blocks"]["bk"] = zeros(cfg.n_kv_heads * hd)
-        params["blocks"]["bv"] = zeros(cfg.n_kv_heads * hd)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size))
-    return params
+    return build(param_shapes(cfg))
 
 
 def layer_params(params: dict, layer_idx: int) -> dict:
-    """One layer's weights as views of the stacked tensors."""
+    """One layer's weights as views of the stacked tensors (quantized
+    leaves slice their codes and scales alike)."""
     return {k: v[layer_idx] for k, v in params["blocks"].items()}
 
 
@@ -141,7 +148,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def unembed(params: dict, cfg: ModelConfig,
             hidden: torch.Tensor) -> torch.Tensor:
-    """Hidden states -> f32 logits."""
+    """Hidden states -> f32 logits (``lm_head`` may be quantized; a
+    tied embedding table never is)."""
     if cfg.tie_embeddings:
         return qdot(hidden, params["embed"].t())
     return qdot(hidden, params["lm_head"])

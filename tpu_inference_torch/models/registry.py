@@ -24,10 +24,16 @@ def get_model_fns(cfg: ModelConfig) -> types.ModuleType:
     return llama
 
 
-def build_model(cfg: ModelConfig, seed: int = 0,
-                device="cuda") -> Tuple[dict, types.ModuleType]:
+def build_model(cfg: ModelConfig, seed: int = 0, device="cuda",
+                quant: str = "none") -> Tuple[dict, types.ModuleType]:
     """Random-init params (from a generator seeded with ``seed`` on
-    ``device``) + family module."""
+    ``device``) + family module. With ``quant`` "int8"/"int4" the matmul
+    weights are drawn and quantized one layer slab at a time
+    (models/quant.py init_quantized_params), so peak device memory stays
+    near the quantized model's size."""
     mod = get_model_fns(cfg)
+    if quant != "none":
+        from tpu_inference_torch.models.quant import init_quantized_params
+        return init_quantized_params(cfg, seed, quant, device=device), mod
     gen = torch.Generator(device=device).manual_seed(seed)
     return mod.init_params(cfg, gen, device=device), mod

@@ -2,7 +2,8 @@
 
 Serves the Ollama protocol on the card (``--device cuda``, the default)
 or, for tests and small presets, on the CPU (``--device cpu``). Weights
-are random, made from ``--seed``.
+are random, made from ``--seed``. ``--quant int8 --kv-quant int8`` serves
+int8 weights over an int8 KV pool (int4 for either is the other tier).
 """
 
 from __future__ import annotations
@@ -45,6 +46,14 @@ def main(argv=None) -> None:
     p.add_argument("--latency-decode-threshold", type=int, default=1)
     p.add_argument("--attn-backend", default="auto",
                    choices=("auto", "kernel", "dense"))
+    p.add_argument("--quant", default="none",
+                   choices=("none", "int8", "int4"),
+                   help="weight quantization: int8 codes with per-channel "
+                        "scales, or int4 codes with group-128 scales")
+    p.add_argument("--kv-quant", default="none",
+                   choices=("none", "int8", "int4"),
+                   help="KV-cache quantization: int8 codes with per-token-"
+                        "head scales, or nibble-packed int4")
     p.add_argument("--no-prefix-cache", action="store_true")
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--request-timeout-s", type=float, default=600.0)
@@ -68,13 +77,15 @@ def main(argv=None) -> None:
         max_prefill_batch=args.max_prefill_batch,
         decode_steps_per_call=args.decode_steps_per_call,
         latency_decode_threshold=args.latency_decode_threshold,
-        attn_backend=args.attn_backend,
+        attn_backend=args.attn_backend, quant=args.quant,
+        kv_quant=args.kv_quant,
         enable_prefix_cache=not args.no_prefix_cache,
         max_new_tokens=args.max_new_tokens)
     port = server.start()
     print(f"serving {args.model} on http://{args.host}:{port} "
           f"(device={server.engine.device}, "
-          f"attn_backend={server.engine.attn_backend})", flush=True)
+          f"attn_backend={server.engine.attn_backend}, "
+          f"quant={args.quant}, kv_quant={args.kv_quant})", flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())
     try:

@@ -168,6 +168,11 @@ class InferenceServer:
         return str(n)
 
     def _quantization_level(self) -> str:
+        """Ollama quantization_level vocabulary: Q8_0/Q4_0 for int8/int4
+        weights, else the serving dtype (BF16, F16, F32)."""
+        q = {"int8": "Q8_0", "int4": "Q4_0"}.get(self.cfg.engine.quant)
+        if q is not None:
+            return q
         import torch
         return {torch.bfloat16: "BF16", torch.float16: "F16"}.get(
             self.cfg.model.dtype, "F32")
@@ -537,8 +542,8 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
                  **engine_overrides) -> InferenceServer:
     """Convenience constructor used by the CLI, tests and chip_smoke.py.
     ``model`` is a preset name (random weights from ``seed``);
-    ``engine_overrides`` are EngineConfig fields, ``server_overrides``
-    ServerConfig fields."""
+    ``engine_overrides`` are EngineConfig fields (``quant`` and
+    ``kv_quant`` among them), ``server_overrides`` ServerConfig fields."""
     if model not in PRESETS:
         raise NotImplementedError(
             f"model {model!r}: the port serves the presets "
