@@ -7,6 +7,8 @@ hold the plain arithmetic the CUDA kernels are compared with on the card
 (decode) and 2e-5 (prefill), bfloat16 within 2e-2.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -141,3 +143,122 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library("paged_attention")
+
+
+# ---------------------------------------------------------------------------
+# The decode kernel's split-KV design, on the CPU: the host's split plan
+# (shapes only), and the split-and-combine arithmetic emulated in PyTorch
+# (partials over page ranges, log-sum-exp merge), held to the plain version
+# and to the Pallas kernel.
+
+@pytest.mark.parametrize("batch,hkv,mp,pg,window", [
+    (8, 8, 128, 16, 0),        # the main path: batch 8, 128 pages
+    (1, 8, 128, 16, 0),
+    (3, 8, 128, 16, 0),
+    (64, 8, 128, 16, 0),       # enough blocks without splitting
+    (8, 8, 128, 16, 256),      # a window bounds the pages read
+    (8, 8, 128, 16, 4000),     # a window wider than the table
+    (1, 2, 7, 16, 0),
+    (2, 1, 1, 16, 0),
+    (1, 8, 4096, 1, 0),        # one-token pages
+    (1, 8, 0, 16, 0),          # an empty block table
+])
+def test_split_plan_covers_the_readable_pages(batch, hkv, mp, pg, window):
+    ns, pps = pa.split_plan(batch, hkv, mp, pg, window)
+    span = max(min(mp, -(-window // pg) + 1) if window else mp, 1)
+    assert ns >= 1 and pps >= 1
+    assert ns * pps >= span > (ns - 1) * pps   # covered, none without pages
+    min_pages = -(-pa.MIN_SPLIT_TOKENS // pg)
+    assert ns <= -(-span // min_pages)          # splits not too short
+    assert ns <= max(1, -(-pa.BLOCKS_PER_SM * 132 // (batch * hkv)))
+
+
+def test_split_plan_main_path_and_batch_scaling():
+    # Llama-3-8B at batch 8 over 128 pages of 16: 8 splits of 16 pages.
+    assert pa.split_plan(8, 8, 128, 16) == (8, 16)
+    # More sequences leave fewer splits to fill the card.
+    counts = [pa.split_plan(b, 8, 128, 16)[0] for b in (1, 8, 32, 128)]
+    assert counts == sorted(counts, reverse=True) and counts[-1] == 1
+
+
+def _split_tokens(kv_len, split, pg, mp, window, pps):
+    """Token range [t_lo, t_hi) of one sequence's split, as split_plan's
+    docstring assigns pages (``pps`` each from the window's first page, or
+    from page 0), cut to kv_len and the window; empty when t_lo >= t_hi."""
+    len_c = min(kv_len, mp * pg)
+    win_lo = max(kv_len - window, 0) if window else 0
+    p_lo = win_lo // pg + split * pps
+    return max(p_lo * pg, win_lo), min((p_lo + pps) * pg, len_c)
+
+
+def _split_emulation(q, k_pages, v_pages, bt, kv_len, k_scale, v_scale,
+                     window, num_splits, pps):
+    """Decode attention the way the kernel splits it: one float32 partial
+    (m, l, acc) per non-empty split of each sequence's pages, merged by
+    the log-sum-exp rule; splits past kv_len (or before the window) are
+    empty and take no part."""
+    from tpu_inference_torch.engine.kv_cache import gather_pages
+    b, hq, d = q.shape
+    pg, hkv = k_pages.shape[1], k_pages.shape[2]
+    mp = bt.shape[1]
+    k = gather_pages(k_pages, k_scale, bt).float()      # [B, T, Hkv, D]
+    v = gather_pages(v_pages, v_scale, bt).float()
+    out = torch.zeros(b, hkv, hq // hkv, d)
+    empty = 0
+    for i in range(b):
+        qi = q[i].float().reshape(hkv, hq // hkv, d)
+        parts = []
+        for s in range(num_splits):
+            t_lo, t_hi = _split_tokens(int(kv_len[i]), s, pg, mp, window,
+                                       pps)
+            if t_lo >= t_hi:           # nothing to read: no partial
+                empty += 1
+                continue
+            sc = (torch.einsum("hrd,thd->hrt", qi, k[i, t_lo:t_hi])
+                  / math.sqrt(d))
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("hrt,thd->hrd", p, v[i, t_lo:t_hi])))
+        if parts:
+            mx = torch.stack([m for m, _, _ in parts]).amax(0)
+            w = [torch.exp(m - mx) for m, _, _ in parts]
+            den = sum(l * wi for (_, l, _), wi in zip(parts, w))
+            out[i] = sum(a * wi for (_, _, a), wi in zip(parts, w)) / den
+    return out.reshape(b, hq, d).to(q.dtype), empty
+
+
+@pytest.mark.parametrize("mode,window,splits", [
+    ("float", 0, (4, 2)),
+    ("float", 0, (3, 3)),       # the last split shorter
+    ("float", 12, (3, 1)),      # window: splits from its first page
+    ("int8", 0, (4, 2)),
+    ("int8", 12, (2, 2)),
+])
+def test_split_combine_matches_plain_and_pallas(mode, window, splits):
+    from tests.test_torch_kv_quant import _quantized_pool
+    rng = np.random.default_rng(11)
+    b, hq, hkv, d, pg, npg, mp = 3, 8, 2, 64, 8, 32, 8
+    kv_lens = np.asarray([1, 17, 64], np.int32)    # later splits empty
+    if mode == "float":
+        k, v, bt = _pool(rng, npg, pg, hkv, d, b, mp)
+        jpool = [jnp.asarray(k), jnp.asarray(v), None, None]
+        tpool = [torch.from_numpy(k), torch.from_numpy(v), None, None]
+    else:
+        pool, bt = _quantized_pool(rng, "int8", npg, pg, hkv, d, b, mp)
+        jpool = [jnp.asarray(a) for a in pool]
+        tpool = [torch.from_numpy(a.copy()) for a in pool]
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    tq, tbt, tkl = (torch.from_numpy(x) for x in (q, bt, kv_lens))
+    tk, tv, tks, tvs = tpool
+    got, empty = _split_emulation(tq, tk, tv, tbt, tkl, tks, tvs, window,
+                                  *splits)
+    assert empty > 0
+    plain = pa.paged_attention_plain(tq, tk, tv, tbt, tkl, tks, tvs,
+                                     sliding_window=window)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    jk, jv, jks, jvs = jpool
+    want = j_decode(jnp.asarray(q), jk, jv, jnp.asarray(bt),
+                    jnp.asarray(kv_lens), jks, jvs, interpret=True,
+                    sliding_window=window)
+    _close(got, want, 2e-5)

@@ -7,24 +7,27 @@ KV pages in the pool, followed through ``block_tables`` (page 0 = trash
 page), online softmax in float32, positions ``>= kv_len`` masked, GQA
 folded in, optional sliding window. The pool holds q's float dtype, or
 int8 codes, or uint8 nibble-packed int4 codes, the last two with
-per-(token, head) float32 scales that the kernel applies as each page
-enters shared memory (kernels/_pool.py has the operand rules). The CUDA
-source is ``csrc/paged_attention.cu``; its header comment says what
-bounds it on the H100 and how its design answers that.
+per-(token, head) float32 scales that the kernel applies as it converts
+the codes (kernels/_pool.py has the operand rules). The CUDA source
+is ``csrc/paged_attention.cu``; its header comment says what bounds it
+on the H100 and how its split-KV design answers that.
 
 ``paged_attention`` launches the kernel for CUDA tensors (building it on
 first use) and raises if it cannot; for CPU tensors it runs
 ``paged_attention_plain``, the same function written out step by step in
-PyTorch. ``launches`` counts kernel launches and nothing else;
-``launches_by_variant`` splits them by pool kind (``f32``, ``bf16``,
-``int8``, ``int4``).
+PyTorch. ``split_plan`` is the host's split of each sequence's pages
+across blocks, from shapes alone. ``launches`` counts kernel launches
+(one per layer per decode step; the merge of a call's splits happens
+inside that launch) and nothing else; ``launches_by_variant`` splits
+them by pool kind (``f32``, ``bf16``, ``int8``, ``int4``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,7 +38,18 @@ NEG_INF = -1e30
 launches = 0
 launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
 
+# The split plan's constants: it aims at BLOCKS_PER_SM blocks per SM for
+# the (sequence, kv-head) pairs of a call, with no more splits than the
+# readable pages hold MIN_SPLIT_TOKENS-token pieces.
+MIN_SPLIT_TOKENS = 256
+BLOCKS_PER_SM = 4
+
 _lib = None
+# (device index, stream) -> int32 split counters. They must start at 0;
+# every launch leaves them at 0 (the last block of each (sequence,
+# kv-head) resets its own), so one zeroed buffer serves every launch on
+# that stream, and a CUDA graph can capture the call.
+_counters: dict = {}
 
 
 def reset_counts() -> None:
@@ -52,11 +66,55 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library("paged_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode_attention.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+            i, i, i, i, ctypes.c_float, i, i, vp]
         lib.paged_decode_attention.restype = i
         _lib = lib
     return _lib
+
+
+def split_plan(batch: int, hkv: int, max_pages: int, page_size: int,
+               sliding_window: int = 0,
+               num_sms: int = 132) -> Tuple[int, int]:
+    """``(num_splits, pages_per_split)`` of the decode kernel's grid,
+    from shapes alone (never from ``kv_len``, which lives on the device).
+
+    Split s of a sequence owns pages ``[first + s * pps, first + (s + 1)
+    * pps)``, where ``first`` is 0, or the window's first page under a
+    sliding window. The splits cover the pages a call can read: all
+    ``max_pages``, or at most ``ceil(window / page_size) + 1`` under a
+    window. Enough splits to give the card ``BLOCKS_PER_SM`` blocks per
+    SM, but no more than the span holds ``MIN_SPLIT_TOKENS``-token
+    pieces; no split is empty of pages (the last may be shorter). A split
+    past a sequence's ``kv_len`` reads nothing: the kernel counts the
+    non-empty splits from ``kv_len`` on the device.
+    """
+    span = max_pages
+    if sliding_window > 0:
+        span = min(span, -(-sliding_window // page_size) + 1)
+    span = max(span, 1)
+    blocks = max(batch * hkv, 1)
+    want = max(1, -(-BLOCKS_PER_SM * num_sms // blocks))
+    min_pages = max(1, -(-MIN_SPLIT_TOKENS // page_size))
+    ns = min(want, -(-span // min_pages))
+    pps = -(-span // ns)
+    return -(-span // pps), pps
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_counters(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros kept for (device, stream)."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -138,15 +196,31 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    mp = block_tables.shape[1]
+    ns, pps = split_plan(b, hkv, mp, pg, int(sliding_window),
+                         _num_sms(q.device.index or 0))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc = part_ml = counters = None
+    if ns > 1:   # per-split partials, merged by each slot's last block
+        part_acc = torch.empty((b, hq, ns, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, hq, ns, 2), dtype=torch.float32,
+                              device=q.device)
+        # One counter per (sequence, kv-head, row group); b * hq bounds
+        # that for any grouping of a kv-head's query rows.
+        counters = _split_counters(q.device, stream, b * hq)
     lib = _library()
     err = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
         block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        counters.data_ptr() if counters is not None else None,
         _pool.Q_DTYPE_CODES[q.dtype], _pool.KV_KINDS[variant], b, hq, hkv,
-        d, num_pages, pg, block_tables.shape[1], int(sliding_window),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        d, num_pages, pg, mp, int(sliding_window), 1.0 / math.sqrt(d), ns,
+        pps, stream)
     _build.check(lib, err, "paged_attention")
     launches += 1
     launches_by_variant[variant] += 1

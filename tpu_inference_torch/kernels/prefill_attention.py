@@ -8,10 +8,11 @@ holding the cached prefix plus the chunk's own KV (written before the
 call). One fused mask: causal, ``< kv_len``, and the sliding window;
 rows with no valid key output 0. The pool holds q's float dtype, int8
 codes, or uint8 nibble-packed int4 codes, the last two with
-per-(token, head) float32 scales applied as each page enters shared
-memory (kernels/_pool.py). The CUDA source is
+per-(token, head) float32 scales (kernels/_pool.py). The CUDA source is
 ``csrc/prefill_attention.cu``; its header comment says what bounds it on
-the H100 and how its design answers that.
+the H100 and how its design answers that: bf16 q runs a tensor-core
+flash-attention tile (mma.sync) with quantized pages dequantized to bf16
+in shared memory, float32 q a CUDA-core kernel.
 
 ``paged_prefill_attention`` launches the kernel for CUDA tensors (building
 it on first use) and raises if it cannot; for CPU tensors it runs
@@ -147,6 +148,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
+    if q.data_ptr() % 16:   # the kernel copies q rows 16 bytes at a time
+        q = q.clone()
     lib = _library()
     err = lib.paged_prefill_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
