@@ -10,27 +10,40 @@ failing loudly (any failure exits non-zero before the result line):
 3. kernels: each kernel variant (bf16 and float32 pools, int8 pools,
    packed int4 pools) against its plain PyTorch version on the card at
    the main path's shapes (Llama-3-8B: Hq 32, Hkv 8, D 128, page 16,
-   batch 8; a sliding-window case; float32-q cases; tolerance in
-   check_close), with the kernel's device time, the plain
-   version's time, one PyTorch library call's time
-   (scaled_dot_product_attention over KV gathered, and for quantized
-   pools dequantized, beforehand and untimed) and the roofline bound of
-   the card for the same work; then a correctness
-   sweep over shapes off the main path for every pool kind (edge_phase),
-   including the split-KV decode's boundaries and empty splits and the
-   prefill tile's ragged rows and keys (split_edge_cases).
+   batch 8, and the decode ladder's batch 16 and 32; a sliding-window
+   case; float32-q cases; tolerance in check_close), with the kernel's
+   device time, the plain version's time, one PyTorch library call's
+   time (scaled_dot_product_attention over KV gathered, and for
+   quantized pools dequantized, beforehand and untimed) and the roofline
+   bound of the card for the same work; then a correctness sweep over
+   shapes off the main path for every pool kind (edge_phase), including
+   the split-KV decode's boundaries and empty splits and the prefill
+   tile's ragged rows and keys (split_edge_cases); then the decode
+   kernel's rung identity: a lane's output row bit-identical at batch 8,
+   16 and 32 and in reversed batch order (rung_identity_phase).
 4. engine: tiny-llama and tiny-mistral (float32) on the card, unquantized
-   and with int8/int4 weights and int8/int4 KV pools, greedy tokens of
-   the "kernel" backend identical to the "dense" backend.
+   and with int8/int4 weights and int8/int4 KV pools: greedy tokens of
+   the "kernel" backend identical to the "dense" backend, and through
+   the scheduler identical across the serving modes (ENGINE_MODES: the
+   decode ladder, pipeline depth 2, hybrid prefill, optimistic
+   admission over a pool small enough to preempt and use the host
+   tier), each mode's machinery seen running and the pool clean after.
 5. main paths: the Ollama server in-process with llama-3-8b at full
    width (32 layers, bf16 activations, random weights from a seed, byte
-   tokenizer), concurrent streamed /api/generate requests over localhost
-   (one long enough to prefill in chunks), three times: bf16 weights and
-   pool; int8 weights over an int8 pool (the reference's own chip
-   configuration); int8 weights over a packed int4 pool (its KV-tier
-   A/B). Each server is freed before the next boots. Every request must
-   finish with done_reason "length" and all its tokens, the server must
-   count no failed dispatch, greedy output must reproduce, and both
+   tokenizer), concurrent streamed /api/generate requests over
+   localhost, five times: bf16 weights and pool; int8 weights over an
+   int8 pool; int8 weights over a packed int4 pool (each six requests,
+   one long enough to prefill in chunks); the reference's chip
+   configuration (booted through the CLI's parser and "auto"
+   resolution: batch and pool sized from the card, ladder auto,
+   pipeline depth 2, hybrid prefill, host tier auto; 32 concurrent
+   requests of BurstGPT prompt lengths, then 4 alone; the ladder must
+   top out at and reach 32, with a rung switch and a hybrid step); and
+   a pressure run (a few hundred pages, optimistic admission, a fixed
+   host tier: preemption, host offload and restore must happen, and the
+   8 returning requests reproduce). Each server is freed before the
+   next boots. Every request must finish with done_reason "length" and
+   all its tokens, the server must count no failed dispatch, and both
    kernels must launch the path's variant and no other.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
@@ -212,7 +225,7 @@ def decode_case(name, b, kv_lens, window, dtype, flush, gen, kv="none"):
         "library_max_abs_err": lib_err,
         "library": LIBRARY_NOTE, "bytes": nbytes, "flops": flops,
         "bound_ms": b_ms, "bound_by": b_by,
-        "splits": pa.split_plan(b, hkv, mp, pg, window, pa._num_sms(0)),
+        "splits": pa.split_plan(mp, pg, window),
     }
 
 
@@ -289,6 +302,11 @@ def kernel_phase() -> dict:
                         flush, gen, kv),
             decode_case(f"decode bs8 ctx2048 swa256{tag}", 8, [2048] * 8,
                         256, bf16, flush, gen, kv),
+            # The decode ladder's other rungs.
+            decode_case(f"decode bs16 ctx1024{tag}", 16, [1024] * 16, 0,
+                        bf16, flush, gen, kv),
+            decode_case(f"decode bs32 ctx1024{tag}", 32, [1024] * 32, 0,
+                        bf16, flush, gen, kv),
         ]
         prefill += [
             prefill_case(f"prefill 4 lanes x 512 fresh{tag}", 512,
@@ -410,8 +428,7 @@ def split_edge_cases(gen, worst: dict) -> int:
                 for d in (64, 128, 256):
                     hq = hkv * n_rep
                     for b in (1, 3):
-                        _, pps = pa.split_plan(b, hkv, mp, pg, 0,
-                                               pa._num_sms(0))
+                        _, pps = pa.split_plan(mp, pg, 0)
                         edge = pps * pg  # first split's last token + 1
                         for kv_lens in (([edge], [2048]) if b == 1 else
                                         ([1, edge + 1, 2 * edge],)):
@@ -447,6 +464,162 @@ def split_edge_cases(gen, worst: dict) -> int:
     return checked
 
 
+def rung_identity_phase() -> dict:
+    """The decode kernel's output row for a lane is bit-identical at every
+    ladder rung: the same lanes (Llama-3-8B heads, 128 pages of 16, ragged
+    lengths up to 2048 across split boundaries) in batches of 8, 16 and
+    32, and in the batch of 32 reversed, for every pool kind and both q
+    dtypes. Returns the lanes compared per case."""
+    from tpu_inference_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    hq, hkv, d, pg, mp, top = 32, 8, 128, 16, 128, 32
+    compared = {}
+    for kv in ("none", "int8", "int4"):
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{str(dtype).replace('torch.', '')}/{kv}"
+            k, v, ks, vs, bt = paged_pool(gen, top, mp, pg, hkv, d, dtype, kv)
+            q = torch.randn((top, hq, d), generator=gen,
+                            device="cuda").to(dtype)
+            kl = torch.randint(1, mp * pg + 1, (top,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+            kl[:4] = torch.tensor([256, 257, 2048, 1], dtype=torch.int32)
+            out = {b: pa.paged_attention(q[:b].contiguous(), k, v,
+                                         bt[:b].contiguous(),
+                                         kl[:b].contiguous(), ks, vs)
+                   for b in (8, 16, 32)}
+            rev = torch.arange(top - 1, -1, -1, device="cuda")
+            flipped = pa.paged_attention(q[rev].contiguous(), k, v,
+                                         bt[rev].contiguous(),
+                                         kl[rev].contiguous(), ks, vs)[rev]
+            torch.cuda.synchronize()
+            same = (torch.equal(out[8], out[16][:8])
+                    and torch.equal(out[8], out[32][:8])
+                    and torch.equal(out[16], out[32][:16])
+                    and torch.equal(flipped, out[32]))
+            if not same:
+                raise AssertionError(
+                    f"decode kernel {key}: a lane's output row differs "
+                    "across batch widths 8/16/32 (or batch order)")
+            compared[key] = top
+    return compared
+
+
+def gemm_rung_evidence() -> dict:
+    """Evidence, not a gate: does one row of a library GEMM (a
+    torch.matmul on cuBLAS, bf16, at Llama-3-8B's projection shapes)
+    depend on how many rows the call has? Decode calls have the ladder's
+    rung rows (8, 16, 32), prefill calls lanes x bucket rows (one lane
+    or four of 64 tokens: 64 or 256). The decode kernel's rows do not
+    depend on the batch (rung_identity_phase); the model's matmuls are
+    the library's. Returns, per shape and base M, the largest difference
+    of the base call's rows when the call has 2x and 4x the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    out = {}
+    for name, (k, n) in (("wq 4096x4096", (4096, 4096)),
+                         ("wk 4096x1024", (4096, 1024)),
+                         ("w1 4096x14336", (4096, 14336)),
+                         ("w2 14336x4096", (14336, 4096)),
+                         ("unembed 4096x128256", (4096, 128256))):
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        x = torch.randn((256, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for base_m in (8, 64):
+            if name.startswith("unembed") and base_m == 64:
+                continue          # the prefill unembeds one row per lane
+            base = (x[:base_m] @ w).float()
+            out[f"{name} M{base_m}"] = {
+                str(m): (x[:m] @ w)[:base_m].float().sub(base).abs().max()
+                .item() for m in (2 * base_m, 4 * base_m)}
+        del w
+    torch.cuda.synchronize()
+    return out
+
+
+def _sched_run(engine, prompts: list, max_new: int) -> dict:
+    """Every prompt through the engine's scheduler at once (queued before
+    the loop starts); {request id: streamed tokens}. The pool must be
+    clean afterwards."""
+    from tpu_inference_torch.engine.engine import Sequence
+    from tpu_inference_torch.engine.scheduler import EngineScheduler
+    sched = EngineScheduler(engine)
+    seqs = [Sequence(request_id=i, prompt_tokens=list(p),
+                     max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    events = {s.request_id: [] for s in seqs}
+    done = {s.request_id: threading.Event() for s in seqs}
+    for s in seqs:
+        sched.submit(s, lambda sq, t: events[sq.request_id].append(t),
+                     lambda sq: done[sq.request_id].set())
+    sched.start()
+    try:
+        for s in seqs:
+            if not done[s.request_id].wait(300):
+                raise AssertionError(f"request {s.request_id} hung")
+    finally:
+        sched.stop(drain=True, timeout=30)
+    bad = [s.request_id for s in seqs
+           if s.finish_reason != "length" or len(s.generated) != max_new]
+    if bad or sched.stats.step_failures:
+        raise AssertionError(f"requests {bad} did not finish with all "
+                             f"their tokens ({sched.stats.step_failures} "
+                             "failed dispatches)")
+    engine.check_pool_clean()
+    return events
+
+
+# The serving-engine modes the tiny engines compare, each against the
+# single-rung, depth-1, serial-chunk, reserve-admission baseline. The
+# optimistic pool is small enough that its 12 requests preempt, and
+# (with the prefix cache on) demote pages to the host tier and restore
+# them.
+ENGINE_MODES = (("ladder (4, 8, 16)", {"max_batch_size": 16,
+                                       "decode_ladder": (4, 8, 16)}),
+                ("pipeline depth 2", {"decode_pipeline_depth": 2}),
+                ("hybrid prefill", {"hybrid_prefill": True}),
+                ("optimistic + host tier", {"admission": "optimistic",
+                                            "num_pages": 20,
+                                            "host_cache_pages": 64}))
+
+
+def engine_modes(mcfg, ecfg, params, prompts: list) -> dict:
+    """One tiny engine configuration through the scheduler in the
+    baseline and in every ENGINE_MODES mode: greedy tokens identical,
+    pool clean, and the mode's machinery demonstrably used."""
+    import dataclasses
+
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    max_new = 24
+    base = _sched_run(InferenceEngine(mcfg, ecfg, params=params,
+                                      device="cuda"), prompts, max_new)
+    used = {}
+    for name, over in ENGINE_MODES:
+        eng = InferenceEngine(mcfg, dataclasses.replace(ecfg, **over),
+                              params=params, device="cuda")
+        got = _sched_run(eng, prompts, max_new)
+        if got != base:
+            diff = [i for i in base if base[i] != got[i]]
+            raise AssertionError(f"{mcfg.name} {name}: greedy tokens differ "
+                                 f"from the baseline for requests {diff}")
+        tel = eng.telemetry
+        used[name] = {
+            "rung_peak": eng.rung_peak, "hybrid_steps": eng.hybrid_steps_total,
+            "preemptions": eng.preemptions_total,
+            "offloaded_pages": tel.kv_offload_pages.value,
+            "restored_pages": tel.kv_restore_pages.value}
+    u = used
+    if (u["ladder (4, 8, 16)"]["rung_peak"] != 16
+            or u["hybrid prefill"]["hybrid_steps"] < 1
+            or u["optimistic + host tier"]["preemptions"] < 1):
+        raise AssertionError(f"{mcfg.name}: a mode's machinery never ran: "
+                             f"{used}")
+    opt = u["optimistic + host tier"]
+    if not mcfg.sliding_window and (opt["offloaded_pages"] < 1
+                                    or opt["restored_pages"] < 1):
+        raise AssertionError(f"{mcfg.name}: the host tier never offloaded "
+                             f"and restored: {opt}")
+    return used
+
+
 # (preset, quant, kv_quant) of the tiny engines: unquantized, each KV
 # tier, each weight tier, int8 over int8 as on the main path, and an
 # int8 pool under a sliding window.
@@ -475,6 +648,13 @@ def engine_phase() -> list:
     base = cfgs.EngineConfig(page_size=8, num_pages=64, max_pages_per_seq=16,
                              max_batch_size=4, prefill_buckets=(16, 32),
                              decode_steps_per_call=4)
+    # The serving modes' baseline: 12 requests through the scheduler, the
+    # two long prompts prefilled in 16-token chunks (or hybrid steps).
+    mode_base = dataclasses.replace(base, num_pages=128,
+                                    chunked_prefill_size=16)
+    mrng = np.random.default_rng(7)
+    mode_prompts = [mrng.integers(0, 256, size=n).tolist()
+                    for n in (5, 9, 12, 40, 7, 14, 3, 70, 11, 6, 16, 10)]
     done = []
     for preset, quant, kv_quant in ENGINE_CASES:
         mcfg = getattr(cfgs, preset)(vocab_size=256)
@@ -494,7 +674,12 @@ def engine_phase() -> list:
                                  f"from dense: {out}")
         log(f"engine {label}: kernel backend greedy-identical to dense "
             f"({sum(len(t) for t in out['kernel'])} tokens)")
-        done.append(label)
+        used = engine_modes(mcfg, dataclasses.replace(
+            mode_base, quant=quant, kv_quant=kv_quant), params, mode_prompts)
+        log(f"engine {label}: scheduler tokens identical across "
+            f"{', '.join(n for n, _ in ENGINE_MODES)}; pool clean; "
+            f"{json.dumps(used)}")
+        done.append({"label": label, "modes": used})
     return done
 
 
@@ -535,8 +720,11 @@ def _stream_request(port: int, prompt: str, max_tokens: int) -> dict:
             "done_reason": final["done_reason"], "context": ctx}
 
 
-def run_requests(port: int, prompts: list, max_tokens: int) -> tuple:
-    """All prompts as concurrent streamed requests; (results, wall s)."""
+def run_requests(port: int, prompts: list, max_tokens: int,
+                 stagger_s: float = 0.0) -> tuple:
+    """All prompts as concurrent streamed requests; (results, wall s).
+    ``stagger_s`` between thread starts makes the server see them in
+    order."""
     results: list = [None] * len(prompts)
     errors: list = []
 
@@ -551,6 +739,7 @@ def run_requests(port: int, prompts: list, max_tokens: int) -> tuple:
                for i in range(len(prompts))]
     for t in threads:
         t.start()
+        time.sleep(stagger_s)
     for t in threads:
         t.join(timeout=900)
     wall = time.perf_counter() - t_start
@@ -696,6 +885,7 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
                       "prefill_attention": dict(pfa.launches_by_variant)}
         launches = {"paged_attention": pa.launches,
                     "prefill_attention": pfa.launches}
+        by_batch = {str(b): n for b, n in sorted(pa.launches_by_batch.items())}
         for name, counts in by_variant.items():
             others = {k: n for k, n in counts.items() if k != variant and n}
             if counts[variant] <= 0 or others:
@@ -737,6 +927,7 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         "aggregate_tok_s": total_eval / wall, "wall_s": wall,
         "eval_tokens": total_eval, "launches": launches,
         "launches_by_variant": by_variant,
+        "decode_launches_by_batch": by_batch,
         "launches_per_forward": n_layers,
         "done_reasons": [r["done_reason"] for r in results],
         "weight_bytes": weight_bytes, "kv_pool_bytes": kv_pool_bytes,
@@ -745,6 +936,273 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         "engine_phases": phases,
         "profile": prof,
     }
+
+
+def _burst_prompts(n: int) -> list:
+    """``n`` prompts whose lengths are the ``Request tokens`` of BurstGPT
+    rows drawn with numpy from SEED (capped at 1500 tokens); byte
+    tokenizer: n - 1 bytes -> n tokens (BOS)."""
+    import csv
+
+    import numpy as np
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "BurstGPT_1.csv")) as f:
+        lens = np.asarray([int(float(r["Request tokens"]))
+                           for r in csv.DictReader(f)])
+    pick = np.random.default_rng(SEED).choice(len(lens), n, replace=False)
+    rng = np.random.default_rng(SEED + 1)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+    return [rng.choice(letters, max(1, min(int(lens[i]), 1500) - 1)
+                       ).tobytes().decode() for i in pick]
+
+
+def _serve_cli(flags: list):
+    """Boot the server the way ``python -m tpu_inference_torch.server``
+    does with these flags (its parser, its "auto" resolution); returns
+    (server, the resolved EngineConfig fields)."""
+    from tpu_inference_torch.server.__main__ import (build_parser,
+                                                     resolve_engine_args)
+    from tpu_inference_torch.server.http import build_server
+    parser = build_parser()
+    args = parser.parse_args(flags)
+    engine_args = resolve_engine_args(args, parser)
+    server = build_server(model=args.model, device="cuda", seed=args.seed,
+                          **engine_args)
+    return server, engine_args
+
+
+def _check_variant(label: str, variant: str) -> dict:
+    """Both kernels ran the path's variant and no other since the last
+    reset; returns the counts by variant (and the decode's by batch)."""
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    by_variant = {"paged_attention": dict(pa.launches_by_variant),
+                  "prefill_attention": dict(pfa.launches_by_variant)}
+    for name, counts in by_variant.items():
+        others = {k: n for k, n in counts.items() if k != variant and n}
+        if counts[variant] <= 0 or others:
+            raise AssertionError(
+                f"{label}: {name} launched {counts}; the path must run "
+                f"its {variant} variant and no other")
+    return {"by_variant": by_variant,
+            "decode_by_batch": {str(b): n for b, n in
+                                sorted(pa.launches_by_batch.items())}}
+
+
+def _summarize(results: list, wall: float) -> dict:
+    ttfts = sorted(r["ttft_s"] for r in results)
+    per_req = [r["eval_count"] / r["eval_duration_s"] for r in results
+               if r["eval_duration_s"] > 0]
+    total = sum(r["eval_count"] for r in results)
+    return {"requests": len(results), "ttft_p50_s": ttfts[len(ttfts) // 2],
+            "ttft_max_s": ttfts[-1], "wall_s": wall,
+            "aggregate_tok_s": total / wall, "eval_tokens": total,
+            "decode_tok_s_per_request": per_req,
+            "prompt_tokens": [r["prompt_tokens"] for r in results]}
+
+
+def reference_config_phase(card: str) -> dict:
+    """The reference's chip configuration (its benchmarks' serving flags)
+    on the port: llama-3-8b at full width, int8 weights + int8 KV, batch
+    and pool sized from the card, decode ladder auto, pipeline depth 2,
+    hybrid prefill, host tier auto. 32 concurrent BurstGPT-length
+    requests (48 greedy tokens each), then 4 alone so the ladder steps
+    down. Gates: every request "length" with all its tokens, no failed
+    dispatch, the ladder tops out at 32 and was reached, at least one
+    rung switch and one hybrid step, int8 kernel variants only."""
+    import gc
+
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    label = "reference chip config"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server, ea = _serve_cli([
+        "--model", "llama-3-8b", "--quant", "int8", "--kv-quant", "int8",
+        "--max-batch-size", "auto", "--num-pages", "auto", "--batch-cap",
+        "32", "--max-pages-per-seq", "128", "--decode-pipeline-depth", "2",
+        "--hybrid-prefill", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    eng = server.engine
+    sizing = {"max_batch_size": ea["max_batch_size"],
+              "num_pages": ea["num_pages"],
+              "decode_ladder": list(eng.ladder),
+              "host_cache_pages": ea["host_cache_pages"],
+              "card_total_memory": torch.cuda.get_device_properties(
+                  0).total_memory,
+              "weight_bytes": eng.weight_bytes,
+              "kv_pool_bytes": sum(t.numel() * t.element_size()
+                                   for t in eng.kv if t is not None)}
+    log(f"[{label}] sized on {card}: {json.dumps(sizing)}")
+    if eng.ladder[-1] != 32:
+        raise AssertionError(f"{label}: ladder {eng.ladder} does not top "
+                             "out at 32")
+    try:
+        port = server.start(port=0)
+        prompts = _burst_prompts(32)
+        max_tokens = 48
+        pa.reset_counts()
+        pfa.reset_counts()
+        results, wall = run_requests(port, prompts, max_tokens)
+        snap32 = server_stats(port)
+        alone = []
+        t_alone = time.perf_counter()
+        for p in prompts[:4]:
+            alone.append(_stream_request(port, p, max_tokens))
+        alone_wall = time.perf_counter() - t_alone
+        launches = _check_variant(label, "int8")
+        snap = server_stats(port)
+        if snap["rung_peak"] != 32 or snap["rung_switches"] < 1:
+            raise AssertionError(f"{label}: rung peak {snap['rung_peak']}, "
+                                 f"{snap['rung_switches']} switches")
+        if snap["hybrid_steps"] < 1:
+            raise AssertionError(f"{label}: no hybrid step ran")
+        peak_mem = torch.cuda.max_memory_allocated()
+        prof = profile_requests(port, prompts, max_tokens)
+        server_stats(port)
+    finally:
+        server.shutdown()
+        del server, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"label": label, "model": "llama-3-8b", "quant": "int8",
+           "kv_quant": "int8", "variant": "int8", "boot_s": boot_s,
+           "sizing": sizing, "max_memory_allocated": peak_mem,
+           **_summarize(results, wall),
+           "alone": _summarize(alone, alone_wall),
+           "launches": {"paged_attention": sum(launches["by_variant"][
+               "paged_attention"].values()), "prefill_attention": sum(
+               launches["by_variant"]["prefill_attention"].values())},
+           "launches_by_variant": launches["by_variant"],
+           "decode_launches_by_batch": launches["decode_by_batch"],
+           "done_reasons": [r["done_reason"] for r in results + alone],
+           "rung_peak": snap["rung_peak"],
+           "rung_switches": snap["rung_switches"],
+           "rung_calls": snap["rung_calls"],
+           "rung_calls_32_concurrent": snap32["rung_calls"],
+           "mean_batch_occupancy": snap["mean_batch_occupancy"],
+           "mean_batch_occupancy_32_concurrent":
+               snap32["mean_batch_occupancy"],
+           "steps_32_concurrent": snap32["steps"],
+           "hybrid_steps": snap["hybrid_steps"],
+           "decode_pipeline_depth": snap["decode_pipeline_depth"],
+           "decode_call_s": snap["decode_call_s"],
+           "engine_phases": engine_phases(snap), "profile": prof}
+    return out
+
+
+def pressure_phase(card: str) -> dict:
+    """The same model and int8 tiers over a pool of a few hundred pages:
+    optimistic admission, a fixed host tier. The 32 BurstGPT requests,
+    then the first 8 again (their prefixes return from the host tier),
+    then those 8 once more: greedy output must reproduce between the two
+    runs of the 8. Gates: preemptions, pages offloaded and restored,
+    every request "length" with all its tokens, no failed dispatch. The
+    pool holds the 8 returning requests whole, so they run unpreempted;
+    they run one after another, so both runs group the same rows into
+    each library GEMM (gemm_rung_evidence: a row's result can depend on
+    the call's row count)."""
+    import gc
+
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    label = "pressure"
+    prompts = _burst_prompts(32)
+    max_tokens = 48
+    # The pool: the 8 returning requests' full need (byte tokenizer: a
+    # prompt of n bytes is n + 1 tokens) plus 3 pages, so they run whole
+    # while the 32, arriving in order, admit a 9th lane on prompt + 2
+    # pages of headroom and outgrow the pool.
+    need8 = sum(-(-(len(p) + 1 + max_tokens) // 16) for p in prompts[:8])
+    num_pages = need8 + 4
+    t0 = time.perf_counter()
+    server, ea = _serve_cli([
+        "--model", "llama-3-8b", "--quant", "int8", "--kv-quant", "int8",
+        "--max-batch-size", "32", "--num-pages", str(num_pages),
+        "--max-pages-per-seq", "128", "--decode-pipeline-depth", "2",
+        "--hybrid-prefill", "--admission", "optimistic",
+        "--host-cache-pages", "4096", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    try:
+        port = server.start(port=0)
+        pa.reset_counts()
+        pfa.reset_counts()
+        results, wall = run_requests(port, prompts, max_tokens,
+                                     stagger_s=0.01)
+        t8 = time.perf_counter()
+        first8 = [_stream_request(port, p, max_tokens) for p in prompts[:8]]
+        wall8 = time.perf_counter() - t8
+        snap8 = server_stats(port)
+        again8 = [_stream_request(port, p, max_tokens) for p in prompts[:8]]
+        launches = _check_variant(label, "int8")
+        snap = server_stats(port)
+    finally:
+        server.shutdown()
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    differ = [i for i, (a, b) in enumerate(zip(first8, again8))
+              if a["context"] != b["context"]]
+    if differ:
+        raise AssertionError(f"{label}: greedy output of the returning "
+                             f"requests {differ} not reproducible")
+    pc = snap["prefix_cache"]
+    if (snap["preemptions"] < 1 or pc["offloaded_pages"] < 1
+            or pc["restored_pages"] < 1):
+        raise AssertionError(f"{label}: preemptions {snap['preemptions']}, "
+                             f"offloaded {pc['offloaded_pages']}, restored "
+                             f"{pc['restored_pages']}")
+    return {"label": label, "model": "llama-3-8b", "quant": "int8",
+            "kv_quant": "int8", "variant": "int8", "boot_s": boot_s,
+            "num_pages": num_pages, "host_cache_pages": 4096,
+            **_summarize(results, wall),
+            "returning": _summarize(first8, wall8),
+            "launches": {"paged_attention": sum(launches["by_variant"][
+                "paged_attention"].values()), "prefill_attention": sum(
+                launches["by_variant"]["prefill_attention"].values())},
+            "launches_by_variant": launches["by_variant"],
+            "decode_launches_by_batch": launches["decode_by_batch"],
+            "done_reasons": [r["done_reason"]
+                             for r in results + first8 + again8],
+            "preemptions": snap["preemptions"],
+            "recompute_resumes": snap["recompute_resumes"],
+            "swap_in_resumes": snap["swap_in_resumes"],
+            "preemptions_before_returning": snap8["preemptions"],
+            "prefix_cache": pc, "rung_peak": snap["rung_peak"],
+            "hybrid_steps": snap["hybrid_steps"],
+            "engine_phases": engine_phases(snap)}
+
+
+def log_new_path(mp: dict, card: str) -> None:
+    per = mp["decode_tok_s_per_request"]
+    log(f"main path llama-3-8b [{mp['label']}] on {card}: {mp['requests']} "
+        f"requests, TTFT p50 {mp['ttft_p50_s']:.3f}s max "
+        f"{mp['ttft_max_s']:.3f}s; decode {min(per):.1f}-{max(per):.1f} "
+        f"tok/s per request, {mp['aggregate_tok_s']:.1f} aggregate; "
+        f"launches {json.dumps(mp['launches_by_variant'])}; decode launches "
+        f"by batch {json.dumps(mp['decode_launches_by_batch'])}")
+    keys = ("sizing", "max_memory_allocated", "rung_peak", "rung_switches",
+            "rung_calls", "rung_calls_32_concurrent", "mean_batch_occupancy",
+            "mean_batch_occupancy_32_concurrent", "steps_32_concurrent",
+            "hybrid_steps",
+            "decode_pipeline_depth", "decode_call_s", "alone", "returning",
+            "preemptions", "recompute_resumes", "swap_in_resumes",
+            "preemptions_before_returning", "prefix_cache", "num_pages")
+    log(f"[{mp['label']}] " + json.dumps(
+        {k: mp[k] for k in keys if k in mp}))
+    for name, ph in mp["engine_phases"].items():
+        if ph["count"]:
+            log(f"[{mp['label']}] phase {name}: {ph['count']} x, "
+                f"{ph['sum_s']:.4f} s total")
+    prof = mp.get("profile")
+    if prof is not None and "by_class_ms" in prof:
+        log(f"[{mp['label']}] profile ({prof['window_s']:.2f}s window): "
+            f"device busy share {prof['device_busy_share']:.3f}; by class "
+            f"(ms) {json.dumps(prof['by_class_ms'])}")
+    elif prof is not None:
+        log(f"[{mp['label']}] profile: not measured ({prof['error']})")
 
 
 def log_main_path(mp: dict, card: str) -> None:
@@ -811,13 +1269,23 @@ def main() -> int:
     log(f"kernel edge cases: {n_edge} shapes within tolerance of their "
         f"plain versions (max abs err, and over the largest output: "
         f"{json.dumps(edge_err)})")
+    rung_identity = rung_identity_phase()
+    log(f"decode kernel rung identity: a lane's row bit-identical at batch "
+        f"8, 16 and 32 and in reversed order ({json.dumps(rung_identity)})")
+    gemm_evidence = gemm_rung_evidence()
+    log(f"library GEMM rows vs batch width (evidence, not a gate; max abs "
+        f"diff of rows 0-7 from M 8): {json.dumps(gemm_evidence)}")
     engines = engine_phase()
     main_paths = {}
     for label, quant, kv_quant, variant in MAIN_PATHS:
         mp = main_path_phase(label, quant, kv_quant, variant,
                              profile=variant != "int4")
         log_main_path(mp, card)
-        main_paths[variant] = mp
+        main_paths[label] = mp
+    for phase in (reference_config_phase, pressure_phase):
+        mp = phase(card)
+        log_new_path(mp, card)
+        main_paths[mp["label"]] = mp
 
     entries = []
     for kind, name, src, replaces in (
@@ -829,24 +1297,43 @@ def main() -> int:
              "tpu_inference/kernels/prefill_attention.py:46")):
         for variant, kv in (("bf16", "none"), ("int8", "int8"),
                             ("int4", "int4")):
+            # Launches of this variant over every main path that runs it
+            # (each path's counts were set to 0 just before it).
+            paths = [mp for mp in main_paths.values()
+                     if mp["variant"] == variant]
+            launched = sum(mp["launches_by_variant"][name][variant]
+                           for mp in paths)
             cases = [c for c in kernels[kind]
-                     if c["kv"] == kv and c["dtype"] == "bfloat16"]
-            head = cases[0]
-            entries.append({
-                "name": name if variant == "bf16" else f"{name}_{variant}",
-                "route": "cuda", "source": src, "replaces": replaces,
-                "launches": main_paths[variant]["launches_by_variant"][
-                    name][variant],
-                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
-                "variant": head["variant"], "pool": variant,
-                "main_path": main_paths[variant]["label"]})
+                     if c["kv"] == kv and c["dtype"] == "bfloat16"
+                     and "swa" not in c["variant"]
+                     and "mixed" not in c["variant"]]
+            # The headline (batch 8 or the first prefill case), then for
+            # the decode kernel the ladder's other rungs.
+            for head in (cases if kind == "decode" else cases[:1]):
+                b = head["shape"]["B"]
+                suffix = f"_bs{b}" if kind == "decode" and b != 8 else ""
+                entries.append({
+                    "name": (name if variant == "bf16"
+                             else f"{name}_{variant}") + suffix,
+                    "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": launched,
+                    "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                    "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
+                    "variant": head["variant"], "pool": variant,
+                    "main_paths": [mp["label"] for mp in paths],
+                    **({"launches_at_this_batch": sum(
+                        int(mp.get("decode_launches_by_batch", {}).get(
+                            str(b), 0)) for mp in paths)}
+                       if kind == "decode" else {})})
     report = {"card": card, "torch": torch.__version__,
               "kernels": entries, "kernel_cases": kernels,
               "main_paths": main_paths,
-              "engine_cases": engines, "edge": {"checked": n_edge,
+              "engine_cases": engines, "rung_identity": rung_identity,
+              "gemm_rung_evidence": gemm_evidence,
+              "edge": {"checked": n_edge,
                                                 "max_abs_err_and_over_scale":
                                                 edge_err},
               "build_s": build_s,

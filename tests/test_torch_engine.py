@@ -69,7 +69,7 @@ def test_prefix_cache_hit_matches_reference():
     eng = InferenceEngine(tm, te, params=tp, device="cpu")
     got = [eng.generate([prompt], max_new_tokens=8) for _ in range(2)]
     assert got == want
-    assert eng.prefix_cache.hits.value == 1
+    assert eng.prefix_cache.hits_hbm.value == 1
     assert eng.prefix_cache.misses.value == 1
     # 70 prompt tokens + 7 settled generated ones: 9 full pages published.
     assert len(eng.prefix_cache) == 9
@@ -107,17 +107,33 @@ def test_warmup_writes_only_the_trash_page():
 @pytest.mark.parametrize("field,value,item", [
     ("role", "prefill", "1.15"),
     ("slo_ttft_ms", 250.0, "1.18"),
-    ("hybrid_prefill", True, "1.13"),
-    ("decode_pipeline_depth", 2, "1.13"),
-    ("host_cache_pages", 8, "1.13"),
-    ("num_speculative_tokens", 2, "1.13"),
-    ("admission", "optimistic", "1.13"),
-    ("decode_ladder", (2, 4), "1.13"),
+    ("slo_tpot_ms", 40.0, "1.18"),
+    ("num_speculative_tokens", 2, "1.13b"),
+    ("spec_mode", "ngram", "1.13b"),
+    ("chaos_page_pressure", 4, "1.13b"),
+    ("chaos_step_failure_rate", 0.5, "1.13b"),
+    ("chaos_step_wedge_s", 1.0, "1.13b"),
 ])
 def test_unported_features_raise(field, value, item):
     ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
         InferenceEngine(tcfg.tiny_llama(), ecfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("hybrid_prefill", True),
+    ("step_token_budget", 24),
+    ("decode_pipeline_depth", 2),
+    ("host_cache_pages", 8),
+    ("admission", "optimistic"),
+    ("decode_ladder", (2, 4)),
+    ("ladder_admit_headroom_pages", 4),
+])
+def test_engine_breadth_knobs_are_served(field, value):
+    """The knobs of the serving-engine slice boot the engine."""
+    ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})
+    eng = InferenceEngine(tcfg.tiny_llama(), ecfg, device="cpu")
+    assert getattr(eng.engine_cfg, field) == value
 
 
 def test_cuda_requested_without_a_card_raises():

@@ -151,12 +151,12 @@ def test_prefix_cache_lookup_insert_evict():
     assert len(cache) == 2
     a.free(pages)                                # the sequence ends
     assert cache.evictable == 2
-    hit, n = cache.lookup(toks + [5], max_tokens=len(toks))
-    assert hit == pages[:2] and n == 8
+    hit, host, n = cache.lookup(toks + [5], max_tokens=len(toks))
+    assert hit == pages[:2] and host == [] and n == 8
     assert cache.evictable == 0                  # pinned by the hit
     a.free(hit)
     assert cache.evict(1) == 1 and len(cache) == 1
-    miss, n = cache.lookup([1, 2, 3, 4, 5])
-    assert miss == [] and n == 0
+    miss, host, n = cache.lookup([1, 2, 3, 4, 5])
+    assert miss == [] and host == [] and n == 0
     cache.clear()
     assert a.num_free == 15 and cache.evictable == 0

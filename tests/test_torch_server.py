@@ -238,3 +238,174 @@ def test_tags_report_dtype_when_unquantized(port_server):
     _, _, raw = _get(port, "/api/tags")
     assert json.loads(raw)["models"][0]["details"][
         "quantization_level"] == "F32"
+
+
+# ----------------------------------------------------------------------
+# The reference's sizing and engine flags on the port's CLI
+# ----------------------------------------------------------------------
+
+ENGINE_FLAGS = ("max_batch_size", "num_pages", "target_ctx", "batch_cap",
+                "decode_ladder", "ladder_admit_headroom_pages",
+                "decode_pipeline_depth", "hybrid_prefill",
+                "step_token_budget", "host_cache_pages", "admission",
+                "optimistic_headroom_pages", "preempt_watermark_pages",
+                "preempt_max_per_request", "page_size", "max_pages_per_seq",
+                "chunked_prefill_size", "quant", "kv_quant")
+
+
+def _reference_parser(monkeypatch):
+    """The reference CLI's own argparse parser, caught as its main()
+    calls parse_args."""
+    import argparse
+
+    from tpu_inference.server import __main__ as jmain
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, args=None, namespace=None):
+        raise Caught(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    try:
+        jmain.main()
+    except Caught as c:
+        parser = c.args[0]
+    monkeypatch.undo()
+    return parser
+
+
+def test_cli_flags_parse_with_reference_defaults(monkeypatch):
+    """Every sizing and engine flag of the reference's CLI exists on the
+    port's with the same default (``--decode-ladder auto``,
+    ``--host-cache-pages auto`` among them), and the reference's chip
+    configuration parses to the same values on both."""
+    from tpu_inference_torch.server.__main__ import build_parser
+    ref = _reference_parser(monkeypatch)
+    port = build_parser()
+    want, got = vars(ref.parse_args([])), vars(port.parse_args([]))
+    for name in ENGINE_FLAGS:
+        assert got[name] == want[name], name
+    assert got["decode_ladder"] == "auto"
+    assert got["host_cache_pages"] == "auto"
+    chip = ["--model", "llama-3-8b", "--quant", "int8", "--kv-quant",
+            "int8", "--max-batch-size", "auto", "--num-pages", "auto",
+            "--batch-cap", "32", "--decode-pipeline-depth", "2",
+            "--hybrid-prefill", "--step-token-budget", "64",
+            "--admission", "optimistic", "--host-cache-pages", "100"]
+    want, got = vars(ref.parse_args(chip)), vars(port.parse_args(chip))
+    for name in ENGINE_FLAGS:
+        assert got[name] == want[name], name
+
+
+def test_cli_resolves_auto_in_reference_order(monkeypatch):
+    """--max-batch-size/--num-pages auto from the card's memory (a stand-
+    in of 80 GB here), then the ladder against the batch, then the host
+    tier from the machine's RAM: the reference's arithmetic."""
+    from tpu_inference.engine import autosize as jauto
+    from tpu_inference_torch.engine import autosize as tauto
+    from tpu_inference_torch.server.__main__ import (build_parser,
+                                                    resolve_engine_args)
+    monkeypatch.setattr(tauto, "detect_hbm_bytes", lambda device=None: 80e9)
+    monkeypatch.setattr(tauto, "detect_host_ram_bytes", lambda: 64 << 30)
+    p = build_parser()
+    args = p.parse_args(["--model", "llama-3-8b", "--quant", "int8",
+                         "--kv-quant", "int8", "--max-batch-size", "auto",
+                         "--num-pages", "auto", "--batch-cap", "32",
+                         "--max-pages-per-seq", "128",
+                         "--decode-pipeline-depth", "2"])
+    ea = resolve_engine_args(args, p)
+    m = jcfg.PRESETS["llama-3-8b"]()
+    sz = jauto.auto_size(m, hbm_bytes=80e9, quant="int8", kv_quant="int8",
+                         max_pages_per_seq=128, batch_cap=32)
+    assert (ea["max_batch_size"], ea["num_pages"]) == (32, 16384)
+    assert (ea["max_batch_size"], ea["num_pages"]) == (sz.max_batch_size,
+                                                       sz.num_pages)
+    assert ea["decode_ladder"] == (8, 16, 32)
+    assert ea["host_cache_pages"] == jauto.auto_host_cache_pages(
+        m, kv_quant="int8", page_size=16, host_ram_bytes=64 << 30)
+    assert ea["decode_pipeline_depth"] == 2
+    tcfg.EngineConfig(**ea)                   # a valid engine config
+
+
+@pytest.mark.parametrize("flags", [["--decode-ladder", "8,x"],
+                                   ["--decode-ladder", "4,16"],
+                                   ["--max-batch-size", "nope"]])
+def test_cli_rejects_bad_sizing_flags(flags):
+    from tpu_inference_torch.server.__main__ import (build_parser,
+                                                    resolve_engine_args)
+    p = build_parser()
+    with pytest.raises(SystemExit):
+        resolve_engine_args(p.parse_args(flags + ["--host-cache-pages",
+                                                  "0"]), p)
+
+
+def test_metrics_expose_engine_breadth_series(weights):
+    """/metrics carries the ladder, pipeline, hybrid, preemption and host-
+    tier series under the reference's names, and the stats snapshot the
+    new fields."""
+    mcfg = tcfg.tiny_llama(vocab_size=512)
+    ecfg = tcfg.EngineConfig(**{**ENGINE, "max_batch_size": 8,
+                                "num_pages": 24}, decode_ladder=(4, 8),
+                             decode_pipeline_depth=2, hybrid_prefill=True,
+                             chunked_prefill_size=16, host_cache_pages=32,
+                             admission="optimistic")
+    cfg = tcfg.FrameworkConfig(
+        model=mcfg, engine=ecfg,
+        server=tcfg.ServerConfig(model_name="tiny-llama", tokenizer="byte",
+                                 warmup=False))
+    engine = InferenceEngine(
+        mcfg, ecfg, device="cpu",
+        params=params_from_numpy(jax.device_get(weights), mcfg, "cpu"))
+    server = InferenceServer(cfg, engine=engine)
+    port = server.start(host="127.0.0.1", port=0)
+    try:
+        for prompt in ("y" * 50, "short", "y" * 50):
+            status, _, _ = _post(port, {"prompt": prompt, "max_tokens": 6,
+                                        "stream": False})
+            assert status == 200
+        _, _, raw = _get(port, "/metrics")
+        text = raw.decode()
+        for name in ("tpu_inf_decode_rung", "tpu_inf_decode_ladder_top",
+                     "tpu_inf_rung_switches_total",
+                     "tpu_inf_decode_occupancy",
+                     "tpu_inf_hybrid_steps_total",
+                     "tpu_inf_hybrid_dispatch_seconds_bucket",
+                     "tpu_inf_decode_sync_seconds_bucket",
+                     "tpu_inf_preemptions_total",
+                     "tpu_inf_recompute_resumes_total",
+                     "tpu_inf_swap_in_resumes_total",
+                     "tpu_inf_kv_offload_pages_total",
+                     "tpu_inf_kv_restore_pages_total",
+                     "tpu_inf_kv_offload_bytes_total",
+                     "tpu_inf_kv_restore_bytes_total",
+                     "tpu_inf_kv_host_pages_total",
+                     "tpu_inf_kv_host_pages_used",
+                     "tpu_inf_kv_host_evictions_total",
+                     "tpu_inf_kv_swap_seconds_bucket"):
+            assert f"\n{name}" in text, name
+        assert 'tpu_inf_decode_ladder_top{replica="0"} 8' in text
+        _, _, raw = _get(port, "/metrics?format=json")
+        snap = json.loads(raw)
+        assert snap["decode_ladder"] == [4, 8]
+        assert snap["decode_pipeline_depth"] == 2
+        assert snap["hybrid_prefill"] is True
+        assert snap["decode_call_s"]["measures"] == "dispatch"
+        for key in ("rung_peak", "rung_switches", "rung_calls",
+                    "lane_occupancy", "hybrid_steps", "preemptions",
+                    "recompute_resumes", "swap_in_resumes"):
+            assert key in snap, key
+        assert snap["prefix_cache"]["host_capacity_pages"] == 32
+    finally:
+        server.shutdown(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("num_speculative_tokens", 4, "1.13b"), ("spec_mode", "ngram", "1.13b"),
+    ("chaos_step_failure_rate", 0.1, "1.13b"), ("role", "decode", "1.15"),
+    ("slo_ttft_ms", 100.0, "1.18")])
+def test_unported_knobs_raise_through_build_server(field, value, item):
+    from tpu_inference_torch.server.http import build_server
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
+        build_server("tiny-llama", warmup=False, device="cpu",
+                     **{field: value})

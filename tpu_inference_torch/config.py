@@ -327,6 +327,12 @@ class EngineConfig:
         return self.page_size * self.max_pages_per_seq
 
     @property
+    def ladder_rungs(self) -> tuple:
+        """The decode ladder in effect: ``decode_ladder`` or the single
+        rung at ``max_batch_size`` (validated by the engine)."""
+        return tuple(self.decode_ladder) or (self.max_batch_size,)
+
+    @property
     def chunk_tokens_cap(self) -> int:
         """``chunked_prefill_size`` clamped to the largest bucket; 0 means
         the largest bucket governs."""

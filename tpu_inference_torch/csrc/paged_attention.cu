@@ -22,8 +22,10 @@
 // kv-head), its GQA query rows (up to 16, or 8 in the float32 kernel)
 // and a contiguous range of pages_per_split pages, counted from the
 // window's first page under a sliding window. The host picks NS and
-// pages_per_split from shapes alone (kernels/paged_attention.py
-// split_plan), never from kv_len, which lives on the device. Each block
+// pages_per_split from the table width, page size and window alone
+// (kernels/paged_attention.py split_plan): never from the batch, so a
+// lane's partials and their merge order are the same at every batch
+// width, and never from kv_len, which lives on the device. Each block
 // reads kv_len first and counts the splits of its sequence that hold any
 // token: a block past them exits at once, having read and written
 // nothing.

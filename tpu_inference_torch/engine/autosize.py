@@ -1,0 +1,280 @@
+"""Memory-aware engine sizing: derive batch, KV pool and host tier from
+the card and the machine.
+
+Twin of ``tpu_inference/engine/autosize.py`` (same names, same
+arithmetic). ``--max-batch-size auto --num-pages auto`` size the decode
+batch and the KV pool from the card's memory after the weights:
+
+    usable  = (1 - reserve_frac) * device_memory
+    budget  = usable - weights/tp - activation_headroom
+    tokens  = budget // (kv_bytes_per_token / tp)
+    pages   = tokens // page_size      (capped at 4 x batch_cap x seq pages)
+    batch   = min(batch_cap, tokens // target_ctx)
+
+The card's memory is ``torch.cuda.get_device_properties(dev).total_memory``
+(``detect_hbm_bytes``), which is the total, not what is free: the
+``reserve_frac`` and the activation headroom stand for what the CUDA
+context, the caching allocator and the activations take. Off the card
+the caller passes ``hbm_bytes``; nothing here carries a table of
+accelerator sizes. ``decode_ladder_rungs``/``parse_decode_ladder`` give
+the decode batch ladder, ``auto_host_cache_pages`` sizes the host-RAM KV
+tier from ``/proc/meminfo``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+def estimate_param_count(model_cfg) -> int:
+    """Parameter count from the architecture config (norms elided)."""
+    d, f, L, V = (model_cfg.d_model, model_cfg.d_ff, model_cfg.n_layers,
+                  model_cfg.vocab_size)
+    kv_w = model_cfg.n_kv_heads * model_cfg.head_dim
+    embed = V * d * (1 if model_cfg.tie_embeddings else 2)
+    attn = 2 * d * d + 2 * d * kv_w
+    if model_cfg.n_experts:
+        ffn = model_cfg.n_experts * 3 * d * f + d * model_cfg.n_experts
+    else:
+        ffn = 3 * d * f
+    return embed + L * (attn + ffn)
+
+
+def weight_bytes(model_cfg, quant: str = "none") -> int:
+    """Resident weight bytes. int8 stores matmul weights as one byte plus
+    per-output-channel float32 scales (budgeted as 1%); int4 as half a
+    byte plus one float32 scale per GROUP_SIZE codes; embeddings stay in
+    the model dtype (models/quant.py quantizes matmuls only)."""
+    n = estimate_param_count(model_cfg)
+    itemsize = 2  # bf16 serving dtype
+    if quant in ("int8", "int4"):
+        d, V = model_cfg.d_model, model_cfg.vocab_size
+        embed = V * d * (1 if model_cfg.tie_embeddings else 2)
+        matmul = n - embed
+        if quant == "int4":
+            from tpu_inference_torch.models.quant import GROUP_SIZE
+            return embed * itemsize + int(matmul * (0.5 + 4 / GROUP_SIZE))
+        return embed * itemsize + int(matmul * 1.01)
+    return n * itemsize
+
+
+def kv_bytes_per_token(model_cfg, kv_quant: str = "none") -> int:
+    """Pool bytes one token occupies across all layers (K and V): bf16
+    elements, or int8 codes / nibble-packed int4 codes plus a float32
+    scale per (token, kv-head) (engine/kv_cache.py layouts)."""
+    L = model_cfg.n_layers
+    hkv = model_cfg.n_kv_heads
+    d = model_cfg.head_dim
+    if kv_quant == "int8":
+        return 2 * L * hkv * (d + 4)
+    if kv_quant == "int4":
+        return 2 * L * hkv * (d // 2 + 4)
+    return 2 * L * hkv * d * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoSizing:
+    max_batch_size: int
+    num_pages: int
+    # Where the budget went, for logs.
+    hbm_bytes: int
+    weight_bytes_per_chip: int
+    kv_pool_bytes_per_chip: int
+    kv_bytes_per_token: int
+    target_ctx: int
+
+
+def auto_size(model_cfg, *, hbm_bytes: Optional[float] = None,
+              quant: str = "none", kv_quant: str = "none", tp: int = 1,
+              page_size: int = 16, max_pages_per_seq: int = 64,
+              target_ctx: Optional[int] = None, batch_cap: int = 32,
+              reserve_frac: float = 0.15,
+              activation_headroom: int = 512 << 20,
+              speculative: bool = False) -> AutoSizing:
+    """Size ``max_batch_size`` and ``num_pages`` for a device of
+    ``hbm_bytes`` (read from the card when None).
+
+    Raises ValueError when the weights alone exceed the budget or when
+    the KV budget cannot hold one full-length sequence."""
+    hbm = float(hbm_bytes if hbm_bytes is not None else detect_hbm_bytes())
+    wb = weight_bytes(model_cfg, quant)
+    per_chip_w = wb // tp
+    usable = (1.0 - reserve_frac) * hbm
+    budget = usable - per_chip_w - activation_headroom
+    if budget <= 0:
+        raise ValueError(
+            f"{model_cfg.name}: weights (~{per_chip_w / 1e9:.1f} GB/card, "
+            f"quant={quant}, tp={tp}) + {activation_headroom >> 20} MB "
+            f"activation headroom exceed {usable / 1e9:.1f} GB usable "
+            f"device memory ({hbm / 1e9:.0f} GB card); use --quant int8 "
+            "or a bigger card")
+    kv_tok = kv_bytes_per_token(model_cfg, kv_quant)
+    tokens = int(budget // (kv_tok / tp))
+    num_pages = tokens // page_size
+    # Do not hoard memory a small model can never address: every slot
+    # holding a full-length sequence, with 4x slack for the prefix cache.
+    num_pages = min(num_pages, 4 * batch_cap * max_pages_per_seq)
+    # Page 0 is the trash page: admission grants num_pages - 1.
+    tokens = min(tokens, (num_pages - 1) * page_size)
+    if num_pages < max_pages_per_seq + 1:
+        raise ValueError(
+            f"{model_cfg.name}: KV budget ({budget / 1e9:.2f} GB/card) "
+            f"holds only {num_pages} pages < one full sequence "
+            f"({max_pages_per_seq}); lower --max-pages-per-seq or "
+            "shrink the pool bytes with --kv-quant int8 (or int4)")
+    ctx = int(target_ctx) if target_ctx else (page_size * max_pages_per_seq
+                                              // 2)
+    ctx = max(1, min(ctx, page_size * max_pages_per_seq))
+    win = getattr(model_cfg, "sliding_window", 0)
+    if win and not speculative:
+        # Behind-window eviction caps a running SWA sequence's live KV
+        # at about the window: batch against that, not the context.
+        ctx = min(ctx, win + 2 * page_size)
+    batch = max(1, min(batch_cap, tokens // ctx))
+    return AutoSizing(
+        max_batch_size=batch, num_pages=num_pages, hbm_bytes=int(hbm),
+        weight_bytes_per_chip=int(per_chip_w),
+        kv_pool_bytes_per_chip=int(num_pages * page_size * kv_tok // tp),
+        kv_bytes_per_token=kv_tok, target_ctx=ctx)
+
+
+def detect_host_ram_bytes() -> int:
+    """Available host RAM: /proc/meminfo MemAvailable, else half of the
+    sysconf total. The host KV tier's sizing input."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    import os
+
+    try:
+        return (os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")) // 2
+    except (ValueError, OSError, AttributeError):
+        return 8 << 30
+
+
+def auto_host_cache_pages(model_cfg, *, kv_quant: str = "none",
+                          page_size: int = 16,
+                          host_ram_bytes: Optional[int] = None,
+                          fraction: float = 0.5,
+                          reserve_bytes: int = 2 << 30) -> int:
+    """``--host-cache-pages auto``: ``fraction`` of (available RAM -
+    reserve) over one page's bytes in the serving kv_quant layout; 0
+    when the machine has no headroom. Capacity is a cap: RAM is taken
+    only as pages demote."""
+    avail = (detect_host_ram_bytes() if host_ram_bytes is None
+             else int(host_ram_bytes))
+    budget = max(0, int((avail - reserve_bytes) * fraction))
+    per_page = page_size * kv_bytes_per_token(model_cfg, kv_quant)
+    return budget // max(per_page, 1)
+
+
+def detect_hbm_bytes(device=None) -> int:
+    """Total memory of the CUDA card ``device`` (default: the current
+    one). Raises when no card is visible: off the card the caller
+    passes ``hbm_bytes``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "auto sizing reads the card's memory, but torch.cuda."
+            "is_available() is False; pass integer --max-batch-size and "
+            "--num-pages (or hbm_bytes) off the card")
+    dev = torch.device("cuda" if device is None else device)
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def decode_ladder_rungs(top: int, base: int = 8) -> tuple:
+    """Doubling rungs from ``base`` strictly below ``top``, plus ``top``:
+    top=32 -> (8, 16, 32); top=24 -> (8, 16, 24); top=8 -> (8,)."""
+    top = int(top)
+    if top <= 0:
+        raise ValueError(f"decode ladder needs a positive top, got {top}")
+    rungs = []
+    r = base
+    while r < top:
+        rungs.append(r)
+        r *= 2
+    rungs.append(top)
+    return tuple(rungs)
+
+
+def validate_ladder(rungs, top: int) -> tuple:
+    """The ladder invariant: strictly increasing positive rungs ending
+    at ``top`` (the engine's slot count). Shared by parse_decode_ladder
+    and the engine's constructor."""
+    rungs = tuple(rungs)
+    if (not rungs or list(rungs) != sorted(set(rungs)) or rungs[0] < 1
+            or rungs[-1] != top):
+        raise ValueError(
+            f"decode_ladder {list(rungs)} must be strictly increasing, "
+            f"positive, and end at max_batch_size ({top})")
+    return rungs
+
+
+def parse_decode_ladder(spec: str, top: int) -> tuple:
+    """The --decode-ladder grammar: 'auto' (doubling rungs up to
+    ``top``), 'off' (one rung at ``top``), or comma rungs like
+    '8,16,32' ending at ``top``. Raises ValueError."""
+    if spec == "auto":
+        return decode_ladder_rungs(top)
+    if spec == "off":
+        return (top,)
+    try:
+        rungs = tuple(int(r) for r in spec.split(","))
+    except ValueError:
+        raise ValueError(
+            f"--decode-ladder {spec!r}: expected 'auto', 'off', or "
+            "comma-separated rungs like '8,16,32'")
+    return validate_ladder(rungs, top)
+
+
+def int_or_auto(v: str):
+    """argparse type for --max-batch-size/--num-pages/--host-cache-pages:
+    an int or the literal 'auto'."""
+    import argparse
+
+    if v == "auto":
+        return v
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {v!r}")
+
+
+def resolve_sizing_args(args) -> tuple:
+    """Turn 'auto' in ``args.max_batch_size`` / ``args.num_pages`` into
+    card-derived values (no-op when both are ints). Reads model, quant,
+    kv_quant, page_size, max_pages_per_seq, device and the optional
+    tp/target_ctx/batch_cap attributes. Returns (max_batch_size,
+    num_pages)."""
+    mbs, pages = args.max_batch_size, args.num_pages
+    if "auto" not in (mbs, pages):
+        return mbs, pages
+    from tpu_inference_torch.config import PRESETS
+
+    mcfg = PRESETS[args.model]()
+    sz = auto_size(
+        mcfg, hbm_bytes=detect_hbm_bytes(getattr(args, "device", None)),
+        quant=args.quant, kv_quant=args.kv_quant,
+        tp=getattr(args, "tp", 1), page_size=args.page_size,
+        max_pages_per_seq=args.max_pages_per_seq,
+        target_ctx=getattr(args, "target_ctx", 0) or None,
+        batch_cap=getattr(args, "batch_cap", 32))
+    if mbs == "auto":
+        mbs = sz.max_batch_size
+    if pages == "auto":
+        pages = sz.num_pages
+    import sys
+
+    print(f"[autosize] {mcfg.name}: batch={mbs} num_pages={pages} "
+          f"(card {sz.hbm_bytes / 1e9:.0f} GB, weights "
+          f"{sz.weight_bytes_per_chip / 1e9:.2f} GB, kv pool "
+          f"{sz.kv_pool_bytes_per_chip / 1e9:.2f} GB, target ctx "
+          f"{sz.target_ctx})", file=sys.stderr)
+    return mbs, pages

@@ -1,7 +1,7 @@
 """The inference engine: bucketed prefill + K-step batched decode.
 
-Twin of ``tpu_inference/engine/engine.py`` cut to the default one-card
-path, in eager PyTorch:
+Twin of ``tpu_inference/engine/engine.py`` on one card, in eager
+PyTorch:
 
 - **Prefill** runs one [P, S_bucket] forward for up to
   ``max_prefill_batch`` same-bucket prompts (dummy lanes write only the
@@ -9,22 +9,43 @@ path, in eager PyTorch:
   (``prefill_begin``/``prefill_step``), each chunk attending to itself
   plus every cached token.
 - **Decode** runs K steps per call with the sampled tokens fed back on
-  the device and ONE host sync per call (the [K, B] token block); the
-  scheduler's latency mode runs the K=1 route.
+  the device; the scheduler's latency mode runs the K=1 route.
+- **Decode batch ladder** (``decode_ladder``): the slot array holds the
+  top rung's lanes; each call runs at the smallest rung covering the
+  occupied slots, and slots compact down when occupancy drops. The
+  kernels' per-lane arithmetic does not depend on the batch width
+  (kernels/paged_attention.py split_plan).
+- **Dispatch-ahead pipeline** (``decode_pipeline_depth`` > 1): up to
+  depth K-step calls stay queued on the stream, each staged from the
+  host state plus the predicted advance of the calls still in flight
+  and fed the newest in-flight call's last tokens on the device. Every
+  host array reaches the card through pinned memory and a non-blocking
+  copy, each call's tokens come back through a non-blocking copy and a
+  CUDA event, and the host waits on the oldest call's event only.
+- **Hybrid steps** (``hybrid_prefill``): one call runs a [1, S_bucket]
+  chunk of a long prompt through the prefill kernel, then the [B] K-step
+  decode through the decode kernel; the two touch disjoint pages, so the
+  result is the serial order's.
+- **Optimistic admission and preemption** (``admission="optimistic"``):
+  requests are charged their prompt plus a little headroom; under
+  pressure the newest lanes are preempted (pages published to the prefix
+  cache, slot freed) and later recompute-resume over prompt + generated
+  tokens.
+- **Host KV tier** (``host_cache_pages``): prefix-cache eviction demotes
+  pages to pinned host memory; lookups and the queue-wait prefetch
+  restore them into fresh device pages.
 - Attention goes through ``make_paged_attn``: K/V are written into the
   paged pool first, then the Hopper kernels (``"kernel"``; their plain
   versions for CPU tensors) or the dense gather path (``"dense"``) read
-  them back.
-- The pool is updated in place (engine/kv_cache.py write_kv), which is
+  them back. The pool is updated in place (kv_cache.write_kv), which is
   what the reference's buffer donation achieves under XLA.
 - ``EngineConfig.quant`` stores the matmul weights as int8 or int4 codes
   with scales (models/quant.py); ``kv_quant`` makes the pool int8 or
   packed int4 with per-(token, head) scales, which both kernels
   dequantize as they load each page. The reference's boot gate for int4
-  KV on a TPU (``int4_mosaic_validated``, which reads records of Mosaic
-  validation runs) has no counterpart: on the card, chip_smoke.py holds
-  the int4 variants of both kernels against their plain versions on
-  every run.
+  KV on a TPU (``int4_mosaic_validated``) has no counterpart: on the
+  card, chip_smoke.py holds the int4 variants of both kernels against
+  their plain versions on every run.
 
 Index ranges the reference gets for free from XLA's clamping gathers
 are kept in range explicitly: positions clamp at ``max_context - 1``
@@ -32,8 +53,8 @@ before they pick a block-table column, embedding ids clamp into the
 table (inactive lanes carry stale ids), and the kernels bounds-check
 page ids.
 
-Features outside this slice raise ``NotImplementedError`` naming their
-ROADMAP item (``_UNPORTED``).
+Features outside the port so far raise ``NotImplementedError`` naming
+their ROADMAP item (``_UNPORTED``).
 """
 
 from __future__ import annotations
@@ -48,6 +69,7 @@ import torch
 from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import EngineConfig, ModelConfig
 from tpu_inference_torch.engine import kv_cache as kvc
+from tpu_inference_torch.engine.autosize import validate_ladder
 from tpu_inference_torch.engine.kv_cache import PageAllocator
 from tpu_inference_torch.engine.prefix_cache import PrefixCache, _chain_hashes
 from tpu_inference_torch.engine.sampling import (
@@ -60,25 +82,15 @@ from tpu_inference_torch.models.common import dense_causal_attention
 from tpu_inference_torch.models.quant import QuantizedArray, quantize_params
 from tpu_inference_torch.models.registry import build_model, get_model_fns
 
-# EngineConfig fields this slice does not serve: a value other than the
+# EngineConfig fields the port does not serve: a value other than the
 # default raises NotImplementedError naming the ROADMAP item.
 _UNPORTED = {
-    "decode_ladder": "1.13 (engine breadth: decode batch ladder)",
-    "ladder_admit_headroom_pages": "1.13 (engine breadth: decode batch "
-                                   "ladder)",
-    "decode_pipeline_depth": "1.13 (engine breadth: dispatch-ahead "
-                             "pipeline)",
-    "hybrid_prefill": "1.13 (engine breadth: hybrid prefill-decode steps)",
-    "step_token_budget": "1.13 (engine breadth: hybrid prefill-decode "
-                         "steps)",
-    "num_speculative_tokens": "1.13 (engine breadth: speculative decoding)",
-    "spec_mode": "1.13 (engine breadth: speculative decoding)",
-    "host_cache_pages": "1.13 (engine breadth: host KV tier)",
-    "admission": "1.13 (engine breadth: preemption and optimistic "
-                 "admission)",
-    "chaos_page_pressure": "1.13 (engine breadth: fault injection)",
-    "chaos_step_failure_rate": "1.13 (engine breadth: fault injection)",
-    "chaos_step_wedge_s": "1.13 (engine breadth: fault injection)",
+    "num_speculative_tokens": "1.13b (engine breadth: speculative "
+                              "decoding)",
+    "spec_mode": "1.13b (engine breadth: speculative decoding)",
+    "chaos_page_pressure": "1.13b (engine breadth: fault injection)",
+    "chaos_step_failure_rate": "1.13b (engine breadth: fault injection)",
+    "chaos_step_wedge_s": "1.13b (engine breadth: fault injection)",
     "slo_ttft_ms": "1.18 (observability: SLO gauges)",
     "slo_tpot_ms": "1.18 (observability: SLO gauges)",
     "role": "1.15 (process fleet: P/D worker roles)",
@@ -86,7 +98,7 @@ _UNPORTED = {
 
 
 def check_engine_config(engine_cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for any knob this slice does not serve."""
+    """Raise NotImplementedError for any knob the port does not serve."""
     default = EngineConfig()
     for name, item in _UNPORTED.items():
         value = getattr(engine_cfg, name)
@@ -165,12 +177,31 @@ class Sequence:
     # Filled by the engine:
     slot: int = -1
     pages: List[int] = dataclasses.field(default_factory=list)
+    # Bumped whenever ``pages`` is replaced wholesale (each prefill
+    # setup): part of the staging buffers' block-table key, so a resumed
+    # sequence in the same slot never reuses a stale row.
+    pages_version: int = 0
     ctx_len: int = 0                       # tokens currently in KV
     # SWA eviction cursor: pages[:evicted_pages] are behind the window,
     # freed, and replaced by the trash page in the block table.
     evicted_pages: int = 0
     cached_tokens: int = 0                 # prefix-cache hit length
+    # Host KV tier: pages this request's prefills restored from host
+    # memory, and whether the queue-wait prefetch already ran for it.
+    host_restored_pages: int = 0
+    host_prefetched: bool = False
     prefix_digests: Optional[List[bytes]] = None
+    # Digests of the resume stream (prompt + tokens generated before a
+    # preemption), kept apart from prefix_digests; cleared at each
+    # preemption.
+    resume_digests: Optional[List[bytes]] = None
+    # Preemption / recompute-resume: preemptions so far (the starvation
+    # guard compares it with preempt_max_per_request); resume_base =
+    # generated tokens present at the last (re)prefill; admit_idx =
+    # admission order (the newest is preempted first).
+    preemptions: int = 0
+    resume_base: int = 0
+    admit_idx: int = -1
     # Incremental multi-chunk prefill state (prefill_begin/prefill_step).
     prefill_prompt: Optional[List[int]] = None
     prefill_offset: int = 0
@@ -201,6 +232,12 @@ class InferenceEngine:
         self.device = resolve_device(device)
         model_cfg.validate()
         check_engine_config(engine_cfg)
+        if engine_cfg.admission not in ("reserve", "optimistic"):
+            raise ValueError(f"unknown admission mode "
+                             f"{engine_cfg.admission!r}; "
+                             "one of ('reserve', 'optimistic')")
+        self.ladder = validate_ladder(engine_cfg.ladder_rungs,
+                                      engine_cfg.max_batch_size)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.mod = get_model_fns(model_cfg)
@@ -226,20 +263,40 @@ class InferenceEngine:
         self.kv = kvc.alloc_kv_pages(model_cfg, engine_cfg,
                                      device=self.device)
         self.allocator = PageAllocator(engine_cfg.num_pages)
+        # Batch ladder state: the rung of the latest decode call, the
+        # highest reached, and calls that changed rung.
+        self.decode_rung = self.ladder[0]
+        self.rung_peak = self.ladder[0]
+        self.rung_switches_total = 0
+        self.rung_calls: Dict[int, int] = {}   # decode calls per rung
+        self.admission = engine_cfg.admission
+        self.preemptions_total = 0        # sequences evicted for pressure
+        self.resumes_total = 0            # recompute-resume prefills
+        self.swap_in_resumes = 0          # resumes that restored KV pages
+        self.hybrid_steps_total = 0       # fused prefill+decode calls
+        self._admit_counter = 0
+        # Sequences preempted since the caller last collected them.
+        self._preempted_out: List[Sequence] = []
         self.telemetry = telemetry.EngineTelemetry(self)
         # perf_counter at the end of the last decode call; None when the
         # decode streak broke (idle or an interleaved prefill).
         self._last_decode_end: Optional[float] = None
-        self.admission = engine_cfg.admission
         # The window only binds when the serving context can exceed it.
         swa_binds = bool(model_cfg.sliding_window) and (
             engine_cfg.max_context > model_cfg.sliding_window)
         self.prefix_cache: Optional[PrefixCache] = None
+        self.host_pool: Optional[kvc.HostPagePool] = None
         if engine_cfg.enable_prefix_cache and not swa_binds:
             # SWA models run without the prefix cache (as the reference):
             # behind-window pages are evicted while a sequence runs.
+            if engine_cfg.host_cache_pages > 0:
+                self.host_pool = kvc.HostPagePool(
+                    engine_cfg.host_cache_pages)
+                self.telemetry.bind_host_pool(self.host_pool)
             self.prefix_cache = PrefixCache(self.allocator,
-                                            engine_cfg.page_size)
+                                            engine_cfg.page_size,
+                                            host_pool=self.host_pool,
+                                            offload_fn=self._offload_pages)
             self.prefix_cache.bind_telemetry(self.telemetry)
         self.swa_evict = swa_binds and self.prefix_cache is None
         self.max_pages = engine_cfg.max_pages_per_seq
@@ -248,34 +305,71 @@ class InferenceEngine:
         self.slots: List[Optional[Sequence]] = [None] * engine_cfg.max_batch_size
         self._prefill_batch_sizes = sorted(
             {1, max(1, engine_cfg.max_prefill_batch)})
+        # Host staging reuse: per-rung persistent arrays refreshed row by
+        # row; every call hands the card its own copy.
+        self._stage_reuse = engine_cfg.stage_host_reuse
+        self._stage_bufs: Dict[int, dict] = {}
+        # Dispatch-ahead decode pipeline: calls queued on the stream,
+        # oldest first (decode_steps_pipelined).
+        self._inflight: List[dict] = []
+
+    # ------------------------------------------------------------------
+    # Host <-> device transfers
+    # ------------------------------------------------------------------
+
+    def _to_device(self, arr) -> torch.Tensor:
+        """A device copy of a host array (a device tensor passes as is).
+        On the card the copy goes through pinned memory without blocking:
+        the host never waits for the calls already queued, and the
+        snapshot it copies from is its own, so the staging arrays may
+        change at once."""
+        if isinstance(arr, torch.Tensor):
+            return arr
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host_async(self, *tensors):
+        """Host copies of device tensors (None passes) and the event the
+        host waits on before reading them: pinned memory and
+        non-blocking copies on the card, plain copies on the CPU."""
+        if self.device.type != "cuda":
+            return [None if t is None else t.clone() for t in tensors], None
+        out = []
+        for t in tensors:
+            if t is None:
+                out.append(None)
+                continue
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out.append(h)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return out, event
 
     # ------------------------------------------------------------------
     # Device steps
     # ------------------------------------------------------------------
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-
-    def _sampling(self, temps, top_ps, top_ks, seeds) -> SamplingParams:
-        return SamplingParams(temperature=self._to_device(temps),
-                              top_p=self._to_device(top_ps),
-                              top_k=self._to_device(top_ks),
-                              seed=np.asarray(seeds))
+    def _sampling(self, st: dict) -> SamplingParams:
+        return SamplingParams(temperature=self._to_device(st["temps"]),
+                              top_p=self._to_device(st["top_ps"]),
+                              top_k=self._to_device(st["top_ks"]),
+                              seed=np.asarray(st["seeds"]))
 
     @torch.no_grad()
-    def _prefill_fn(self, tokens: np.ndarray, prompt_len: np.ndarray,
-                    prefix_len: np.ndarray, block_table: np.ndarray,
-                    temps, top_ps, top_ks, seeds, rpens, rlasts,
-                    window: np.ndarray) -> torch.Tensor:
-        """Lanes [P, S_bucket] right-padded; lane i's new tokens occupy
-        positions [prefix_len[i], prefix_len[i] + prompt_len[i]). Returns
-        the sampled first tokens [P] int32 on the device."""
+    def _prefill_fn(self, st: dict) -> torch.Tensor:
+        """Lanes ``st["tokens"]`` [P, S_bucket] right-padded; lane i's new
+        tokens occupy positions [prefix_len[i], prefix_len[i] +
+        prompt_len[i]). Returns the sampled first tokens [P] int32 on
+        the device."""
         cfg, ecfg, dev = self.model_cfg, self.engine_cfg, self.device
-        toks = self._to_device(tokens)
-        plen = self._to_device(prompt_len)
-        pref = self._to_device(prefix_len)
-        bts = self._to_device(block_table)
-        s = tokens.shape[1]
+        toks = self._to_device(st["tokens"])
+        plen = self._to_device(st["prompt_len"])
+        pref = self._to_device(st["prefix_len"])
+        bts = self._to_device(st["bts"])
+        s = st["tokens"].shape[1]
         ar = torch.arange(s, device=dev, dtype=torch.int32)[None, :]
         positions = (pref[:, None] + ar).clamp(max=ecfg.max_context - 1)
         valid = ar < plen[:, None]
@@ -288,37 +382,40 @@ class InferenceEngine:
         lanes = torch.arange(hidden.shape[0], device=dev)
         last = hidden[lanes, (plen - 1).long()]                 # [P, D]
         logits = self.mod.unembed(self.params, cfg, last)       # [P, V]
-        use_pen = bool(np.any(np.asarray(rpens) != 1.0))
-        return sample(logits, self._sampling(temps, top_ps, top_ks, seeds),
-                      self._generator, ctx=(prefix_len + prompt_len),
-                      all_greedy=bool(np.all(np.asarray(temps) <= 0.0)),
-                      penalty_window=self._to_device(window) if use_pen
-                      else None,
-                      repeat_penalty=self._to_device(rpens),
-                      repeat_last_n=self._to_device(rlasts))
+        use_pen = bool(np.any(np.asarray(st["rpens"]) != 1.0))
+        return sample(logits, self._sampling(st), self._generator,
+                      ctx=st["prefix_len"] + st["prompt_len"],
+                      all_greedy=bool(np.all(np.asarray(st["temps"]) <= 0.0)),
+                      penalty_window=self._to_device(st["windows"])
+                      if use_pen else None,
+                      repeat_penalty=self._to_device(st["rpens"]),
+                      repeat_last_n=self._to_device(st["rlasts"]))
 
     @torch.no_grad()
-    def _decode_multi_fn(self, tokens, ctx_lens, block_tables, allowed,
-                         eos_ids, temps, top_ps, top_ks, seeds, rpens,
-                         rlasts, window, k_steps: int) -> torch.Tensor:
+    def _decode_multi_fn(self, st: dict, k_steps: int):
         """K decode steps under one call, tokens fed back on the device.
 
-        Host arrays in, [B] each (window [B, W]); ``allowed`` is the steps
-        each slot may advance (budget, context cap and page headroom
-        folded in). Returns [K, B] int32 on the device, -1 where a slot
-        produced nothing; the caller syncs once for the whole block.
-        """
+        ``st``: [B] arrays ``tokens, ctx, bts ([B, MP]), allowed, eos,
+        temps, top_ps, top_ks, seeds, rpens, rlasts, windows ([B, W])``;
+        ``tokens`` and ``windows`` may be device tensors (an in-flight
+        call's carry). ``allowed`` is the steps each slot may advance
+        (budget, context cap and page headroom folded in). Returns
+        (outs [K, B] int32 with -1 where a slot produced nothing, final
+        carry tokens [B], final penalty window [B, W] or None when no
+        lane has a penalty), all on the device."""
         cfg, ecfg = self.model_cfg, self.engine_cfg
-        tok = self._to_device(tokens)
-        ctx = self._to_device(ctx_lens)
-        bts = self._to_device(block_tables)
-        allow = self._to_device(allowed)
-        eos = self._to_device(eos_ids)
-        sp = self._sampling(temps, top_ps, top_ks, seeds)
-        all_greedy = bool(np.all(np.asarray(temps) <= 0.0))
-        use_pen = bool(np.any(np.asarray(rpens) != 1.0))
-        win = self._to_device(window) if use_pen else None
-        rpen, rlast = self._to_device(rpens), self._to_device(rlasts)
+        tok = self._to_device(st["tokens"])
+        ctx = self._to_device(st["ctx"])
+        bts = self._to_device(st["bts"])
+        allow = self._to_device(st["allowed"])
+        eos = self._to_device(st["eos"])
+        sp = self._sampling(st)
+        all_greedy = bool(np.all(np.asarray(st["temps"]) <= 0.0))
+        use_pen = bool(np.any(np.asarray(st["rpens"]) != 1.0))
+        win = self._to_device(st["windows"]) if use_pen else None
+        rpen, rlast = self._to_device(st["rpens"]), self._to_device(
+            st["rlasts"])
+        ctx_host = np.asarray(st["ctx"])
         alive = torch.ones(tok.shape, dtype=torch.bool, device=self.device)
         outs = []
         for s in range(k_steps):
@@ -334,7 +431,7 @@ class InferenceEngine:
             # The sampled token sits at absolute index ctx + 1: for an
             # active lane that is ctx_lens + s + 1, known on the host.
             new = sample(logits, sp, self._generator,
-                         ctx=np.asarray(ctx_lens) + s + 1,
+                         ctx=ctx_host + s + 1,
                          all_greedy=all_greedy, penalty_window=win,
                          repeat_penalty=rpen, repeat_last_n=rlast)
             new = torch.where(act, new, tok)
@@ -344,33 +441,62 @@ class InferenceEngine:
             alive = alive & ((new != eos) | ~act)
             ctx = ctx + act.int()
             tok = new
-        return torch.stack(outs)
+        return torch.stack(outs), tok, win
+
+    def _hybrid_step_fn(self, chunk: dict, st: dict, k_steps: int):
+        """One hybrid step: a [1, S_bucket] prefill chunk (the prefill
+        kernel) AND the [B] K-step decode (the decode kernel) in one
+        call. The halves touch disjoint pages (the chunk writes and reads
+        its own sequence's pages, each lane its own), so this computes
+        what the two serial calls compute. Returns (chunk's sampled
+        token [1], then _decode_multi_fn's outputs)."""
+        p_tok = self._prefill_fn(chunk)
+        return (p_tok,) + self._decode_multi_fn(st, k_steps)
+
+    def _decode_warm_arrays(self, b: int) -> dict:
+        """Decode operands at rung ``b`` whose lanes all sit still
+        (allowed 0: every write lands on the trash page)."""
+        zb = np.zeros((b,), np.int32)
+        return {"tokens": zb, "ctx": zb,
+                "bts": np.zeros((b, self.max_pages), np.int32),
+                "allowed": zb, "eos": np.full((b,), -1, np.int32),
+                **self._lane_arrays([], b)}
 
     def warmup(self) -> float:
-        """Build and load the kernels (CUDA, kernel backend), then run one
-        prefill and one decode step whose writes land on the trash page.
+        """Build and load the kernels (CUDA, kernel backend), then run
+        every shape serving meets: the prefill at every bucket and lane
+        count, the decode call (K steps and the one-step route) at every
+        ladder rung, and with hybrid steps the hybrid call at every
+        reachable bucket and rung. All writes land on the trash page.
         Returns seconds spent."""
         t0 = time.perf_counter()
         if self.device.type == "cuda" and self.attn_backend == "kernel":
             from tpu_inference_torch.kernels import build_kernels
             build_kernels()
         ecfg = self.engine_cfg
-        one = np.ones((1,), np.int32)
-        zero = np.zeros((1,), np.int32)
-        self._prefill_fn(
-            np.zeros((1, ecfg.prefill_buckets[0]), np.int32), one, zero,
-            np.zeros((1, self.max_pages), np.int32),
-            np.zeros((1,), np.float32), np.ones((1,), np.float32), zero,
-            np.full((1,), -1, np.int64), np.ones((1,), np.float32), zero,
-            np.full((1, PENALTY_WINDOW), -1, np.int32))
-        b = ecfg.max_batch_size
-        zb = np.zeros((b,), np.int32)
-        self._decode_multi_fn(
-            zb, zb, np.zeros((b, self.max_pages), np.int32), zb,
-            np.full((b,), -1, np.int32), np.zeros((b,), np.float32),
-            np.ones((b,), np.float32), zb, np.full((b,), -1, np.int64),
-            np.ones((b,), np.float32), zb,
-            np.full((b, PENALTY_WINDOW), -1, np.int32), k_steps=1)
+
+        def chunk_arrays(p: int, bucket: int) -> dict:
+            return {"tokens": np.zeros((p, bucket), np.int32),
+                    "prompt_len": np.ones((p,), np.int32),
+                    "prefix_len": np.zeros((p,), np.int32),
+                    "bts": np.zeros((p, self.max_pages), np.int32),
+                    **self._lane_arrays([], p)}
+
+        buckets = [b for b in ecfg.prefill_buckets if b <= ecfg.max_context]
+        for p in self._prefill_batch_sizes:
+            for bucket in buckets:
+                self._prefill_fn(chunk_arrays(p, bucket))
+        k = max(1, ecfg.decode_steps_per_call)
+        for b in self.ladder:
+            for steps in sorted({1, k}):
+                self._decode_multi_fn(self._decode_warm_arrays(b), steps)
+        if ecfg.hybrid_prefill:
+            cap = ecfg.bucket_for(min(ecfg.chunk_tokens_cap,
+                                      ecfg.max_context))
+            for bucket in (b for b in buckets if b <= cap):
+                for b in self.ladder:
+                    self._hybrid_step_fn(chunk_arrays(1, bucket),
+                                         self._decode_warm_arrays(b), k)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -382,22 +508,47 @@ class InferenceEngine:
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
+    def _prefill_tokens(self, seq: Sequence) -> List[int]:
+        """Token stream the next (re)prefill puts into KV: the prompt,
+        plus on a recompute-resume every token generated before the
+        preemption."""
+        if seq.resume_base:
+            return seq.prompt_tokens + seq.generated[:seq.resume_base]
+        return seq.prompt_tokens
+
     def _pages_reserved(self, seq: Sequence) -> int:
-        """Worst-case page need for admission control (capped at the
-        per-sequence maximum). With behind-window eviction, live pages
-        peak at the prompt during prefill, then hold the window's span."""
+        """Worst-case page need (capped at the per-sequence maximum).
+        With behind-window eviction, live pages peak at the prompt plus
+        the dispatch-ahead burst, then hold the window's span."""
         ecfg = self.engine_cfg
-        total = len(seq.prompt_tokens) + seq.max_new_tokens
+        base = self._prefill_tokens(seq)
+        total = len(base) + seq.max_new_tokens - seq.resume_base
         need = kvc.pages_needed(total, ecfg.page_size)
         if self.swa_evict:
-            ahead = ecfg.decode_steps_per_call
+            ahead = (ecfg.decode_steps_per_call
+                     * max(1, ecfg.decode_pipeline_depth))
             window_span = -(-(self.model_cfg.sliding_window + ahead)
                             // ecfg.page_size) + 2
-            peak = min(len(seq.prompt_tokens), ecfg.max_context)
+            peak = min(len(base), ecfg.max_context)
             transient = kvc.pages_needed(
                 min(peak + ahead, ecfg.max_context), ecfg.page_size)
             need = min(need, max(window_span, transient))
         return min(need, self.max_pages)
+
+    def _pages_for_admission(self, seq: Sequence) -> int:
+        """Pages a request is charged at admission: the worst case under
+        "reserve" (and once past the starvation guard), the prompt plus
+        ``optimistic_headroom_pages`` under "optimistic"."""
+        full = self._pages_reserved(seq)
+        if (self.admission != "optimistic"
+                or seq.preemptions >= self.engine_cfg.preempt_max_per_request):
+            return full
+        ecfg = self.engine_cfg
+        prompt_pages = kvc.pages_needed(
+            min(len(self._prefill_tokens(seq)), ecfg.max_context),
+            ecfg.page_size)
+        need = max(1, prompt_pages + ecfg.optimistic_headroom_pages)
+        return min(full, need, self.max_pages)
 
     def _free_plus_evictable(self) -> int:
         n = self.allocator.num_free
@@ -405,25 +556,160 @@ class InferenceEngine:
             n += self.prefix_cache.evictable
         return n
 
+    def peek_prefix_pages(self, tokens: Sequence[int]) -> Tuple[int, int]:
+        """(hit_pages, prompt_pages): full pages of ``tokens`` the prefix
+        cache holds (either tier) and pages the prompt needs, under the
+        prefill's truncation and final-token recompute. No side
+        effects."""
+        ecfg = self.engine_cfg
+        prompt_len = min(len(tokens), ecfg.max_context - 1)
+        prompt_pages = kvc.pages_needed(prompt_len, ecfg.page_size)
+        if self.prefix_cache is None or prompt_len <= 1:
+            return 0, prompt_pages
+        prompt = (tokens[-prompt_len:] if len(tokens) > prompt_len
+                  else tokens)
+        return (self.prefix_cache.peek(prompt, max_tokens=prompt_len - 1),
+                prompt_pages)
+
     @property
     def pool_pressure(self) -> float:
         """1 - (free+evictable)/total: 0 = fully reclaimable."""
         total = self.engine_cfg.num_pages - 1
         return 1.0 - self._free_plus_evictable() / max(total, 1)
 
+    @property
+    def under_pressure(self) -> bool:
+        """Below the preemption low watermark."""
+        return (self._free_plus_evictable()
+                < self.engine_cfg.preempt_watermark_pages)
+
     def _allocate_reclaiming(self, n: int) -> List[int]:
-        """Allocate n pages, evicting LRU prefix-cache pages on pressure."""
+        """Allocate n pages, evicting LRU prefix-cache pages on pressure
+        (demoting them to the host tier when there is one, at least a
+        swap batch at a time, at most the tier's capacity)."""
         short = n - self.allocator.num_free
         if short > 0 and self.prefix_cache is not None:
+            if self.host_pool is not None:
+                short = max(short, min(kvc.SWAP_CHUNK,
+                                       self.host_pool.capacity))
             self.prefix_cache.evict(short)
         return self.allocator.allocate(n)
 
-    def _grant_decode_steps(self, seq: Sequence, k_steps: int) -> int:
-        """Steps this lane may advance in one call (generation budget,
-        context cap, KV-page headroom); allocates the pages it needs."""
+    # ------------------------------------------------------------------
+    # Host KV tier: device <-> host page swaps
+    # ------------------------------------------------------------------
+
+    def _offload_pages(self, pages: List[int]) -> List[kvc.HostKVPage]:
+        """The prefix cache's demote copy, with swap telemetry."""
+        t0 = time.perf_counter()
+        out = kvc.offload_pages(self.kv, pages)
+        dt = time.perf_counter() - t0
+        if out:
+            self.host_pool.note_swap_wall("out", dt)
+            tel = self.telemetry
+            tel.kv_swap_s.observe(dt)
+            tel.kv_offload_pages.inc(len(out))
+            tel.kv_offload_bytes.inc(sum(hp.nbytes for hp in out))
+        return out
+
+    def _restore_batch(self, fresh: List[int],
+                       entries: List[kvc.HostKVPage]) -> None:
+        """Scatter host copies into freshly allocated pages (queued on
+        the stream, the following prefill runs behind it)."""
+        t0 = time.perf_counter()
+        self.kv = kvc.restore_pages(self.kv, fresh, entries)
+        dt = time.perf_counter() - t0
+        if self.host_pool is not None:
+            self.host_pool.note_swap_wall("in", dt)
+        tel = self.telemetry
+        tel.kv_swap_s.observe(dt)
+        tel.kv_restore_pages.inc(len(fresh))
+        tel.kv_restore_bytes.inc(sum(e.nbytes for e in entries))
+
+    def _restore_host_entries(self, pages: List[Optional[int]],
+                              host_entries) -> List[int]:
+        """Fill the host-tier slots of a tiered lookup: allocate fresh
+        pages, swap the copies in, publish them back in the device tier.
+        On allocation failure every reference the lookup took is undone
+        and the MemoryError propagates."""
+        if not host_entries:
+            return list(pages)
+        try:
+            fresh = self._allocate_reclaiming(len(host_entries))
+        except MemoryError:
+            self.allocator.free([p for p in pages if p is not None])
+            self.prefix_cache.readmit_host(
+                [(d, e) for _, d, e in host_entries])
+            raise
+        self._restore_batch(fresh, [e for _, _, e in host_entries])
+        out = list(pages)
+        for (i, digest, _), page in zip(host_entries, fresh):
+            out[i] = page
+            self.prefix_cache.promote(digest, page)
+        return out
+
+    def _seq_digests(self, seq: Sequence, prompt: List[int]) -> List[bytes]:
+        """Chain digests of the prefill stream ``prompt``, computed once
+        per request (resume streams hash into their own slot, valid until
+        the next preemption)."""
+        if seq.resume_base:
+            if seq.resume_digests is None:
+                seq.resume_digests = _chain_hashes(
+                    prompt, self.engine_cfg.page_size)
+            return seq.resume_digests
+        if seq.prefix_digests is None:
+            seq.prefix_digests = _chain_hashes(prompt,
+                                               self.engine_cfg.page_size)
+        return seq.prefix_digests
+
+    def prefetch_host_hits(self, seq: Sequence) -> int:
+        """Queue-wait swap-in: restore a WAITING request's host-tier pages
+        into cache-owned device pages, so its admission sees device hits.
+        Uses only free pages (never evicts), keeps the front of the run
+        when the free list is short (the request stays eligible for
+        another pass). Returns pages promoted."""
+        if (self.prefix_cache is None or self.host_pool is None
+                or seq.host_prefetched or seq.done):
+            return 0
+        free = self.allocator.num_free
+        if free <= 0:
+            return 0
         ecfg = self.engine_cfg
-        ctx = seq.ctx_len
-        budget = seq.max_new_tokens - len(seq.generated)
+        prompt = self._prefill_tokens(seq)[-(ecfg.max_context - 1):]
+        if len(prompt) <= 1:
+            seq.host_prefetched = True
+            return 0
+        digests = self._seq_digests(seq, prompt)
+        limit = (len(prompt) - 1) // ecfg.page_size
+        taken = self.prefix_cache.take_host_matches(digests, limit)
+        if not taken:
+            seq.host_prefetched = True
+            return 0
+        complete = len(taken) <= free
+        if not complete:
+            self.prefix_cache.readmit_host(taken[free:])
+            taken = taken[:free]
+        fresh = self.allocator.allocate(len(taken))
+        self._restore_batch(fresh, [e for _, e in taken])
+        for (digest, _), page in zip(taken, fresh):
+            self.prefix_cache.adopt(digest, page)
+        if complete:
+            seq.host_prefetched = True
+        return len(taken)
+
+    # ------------------------------------------------------------------
+
+    def _grant_decode_steps(self, seq: Sequence, k_steps: int,
+                            pred_ctx: Optional[int] = None,
+                            pred_done: Optional[int] = None) -> int:
+        """Steps this lane may advance in one call (generation budget,
+        context cap, KV-page headroom); allocates the pages it needs.
+        ``pred_*`` stand for ctx/generated while dispatch-ahead calls are
+        in flight."""
+        ecfg = self.engine_cfg
+        ctx = seq.ctx_len if pred_ctx is None else pred_ctx
+        done = len(seq.generated) if pred_done is None else pred_done
+        budget = seq.max_new_tokens - done
         room = ecfg.max_context - 1 - ctx
         steps = max(0, min(k_steps, budget, room))
         if steps > 0:
@@ -454,7 +740,7 @@ class InferenceEngine:
 
     def can_admit(self, seq: Sequence) -> bool:
         return bool(self.free_slots()) and (
-            self._free_plus_evictable() >= self._pages_reserved(seq))
+            self._free_plus_evictable() >= self._pages_for_admission(seq))
 
     def can_ever_admit(self, seq: Sequence) -> bool:
         """False if the request exceeds the pool even when fully idle."""
@@ -465,32 +751,38 @@ class InferenceEngine:
         bt[:len(pages)] = pages
         return bt
 
-    def _seq_digests(self, seq: Sequence, prompt: List[int]) -> List[bytes]:
-        if seq.prefix_digests is None:
-            seq.prefix_digests = _chain_hashes(prompt,
-                                               self.engine_cfg.page_size)
-        return seq.prefix_digests
-
     def _prefill_setup(self, seq: Sequence, slot: int) -> List[int]:
-        """Allocate pages (with prefix-cache reuse), bind the slot, and
-        return the (possibly truncated) prompt to prefill."""
+        """Allocate pages (reusing prefix-cache hits from either tier),
+        bind the slot, and return the (possibly truncated) prompt to
+        prefill; on a resume the prompt is prompt + generated."""
         ecfg = self.engine_cfg
         # Keep the most recent tokens of over-long prompts (room for at
         # least one generated token).
-        prompt = seq.prompt_tokens[-(ecfg.max_context - 1):]
+        prompt = self._prefill_tokens(seq)[-(ecfg.max_context - 1):]
+        seq.admit_idx = self._admit_counter
+        self._admit_counter += 1
+        if seq.resume_base:
+            self.resumes_total += 1
         shared: List[int] = []
+        n_restored = 0
         if self.prefix_cache is not None:
             # Always recompute the final prompt token: its logits seed
             # the first sampled token.
-            shared, seq.cached_tokens = self.prefix_cache.lookup(
+            pages, host_entries, seq.cached_tokens = self.prefix_cache.lookup(
                 prompt, max_tokens=len(prompt) - 1,
                 digests=self._seq_digests(seq, prompt))
+            shared = self._restore_host_entries(pages, host_entries)
+            n_restored = len(host_entries)
         n_new = kvc.pages_needed(len(prompt), ecfg.page_size) - len(shared)
         try:
             seq.pages = shared + self._allocate_reclaiming(n_new)
         except MemoryError:
             self.allocator.free(shared)
             raise
+        seq.pages_version += 1
+        seq.host_restored_pages += n_restored
+        if seq.resume_base and seq.cached_tokens:
+            self.swap_in_resumes += 1
         seq.slot = slot
         seq.prefill_start = time.perf_counter()
         return prompt
@@ -500,6 +792,7 @@ class InferenceEngine:
         seq.ctx_len = len(prompt)
         seq.generated.append(first)
         if seq.first_token_time == 0.0:
+            # A resume keeps the original first-token time.
             seq.first_token_time = time.perf_counter()
         self.slots[seq.slot] = seq
         self._maybe_finish(seq, first)
@@ -524,7 +817,7 @@ class InferenceEngine:
     @staticmethod
     def _penalty_window_row(seq: Sequence) -> np.ndarray:
         """Last W known tokens, newest at the high end, -1 padded."""
-        row = np.full((PENALTY_WINDOW,), -1, np.int32)
+        row = np.full((PENALTY_WINDOW,), -1, np.int64)
         hist = (seq.prompt_tokens + seq.generated)[-PENALTY_WINDOW:]
         if hist:
             row[-len(hist):] = hist
@@ -540,47 +833,51 @@ class InferenceEngine:
              "seeds": np.full((n,), -1, np.int64),
              "rpens": np.ones((n,), np.float32),
              "rlasts": np.zeros((n,), np.int64),
-             "window": np.full((n, PENALTY_WINDOW), -1, np.int64)}
+             "windows": np.full((n, PENALTY_WINDOW), -1, np.int64)}
         for i, seq in lanes:
             a["temps"][i] = seq.temperature
             a["top_ps"][i] = seq.top_p
             a["top_ks"][i], a["seeds"][i] = self._sampling_arrays(seq)
             a["rpens"][i], a["rlasts"][i] = self._penalty_arrays(seq)
             if a["rpens"][i] != 1.0:
-                a["window"][i] = self._penalty_window_row(seq)
+                a["windows"][i] = self._penalty_window_row(seq)
         return a
 
-    def _run_prefill(self, seqs: List[Sequence], tokens: np.ndarray,
-                     prompt_len: np.ndarray, prefix_len: np.ndarray,
-                     bts: np.ndarray) -> np.ndarray:
-        """One prefill dispatch with telemetry; returns the sampled tokens
-        [P] on the host."""
-        a = self._lane_arrays(list(enumerate(seqs)), tokens.shape[0])
+    def _run_prefill(self, seqs: List[Sequence], st: dict) -> np.ndarray:
+        """One prefill call with telemetry; returns the sampled tokens
+        [P] on the host (this call syncs)."""
         t0 = time.perf_counter()
         self._last_decode_end = None     # prefill breaks the decode streak
-        tok = self._prefill_fn(tokens, prompt_len, prefix_len, bts,
-                               a["temps"], a["top_ps"], a["top_ks"],
-                               a["seeds"], a["rpens"], a["rlasts"],
-                               a["window"])
-        out = tok.cpu().numpy()
-        dt = time.perf_counter() - t0
-        self.telemetry.prefill_dispatch_s.observe(dt)
+        out = self._prefill_fn(st).cpu().numpy()
+        self.telemetry.prefill_dispatch_s.observe(time.perf_counter() - t0)
         self.telemetry.prefill_dispatches.inc()
         return out
+
+    def _stage_chunk_arrays(self, seq: Sequence, prompt: List[int],
+                            offset: int, chunk_cap: int) -> dict:
+        """Host arrays of one prefill chunk at ``offset``: the one staging
+        point of the serial chunk and the hybrid chunk, so the two modes
+        cannot drift apart. Only the final chunk's sampled token is kept,
+        so its penalty window is the prompt tail."""
+        chunk = prompt[offset:offset + chunk_cap]
+        bucket = self.engine_cfg.bucket_for(len(chunk))
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :len(chunk)] = chunk
+        return {"seq": seq, "prompt": prompt, "chunk_tokens": len(chunk),
+                "bucket": bucket, "tokens": toks,
+                "prompt_len": np.asarray([len(chunk)], np.int32),
+                "prefix_len": np.asarray([offset], np.int32),
+                "bts": self._block_table_array(seq.pages)[None],
+                **self._lane_arrays([(0, seq)], 1)}
 
     def _prefill_one_chunk(self, seq: Sequence, prompt: List[int],
                            offset: int) -> Tuple[int, int]:
         """Run one prefill chunk at ``offset``; returns (next_offset,
         sampled token)."""
-        ecfg = self.engine_cfg
-        chunk = prompt[offset:offset + ecfg.chunk_tokens_cap]
-        toks = np.zeros((1, ecfg.bucket_for(len(chunk))), np.int32)
-        toks[0, :len(chunk)] = chunk
-        out = self._run_prefill(
-            [seq], toks, np.asarray([len(chunk)], np.int32),
-            np.asarray([offset], np.int32),
-            self._block_table_array(seq.pages)[None])
-        return offset + len(chunk), int(out[0])
+        st = self._stage_chunk_arrays(seq, prompt, offset,
+                                      self.engine_cfg.chunk_tokens_cap)
+        out = self._run_prefill([seq], st)
+        return offset + st["chunk_tokens"], int(out[0])
 
     def _prefill_chunked(self, seq: Sequence, prompt: List[int]) -> None:
         """Serial one-lane prefill, chunked past the largest bucket; only
@@ -591,9 +888,10 @@ class InferenceEngine:
         self._prefill_finish(seq, prompt, tok)
 
     def prefill_begin(self, seq: Sequence, slot: Optional[int] = None) -> int:
-        """Set up an incremental prefill; drive it with prefill_step().
-        The slot binds here, so admission between chunks cannot hand it
-        out twice; active_sequences() skips mid-prefill slots."""
+        """Set up an incremental prefill; drive it with prefill_step()
+        (or hybrid_step_pipelined). The slot binds here, so admission
+        between chunks cannot hand it out twice; active_sequences()
+        skips mid-prefill slots."""
         if slot is None:
             slot = self.free_slots()[0]
         seq.prefill_prompt = self._prefill_setup(seq, slot)
@@ -625,28 +923,30 @@ class InferenceEngine:
 
     def _prefill_run_batched(self, group: List[Tuple[Sequence, List[int]]],
                              bucket: int) -> None:
-        """One multi-lane prefill dispatch: P sequences, same bucket. Lanes
+        """One multi-lane prefill call: P sequences, same bucket. Lanes
         pad to a batch size of the set; dummy lanes carry prompt_len=1
         and an all-zero block table, so their one write lands on the
         trash page and their token is discarded."""
         p = next(s for s in self._prefill_batch_sizes if s >= len(group))
-        toks = np.zeros((p, bucket), np.int32)
-        plen = np.ones((p,), np.int32)
-        pref = np.zeros((p,), np.int32)
-        bts = np.zeros((p, self.max_pages), np.int32)
+        st = {"tokens": np.zeros((p, bucket), np.int32),
+              "prompt_len": np.ones((p,), np.int32),
+              "prefix_len": np.zeros((p,), np.int32),
+              "bts": np.zeros((p, self.max_pages), np.int32),
+              **self._lane_arrays([(i, s) for i, (s, _) in enumerate(group)],
+                                  p)}
         for i, (seq, prompt) in enumerate(group):
             chunk = prompt[seq.cached_tokens:]
-            toks[i, :len(chunk)] = chunk
-            plen[i] = len(chunk)
-            pref[i] = seq.cached_tokens
-            bts[i] = self._block_table_array(seq.pages)
-        out = self._run_prefill([s for s, _ in group], toks, plen, pref, bts)
+            st["tokens"][i, :len(chunk)] = chunk
+            st["prompt_len"][i] = len(chunk)
+            st["prefix_len"][i] = seq.cached_tokens
+            st["bts"][i] = self._block_table_array(seq.pages)
+        out = self._run_prefill([s for s, _ in group], st)
         for i, (seq, prompt) in enumerate(group):
             self._prefill_finish(seq, prompt, int(out[i]))
 
     def prefill_many(self, seqs: List[Sequence]) -> None:
         """Admit several sequences, batching same-bucket single-chunk
-        prefills into one [P, S] dispatch; multi-chunk prompts run the
+        prefills into one [P, S] call; multi-chunk prompts run the
         serial chunked path."""
         ecfg = self.engine_cfg
         slots = self.free_slots()
@@ -683,8 +983,8 @@ class InferenceEngine:
     def _evict_behind_window(self, seq: Sequence) -> None:
         """Free KV pages wholly behind the sliding window; their block-
         table entries become the trash page. No windowed reader touches
-        them: the kernels' page walks start at the window's first page,
-        and the dense path gathers then masks."""
+        them (in-flight calls staged at a later predicted ctx have later
+        windows still)."""
         win = self.model_cfg.sliding_window
         first_needed = max(0, seq.ctx_len - win) // self.engine_cfg.page_size
         j = seq.evicted_pages
@@ -695,16 +995,27 @@ class InferenceEngine:
             j += 1
         seq.evicted_pages = j
 
+    def _tokens_in_kv(self, seq: Sequence, drop_last: bool = False
+                      ) -> List[int]:
+        """Tokens resident in the sequence's KV pages, in page order:
+        the prefill stream (truncated as prefilled) plus the generated
+        suffix (``drop_last``: without the just-sampled token, which is
+        not in KV yet)."""
+        base = self._prefill_tokens(seq)[-(self.engine_cfg.max_context
+                                           - 1):]
+        gen = seq.generated[seq.resume_base:]
+        return base + (gen[:-1] if drop_last else gen)
+
     def _publish_to_cache(self, seq: Sequence) -> None:
         """Publish a sequence's full pages (prompt + generated history) to
-        the prefix cache, so a follow-up turn reuses them."""
+        the prefix cache, so a follow-up turn, or this sequence's own
+        resume after a preemption, reuses them."""
         if self.prefix_cache is None or not seq.pages:
             return
-        base = seq.prompt_tokens[-(self.engine_cfg.max_context - 1):]
-        # The just-sampled token is not in KV yet.
-        in_kv = base + seq.generated[:-1]
+        in_kv = self._tokens_in_kv(seq, drop_last=True)
+        digests = None if seq.resume_base else seq.prefix_digests
         self.prefix_cache.insert(in_kv[:seq.ctx_len], seq.pages,
-                                 digests=seq.prefix_digests)
+                                 digests=digests)
 
     def release(self, seq: Sequence) -> None:
         """Free a finished sequence's pages and slot, publishing its full
@@ -715,54 +1026,262 @@ class InferenceEngine:
         seq.prefill_prompt = None          # cancel/error mid-prefill
         if seq.slot >= 0 and self.slots[seq.slot] is seq:
             self.slots[seq.slot] = None
+        self._stage_forget(seq)
+
+    # ------------------------------------------------------------------
+    # Preemption + recompute-resume (admission="optimistic")
+    # ------------------------------------------------------------------
+
+    def preempt(self, seq: Sequence) -> None:
+        """Evict a running sequence under pool pressure: publish its pages
+        to the prefix cache, free them and the slot, keep its tokens; a
+        later re-admission prefills prompt + generated (token-identical
+        under greedy decoding) and reuses whatever pages survived."""
+        assert all(seq.slot not in call["allowed"]
+                   for call in self._inflight), \
+            "preempt of a sequence with dispatch-ahead calls in flight"
+        self._publish_to_cache(seq)
+        self.allocator.free(seq.pages)
+        seq.pages = []
+        if seq.slot >= 0 and self.slots[seq.slot] is seq:
+            self.slots[seq.slot] = None
+        self._stage_forget(seq)
+        seq.slot = -1
+        seq.ctx_len = 0
+        seq.evicted_pages = 0
+        seq.cached_tokens = 0
+        seq.prefill_prompt = None
+        # The published pages may demote under this very pressure:
+        # re-arm the queue-wait prefetch.
+        seq.host_prefetched = False
+        seq.resume_digests = None
+        seq.resume_base = len(seq.generated)
+        seq.preemptions += 1
+        self.preemptions_total += 1
+        self._preempted_out.append(seq)
+        telemetry.log_event(
+            "request_preempted", level="info",
+            request_id=seq.trace_id or str(seq.request_id),
+            preemptions=seq.preemptions,
+            generated_tokens=len(seq.generated),
+            free_plus_evictable=self._free_plus_evictable())
+
+    def take_preempted(self) -> List[Sequence]:
+        """Sequences preempted since the last call, in preemption order;
+        the caller requeues them at the head of its wait queue."""
+        out, self._preempted_out = self._preempted_out, []
+        return out
+
+    def _preempt_victim(self, cands: List[Sequence]) -> Optional[Sequence]:
+        """Most recently admitted candidate with preemption budget left
+        (sequences past the starvation guard are exempt)."""
+        limit = self.engine_cfg.preempt_max_per_request
+        eligible = [s for s in cands if s.preemptions < limit]
+        return max(eligible, key=lambda s: s.admit_idx) if eligible else None
+
+    def _preempt_for_pressure(self, active_seqs: List[Sequence],
+                              k_steps: int) -> List[Sequence]:
+        """Before decode grants under optimistic admission: while the
+        coming round's page needs exceed free+evictable AND that is below
+        the low watermark, preempt the newest sequences. Returns the
+        surviving active list."""
+        if self.admission != "optimistic":
+            return active_seqs
+        ecfg = self.engine_cfg
+        active = list(active_seqs)
+        while len(active) > 1:
+            need = sum(
+                kvc.pages_needed(
+                    min(k_steps,
+                        max(0, s.max_new_tokens - len(s.generated)),
+                        max(0, ecfg.max_context - 1 - s.ctx_len)),
+                    ecfg.page_size, already=s.ctx_len)
+                for s in active)
+            avail = self._free_plus_evictable()
+            if need <= avail or avail >= ecfg.preempt_watermark_pages:
+                break
+            victim = self._preempt_victim(active)
+            if victim is None:
+                break
+            self.preempt(victim)
+            active.remove(victim)
+        return active
+
+    def _starved(self, seq: Sequence) -> None:
+        """A lane with no page slack and no grantable page: preempted
+        under optimistic admission (budget allowing), else it fails with
+        "oom" (reserve admission makes that exceptional)."""
+        if (self.admission == "optimistic"
+                and seq.preemptions < self.engine_cfg.preempt_max_per_request):
+            self.preempt(seq)
+            return
+        seq.done, seq.finish_reason = True, "oom"
+        seq.finish_time = time.perf_counter()
 
     def active_sequences(self) -> List[Sequence]:
         """Sequences decode may advance: bound, unfinished, not mid-prefill."""
         return [s for s in self.slots
                 if s is not None and not s.done and s.prefill_prompt is None]
 
+    # ------------------------------------------------------------------
+    # Batch ladder: rung selection, slot compaction, staging buffers
+    # ------------------------------------------------------------------
+
+    def _rung_for_slots(self, seqs: List[Sequence]) -> int:
+        """Smallest rung covering every slot in ``seqs``."""
+        hi = max((s.slot for s in seqs), default=-1) + 1
+        for r in self.ladder:
+            if r >= hi:
+                return r
+        return self.ladder[-1]
+
+    def _note_rung(self, rung: int) -> None:
+        self.rung_calls[rung] = self.rung_calls.get(rung, 0) + 1
+        if rung != self.decode_rung:
+            self.rung_switches_total += 1
+            self.decode_rung = rung
+            self.rung_peak = max(self.rung_peak, rung)
+
+    def _compact_slots(self) -> None:
+        """Move bound sequences out of high slots into lower free ones so
+        the next call can run a smaller rung (host bookkeeping only: block
+        tables ship per call, KV pages never move). Only while no
+        dispatch-ahead call is in flight: those address lanes by slot."""
+        if len(self.ladder) == 1 or self._inflight:
+            return
+        bound = [i for i, s in enumerate(self.slots) if s is not None]
+        if not bound:
+            return
+        target = next(r for r in self.ladder if r >= len(bound))
+        if bound[-1] < target:
+            return
+        free = [i for i in range(target) if self.slots[i] is None]
+        for i in reversed(bound):
+            if i < target or not free:
+                break
+            j = free.pop(0)
+            seq = self.slots[i]
+            self.slots[j], self.slots[i] = seq, None
+            seq.slot = j
+
+    def _stage_buffers(self, rung: int) -> dict:
+        """Persistent per-rung staging arrays: tokens and ctx refresh
+        every call, sampling params when the slot's occupant changes,
+        the block-table row when its (version, len, evicted) key moves."""
+        buf = self._stage_bufs.get(rung)
+        if buf is None:
+            buf = {"tokens": np.zeros((rung,), np.int32),
+                   "ctx": np.zeros((rung,), np.int32),
+                   "bts": np.zeros((rung, self.max_pages), np.int32),
+                   **self._lane_arrays([], rung),
+                   "owner": [None] * rung, "bt_key": [None] * rung}
+            self._stage_bufs[rung] = buf
+        return buf
+
+    def _stage_forget(self, seq: Sequence) -> None:
+        """Drop a departing sequence's staging rows (every rung), so the
+        buffers never pin finished sequences."""
+        for buf in self._stage_bufs.values():
+            owner = buf["owner"]
+            for i, s in enumerate(owner):
+                if s is seq:
+                    owner[i] = None
+                    buf["bt_key"][i] = None
+
+    _STAGED = ("tokens", "ctx", "bts", "temps", "top_ps", "top_ks", "seeds",
+               "rpens", "rlasts", "windows")
+
+    def _stage_batch(self, active_seqs: List[Sequence], rung: int) -> dict:
+        """The per-slot host arrays of a decode call at ``rung`` (copies:
+        the buffers change at the next call). Rows of freed slots go
+        stale, which is harmless: their ``allowed`` is 0, so every write
+        lands on the trash page and their token is discarded."""
+        if not self._stage_reuse:
+            st = {"tokens": np.zeros((rung,), np.int32),
+                  "ctx": np.zeros((rung,), np.int32),
+                  "bts": np.zeros((rung, self.max_pages), np.int32),
+                  **self._lane_arrays([(s.slot, s) for s in active_seqs],
+                                      rung)}
+            for seq in active_seqs:
+                st["tokens"][seq.slot] = seq.last_token
+                st["ctx"][seq.slot] = seq.ctx_len
+                st["bts"][seq.slot] = self._block_table_array(seq.pages)
+            return st
+        buf = self._stage_buffers(rung)
+        owner, bt_key = buf["owner"], buf["bt_key"]
+        for seq in active_seqs:
+            i = seq.slot
+            buf["tokens"][i] = seq.last_token
+            buf["ctx"][i] = seq.ctx_len
+            if owner[i] is not seq:
+                owner[i] = seq
+                bt_key[i] = None
+                buf["temps"][i] = seq.temperature
+                buf["top_ps"][i] = seq.top_p
+                buf["top_ks"][i], buf["seeds"][i] = \
+                    self._sampling_arrays(seq)
+                buf["rpens"][i], buf["rlasts"][i] = \
+                    self._penalty_arrays(seq)
+            key = (seq.pages_version, len(seq.pages), seq.evicted_pages)
+            if bt_key[i] != key:
+                bt_key[i] = key
+                n = len(seq.pages)
+                buf["bts"][i, :n] = seq.pages
+                buf["bts"][i, n:] = 0
+            if buf["rpens"][i] != 1.0:
+                buf["windows"][i] = self._penalty_window_row(seq)
+        return {k: buf[k].copy() for k in self._STAGED}
+
+    # ------------------------------------------------------------------
+    # Synchronous decode
+    # ------------------------------------------------------------------
+
+    def decode_step(self) -> Dict[int, int]:
+        """One batched decode step; {request_id: token}."""
+        return {rid: toks[0]
+                for rid, toks in self.decode_steps(max_steps=1).items()}
+
     def decode_steps(self, max_steps: Optional[int] = None
                      ) -> Dict[int, List[int]]:
-        """Up to ``decode_steps_per_call`` decode steps in ONE call with one
-        host sync. Returns {request_id: [tokens, in order]}. ``max_steps``
-        caps every lane (1 = the latency route)."""
+        """Up to ``decode_steps_per_call`` decode steps in ONE call with
+        one host sync. Returns {request_id: [tokens, in order]}.
+        ``max_steps`` caps every lane (1 = the latency route). Calls
+        still in flight are drained first (their tokens land in each
+        sequence's ``generated``)."""
+        if self._inflight:
+            self.drain_pipeline()
         ecfg = self.engine_cfg
         k_steps = max(1, ecfg.decode_steps_per_call)
         if max_steps is not None:
             k_steps = min(k_steps, max_steps)
-        allowed_by_slot: Dict[int, int] = {}
-        for seq in self.active_sequences():
-            steps = self._grant_decode_steps(seq, k_steps)
-            if steps <= 0:
-                # Reserve-mode admission makes a starved lane exceptional.
-                seq.done, seq.finish_reason = True, "oom"
-                seq.finish_time = time.perf_counter()
-                continue
-            allowed_by_slot[seq.slot] = steps
-        active = [s for s in self.active_sequences()
-                  if s.slot in allowed_by_slot]
+        self._compact_slots()             # step the ladder down
+        active = self.active_sequences()
         if not active:
             return {}
-        b = ecfg.max_batch_size
-        tokens = np.zeros((b,), np.int32)
-        ctx_lens = np.zeros((b,), np.int32)
-        bts = np.zeros((b, self.max_pages), np.int32)
-        allowed = np.zeros((b,), np.int32)
-        eos_ids = np.full((b,), -1, np.int32)
+        # Under optimistic admission pressure preempts the newest lanes
+        # before any grant, so the survivors advance at full K.
+        active = self._preempt_for_pressure(active, k_steps)
+        allowed_by_slot: Dict[int, int] = {}
         for seq in active:
-            i = seq.slot
-            tokens[i] = seq.last_token
-            ctx_lens[i] = seq.ctx_len
-            bts[i] = self._block_table_array(seq.pages)
-            allowed[i] = allowed_by_slot[i]
+            steps = self._grant_decode_steps(seq, k_steps)
+            if steps <= 0:
+                self._starved(seq)
+                continue
+            allowed_by_slot[seq.slot] = steps
+        active = [s for s in active if not s.done and s.slot >= 0]
+        if not active:
+            return {}
+        b = self._rung_for_slots(active)
+        self._note_rung(b)
+        st = self._stage_batch(active, b)
+        st["allowed"] = np.zeros((b,), np.int32)
+        st["eos"] = np.full((b,), -1, np.int32)
+        for seq in active:
+            st["allowed"][seq.slot] = allowed_by_slot[seq.slot]
             if seq.eos_token_id is not None:
-                eos_ids[i] = seq.eos_token_id
-        a = self._lane_arrays([(s.slot, s) for s in active], b)
+                st["eos"][seq.slot] = seq.eos_token_id
         t0 = self._note_decode_entry()
-        outs = self._decode_multi_fn(
-            tokens, ctx_lens, bts, allowed, eos_ids, a["temps"],
-            a["top_ps"], a["top_ks"], a["seeds"], a["rpens"], a["rlasts"],
-            a["window"], k_steps=k_steps)
+        outs, _, _ = self._decode_multi_fn(st, k_steps)
         outs = outs.cpu().numpy()                      # [K, B]: one sync
         self._note_decode_exit(t0)
         result: Dict[int, List[int]] = {}
@@ -775,11 +1294,353 @@ class InferenceEngine:
             sum(len(t) for t in result.values()))
         return result
 
+    # ------------------------------------------------------------------
+    # Dispatch-ahead pipeline and hybrid steps
+    # ------------------------------------------------------------------
+
+    def _hybrid_chunk_cap(self, decode_tokens: int) -> int:
+        """Chunk-token cap of one hybrid step: the serial chunk cap,
+        bounded by ``step_token_budget`` minus the decode tokens granted
+        in this call, floored at page_size so the prefill advances."""
+        ecfg = self.engine_cfg
+        cap = ecfg.chunk_tokens_cap
+        budget = ecfg.step_token_budget
+        if budget > 0:
+            cap = min(cap, max(ecfg.page_size, budget - decode_tokens))
+        return cap
+
+    def _stage_hybrid_chunk(self, seq: Sequence,
+                            decode_tokens: int) -> Optional[dict]:
+        """Host arrays of ``seq``'s next chunk. Advances
+        ``prefill_offset`` at stage time, so chunk N+1 can be staged
+        while chunk N is in flight (the stream runs them in order).
+        None once the whole prompt is staged."""
+        prompt = seq.prefill_prompt
+        if prompt is None or seq.done or seq.prefill_offset >= len(prompt):
+            return None
+        offset = seq.prefill_offset
+        st = self._stage_chunk_arrays(seq, prompt, offset,
+                                      self._hybrid_chunk_cap(decode_tokens))
+        seq.prefill_offset = offset + st["chunk_tokens"]
+        st["final"] = seq.prefill_offset >= len(prompt)
+        return st
+
+    def _chunk_record(self, chunk: dict, p_tok: torch.Tensor) -> dict:
+        return {"seq": chunk["seq"], "prompt": chunk["prompt"],
+                "final": chunk["final"], "tok": p_tok}
+
+    def _stage_chunk_only_call(self, chunk: dict) -> dict:
+        """Queue one staged chunk with no decode half (no lane can
+        advance in this call), as a pipeline call."""
+        t0 = time.perf_counter()
+        self._last_decode_end = None   # prefill breaks the decode streak
+        p_tok = self._prefill_fn(chunk)
+        (p_host,), event = self._to_host_async(p_tok)
+        self.telemetry.prefill_dispatch_s.observe(time.perf_counter() - t0)
+        self.telemetry.prefill_dispatches.inc()
+        return {"outs": None, "final": None, "final_window": None,
+                "event": event, "allowed": {}, "seqs": {}, "rung": 0,
+                "prefill": self._chunk_record(chunk, p_host)}
+
+    def _stage_decode_call(self, prefill_seq: Optional[Sequence] = None
+                           ) -> Optional[dict]:
+        """Stage one K-step decode call from host state plus the ctx the
+        in-flight calls will have added (predicted ctx), and queue it.
+        With ``prefill_seq`` (mid-incremental-prefill), its next chunk
+        rides the same call (hybrid). Returns None when nothing can
+        advance. Lanes that stop mid-flight (EOS) waste at most their
+        staged steps, whose tokens the sync discards."""
+        ecfg = self.engine_cfg
+        k_steps = max(1, ecfg.decode_steps_per_call)
+        if not self._inflight:
+            self._compact_slots()
+        ahead: Dict[int, int] = {}
+        for call in self._inflight:
+            for slot, steps in call["allowed"].items():
+                ahead[slot] = ahead.get(slot, 0) + steps
+        active = self.active_sequences()
+        if not active and prefill_seq is None:
+            return None
+        allowed_by_slot: Dict[int, int] = {}
+        staged: List[Sequence] = []
+        for seq in active:
+            lag = ahead.get(seq.slot, 0)
+            steps = self._grant_decode_steps(
+                seq, k_steps, pred_ctx=seq.ctx_len + lag,
+                pred_done=len(seq.generated) + lag)
+            if steps <= 0:
+                if lag == 0:
+                    # No in-flight call touches it and the pool has no
+                    # slack: preempt (optimistic) or fail it.
+                    self._starved(seq)
+                continue                      # in-flight calls may emit
+            allowed_by_slot[seq.slot] = steps
+            staged.append(seq)
+        # The chunk is staged after the grants: the token budget counts
+        # only the lanes this call advances.
+        chunk = None
+        if prefill_seq is not None:
+            chunk = self._stage_hybrid_chunk(
+                prefill_seq, sum(allowed_by_slot.values()))
+        if not staged and chunk is None:
+            return None
+        if not staged:
+            return self._stage_chunk_only_call(chunk)
+        active = [s for s in active if not s.done and s.slot >= 0]
+        # Never below an in-flight call's rung: the carry folds are
+        # element-wise over [rung] tensors (growth drains first).
+        b = self._rung_for_slots(active)
+        for call in self._inflight:
+            b = max(b, call["rung"])
+        self._note_rung(b)
+        st = self._stage_batch(active, b)
+        st["allowed"] = np.zeros((b,), np.int32)
+        st["eos"] = np.full((b,), -1, np.int32)
+        for seq in staged:
+            st["allowed"][seq.slot] = allowed_by_slot[seq.slot]
+            st["ctx"][seq.slot] = seq.ctx_len + ahead.get(seq.slot, 0)
+            if seq.eos_token_id is not None:
+                st["eos"][seq.slot] = seq.eos_token_id
+        use_pen = bool(np.any(st["rpens"] != 1.0))
+        tokens_d = self._to_device(st["tokens"])
+        window_d = self._to_device(st["windows"]) if use_pen else None
+        # A continuing lane takes the carry token (and window) of the
+        # NEWEST in-flight call that advanced it; lanes in no in-flight
+        # call (fresh prefills) keep their host-known state.
+        for call in self._inflight:
+            if call["final"] is None:
+                continue          # chunk-only call: no decode half
+            carried = np.zeros((b,), bool)
+            for slot in call["allowed"]:
+                carried[slot] = True
+            carried_d = self._to_device(carried)
+            tokens_d = torch.where(carried_d, call["final"], tokens_d)
+            if use_pen and call["final_window"] is not None:
+                window_d = torch.where(carried_d[:, None],
+                                       call["final_window"], window_d)
+        st["tokens"], st["windows"] = tokens_d, window_d
+        t0 = self._note_decode_entry()
+        if chunk is None:
+            outs, final, final_window = self._decode_multi_fn(st, k_steps)
+            p_tok = None
+        else:
+            p_tok, outs, final, final_window = self._hybrid_step_fn(
+                chunk, st, k_steps)
+            self.hybrid_steps_total += 1
+            self.telemetry.hybrid_steps.inc()
+        (outs_h, p_host), event = self._to_host_async(outs, p_tok)
+        # Non-blocking: this wall is the host's dispatch; the device
+        # wait shows in decode_sync_s at _sync_oldest.
+        self._note_decode_exit(t0)
+        if chunk is not None:
+            self.telemetry.hybrid_dispatch_s.observe(
+                time.perf_counter() - t0)
+        call = {"outs": outs_h, "final": final,
+                "final_window": final_window, "event": event,
+                "allowed": allowed_by_slot, "rung": b,
+                "seqs": {s.slot: s for s in staged}}
+        if chunk is not None:
+            call["prefill"] = self._chunk_record(chunk, p_host)
+        return call
+
+    def _sync_oldest(self) -> Dict[int, List[int]]:
+        """Wait for the oldest in-flight call and fold its tokens into
+        host state; tokens of lanes that finished in an earlier call are
+        discarded."""
+        call = self._inflight.pop(0)
+        t0 = time.perf_counter()
+        if call["event"] is not None:
+            call["event"].synchronize()
+        if call["outs"] is not None:
+            self.telemetry.decode_sync_s.observe(time.perf_counter() - t0)
+        # The wait was device time: the next bubble counts host work only.
+        self._last_decode_end = (
+            time.perf_counter()
+            if any(s is not None and not s.done for s in self.slots)
+            else None)
+        result: Dict[int, List[int]] = {}
+        if call["outs"] is not None:
+            outs = call["outs"].numpy()                 # [K, B]
+            for slot, seq in call["seqs"].items():
+                if seq.done or self.slots[seq.slot] is not seq:
+                    continue
+                got = self._fold_lane(
+                    seq, (int(outs[s, slot]) for s in range(outs.shape[0])))
+                if got:
+                    result[seq.request_id] = got
+            self.telemetry.tokens_per_dispatch.observe(
+                sum(len(t) for t in result.values()))
+        pf = call.get("prefill")
+        if pf is not None:
+            # Only the FINAL chunk has host work left; a cancel that
+            # landed mid-flight skips the fold (the scheduler reaps it).
+            seq = pf["seq"]
+            if (pf["final"] and not seq.done
+                    and seq.prefill_prompt is not None
+                    and seq.slot >= 0 and self.slots[seq.slot] is seq):
+                self._prefill_finish(seq, pf["prompt"],
+                                     int(pf["tok"].numpy()[0]))
+                seq.prefill_prompt = None
+        return result
+
+    def _pressure_settle_round(self) -> Dict[int, List[int]]:
+        """Optimistic admission under watermark pressure: drain the
+        in-flight calls (they hold predicted-ctx grants), then run one
+        synchronous round, which preempts as needed."""
+        result = self.drain_pipeline()
+        for rid, toks in self.decode_steps().items():
+            result.setdefault(rid, []).extend(toks)
+        return result
+
+    def _pipeline_rung_blocked(self) -> bool:
+        """True when staging now needs a bigger rung than the in-flight
+        decode calls were staged at (the pipeline must settle first)."""
+        if not self._inflight or len(self.ladder) == 1:
+            return False
+        rungs = [call["rung"] for call in self._inflight
+                 if call["final"] is not None]
+        if not rungs:
+            return False
+        cap = max(rungs)
+        if cap >= self.ladder[-1]:
+            return False
+        active = self.active_sequences()
+        if not active:
+            return False
+        return self._rung_for_slots(active) > cap
+
     def decode_steps_pipelined(self) -> Dict[int, List[int]]:
-        """The scheduler's throughput route. Dispatch-ahead depth is 1 in
-        this slice (deeper pipelines raise at construction, ROADMAP
-        1.13), where the reference's pipelined step is decode_steps."""
-        return self.decode_steps()
+        """Dispatch-ahead serving step: keep up to
+        ``decode_pipeline_depth`` K-step calls in flight and sync only
+        the oldest; tokens arrive depth-1 calls after their dispatch.
+        Depth <= 1 is the synchronous ``decode_steps``."""
+        depth = self.engine_cfg.decode_pipeline_depth
+        if depth <= 1:
+            return self.decode_steps()
+        if self.admission == "optimistic" and self.under_pressure:
+            return self._pressure_settle_round()
+        result: Dict[int, List[int]] = {}
+        if self._pipeline_rung_blocked():
+            result = self.drain_pipeline()     # settle, then grow the rung
+        call = self._stage_decode_call()
+        if call is not None:
+            self._inflight.append(call)
+        if not self._inflight:
+            return result
+        if len(self._inflight) >= depth or call is None:
+            for rid, toks in self._sync_oldest().items():
+                result.setdefault(rid, []).extend(toks)
+        return result
+
+    def hybrid_step_pipelined(self, seq: Sequence) -> Dict[int, List[int]]:
+        """Serving step while ``seq`` is mid-incremental-prefill: its next
+        chunk AND the decode lanes in ONE call (hybrid_prefill), chained
+        into the same pipeline as plain decode calls (with depth <= 1 it
+        syncs at once). Once the prompt is fully staged, calls degrade to
+        plain decode staging; the final chunk's token folds at its sync
+        (completion shows as ``seq.prefill_prompt is None``). Returns the
+        decode tokens folded by this call."""
+        depth = max(1, self.engine_cfg.decode_pipeline_depth)
+        if (self.admission == "optimistic" and self.under_pressure
+                and self.active_sequences()):
+            # Settle (drain + one preempting round), then advance the
+            # chunk serially: its pages were allocated at prefill_begin.
+            result = self._pressure_settle_round()
+            if seq.prefill_prompt is not None and not seq.done:
+                self.prefill_step(seq)
+            return result
+        result: Dict[int, List[int]] = {}
+        if self._pipeline_rung_blocked():
+            result = self.drain_pipeline()
+        call = self._stage_decode_call(prefill_seq=seq)
+        if call is not None:
+            self._inflight.append(call)
+        if not self._inflight:
+            return result
+        if depth <= 1 or len(self._inflight) >= depth or call is None:
+            for rid, toks in self._sync_oldest().items():
+                result.setdefault(rid, []).extend(toks)
+        return result
+
+    @property
+    def pipeline_pending(self) -> bool:
+        return bool(self._inflight)
+
+    def abort_pipeline(self) -> None:
+        """Drop the in-flight calls without folding (after a call
+        failed): their outputs are suspect, and stale entries would
+        poison the ctx prediction of whatever reuses those slots."""
+        self._inflight.clear()
+
+    def drain_pipeline(self) -> Dict[int, List[int]]:
+        """Sync every in-flight call (idle/finish/shutdown path)."""
+        result: Dict[int, List[int]] = {}
+        while self._inflight:
+            for rid, toks in self._sync_oldest().items():
+                result.setdefault(rid, []).extend(toks)
+        return result
+
+    def decode_steps_chained(self, n_calls: int) -> Dict[int, List[int]]:
+        """``n_calls`` K-step calls back to back, each fed the previous
+        call's last tokens on the device, with ONE host sync at the end
+        (fixed-length batch mode: pages are provisioned for the whole run
+        up front, and EOS/budget do not stop lanes early, so the caller
+        keeps n_calls * K within every lane's budget and room)."""
+        ecfg = self.engine_cfg
+        k_steps = max(1, ecfg.decode_steps_per_call)
+        if self._inflight:
+            self.drain_pipeline()
+        active = self.active_sequences()
+        if not active:
+            return {}
+        total = n_calls * k_steps
+        for seq in active:
+            budget = seq.max_new_tokens - len(seq.generated)
+            room = ecfg.max_context - 1 - seq.ctx_len
+            if total > min(budget, room):
+                raise ValueError(
+                    f"decode_steps_chained: n_calls*K={total} exceeds "
+                    f"seq {seq.request_id}'s budget={budget} or context "
+                    f"room={room}")
+            need = kvc.pages_needed(total, ecfg.page_size,
+                                    already=seq.ctx_len)
+            if need > 0:
+                seq.pages.extend(self._allocate_reclaiming(need))
+        self._compact_slots()
+        b = self._rung_for_slots(active)
+        self._note_rung(b)
+        st = self._stage_batch(active, b)
+        st["allowed"] = np.zeros((b,), np.int32)
+        for seq in active:
+            st["allowed"][seq.slot] = k_steps
+        st["eos"] = np.full((b,), -1, np.int32)
+        ctx0 = st["ctx"].copy()
+        outs_all = []
+        for c in range(n_calls):
+            st["ctx"] = ctx0 + c * st["allowed"]
+            t0 = self._note_decode_entry()
+            outs, st["tokens"], st["windows"] = self._decode_multi_fn(
+                st, k_steps)
+            if st["windows"] is None:
+                st["windows"] = np.full((b, PENALTY_WINDOW), -1, np.int64)
+            outs_all.append(outs)
+            self._note_decode_exit(t0)
+        t_sync = time.perf_counter()
+        outs_all = torch.cat(outs_all).cpu().numpy()   # the one sync
+        self.telemetry.decode_sync_s.observe(time.perf_counter() - t_sync)
+        self._last_decode_end = time.perf_counter()
+        result: Dict[int, List[int]] = {}
+        for seq in active:
+            got = [int(t) for t in outs_all[:, seq.slot] if t >= 0]
+            seq.ctx_len += len(got)
+            seq.generated.extend(got)
+            if seq.first_token_time == 0.0:
+                seq.first_token_time = time.perf_counter()
+            result[seq.request_id] = got
+            self._maybe_finish(seq, seq.last_token)
+        return result
+
+    # ------------------------------------------------------------------
 
     def _note_decode_entry(self) -> float:
         now = time.perf_counter()
@@ -795,6 +1656,51 @@ class InferenceEngine:
         self._last_decode_end = (
             now if any(s is not None and not s.done for s in self.slots)
             else None)
+
+    def check_pool_clean(self) -> None:
+        """The page-leak invariant, for tests and chip_smoke.py: with no
+        call in flight and every request finished, the host tier's books
+        agree with its entries (no digest in both tiers), and once the
+        prefix cache drops its references every page is free with no
+        refcount and no slot is bound. Clears the prefix cache; raises
+        AssertionError naming what leaked."""
+        assert not self._inflight, \
+            "dispatch-ahead calls still in flight; drain before checking"
+        assert not self._preempted_out, \
+            "preempted sequences never collected (take_preempted)"
+        cache = self.prefix_cache
+        if cache is not None and cache.host_pool is not None:
+            pool = cache.host_pool
+            assert pool.used == len(cache._host), (
+                f"host-tier page accounting drifted: pool says {pool.used},"
+                f" table holds {len(cache._host)}")
+            assert pool.bytes_resident == sum(
+                e.nbytes for e in cache._host.values()), \
+                "host-tier byte accounting drifted"
+            assert 0 <= pool.used <= pool.capacity, (
+                f"host pool over capacity: {pool.used}/{pool.capacity}")
+            overlap = set(cache._host) & set(cache._table)
+            assert not overlap, \
+                f"digests resident in BOTH tiers: {len(overlap)}"
+        if cache is not None:
+            cache.clear()
+            if cache.host_pool is not None:
+                assert cache.host_pool.used == 0, \
+                    "host pool pages leaked after clear"
+                assert cache.host_pool.bytes_resident == 0, \
+                    "host pool bytes leaked after clear"
+        alloc = self.allocator
+        expected = alloc.num_pages - 1          # page 0 = trash page
+        leaked = [p for p in range(1, alloc.num_pages) if alloc._refs[p] > 0]
+        assert alloc.num_free == expected, (
+            f"KV page leak: {expected - alloc.num_free} pages never freed "
+            f"(refs held on pages {leaked[:16]})")
+        assert not leaked, f"pages with stale refcounts: {leaked[:16]}"
+        assert alloc.evictable_count == 0, (
+            f"evictable counter drifted: {alloc.evictable_count} after "
+            "clear")
+        bound = [i for i, s in enumerate(self.slots) if s is not None]
+        assert not bound, f"decode slots still bound after drain: {bound}"
 
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
                  temperature: float = 0.0, top_p: float = 1.0,
@@ -816,6 +1722,9 @@ class InferenceEngine:
             while pending and self.free_slots() and self.can_admit(pending[0]):
                 self.prefill(pending.pop(0))
             self.decode_steps()
+            # Optimistic admission may have preempted sequences: requeue
+            # them at the head for recompute-resume.
+            pending[0:0] = self.take_preempted()
             for s in [s for s in self.slots if s is not None and s.done]:
                 results[s.request_id] = s.generated
                 self.release(s)

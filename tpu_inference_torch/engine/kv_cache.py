@@ -21,13 +21,23 @@ Twin of the device half of ``tpu_inference/engine/kv_cache.py`` plus its
   are byte-identical to the reference's (tests/test_torch_kv_quant.py).
 
 Host side, ``PageAllocator`` is a free-list with refcounts so shared
-prompt prefixes map the same physical pages. The host KV tier and its
-serialization are ROADMAP item 1.13.
+prompt prefixes map the same physical pages.
+
+Host tier (the tiered KV cache): ``offload_pages`` copies pool pages
+into pinned host memory and ``restore_pages`` scatters host copies back
+into freshly allocated pool pages, both as non-blocking copies on the
+current stream; ``HostPagePool`` does the tier's capacity accounting.
+The copies move the pool's stored bytes (float elements, int8 codes or
+packed int4 codes, with their float32 scales), so every pool kind
+round-trips bit-identically. The tier's wire format
+(``serialize_host_pages``) is ROADMAP 1.15.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -274,3 +284,171 @@ def pages_needed(n_tokens: int, page_size: int, already: int = 0) -> int:
     total = -(-(already + n_tokens) // page_size)
     have = -(-already // page_size)
     return max(0, total - have)
+
+
+# ---------------------------------------------------------------------------
+# Host tier: device <-> host page copies.
+# ---------------------------------------------------------------------------
+
+
+class HostKVPage(NamedTuple):
+    """Host copy of ONE pool page in the pool's stored layout: k/v
+    ``[L, page_size, Hkv, d_pool]`` in the pool dtype, scales ``[L,
+    page_size, Hkv]`` float32 or None. Copied from a CUDA pool the
+    tensors are pinned and own their bytes."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def nbytes(self) -> int:
+        n = sum(t.numel() * t.element_size() for t in (self.k, self.v))
+        if self.k_scale is not None:
+            n += sum(t.numel() * t.element_size()
+                     for t in (self.k_scale, self.v_scale))
+        return n
+
+
+# Pages per swap batch: demotes evict at least this many pages at once,
+# so steady churn shares one round of copies (the reference's gather
+# width; here copies take any width).
+SWAP_CHUNK = 8
+
+
+def _index(pages: List[int], device) -> torch.Tensor:
+    """Page ids as an int64 tensor on ``device``; for a CUDA pool the
+    ids go through pinned memory and a non-blocking copy, so staging
+    them never waits for the work already queued on the stream."""
+    idx = torch.from_numpy(np.asarray(pages, np.int64))
+    if torch.device(device).type != "cuda":
+        return idx
+    return idx.pin_memory().to(device, non_blocking=True)
+
+
+def _pool_arrays(kv: KVPages) -> List[torch.Tensor]:
+    out = [kv.k, kv.v]
+    if kv.quantized:
+        out += [kv.k_scale, kv.v_scale]
+    return out
+
+
+def offload_pages(kv: KVPages, pages: List[int]) -> List[HostKVPage]:
+    """Copy ``pages`` out of the pool into host memory, one HostKVPage
+    each. For a CUDA pool: one gather per pool array on the device, then
+    a non-blocking copy per page into its own pinned buffer, queued on
+    the current stream. Every later write to those pages (the page ids
+    are handed out again once the caller frees them) is queued behind
+    these copies on the same stream, and every host read of the copies
+    (restore_pages) is a copy queued behind them too; so the host never
+    waits here."""
+    n = len(pages)
+    if n == 0:
+        return []
+    dev = kv.k.device
+    idx = _index(pages, dev)
+    per_array = []
+    for pool in _pool_arrays(kv):
+        # [L, n, ...] -> [n, L, ...]: one contiguous block per page.
+        g = pool.index_select(1, idx).transpose(0, 1).contiguous()
+        if dev.type == "cuda":
+            host = [torch.empty(g.shape[1:], dtype=g.dtype, pin_memory=True)
+                    for _ in range(n)]
+            for i in range(n):
+                host[i].copy_(g[i], non_blocking=True)
+        else:
+            host = [g[i].clone() for i in range(n)]
+        per_array.append(host)
+    if kv.quantized:
+        return [HostKVPage(*arrs) for arrs in zip(*per_array)]
+    return [HostKVPage(k, v) for k, v in zip(*per_array)]
+
+
+def restore_pages(kv: KVPages, pages: List[int],
+                  host_pages: List[HostKVPage]) -> KVPages:
+    """Scatter host page copies into the pool at ``pages`` (freshly
+    allocated ids), in place. For a CUDA pool each host page is copied
+    to a device staging buffer without blocking, then one index_copy_
+    per pool array scatters the batch, all queued on the current stream:
+    behind the offload copies that filled the host pages (the host never
+    reads them, so it never waits for them) and ahead of the prefill
+    that reads the restored pages."""
+    n = len(pages)
+    if n == 0:
+        return kv
+    assert n == len(host_pages)
+    dev = kv.k.device
+    idx = _index(pages, dev)
+    fields = ("k", "v", "k_scale", "v_scale")
+    for pool, field in zip(_pool_arrays(kv), fields):
+        first = getattr(host_pages[0], field)
+        data = torch.empty((n,) + tuple(first.shape), dtype=first.dtype,
+                           device=dev)
+        for i, hp in enumerate(host_pages):
+            data[i].copy_(getattr(hp, field), non_blocking=True)
+        pool.index_copy_(1, idx, data.transpose(0, 1))
+    return kv
+
+
+class HostPagePool:
+    """Capacity accounting for the host-RAM KV tier (the page bytes live
+    in the prefix cache's host table) and its lifetime churn counters.
+    Host side only."""
+
+    def __init__(self, capacity_pages: int):
+        self.capacity = max(0, int(capacity_pages))
+        self.used = 0
+        self.bytes_resident = 0
+        self.offloaded_total = 0          # pages demoted device -> host
+        self.restored_total = 0           # pages promoted host -> device
+        self.evicted_total = 0            # second-tier (host LRU) drops
+        self.offload_bytes_total = 0
+        self.restore_bytes_total = 0
+        # Host wall spent in swap batches, per direction.
+        self.swap_out_s_total = 0.0
+        self.swap_in_s_total = 0.0
+
+    def note_swap_wall(self, direction: str, seconds: float) -> None:
+        """One swap batch's host wall ("out" = demote, "in" = promote)."""
+        if direction == "out":
+            self.swap_out_s_total += seconds
+        else:
+            self.swap_in_s_total += seconds
+
+    def can_hold(self, n: int = 1) -> bool:
+        return self.used + n <= self.capacity
+
+    @property
+    def free(self) -> int:
+        return self.capacity - self.used
+
+    def note_offload(self, nbytes: int) -> None:
+        self.used += 1
+        self.bytes_resident += nbytes
+        self.offloaded_total += 1
+        self.offload_bytes_total += nbytes
+
+    def note_restore(self, nbytes: int) -> None:
+        self.used -= 1
+        self.bytes_resident -= nbytes
+        self.restored_total += 1
+        self.restore_bytes_total += nbytes
+
+    def note_evict(self, nbytes: int) -> None:
+        self.used -= 1
+        self.bytes_resident -= nbytes
+        self.evicted_total += 1
+
+    def readmit(self, nbytes: int) -> bool:
+        """Undo one note_restore for an entry a failed swap-in returns;
+        False when an intervening demote took the room (the caller then
+        drops the entry: the capacity always wins)."""
+        self.restored_total -= 1
+        self.restore_bytes_total -= nbytes
+        if not self.can_hold(1):
+            self.evicted_total += 1
+            return False
+        self.used += 1
+        self.bytes_resident += nbytes
+        return True

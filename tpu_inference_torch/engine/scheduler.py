@@ -6,15 +6,21 @@ Twin of ``tpu_inference/engine/scheduler.py`` at the default path:
   requests from any thread, and token/finish callbacks fire on the
   engine thread.
 - FCFS admission (class-aware: interactive before batch before
-  background) with **worst-case page reservation**: a request is
-  admitted only when a decode slot is free and the pool can hold its
-  prompt plus its full generation budget.
+  background). "reserve" admission charges a request its prompt plus
+  its full generation budget; "optimistic" its prompt plus a little
+  headroom, with preemption (``_requeue_preempted``: preempted requests
+  go back to the head of the queue and recompute-resume) as the safety
+  net. Past the base ladder rung, ``ladder_admit_headroom_pages`` must
+  stay reclaimable. The head of the queue prefetches its host-tier
+  pages while it waits.
 - Join/leave at step boundaries: same-bucket arrivals batch into one
   prefill dispatch; a multi-chunk prompt prefills one chunk per loop
-  iteration so decode keeps running in between.
+  iteration so decode keeps running in between, or, with hybrid steps,
+  rides the decode call (``_hybrid_active``).
 - Latency mode: with at most ``latency_decode_threshold`` sequences
-  decoding and nothing queued, one step per call so every token streams
-  as it is sampled; otherwise K fused steps per call.
+  decoding and nothing queued or in flight, one step per call so every
+  token streams as it is sampled; otherwise K fused steps per call
+  through the dispatch-ahead pipeline (``decode_steps_pipelined``).
 """
 
 from __future__ import annotations
@@ -46,11 +52,34 @@ class SchedulerStats:
     requests_finished: int = 0
     requests_rejected: int = 0
     step_failures: int = 0
+    preemptions: int = 0               # sequences evicted for pool pressure
     batch_occupancy_sum: float = 0.0
     peak_pages_in_use: int = 0
+    # Ring of recent decode-call host walls (seconds); a fixed list and
+    # index, so /metrics reads never race the engine thread's writes.
+    decode_call_s: List[float] = dataclasses.field(
+        default_factory=lambda: [0.0] * 512)
+    decode_calls: int = 0
+
+    def record_decode_call(self, seconds: float) -> None:
+        self.decode_call_s[self.decode_calls % len(self.decode_call_s)] = \
+            seconds
+        self.decode_calls += 1
+
+    def _decode_call_percentiles(self, pipelined: bool) -> Optional[Dict]:
+        n = min(self.decode_calls, len(self.decode_call_s))
+        if n == 0:
+            return None
+        xs = sorted(self.decode_call_s[:n])
+        pick = lambda p: xs[min(n - 1, int(p * n))]  # noqa: E731
+        # With depth > 1 a call returns after a non-blocking dispatch:
+        # the percentiles then measure the dispatch, not the decode.
+        return {"p50": round(pick(0.50), 6), "p99": round(pick(0.99), 6),
+                "measures": "dispatch" if pipelined else "call"}
 
     def snapshot(self, engine: InferenceEngine) -> Dict:
         total = engine.engine_cfg.num_pages - 1
+        ecfg = engine.engine_cfg
         out = {
             "steps": self.steps,
             "prefills": self.prefills,
@@ -60,14 +89,33 @@ class SchedulerStats:
             "requests_rejected": self.requests_rejected,
             "step_failures": self.step_failures,
             "admission": engine.admission,
+            "preemptions": engine.preemptions_total,
+            "recompute_resumes": engine.resumes_total,
+            "swap_in_resumes": engine.swap_in_resumes,
+            "hybrid_prefill": ecfg.hybrid_prefill,
+            "hybrid_steps": engine.hybrid_steps_total,
             "pool_pressure": round(engine.pool_pressure, 4),
             "mean_batch_occupancy": (self.batch_occupancy_sum / self.steps
                                      if self.steps else 0.0),
+            "decode_ladder": list(engine.ladder),
+            "decode_rung": engine.decode_rung,
+            "rung_peak": engine.rung_peak,
+            "rung_switches": engine.rung_switches_total,
+            "rung_calls": {str(r): n for r, n
+                           in sorted(engine.rung_calls.items())},
+            "lane_occupancy": round(
+                sum(s is not None for s in engine.slots)
+                / max(engine.ladder[-1], 1), 4),
             "kv_pages_total": total,
             "kv_pages_in_use": total - engine.allocator.num_free,
             "peak_pages_in_use": self.peak_pages_in_use,
             "model_params": engine.n_params,
             "attn_backend": engine.attn_backend,
+            "quant": ecfg.quant,
+            "kv_quant": ecfg.kv_quant,
+            "decode_pipeline_depth": ecfg.decode_pipeline_depth,
+            "decode_call_s": self._decode_call_percentiles(
+                ecfg.decode_pipeline_depth > 1),
             "device": str(engine.device),
             "phases": engine.telemetry.phase_snapshot(),
         }
@@ -169,12 +217,18 @@ class EngineScheduler:
             deadline = time.monotonic() + timeout
             while (time.monotonic() < deadline
                    and (self._waiting or self._prefilling is not None
-                        or self._callbacks)):
+                        or self._callbacks
+                        or self.engine.active_sequences())):
                 time.sleep(0.01)
         self._stop.set()
         self._work.set()
         if self._thread is not None:
             self._thread.join(timeout=timeout)
+        if self.engine.pipeline_pending:
+            # Settle queued calls before their pages are released.
+            self._deliver(self._drain_safely())
+            self._poll_hybrid_prefill()
+        self._requeue_preempted()
         self._cancel_stragglers()
 
     def _cancel_stragglers(self) -> None:
@@ -211,19 +265,31 @@ class EngineScheduler:
                 s.finish_time = time.perf_counter()
             self._finish(s)
 
+    def _hybrid_active(self) -> bool:
+        """True when the in-progress incremental prefill advances through
+        hybrid steps (fused into the decode call): hybrid_prefill is on
+        and there are decode lanes to fuse with."""
+        return (self.engine.engine_cfg.hybrid_prefill
+                and self._prefilling is not None
+                and bool(self.engine.active_sequences()))
+
     def _needs_chunking(self, seq: Sequence) -> bool:
+        """The prompt (on a resume: prompt + generated) spans several
+        chunks, so it prefills incrementally."""
         ecfg = self.engine.engine_cfg
-        return (min(len(seq.prompt_tokens), ecfg.max_context - 1)
-                > ecfg.chunk_tokens_cap)
+        base = len(self.engine._prefill_tokens(seq))
+        return min(base, ecfg.max_context - 1) > ecfg.chunk_tokens_cap
 
     def _prefill_done(self, pending: _Pending) -> None:
         seq = pending.seq
         self.stats.prefills += 1
         self.stats.tokens_generated += 1
-        self.stats.tokens_prefix_cached += seq.cached_tokens
-        if seq.enqueue_time:
-            self.engine.telemetry.queue_wait_s.observe(
-                max(0.0, seq.prefill_start - seq.enqueue_time))
+        if not seq.resume_base:
+            # A resume reuses pages this request published itself.
+            self.stats.tokens_prefix_cached += seq.cached_tokens
+            if seq.enqueue_time:
+                self.engine.telemetry.queue_wait_s.observe(
+                    max(0.0, seq.prefill_start - seq.enqueue_time))
         pending.on_token(seq, seq.generated[-1])
         if seq.done:
             self._finish(seq)
@@ -251,21 +317,45 @@ class EngineScheduler:
         """Admit up to max_prefills_per_step waiting requests in one
         batched prefill; a multi-chunk prompt starts an incremental
         prefill instead (one at a time)."""
-        if self._prefilling is not None:
-            self._step_incremental_prefill()
+        if self._prefilling is not None and not self._hybrid_active():
+            # With hybrid steps active the chunk rides the decode call
+            # later this iteration instead.
+            seq = self._prefilling.seq
+            if seq.done and self.engine.pipeline_pending:
+                # Cancelled with chained hybrid chunks in flight: settle
+                # their writes before the pages are released.
+                self._deliver(self._drain_safely())
+            self._poll_hybrid_prefill()   # completed at an earlier sync?
+            if self._prefilling is not None:
+                if not (not seq.done and seq.prefill_prompt is not None
+                        and seq.prefill_offset >= len(seq.prefill_prompt)):
+                    # (Otherwise every chunk is already staged into
+                    # in-flight hybrid calls: nothing to run serially.)
+                    self._step_incremental_prefill()
         batch: List[_Pending] = []
         start_chunked: Optional[_Pending] = None
         reserved = 0
+        engine = self.engine
         with self._lock:
-            free_slots = len(self.engine.free_slots())
+            free_slots = len(engine.free_slots())
+            bound = sum(s is not None for s in engine.slots)
+            base_rung = engine.ladder[0]
+            headroom = engine.engine_cfg.ladder_admit_headroom_pages
             while (len(batch) < self.max_prefills_per_step
                    and len(batch) < free_slots and self._waiting):
                 pending = self._waiting[0]
                 if pending.seq.done:          # cancelled while queued
                     self._waiting.popleft()
                     continue
-                need = self.engine._pages_reserved(pending.seq)
-                if self.engine._free_plus_evictable() < reserved + need:
+                need = engine._pages_for_admission(pending.seq)
+                if engine._free_plus_evictable() < reserved + need:
+                    break
+                # Batch-ladder guard: growing past the base rung must
+                # leave ``headroom`` reclaimable pages behind.
+                if (headroom > 0
+                        and bound + len(batch) + 1 > base_rung
+                        and engine._free_plus_evictable()
+                        < reserved + need + headroom):
                     break
                 if self._needs_chunking(pending.seq):
                     if self._prefilling is not None or batch:
@@ -273,6 +363,7 @@ class EngineScheduler:
                     self._waiting.popleft()
                     self._callbacks[pending.seq.request_id] = pending
                     start_chunked = pending
+                    reserved += need
                     break
                 self._waiting.popleft()
                 # Register before releasing the lock so cancel() always
@@ -280,25 +371,94 @@ class EngineScheduler:
                 self._callbacks[pending.seq.request_id] = pending
                 reserved += need
                 batch.append(pending)
+        # Queue-wait swap-in: the head request's host-tier pages restore
+        # into cache-owned pages while it waits.
+        if engine.host_pool is not None:
+            with self._lock:
+                head = self._waiting[0] if self._waiting else None
+            if head is not None and not head.seq.done:
+                try:
+                    engine.prefetch_host_hits(head.seq)
+                except Exception as exc:  # noqa: BLE001 — keep loop alive
+                    telemetry.log_event(
+                        "step_error", level="error", phase="host_prefetch",
+                        error=repr(exc),
+                        request_ids=[head.seq.trace_id
+                                     or str(head.seq.request_id)])
         if start_chunked is not None:
             try:
-                self.engine.prefill_begin(start_chunked.seq)
+                engine.prefill_begin(start_chunked.seq)
             except Exception as exc:  # noqa: BLE001
                 self._step_failed("prefill_begin", exc, [start_chunked.seq])
                 return
             self._prefilling = start_chunked
+            if self._hybrid_active():
+                return    # the first chunk rides this iteration's call
             self._step_incremental_prefill()
             return
         if not batch:
             return
         try:
-            self.engine.prefill_many([p.seq for p in batch])
+            engine.prefill_many([p.seq for p in batch])
         except Exception as exc:  # noqa: BLE001 — keep the engine loop alive
             self._step_failed("batched_prefill", exc, [p.seq for p in batch])
             return
         self._note_ok()
         for pending in batch:
             self._prefill_done(pending)
+
+    def _drain_safely(self) -> Dict[int, List[int]]:
+        """drain_pipeline under the loop's keep-alive contract: a device
+        error that surfaces at a sync fails the affected requests with
+        "error" instead of killing the engine thread."""
+        engine = self.engine
+        try:
+            return engine.drain_pipeline()
+        except Exception as exc:  # noqa: BLE001 — keep the loop alive
+            victims = engine.active_sequences()
+            pending = self._prefilling
+            if pending is not None:
+                self._prefilling = None
+                if pending.seq not in victims:
+                    victims = victims + [pending.seq]
+            engine.abort_pipeline()
+            engine.take_preempted()
+            self._step_failed("drain", exc, victims)
+            return {}
+
+    def _poll_hybrid_prefill(self) -> None:
+        """A hybrid prefill completes at a sync (the final chunk's token
+        folds in the engine's _sync_oldest): detect it and run the
+        post-prefill bookkeeping."""
+        pending = self._prefilling
+        if pending is None or pending.seq.prefill_prompt is not None:
+            return
+        self._prefilling = None
+        self._prefill_done(pending)
+
+    def _requeue_preempted(self) -> None:
+        """Move sequences the engine preempted back to the HEAD of the
+        queue (admitted before anything still waiting) for recompute-
+        resume; their entries leave _callbacks until re-admitted. Runs
+        after _deliver: tokens folded before a preemption reach the
+        client first."""
+        preempted = self.engine.take_preempted()
+        if not preempted:
+            return
+        self.stats.preemptions += len(preempted)
+        cancelled: List[Sequence] = []
+        with self._lock:
+            for seq in reversed(preempted):
+                pending = self._callbacks.get(seq.request_id)
+                if pending is None:
+                    continue
+                if seq.done:          # cancelled while being preempted
+                    cancelled.append(seq)
+                    continue
+                del self._callbacks[seq.request_id]
+                self._waiting.appendleft(pending)
+        for seq in cancelled:
+            self._finish(seq)
 
     def _finish(self, seq: Sequence) -> None:
         with self._lock:
@@ -357,8 +517,13 @@ class EngineScheduler:
             self._admit()
             active = engine.active_sequences()
             if not active:
+                # Flush dispatch-ahead calls, then reap even when idle.
+                if engine.pipeline_pending:
+                    self._deliver(self._drain_safely())
+                    self._poll_hybrid_prefill()
                 for s in self._reapable():
                     self._finish(s)
+                self._requeue_preempted()
                 if self._prefilling is not None:
                     continue          # next iteration runs the next chunk
                 if not self._waiting:
@@ -367,19 +532,48 @@ class EngineScheduler:
                 else:
                     time.sleep(self.IDLE_SLEEP_S)
                 continue
+            hybrid_pf = self._prefilling if self._hybrid_active() else None
+            if hybrid_pf is not None and hybrid_pf.seq.done:
+                # Cancelled mid-hybrid-prefill: settle in-flight chunk
+                # writes before its pages are released.
+                self._deliver(self._drain_safely())
+                self._prefilling = None
+                self._finish(hybrid_pf.seq)
+                hybrid_pf = None
             thresh = engine.engine_cfg.latency_decode_threshold
+            t_call = time.perf_counter()
             try:
-                if (0 < len(active) <= thresh and not self._waiting
-                        and self._prefilling is None):
+                if hybrid_pf is not None:
+                    new_tokens = engine.hybrid_step_pipelined(hybrid_pf.seq)
+                elif (0 < len(active) <= thresh and not self._waiting
+                        and self._prefilling is None
+                        and not engine.pipeline_pending):
                     new_tokens = engine.decode_steps(max_steps=1)
                 else:
                     new_tokens = engine.decode_steps_pipelined()
+                self.stats.record_decode_call(time.perf_counter() - t_call)
             except Exception as exc:  # noqa: BLE001 — keep the loop alive
-                self._step_failed("decode", exc, active)
+                victims = list(active)
+                if hybrid_pf is not None:
+                    # The failed call carried a chunk: its request fails
+                    # with the batch.
+                    self._prefilling = None
+                    victims.append(hybrid_pf.seq)
+                # Stale in-flight state would poison reused slots; drop
+                # mid-call preemptions too (they fail with the batch).
+                engine.abort_pipeline()
+                engine.take_preempted()
+                self._step_failed("hybrid" if hybrid_pf is not None
+                                  else "decode", exc, victims)
                 continue
             self._note_ok()
             self.stats.steps += 1
             self.stats.batch_occupancy_sum += len(active)
+            if self._reapable() and engine.pipeline_pending:
+                # A finish releases pages a newer in-flight call may still
+                # write: drain first, and deliver the drained tokens too.
+                for rid, toks in self._drain_safely().items():
+                    new_tokens.setdefault(rid, []).extend(toks)
             self.stats.tokens_generated += sum(
                 len(toks) for toks in new_tokens.values())
             in_use = (engine.engine_cfg.num_pages - 1
@@ -387,5 +581,7 @@ class EngineScheduler:
             self.stats.peak_pages_in_use = max(self.stats.peak_pages_in_use,
                                                in_use)
             self._deliver(new_tokens)
+            self._poll_hybrid_prefill()
+            self._requeue_preempted()
             for s in self._reapable():
                 self._finish(s)

@@ -16,16 +16,16 @@ on the H100 and how its split-KV design answers that.
 first use) and raises if it cannot; for CPU tensors it runs
 ``paged_attention_plain``, the same function written out step by step in
 PyTorch. ``split_plan`` is the host's split of each sequence's pages
-across blocks, from shapes alone. ``launches`` counts kernel launches
+across blocks, from the table width, page size and window alone. ``launches`` counts kernel launches
 (one per layer per decode step; the merge of a call's splits happens
 inside that launch) and nothing else; ``launches_by_variant`` splits
-them by pool kind (``f32``, ``bf16``, ``int8``, ``int4``).
+them by pool kind (``f32``, ``bf16``, ``int8``, ``int4``) and
+``launches_by_batch`` by batch width (the decode ladder's rungs).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -37,12 +37,11 @@ from tpu_inference_torch.kernels import _build, _pool
 NEG_INF = -1e30
 launches = 0
 launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
+launches_by_batch: dict = {}
 
-# The split plan's constants: it aims at BLOCKS_PER_SM blocks per SM for
-# the (sequence, kv-head) pairs of a call, with no more splits than the
-# readable pages hold MIN_SPLIT_TOKENS-token pieces.
+# Tokens per split: the split plan cuts the readable pages into
+# MIN_SPLIT_TOKENS-token pieces (the last may be shorter).
 MIN_SPLIT_TOKENS = 256
-BLOCKS_PER_SM = 4
 
 _lib = None
 # (device index, stream) -> int32 split counters. They must start at 0;
@@ -53,11 +52,12 @@ _counters: dict = {}
 
 
 def reset_counts() -> None:
-    """Set ``launches`` and every ``launches_by_variant`` count to 0."""
+    """Set ``launches`` and every per-variant and per-batch count to 0."""
     global launches
     launches = 0
     for k in launches_by_variant:
         launches_by_variant[k] = 0
+    launches_by_batch.clear()
 
 
 def _library() -> ctypes.CDLL:
@@ -73,37 +73,30 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def split_plan(batch: int, hkv: int, max_pages: int, page_size: int,
-               sliding_window: int = 0,
-               num_sms: int = 132) -> Tuple[int, int]:
+def split_plan(max_pages: int, page_size: int,
+               sliding_window: int = 0) -> Tuple[int, int]:
     """``(num_splits, pages_per_split)`` of the decode kernel's grid,
-    from shapes alone (never from ``kv_len``, which lives on the device).
+    from the table width, the page size and the window alone: never from
+    the batch (a lane's split boundaries, and so the order in which its
+    partials merge, are the same at every batch width, so its output row
+    is bit-identical at every ladder rung) and never from ``kv_len``
+    (which lives on the device).
 
     Split s of a sequence owns pages ``[first + s * pps, first + (s + 1)
     * pps)``, where ``first`` is 0, or the window's first page under a
     sliding window. The splits cover the pages a call can read: all
     ``max_pages``, or at most ``ceil(window / page_size) + 1`` under a
-    window. Enough splits to give the card ``BLOCKS_PER_SM`` blocks per
-    SM, but no more than the span holds ``MIN_SPLIT_TOKENS``-token
-    pieces; no split is empty of pages (the last may be shorter). A split
-    past a sequence's ``kv_len`` reads nothing: the kernel counts the
-    non-empty splits from ``kv_len`` on the device.
+    window, in ``MIN_SPLIT_TOKENS``-token pieces; no split is empty of
+    pages (the last may be shorter). The grid grows with the batch. A
+    split past a sequence's ``kv_len`` reads nothing: the kernel counts
+    the non-empty splits from ``kv_len`` on the device.
     """
     span = max_pages
     if sliding_window > 0:
         span = min(span, -(-sliding_window // page_size) + 1)
     span = max(span, 1)
-    blocks = max(batch * hkv, 1)
-    want = max(1, -(-BLOCKS_PER_SM * num_sms // blocks))
-    min_pages = max(1, -(-MIN_SPLIT_TOKENS // page_size))
-    ns = min(want, -(-span // min_pages))
-    pps = -(-span // ns)
+    pps = min(span, max(1, -(-MIN_SPLIT_TOKENS // page_size)))
     return -(-span // pps), pps
-
-
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _split_counters(device: torch.device, stream: int,
@@ -197,8 +190,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if b == 0:
         return out
     mp = block_tables.shape[1]
-    ns, pps = split_plan(b, hkv, mp, pg, int(sliding_window),
-                         _num_sms(q.device.index or 0))
+    ns, pps = split_plan(mp, pg, int(sliding_window))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part_acc = part_ml = counters = None
     if ns > 1:   # per-split partials, merged by each slot's last block
@@ -224,4 +216,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check(lib, err, "paged_attention")
     launches += 1
     launches_by_variant[variant] += 1
+    launches_by_batch[b] = launches_by_batch.get(b, 0) + 1
     return out

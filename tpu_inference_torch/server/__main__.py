@@ -4,22 +4,34 @@ Serves the Ollama protocol on the card (``--device cuda``, the default)
 or, for tests and small presets, on the CPU (``--device cpu``). Weights
 are random, made from ``--seed``. ``--quant int8 --kv-quant int8`` serves
 int8 weights over an int8 KV pool (int4 for either is the other tier).
+
+The sizing and engine flags are the reference's, with its defaults and
+its order of resolving "auto": ``--max-batch-size``/``--num-pages auto``
+from the card's memory (engine/autosize.py), then ``--decode-ladder``
+against the batch size, then ``--host-cache-pages auto`` from the
+machine's available RAM. The reference's chip configuration::
+
+    python -m tpu_inference_torch.server --model llama-3-8b --quant int8 \\
+        --kv-quant int8 --max-batch-size auto --num-pages auto \\
+        --batch-cap 32 --decode-pipeline-depth 2
 """
 
 from __future__ import annotations
 
 import argparse
 import signal
+import sys
 import threading
 
 from tpu_inference_torch.config import PRESETS
+from tpu_inference_torch.engine.autosize import int_or_auto
 
 
 def _buckets(text: str) -> tuple:
     return tuple(int(x) for x in text.split(",") if x)
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA LLM inference server (Ollama-protocol "
                     "endpoint)")
@@ -34,15 +46,46 @@ def main(argv=None) -> None:
                    help="seed of the random weights")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--page-size", type=int, default=16)
-    p.add_argument("--num-pages", type=int, default=512)
-    p.add_argument("--max-pages-per-seq", type=int, default=64)
-    p.add_argument("--max-batch-size", type=int, default=8)
+    p.add_argument("--num-pages", type=int_or_auto, default=512,
+                   help="KV pool pages, or 'auto': fill the card's memory "
+                        "left after weights + activation headroom")
+    p.add_argument("--max-pages-per-seq", type=int, default=64,
+                   help="max context = page-size * this")
+    p.add_argument("--max-batch-size", type=int_or_auto, default=8,
+                   help="decode slots, or 'auto': size from the card's "
+                        "memory after weights (engine/autosize.py)")
+    p.add_argument("--target-ctx", type=int, default=0,
+                   help="with auto sizing: expected context tokens per "
+                        "sequence (0 = half the per-sequence max)")
+    p.add_argument("--batch-cap", type=int, default=32,
+                   help="upper bound for --max-batch-size auto")
+    p.add_argument("--decode-ladder", default="auto",
+                   help="decode batch ladder: 'auto' (doubling rungs "
+                        "8/16/32/... up to max-batch-size), 'off' (one "
+                        "rung at max-batch-size), or comma rungs like "
+                        "'8,16,32'; each call runs at the smallest rung "
+                        "covering the occupied lanes")
+    p.add_argument("--ladder-admit-headroom-pages", type=int, default=0,
+                   help="growing the batch past the base rung must leave "
+                        "this many reclaimable KV pages spare; 0 = off")
     p.add_argument("--prefill-buckets", type=_buckets,
                    default=(64, 128, 256, 512, 1024),
                    help="comma-separated prompt buckets")
     p.add_argument("--chunked-prefill-size", type=int, default=0)
     p.add_argument("--max-prefill-batch", type=int, default=4)
     p.add_argument("--decode-steps-per-call", type=int, default=8)
+    p.add_argument("--decode-pipeline-depth", type=int, default=1,
+                   help=">1 keeps that many K-step decode calls queued on "
+                        "the card (hides the host's dispatch time; adds "
+                        "(depth-1)*K steps of streaming latency)")
+    p.add_argument("--hybrid-prefill", action="store_true",
+                   help="run each chunk of a multi-chunk prompt inside "
+                        "the decode call, so running lanes keep producing "
+                        "tokens; greedy output is unchanged")
+    p.add_argument("--step-token-budget", type=int, default=0,
+                   help="with --hybrid-prefill: chunk tokens per call are "
+                        "capped at this minus the granted decode tokens "
+                        "(floor: page-size); 0 = uncapped")
     p.add_argument("--latency-decode-threshold", type=int, default=1)
     p.add_argument("--attn-backend", default="auto",
                    choices=("auto", "kernel", "dense"))
@@ -55,10 +98,86 @@ def main(argv=None) -> None:
                    help="KV-cache quantization: int8 codes with per-token-"
                         "head scales, or nibble-packed int4")
     p.add_argument("--no-prefix-cache", action="store_true")
+    p.add_argument("--host-cache-pages", type=int_or_auto, default="auto",
+                   help="host-RAM KV tier capacity in pages: evicted "
+                        "prefix-cache pages demote to pinned host memory "
+                        "and swap back in on reuse; 0 = off, 'auto' "
+                        "(default) = half the available RAM "
+                        "(/proc/meminfo MemAvailable) less 2 GiB")
+    p.add_argument("--admission", default="reserve",
+                   choices=("reserve", "optimistic"),
+                   help="'reserve' charges each request prompt + max_new "
+                        "(no preemption); 'optimistic' charges prompt + "
+                        "headroom and preempts/recompute-resumes under "
+                        "pressure (token-identical under greedy decoding)")
+    p.add_argument("--optimistic-headroom-pages", type=int, default=2,
+                   help="optimistic admission: decode-headroom pages "
+                        "charged per request on top of its prompt")
+    p.add_argument("--preempt-watermark-pages", type=int, default=4,
+                   help="preempt the most recently admitted sequences "
+                        "when a decode grant comes up short and "
+                        "free+evictable pages fall below this")
+    p.add_argument("--preempt-max-per-request", type=int, default=3,
+                   help="starvation guard: after this many preemptions a "
+                        "request re-admits under full reservation")
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--request-timeout-s", type=float, default=600.0)
     p.add_argument("--admission-queue-depth", type=int, default=0)
+    return p
+
+
+def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
+    """The EngineConfig fields of parsed ``args``, "auto" resolved in the
+    reference's order (sizing, ladder, host tier); usage errors go
+    through ``p.error``."""
+    from tpu_inference_torch.engine import autosize
+
+    try:
+        max_batch_size, num_pages = autosize.resolve_sizing_args(args)
+        decode_ladder = autosize.parse_decode_ladder(args.decode_ladder,
+                                                     max_batch_size)
+    except (ValueError, RuntimeError) as e:
+        p.error(str(e))
+    if len(decode_ladder) > 1:
+        print(f"[autosize] decode ladder: {list(decode_ladder)}",
+              file=sys.stderr)
+    host_cache_pages = args.host_cache_pages
+    if host_cache_pages == "auto":
+        host_cache_pages = autosize.auto_host_cache_pages(
+            PRESETS[args.model](), kv_quant=args.kv_quant,
+            page_size=args.page_size)
+        print(f"[autosize] host KV tier: {host_cache_pages} pages (from "
+              "/proc/meminfo MemAvailable)", file=sys.stderr)
+    return dict(
+        page_size=args.page_size, num_pages=num_pages,
+        max_pages_per_seq=args.max_pages_per_seq,
+        max_batch_size=max_batch_size, decode_ladder=decode_ladder,
+        ladder_admit_headroom_pages=args.ladder_admit_headroom_pages,
+        prefill_buckets=args.prefill_buckets,
+        chunked_prefill_size=args.chunked_prefill_size,
+        max_prefill_batch=args.max_prefill_batch,
+        decode_steps_per_call=args.decode_steps_per_call,
+        decode_pipeline_depth=args.decode_pipeline_depth,
+        hybrid_prefill=args.hybrid_prefill,
+        step_token_budget=args.step_token_budget,
+        latency_decode_threshold=args.latency_decode_threshold,
+        attn_backend=args.attn_backend, quant=args.quant,
+        kv_quant=args.kv_quant,
+        enable_prefix_cache=not args.no_prefix_cache,
+        host_cache_pages=host_cache_pages, admission=args.admission,
+        optimistic_headroom_pages=args.optimistic_headroom_pages,
+        preempt_watermark_pages=args.preempt_watermark_pages,
+        preempt_max_per_request=args.preempt_max_per_request,
+        max_new_tokens=args.max_new_tokens)
+
+
+def main(argv=None) -> None:
+    p = build_parser()
     args = p.parse_args(argv)
+    if args.model not in PRESETS:
+        p.error(f"unknown model {args.model!r}: one of "
+                f"{', '.join(sorted(PRESETS))}")
+    engine_args = resolve_engine_args(args, p)
 
     from tpu_inference_torch.server.http import build_server
 
@@ -69,23 +188,15 @@ def main(argv=None) -> None:
                           "request_timeout_s": args.request_timeout_s,
                           "admission_queue_depth":
                               args.admission_queue_depth},
-        page_size=args.page_size, num_pages=args.num_pages,
-        max_pages_per_seq=args.max_pages_per_seq,
-        max_batch_size=args.max_batch_size,
-        prefill_buckets=args.prefill_buckets,
-        chunked_prefill_size=args.chunked_prefill_size,
-        max_prefill_batch=args.max_prefill_batch,
-        decode_steps_per_call=args.decode_steps_per_call,
-        latency_decode_threshold=args.latency_decode_threshold,
-        attn_backend=args.attn_backend, quant=args.quant,
-        kv_quant=args.kv_quant,
-        enable_prefix_cache=not args.no_prefix_cache,
-        max_new_tokens=args.max_new_tokens)
+        **engine_args)
     port = server.start()
     print(f"serving {args.model} on http://{args.host}:{port} "
           f"(device={server.engine.device}, "
           f"attn_backend={server.engine.attn_backend}, "
-          f"quant={args.quant}, kv_quant={args.kv_quant})", flush=True)
+          f"quant={args.quant}, kv_quant={args.kv_quant}, "
+          f"batch={engine_args['max_batch_size']} "
+          f"ladder={list(server.engine.ladder)}, "
+          f"pages={engine_args['num_pages']})", flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())
     try:

@@ -86,7 +86,16 @@ def check_server_config(cfg: FrameworkConfig) -> None:
             "debug endpoints are not ported yet (ROADMAP 1.18)")
     if cfg.server.chaos_failure_rate or cfg.server.chaos_delay_s:
         raise NotImplementedError(
-            "HTTP fault injection is not ported yet (ROADMAP 1.13)")
+            "HTTP fault injection is not ported yet (ROADMAP 1.13b)")
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """One thread per connection. The listen backlog is aiohttp's (the
+    reference server's) 128, not socketserver's 5: a burst of concurrent
+    clients must queue, not be reset."""
+
+    daemon_threads = True
+    request_queue_size = 128
 
 
 class InferenceServer:
@@ -138,8 +147,7 @@ class InferenceServer:
         self.group.start()
         host = self.cfg.server.host if host is None else host
         port = self.cfg.server.port if port is None else port
-        self._httpd = ThreadingHTTPServer((host, port), _Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _HTTPServer((host, port), _Handler)
         self._httpd.app = self
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="http", daemon=True)

@@ -215,8 +215,11 @@ PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 PHASE_HISTOGRAMS = {
     "prefill_dispatch": "prefill_dispatch_s",
     "decode_dispatch": "decode_dispatch_s",
+    "decode_sync": "decode_sync_s",
     "dispatch_bubble": "dispatch_bubble_s",
     "tokens_per_dispatch": "tokens_per_dispatch",
+    "hybrid_dispatch": "hybrid_dispatch_s",
+    "kv_swap": "kv_swap_s",
     "queue_wait": "queue_wait_s",
     "prefill_phase": "prefill_phase_s",
     "decode_phase": "decode_phase_s",
@@ -230,9 +233,13 @@ class EngineTelemetry:
 
     Engine phases (observed by engine/engine.py): ``prefill_dispatch_s``
     (host wall of one prefill call including its first-token readback),
-    ``decode_dispatch_s`` (host wall of one K-step decode call including
-    its one sync), ``dispatch_bubble_s`` (host gap between consecutive
-    decode calls while sequences were active), ``tokens_per_dispatch``.
+    ``decode_dispatch_s`` (host wall of one K-step decode call: with its
+    sync at pipeline depth 1, the non-blocking dispatch alone deeper),
+    ``decode_sync_s`` (host wall waiting on a dispatch-ahead call's
+    event), ``dispatch_bubble_s`` (host gap between consecutive decode
+    calls while sequences were active), ``tokens_per_dispatch``,
+    ``hybrid_dispatch_s`` (host wall of one hybrid prefill+decode call),
+    ``kv_swap_s`` (host wall of one host-tier page batch copy).
     Request phases (engine/scheduler.py at finish): ``queue_wait_s``,
     ``prefill_phase_s``, ``decode_phase_s``, ``ttft_s``, ``e2e_s``.
     """
@@ -252,6 +259,32 @@ class EngineTelemetry:
         self.tokens_per_dispatch = r.histogram(
             "tpu_inf_tokens_per_dispatch",
             "Tokens surfaced per fused decode call", buckets=COUNT_BUCKETS)
+        self.decode_sync_s = r.histogram(
+            "tpu_inf_decode_sync_seconds",
+            "Host wall blocked syncing a dispatch-ahead decode call")
+        self.hybrid_dispatch_s = r.histogram(
+            "tpu_inf_hybrid_dispatch_seconds",
+            "Host wall time of one hybrid prefill+decode fused dispatch")
+        self.kv_swap_s = r.histogram(
+            "tpu_inf_kv_swap_seconds",
+            "Host wall of one device<->host KV page-batch swap (both "
+            "directions queue non-blocking copies on the stream)")
+        self.kv_offload_pages = r.counter(
+            "tpu_inf_kv_offload_pages_total",
+            "KV pages demoted from the device pool to the host-RAM tier")
+        self.kv_restore_pages = r.counter(
+            "tpu_inf_kv_restore_pages_total",
+            "KV pages promoted from the host-RAM tier back into the "
+            "device pool")
+        self.kv_offload_bytes = r.counter(
+            "tpu_inf_kv_offload_bytes_total",
+            "Bytes copied device->host by KV page demotion")
+        self.kv_restore_bytes = r.counter(
+            "tpu_inf_kv_restore_bytes_total",
+            "Bytes copied host->device by KV page promotion")
+        self.hybrid_steps = r.counter(
+            "tpu_inf_hybrid_steps_total",
+            "Hybrid prefill+decode fused dispatches issued")
         self.queue_wait_s = r.histogram(
             "tpu_inf_queue_wait_seconds",
             "Request admission queue wait (enqueue -> prefill start)")
@@ -295,10 +328,50 @@ class EngineTelemetry:
                 "1 - (free+evictable)/total: fraction of the pool pinned "
                 "by running sequences",
                 fn=lambda: engine.pool_pressure)
+        r.counter("tpu_inf_preemptions_total",
+                  "Sequences preempted for KV pool pressure "
+                  "(admission=optimistic watermark safety net)",
+                  fn=lambda: engine.preemptions_total)
+        r.counter("tpu_inf_recompute_resumes_total",
+                  "Preempted sequences re-prefilled (recompute-resume)",
+                  fn=lambda: engine.resumes_total)
+        r.counter("tpu_inf_swap_in_resumes_total",
+                  "Resume prefills that restored KV pages from the "
+                  "cache tiers instead of recomputing them all",
+                  fn=lambda: engine.swap_in_resumes)
         r.gauge("tpu_inf_model_params", "Model parameter count",
                 fn=lambda: engine.n_params)
         r.gauge("tpu_inf_active_sequences", "Bound decode slots",
                 fn=lambda: sum(s is not None for s in engine.slots))
+        r.gauge("tpu_inf_decode_rung",
+                "Active batch-ladder rung (batch size of the decode call "
+                "the latest dispatch ran)",
+                fn=lambda: engine.decode_rung)
+        r.gauge("tpu_inf_decode_ladder_top",
+                "Top batch-ladder rung (max concurrent decode lanes)",
+                fn=lambda: engine.ladder[-1])
+        r.counter("tpu_inf_rung_switches_total",
+                  "Decode dispatches that changed ladder rung",
+                  fn=lambda: engine.rung_switches_total)
+        r.gauge("tpu_inf_decode_occupancy",
+                "Decode lane occupancy: bound slots / top ladder rung",
+                fn=lambda: (sum(s is not None for s in engine.slots)
+                            / max(engine.ladder[-1], 1)))
+
+    def bind_host_pool(self, pool) -> None:
+        """Read-through metrics over the host-RAM KV tier's accounting
+        (engine/kv_cache.py HostPagePool)."""
+        r = self.registry
+        r.gauge("tpu_inf_kv_host_pages_total",
+                "Host-RAM KV tier capacity (pages)",
+                fn=lambda: pool.capacity)
+        r.gauge("tpu_inf_kv_host_pages_used",
+                "Host-RAM KV tier pages resident",
+                fn=lambda: pool.used)
+        r.counter("tpu_inf_kv_host_evictions_total",
+                  "Host-tier entries dropped for good (second-tier LRU "
+                  "eviction or supersession by a fresh HBM publish)",
+                  fn=lambda: pool.evicted_total)
 
     def bind_scheduler(self, sched) -> None:
         """Read-through metrics over SchedulerStats counters."""
