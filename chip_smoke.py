@@ -28,6 +28,13 @@ failing loudly (any failure exits non-zero before the result line):
    decode ladder, pipeline depth 2, hybrid prefill, optimistic
    admission over a pool small enough to preempt and use the host
    tier), each mode's machinery seen running and the pool clean after.
+   Then speculative decoding (spec_engine_phase: n-gram at every ladder
+   rung, at depth 2 and under optimistic admission with the host tier,
+   and draft-model rounds with the target as its own draft, with both
+   backends, tokens identical to plain decode) and fault injection
+   (chaos_phase: a failure armed with verify rounds in flight, health
+   degraded then quarantined then recovered, the same tokens after, the
+   step watchdog, page pressure, the pool clean).
 5. main paths: the Ollama server in-process with llama-3-8b at full
    width (32 layers, bf16 activations, random weights from a seed, byte
    tokenizer), concurrent streamed /api/generate requests over
@@ -41,10 +48,17 @@ failing loudly (any failure exits non-zero before the result line):
    top out at and reach 32, with a rung switch and a hybrid step); and
    a pressure run (a few hundred pages, optimistic admission, a fixed
    host tier: preemption, host offload and restore must happen, and the
-   8 returning requests reproduce). Each server is freed before the
+   4 returning requests reproduce). Each server is freed before the
    next boots. Every request must finish with done_reason "length" and
    all its tokens, the server must count no failed dispatch, and both
-   kernels must launch the path's variant and no other.
+   kernels must launch the path's variant and no other. Two speculative
+   lanes follow: n-gram speculation on the reference's chip flags
+   (ngram_phase, int8 + int8 KV: verify rounds through the prefill
+   kernel at S 2 and 5, the decode kernel only in fallback rounds) and
+   llama-3-8b in bf16 as its own draft (draft_phase: acceptance above
+   0.5, no decode-kernel launch in the dense rounds).
+   The prefill kernel is also checked and timed at the verify round's
+   shapes (verify_cases, in the kernel phase).
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -230,13 +244,18 @@ def decode_case(name, b, kv_lens, window, dtype, flush, gen, kv="none"):
 
 
 def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
-                 kv="none"):
+                 kv="none", inactive: int = 0):
+    """One prefill-kernel case; the last ``inactive`` lanes are inactive
+    as a speculative verify round stages them (q_offset 0, kv_len S, an
+    all-trash-page block table)."""
     from tpu_inference_torch.kernels import prefill_attention as pfa
     hq, hkv, d, pg = 32, 8, 128, 16
     b = len(kv_lens)
     mp = max(-(-n // pg) for n in kv_lens)
     k_pages, v_pages, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype,
                                               kv)
+    if inactive:
+        bt[b - inactive:] = 0
     q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
     kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     q_off = torch.tensor(q_offsets, dtype=torch.int32, device="cuda")
@@ -272,7 +291,7 @@ def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
         "kv": kv,
         "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "page": pg,
                   "q_offset": q_offsets, "kv_len": kv_lens,
-                  "sliding_window": window},
+                  "sliding_window": window, "inactive_lanes": inactive},
         "max_abs_err": err, "err_over_scale": rel, "tolerance": TOL[dtype],
         "ms": time_ms(lambda: pfa.paged_prefill_attention(
             *args, sliding_window=window), flush=flush),
@@ -334,7 +353,40 @@ def kernel_phase() -> dict:
                      [1024], [1500], 0, f32, flush, gen, "int8"),
     ]
     del flush
-    return {"decode": decode, "prefill": prefill}
+    return {"decode": decode, "prefill": prefill,
+            "verify": verify_cases(gen)}
+
+
+# Speculative verify shapes (engine/speculative.py verify_round): S = γ+1
+# (γ 4) and the 2-wide probe, at ladder rungs 8 and 32.
+VERIFY_SHAPES = ((8, 2), (8, 5), (32, 2), (32, 5))
+
+
+def verify_cases(gen) -> list:
+    """The prefill kernel at the n-gram verify round's shapes: B 8 and 32
+    lanes of S 2 and 5 queries at offsets mixed over 1..1500 (the
+    context), the last lane inactive, for every pool kind with bf16 q
+    (the served model) and with float32 q at B 8 x S 5 (the tiny
+    engines)."""
+    import numpy as np
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    cases = []
+    for kv in ("none", "int8", "int4"):
+        tag = "" if kv == "none" else f" {kv} pool"
+        for dtype, shapes in ((torch.bfloat16, VERIFY_SHAPES),
+                              (torch.float32, ((8, 5),))):
+            for b, s in shapes:
+                # The same contexts at every S and pool kind of a batch.
+                offs = np.random.default_rng(SEED + 4 + b).integers(
+                    1, 1501, size=b).tolist()
+                offs[-1] = 0
+                lens = [o + s for o in offs]
+                f32 = " f32" if dtype == torch.float32 else ""
+                cases.append(prefill_case(
+                    f"prefill verify B{b} S{s}{f32}{tag}", s, offs, lens, 0,
+                    dtype, flush, gen, kv, inactive=1))
+    del flush
+    return cases
 
 
 def _worse(a, b) -> list:
@@ -683,14 +735,261 @@ def engine_phase() -> list:
     return done
 
 
-def _stream_request(port: int, prompt: str, max_tokens: int) -> dict:
+# The speculative modes the tiny engines compare against their plain
+# scheduler baseline: n-gram (γ 4; its fresh lanes start on the 2-wide
+# probe round) at every ladder rung, at pipeline depth 2, under
+# optimistic admission with the host tier and preemption; draft-model
+# speculation with the target as its own draft.
+NGRAM = {"spec_mode": "ngram", "num_speculative_tokens": 4}
+SPEC_MODES = (("ngram ladder (4, 8, 16)", {**NGRAM, "max_batch_size": 16,
+                                           "decode_ladder": (4, 8, 16)}),
+              ("ngram depth 2", {**NGRAM, "decode_pipeline_depth": 2,
+                                 "latency_decode_threshold": 0}),
+              ("ngram optimistic + host tier", {
+                  **NGRAM, "admission": "optimistic", "num_pages": 20,
+                  "host_cache_pages": 64}),
+              ("draft (target as draft)", {"num_speculative_tokens": 4}))
+
+
+def _echo_prompts(rng, n: int, lengths) -> list:
+    """Prompts that repeat a short random passage of their own, so the
+    n-gram proposer finds matches in the prompt (and in the tiny models'
+    cycles)."""
+    out = []
+    for i in range(n):
+        passage = rng.integers(0, 256, size=int(rng.integers(4, 9))).tolist()
+        length = int(lengths[i % len(lengths)])
+        out.append((passage * (length // len(passage) + 1))[:length])
+    return out
+
+
+def spec_engine_phase() -> list:
+    """Tiny engines (float32) on the card under speculative decoding:
+    through the scheduler in every SPEC_MODES mode and with both
+    attention backends, greedy tokens identical to the plain baseline's;
+    the n-gram modes accept proposals, run verify rounds at S 2 and 5
+    through the prefill kernel, and fall back to the plain call at least
+    once; the draft equal to the target accepts (nearly) every proposal;
+    the pool is clean after every run."""
+    import dataclasses
+
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    from tpu_inference_torch.models.registry import build_model
+
+    base = cfgs.EngineConfig(page_size=8, num_pages=128,
+                             max_pages_per_seq=16, max_batch_size=4,
+                             prefill_buckets=(16, 32),
+                             decode_steps_per_call=4,
+                             chunked_prefill_size=16)
+    rng = np.random.default_rng(11)
+    prompts = (_echo_prompts(rng, 8, (12, 20, 30, 9))
+               + [rng.integers(0, 256, size=n).tolist() for n in (5, 14, 40,
+                                                                  7)])
+    max_new = 32
+    done = []
+    verify_lens: dict = {}
+    for preset in ("tiny_llama", "tiny_mistral"):
+        mcfg = getattr(cfgs, preset)(vocab_size=256)
+        params, _ = build_model(mcfg, seed=SEED, device="cuda")
+        want = _sched_run(InferenceEngine(mcfg, base, params=params,
+                                          device="cuda"), prompts, max_new)
+        for name, over in SPEC_MODES:
+            draft = "spec_mode" not in over
+            for backend in ("kernel", "dense"):
+                pfa.reset_counts()
+                pa.reset_counts()
+                eng = InferenceEngine(
+                    mcfg, dataclasses.replace(base, **over), params=params,
+                    attn_backend=backend, device="cuda",
+                    draft_cfg=mcfg if draft else None,
+                    draft_params=params if draft else None)
+                got = _sched_run(eng, prompts, max_new)
+                label = f"{mcfg.name} {name} [{backend}]"
+                if got != want:
+                    diff = [i for i in want if want[i] != got[i]]
+                    raise AssertionError(f"{label}: greedy tokens differ "
+                                         f"from plain decode for {diff}")
+                rec = {"label": label, "drafted": eng.spec_drafted,
+                       "accepted": eng.spec_accepted,
+                       "rounds": eng.spec_rounds_total,
+                       "fallback_rounds": eng.spec_fallback_rounds,
+                       "throttles": eng.spec_throttles_total,
+                       "rung_peak": eng.rung_peak,
+                       "preemptions": eng.preemptions_total,
+                       "prefill_launches_by_len": {
+                           str(k): v for k, v in
+                           sorted(pfa.launches_by_len.items())},
+                       "decode_launches": pa.launches}
+                if draft:
+                    if eng.spec_accepted < 0.9 * eng.spec_drafted or \
+                            not eng.spec_drafted:
+                        raise AssertionError(f"{label}: a draft equal to "
+                                             f"the target accepted {rec}")
+                    if backend == "kernel" and pa.launches:
+                        raise AssertionError(f"{label}: the decode kernel "
+                                             "ran in a dense spec round")
+                elif eng.spec_rounds_total <= 0 or eng.spec_accepted <= 0:
+                    raise AssertionError(f"{label}: no accepted verify "
+                                         f"round: {rec}")
+                if backend == "kernel":
+                    for k, v in pfa.launches_by_len.items():
+                        if k <= 5:
+                            verify_lens[k] = verify_lens.get(k, 0) + v
+                log(f"engine spec {label}: tokens identical to plain "
+                    f"decode; pool clean; {json.dumps(rec)}")
+                done.append(rec)
+    fallbacks = sum(r["fallback_rounds"] for r in done)
+    if not verify_lens.get(2) or not verify_lens.get(5) or not fallbacks:
+        raise AssertionError(f"spec engines: verify launches by S "
+                             f"{verify_lens}, {fallbacks} fallback rounds")
+    return done
+
+
+def chaos_phase() -> dict:
+    """Fault injection on the card (tiny-llama float32, n-gram speculation
+    at pipeline depth 2, in an EngineGroup with a step watchdog): arming
+    step_failure_rate 1.0 through apply_chaos while verify rounds are in
+    flight fails the running requests with an error record, health goes
+    degraded then quarantined; after disarming and the cooldown it
+    recovers, and the next requests finish "length" with the tokens of
+    before the fault; a wedge longer than step_watchdog_s trips the
+    watchdog; page pressure holds real pages and returns them; the pool
+    is clean."""
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+    from tpu_inference_torch.server.replicas import EngineGroup
+
+    mcfg = cfgs.tiny_llama(vocab_size=256)
+    ecfg = cfgs.EngineConfig(page_size=8, num_pages=512,
+                             max_pages_per_seq=128, max_batch_size=4,
+                             prefill_buckets=(16, 32),
+                             decode_steps_per_call=4,
+                             decode_pipeline_depth=2,
+                             latency_decode_threshold=0, **NGRAM)
+    eng = InferenceEngine(mcfg, ecfg, seed=SEED, device="cuda")
+    eng.warmup()
+    group = EngineGroup([eng], cfgs.ServerConfig(
+        quarantine_after_failures=2, quarantine_cooldown_s=0.5,
+        step_watchdog_s=0.5))
+    prompts = _echo_prompts(np.random.default_rng(12), 3, (18, 9, 26))
+    states = []
+
+    def submit(rid, prompt, max_new):
+        ev = {"tokens": [], "done": threading.Event(), "seq": None}
+
+        def fin(sq):
+            ev["seq"] = sq
+            ev["done"].set()
+        group.submit(Sequence(request_id=rid, prompt_tokens=list(prompt),
+                              max_new_tokens=max_new),
+                     lambda sq, t: ev["tokens"].append(t), fin)
+        return ev
+
+    def run(base_id):
+        evs = [submit(base_id + i, p, 24) for i, p in enumerate(prompts)]
+        for ev in evs:
+            if not ev["done"].wait(120):
+                raise AssertionError("chaos phase: a request hung")
+        if any(ev["seq"].finish_reason != "length" for ev in evs):
+            raise AssertionError("chaos phase: a request did not finish "
+                                 "with all its tokens")
+        return [ev["tokens"] for ev in evs]
+
+    def wait_for(pred, what):
+        t_end = time.monotonic() + 60
+        while not pred():
+            if time.monotonic() > t_end:
+                raise AssertionError(f"chaos phase: {what} never held")
+            time.sleep(0.001)
+
+    group.start()
+    try:
+        before = run(0)
+        # Long enough to stream for a second or more on the card.
+        long = [submit(10 + i, p, 900) for i, p in enumerate(prompts)]
+        wait_for(lambda: all(ev["tokens"] for ev in long), "streaming")
+        # The failure fires at the top of the next step, before that step
+        # syncs the verify round staged by the one before: record the
+        # calls the scheduler's failure path drops.
+        aborted = []
+        abort = eng.abort_pipeline
+
+        def counted_abort():
+            aborted.append(len(eng._inflight))
+            abort()
+        eng.abort_pipeline = counted_abort
+        group.apply_chaos({"replica": 0, "step_failure_rate": 1.0})
+        for ev in long:
+            if not ev["done"].wait(60) or \
+                    ev["seq"].finish_reason != "error":
+                raise AssertionError("chaos phase: an armed failure did not "
+                                     "fail the running requests")
+        if not any(aborted):
+            raise AssertionError(f"chaos phase: no call was in flight when "
+                                 f"a step failed ({aborted})")
+        states.append(group.health[0].state)
+        if group.health[0].state != "quarantined":
+            ev = submit(20, prompts[0], 4)
+            ev["done"].wait(60)
+            states.append(group.health[0].state)
+        if states[-1] != "quarantined":
+            raise AssertionError(f"chaos phase: health went {states}")
+        group.apply_chaos({"replica": None, "step_failure_rate": 0.0})
+        time.sleep(0.6)
+        if group.health_snapshot()["status"] == "unavailable":
+            raise AssertionError("chaos phase: no recovery after cooldown")
+        after = run(30)
+        if after != before:
+            raise AssertionError("chaos phase: tokens after the fault "
+                                 "differ from before it")
+        states.append(group.health[0].state)
+        failures = group.schedulers[0].stats.step_failures
+        # A wedge past the watchdog's deadline.
+        group.apply_chaos({"step_wedge_s": 1.5})
+        wedged = submit(40, prompts[1], 4)
+        if not wedged["done"].wait(60):
+            raise AssertionError("chaos phase: wedged request hung")
+        group.apply_chaos({"step_wedge_s": 0.0})
+        wedges = group.health[0].wedges
+        if wedges < 1 or wedged["seq"].finish_reason != "unavailable":
+            raise AssertionError(f"chaos phase: the watchdog did not fire "
+                                 f"({wedges} wedges, "
+                                 f"{wedged['seq'].finish_reason})")
+        wait_for(lambda: group.schedulers[0].step_inflight_since is None,
+                 "the wedged call's end")
+        # Page pressure holds real pages, then returns them.
+        free = eng.allocator.num_free
+        group.apply_chaos({"page_pressure": 40})
+        wait_for(lambda: eng.allocator.num_free == free - 40, "pressure")
+        held = eng.chaos_page_pressure
+        group.apply_chaos({"page_pressure": 0})
+        wait_for(lambda: eng.allocator.num_free == free, "pressure release")
+    finally:
+        group.apply_chaos({"step_wedge_s": 0.0, "step_failure_rate": 0.0})
+        group.stop(drain=True, timeout=30)
+    eng.check_pool_clean()
+    return {"calls_in_flight_at_failures": aborted, "health_states": states,
+            "step_failures": failures, "wedges": wedges,
+            "pressure_pages_held": held,
+            "spec_rounds": eng.spec_rounds_total}
+
+
+def _stream_request(port: int, prompt: str, max_tokens: int,
+                    options: dict | None = None) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    body = {"model": "llama-3-8b", "prompt": prompt, "temperature": 0.0,
+            "max_tokens": max_tokens, "stream": True}
+    if options:
+        body["options"] = options
     try:
         t0 = time.perf_counter()
-        conn.request("POST", "/api/generate", json.dumps({
-            "model": "llama-3-8b", "prompt": prompt, "temperature": 0.0,
-            "max_tokens": max_tokens, "stream": True}),
-            {"Content-Type": "application/json"})
+        conn.request("POST", "/api/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
         resp = conn.getresponse()
         t_headers = time.perf_counter()   # headers wait for the 1st token
         if resp.status != 200:
@@ -721,16 +1020,18 @@ def _stream_request(port: int, prompt: str, max_tokens: int) -> dict:
 
 
 def run_requests(port: int, prompts: list, max_tokens: int,
-                 stagger_s: float = 0.0) -> tuple:
+                 stagger_s: float = 0.0, options: dict | None = None
+                 ) -> tuple:
     """All prompts as concurrent streamed requests; (results, wall s).
     ``stagger_s`` between thread starts makes the server see them in
-    order."""
+    order; ``options`` are the requests' Ollama options."""
     results: list = [None] * len(prompts)
     errors: list = []
 
     def worker(i: int) -> None:
         try:
-            results[i] = _stream_request(port, prompts[i], max_tokens)
+            results[i] = _stream_request(port, prompts[i], max_tokens,
+                                         options)
         except Exception as e:   # noqa: BLE001 — re-raised below
             errors.append(e)
 
@@ -788,11 +1089,14 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_requests(port: int, prompts: list, max_tokens: int) -> dict:
+def profile_requests(port: int, prompts: list, max_tokens: int,
+                     trace_path: str | None = None,
+                     options: dict | None = None) -> dict:
     """The same concurrent requests again, under torch.profiler: device
     time by kernel and by class, and the device's busy share of the
-    window. A profiler that cannot trace here is reported, not fatal; a
-    failed request is."""
+    window (and with ``trace_path`` the chrome trace, written there). A
+    profiler that cannot trace here is reported, not fatal; a failed
+    request is."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -801,7 +1105,7 @@ def profile_requests(port: int, prompts: list, max_tokens: int) -> dict:
         return {"error": repr(e)}
     try:
         t0 = time.perf_counter()
-        run_requests(port, prompts, max_tokens)
+        run_requests(port, prompts, max_tokens, options=options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -818,6 +1122,11 @@ def profile_requests(port: int, prompts: list, max_tokens: int) -> dict:
                 kernels.append((evt.key, us / 1e3, evt.count))
     except RuntimeError as e:
         return {"error": repr(e)}
+    if trace_path is not None:
+        try:
+            prof.export_chrome_trace(trace_path)
+        except (RuntimeError, OSError) as e:
+            log(f"chrome trace not written: {e!r}")
     busy = sum(ms for _, ms, _ in kernels)
     by_class: dict = {}
     for name, ms, _ in kernels:
@@ -886,6 +1195,7 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         launches = {"paged_attention": pa.launches,
                     "prefill_attention": pfa.launches}
         by_batch = {str(b): n for b, n in sorted(pa.launches_by_batch.items())}
+        by_len = {str(n): c for n, c in sorted(pfa.launches_by_len.items())}
         for name, counts in by_variant.items():
             others = {k: n for k, n in counts.items() if k != variant and n}
             if counts[variant] <= 0 or others:
@@ -928,6 +1238,7 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         "eval_tokens": total_eval, "launches": launches,
         "launches_by_variant": by_variant,
         "decode_launches_by_batch": by_batch,
+        "prefill_launches_by_len": by_len,
         "launches_per_forward": n_layers,
         "done_reasons": [r["done_reason"] for r in results],
         "weight_bytes": weight_bytes, "kv_pool_bytes": kv_pool_bytes,
@@ -938,10 +1249,12 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
     }
 
 
-def _burst_prompts(n: int) -> list:
+def _burst_prompts(n: int, echo: bool = False) -> list:
     """``n`` prompts whose lengths are the ``Request tokens`` of BurstGPT
     rows drawn with numpy from SEED (capped at 1500 tokens); byte
-    tokenizer: n - 1 bytes -> n tokens (BOS)."""
+    tokenizer: n - 1 bytes -> n tokens (BOS). Random letters; with
+    ``echo`` each prompt repeats a 48-byte random passage of its own (no
+    two prompts share a prefix), so the n-gram proposer finds matches."""
     import csv
 
     import numpy as np
@@ -952,8 +1265,11 @@ def _burst_prompts(n: int) -> list:
     pick = np.random.default_rng(SEED).choice(len(lens), n, replace=False)
     rng = np.random.default_rng(SEED + 1)
     letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
-    return [rng.choice(letters, max(1, min(int(lens[i]), 1500) - 1)
-                       ).tobytes().decode() for i in pick]
+    sizes = [max(1, min(int(lens[i]), 1500) - 1) for i in pick]
+    if not echo:
+        return [rng.choice(letters, k).tobytes().decode() for k in sizes]
+    return [np.resize(rng.choice(letters, 48), k).tobytes().decode()
+            for k in sizes]
 
 
 def _serve_cli(flags: list):
@@ -971,22 +1287,29 @@ def _serve_cli(flags: list):
     return server, engine_args
 
 
-def _check_variant(label: str, variant: str) -> dict:
+def _check_variant(label: str, variant: str, need_decode: bool = True
+                   ) -> dict:
     """Both kernels ran the path's variant and no other since the last
-    reset; returns the counts by variant (and the decode's by batch)."""
+    reset (the decode kernel may not have run at all when not
+    ``need_decode``); returns the counts by variant (and the decode's by
+    batch, the prefill's by query length)."""
     from tpu_inference_torch.kernels import paged_attention as pa
     from tpu_inference_torch.kernels import prefill_attention as pfa
     by_variant = {"paged_attention": dict(pa.launches_by_variant),
                   "prefill_attention": dict(pfa.launches_by_variant)}
     for name, counts in by_variant.items():
         others = {k: n for k, n in counts.items() if k != variant and n}
-        if counts[variant] <= 0 or others:
+        unused = counts[variant] <= 0 and (need_decode
+                                           or name != "paged_attention")
+        if unused or others:
             raise AssertionError(
                 f"{label}: {name} launched {counts}; the path must run "
                 f"its {variant} variant and no other")
     return {"by_variant": by_variant,
             "decode_by_batch": {str(b): n for b, n in
-                                sorted(pa.launches_by_batch.items())}}
+                                sorted(pa.launches_by_batch.items())},
+            "prefill_by_len": {str(s): n for s, n in
+                               sorted(pfa.launches_by_len.items())}}
 
 
 def _summarize(results: list, wall: float) -> dict:
@@ -1009,7 +1332,10 @@ def reference_config_phase(card: str) -> dict:
     requests (48 greedy tokens each), then 4 alone so the ladder steps
     down. Gates: every request "length" with all its tokens, no failed
     dispatch, the ladder tops out at 32 and was reached, at least one
-    rung switch and one hybrid step, int8 kernel variants only."""
+    rung switch and one hybrid step, int8 kernel variants only. The
+    prompts repeat a passage each (``_burst_prompts(echo=True)``), the
+    traffic of the n-gram lane (ngram_phase), which counts the requests
+    whose tokens differ from these."""
     import gc
 
     from tpu_inference_torch.kernels import paged_attention as pa
@@ -1040,7 +1366,7 @@ def reference_config_phase(card: str) -> dict:
                              "out at 32")
     try:
         port = server.start(port=0)
-        prompts = _burst_prompts(32)
+        prompts = _burst_prompts(32, echo=True)
         max_tokens = 48
         pa.reset_counts()
         pfa.reset_counts()
@@ -1088,21 +1414,29 @@ def reference_config_phase(card: str) -> dict:
            "hybrid_steps": snap["hybrid_steps"],
            "decode_pipeline_depth": snap["decode_pipeline_depth"],
            "decode_call_s": snap["decode_call_s"],
-           "engine_phases": engine_phases(snap), "profile": prof}
+           "prefill_launches_by_len": launches["prefill_by_len"],
+           "engine_phases": engine_phases(snap), "profile": prof,
+           "generated": [r["context"][r["prompt_tokens"]:]
+                         for r in results + alone]}
     return out
+
+
+# Requests of the pressure run that return one by one, twice (a count
+# that keeps the whole script near 11 minutes).
+RETURNING = 4
 
 
 def pressure_phase(card: str) -> dict:
     """The same model and int8 tiers over a pool of a few hundred pages:
     optimistic admission, a fixed host tier. The 32 BurstGPT requests,
-    then the first 8 again (their prefixes return from the host tier),
-    then those 8 once more: greedy output must reproduce between the two
-    runs of the 8. Gates: preemptions, pages offloaded and restored,
+    then the first RETURNING again (their prefixes return from the host
+    tier), then those once more: greedy output must reproduce between
+    the two runs. Gates: preemptions, pages offloaded and restored,
     every request "length" with all its tokens, no failed dispatch. The
-    pool holds the 8 returning requests whole, so they run unpreempted;
-    they run one after another, so both runs group the same rows into
-    each library GEMM (gemm_rung_evidence: a row's result can depend on
-    the call's row count)."""
+    pool holds the first 8 requests whole, so the returning ones run
+    unpreempted; they run one after another, so both runs group the same
+    rows into each library GEMM (gemm_rung_evidence: a row's result can
+    depend on the call's row count)."""
     import gc
 
     from tpu_inference_torch.kernels import paged_attention as pa
@@ -1110,7 +1444,7 @@ def pressure_phase(card: str) -> dict:
     label = "pressure"
     prompts = _burst_prompts(32)
     max_tokens = 48
-    # The pool: the 8 returning requests' full need (byte tokenizer: a
+    # The pool: the first 8 requests' full need (byte tokenizer: a
     # prompt of n bytes is n + 1 tokens) plus 3 pages, so they run whole
     # while the 32, arriving in order, admit a 9th lane on prompt + 2
     # pages of headroom and outgrow the pool.
@@ -1132,10 +1466,12 @@ def pressure_phase(card: str) -> dict:
         results, wall = run_requests(port, prompts, max_tokens,
                                      stagger_s=0.01)
         t8 = time.perf_counter()
-        first8 = [_stream_request(port, p, max_tokens) for p in prompts[:8]]
+        first8 = [_stream_request(port, p, max_tokens)
+                  for p in prompts[:RETURNING]]
         wall8 = time.perf_counter() - t8
         snap8 = server_stats(port)
-        again8 = [_stream_request(port, p, max_tokens) for p in prompts[:8]]
+        again8 = [_stream_request(port, p, max_tokens)
+                  for p in prompts[:RETURNING]]
         launches = _check_variant(label, "int8")
         snap = server_stats(port)
     finally:
@@ -1164,6 +1500,7 @@ def pressure_phase(card: str) -> dict:
                 launches["by_variant"]["prefill_attention"].values())},
             "launches_by_variant": launches["by_variant"],
             "decode_launches_by_batch": launches["decode_by_batch"],
+            "prefill_launches_by_len": launches["prefill_by_len"],
             "done_reasons": [r["done_reason"]
                              for r in results + first8 + again8],
             "preemptions": snap["preemptions"],
@@ -1173,6 +1510,237 @@ def pressure_phase(card: str) -> dict:
             "prefix_cache": pc, "rung_peak": snap["rung_peak"],
             "hybrid_steps": snap["hybrid_steps"],
             "engine_phases": engine_phases(snap)}
+
+
+def _verify_prefill_ms(trace_path: str) -> dict:
+    """Device ms of the prefill kernel split by what launched it, from a
+    torch.profiler chrome trace: a verify round's launch has one 64-row
+    tile per (kv-head, lane) (grid.x 1: S x n_rep <= 64), a prompt
+    chunk's at least four (buckets of 64 tokens and up)."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {"verify_ms": 0.0, "verify_launches": 0, "prompt_ms": 0.0,
+           "prompt_launches": 0}
+    for ev in events:
+        if "paged_prefill_kernel" not in str(ev.get("name", "")) or \
+                "dur" not in ev:
+            continue
+        grid = (ev.get("args") or {}).get("grid")
+        if not grid:
+            return {"error": "kernel events carry no grid"}
+        kind = "verify" if grid[0] == 1 else "prompt"
+        out[f"{kind}_ms"] += ev["dur"] / 1e3
+        out[f"{kind}_launches"] += 1
+    return out
+
+
+# Ollama options of the n-gram lane's repetitive traffic: a repetition
+# penalty below 1 favours the last 64 tokens (a positive logit is divided
+# by it), so the random-weight model falls into the loops the proposer
+# catches. Its greedy output on the echo prompts alone repeats almost no
+# token (the ``speculative_plain_options`` block of the report): the
+# prompts are byte ids, and the model draws from all 128256.
+LOOP_OPTIONS = {"repeat_penalty": 0.2, "repeat_last_n": 64}
+
+
+def ngram_phase(card: str, plain: dict) -> dict:
+    """n-gram speculation at full width: the reference chip configuration
+    (CLI flags as reference_config_phase, hybrid prefill included, which
+    is inert under speculation) plus ``--spec-mode ngram
+    --num-speculative-tokens 4``. Traffic: the plain run's 32 echo
+    prompts with its options (their tokens are compared with the plain
+    run's), then the same 32 with LOOP_OPTIONS, then 4 of them alone with
+    LOOP_OPTIONS, twice. Gates: every request "length" with all its
+    tokens, no failed dispatch, verify rounds ran, no hybrid step, both
+    kernels on their int8 variants only, the prefill kernel's S 2 and 5
+    launches exactly one forward's per verify round, the decode kernel
+    only in fallback rounds (at most layers x K per fallback), the 4
+    alone reproducible. Reported, not gated (cuBLAS rows depend on M,
+    and a verify forward runs at M = B x (γ+1)): requests whose tokens
+    differ from the plain run's."""
+    import gc
+
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    label = "ngram spec"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server, ea = _serve_cli([
+        "--model", "llama-3-8b", "--quant", "int8", "--kv-quant", "int8",
+        "--max-batch-size", "auto", "--num-pages", "auto", "--batch-cap",
+        "32", "--max-pages-per-seq", "128", "--decode-pipeline-depth", "2",
+        "--hybrid-prefill", "--spec-mode", "ngram",
+        "--num-speculative-tokens", "4", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    eng = server.engine
+    n_layers = eng.model_cfg.n_layers
+    k_steps = eng.engine_cfg.decode_steps_per_call
+    try:
+        port = server.start(port=0)
+        prompts = _burst_prompts(32, echo=True)
+        max_tokens = 48
+        pa.reset_counts()
+        pfa.reset_counts()
+        same, same_wall = run_requests(port, prompts, max_tokens)
+        snap_same = server_stats(port)
+        results, wall = run_requests(port, prompts, max_tokens,
+                                     options=LOOP_OPTIONS)
+        snap32 = server_stats(port)
+        alone, alone_again = [], []
+        t_alone = time.perf_counter()
+        for p in prompts[:4]:
+            alone.append(_stream_request(port, p, max_tokens, LOOP_OPTIONS))
+        alone_wall = time.perf_counter() - t_alone
+        for p in prompts[:4]:
+            alone_again.append(_stream_request(port, p, max_tokens,
+                                               LOOP_OPTIONS))
+        launches = _check_variant(label, "int8", need_decode=False)
+        snap = server_stats(port)
+        spec = snap["speculative"]
+        by_len = {int(k): v for k, v in launches["prefill_by_len"].items()}
+        verify_launches = sum(v for k, v in by_len.items() if k <= 17)
+        decode_launches = sum(launches["by_variant"][
+            "paged_attention"].values())
+        if spec["rounds"] <= 0 or snap["hybrid_steps"]:
+            raise AssertionError(f"{label}: {spec['rounds']} verify rounds, "
+                                 f"{snap['hybrid_steps']} hybrid steps")
+        if set(k for k in by_len if k <= 17) - {2, 5} or \
+                verify_launches != n_layers * spec["rounds"]:
+            raise AssertionError(f"{label}: prefill launches by S {by_len} "
+                                 f"for {spec['rounds']} verify rounds")
+        if decode_launches > n_layers * k_steps * spec["fallback_rounds"]:
+            raise AssertionError(f"{label}: {decode_launches} decode kernel "
+                                 f"launches for {spec['fallback_rounds']} "
+                                 "fallback rounds")
+        if [r["context"] for r in alone] != \
+                [r["context"] for r in alone_again]:
+            raise AssertionError(f"{label}: the 4 requests alone do not "
+                                 "reproduce")
+        peak_mem = torch.cuda.max_memory_allocated()
+        os.makedirs("build", exist_ok=True)
+        trace = os.path.join("build", "ngram_profile.json")
+        prof = profile_requests(port, prompts, max_tokens, trace_path=trace,
+                                options=LOOP_OPTIONS)
+        if os.path.exists(trace):
+            try:
+                prof["prefill_kernel_split"] = _verify_prefill_ms(trace)
+            except (OSError, ValueError, TypeError) as e:
+                prof["prefill_kernel_split"] = {"error": repr(e)}
+            os.remove(trace)
+        server_stats(port)
+    finally:
+        server.shutdown()
+        del server, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    generated = [r["context"][r["prompt_tokens"]:] for r in same]
+    differ = [i for i, (a, b) in enumerate(zip(generated,
+                                               plain["generated"]))
+              if a != b]
+    return {"label": label, "model": "llama-3-8b", "quant": "int8",
+            "kv_quant": "int8", "variant": "int8", "boot_s": boot_s,
+            "max_memory_allocated": peak_mem,
+            "options": LOOP_OPTIONS, **_summarize(results, wall),
+            "plain_options_run": _summarize(same, same_wall),
+            "alone": _summarize(alone, alone_wall),
+            "launches": {"paged_attention": decode_launches,
+                         "prefill_attention": sum(launches["by_variant"][
+                             "prefill_attention"].values())},
+            "launches_by_variant": launches["by_variant"],
+            "decode_launches_by_batch": launches["decode_by_batch"],
+            "prefill_launches_by_len": launches["prefill_by_len"],
+            "verify_rounds_by_width": {str(k): v // n_layers for k, v in
+                                       sorted(by_len.items()) if k <= 17},
+            "done_reasons": [r["done_reason"] for r in
+                             same + results + alone + alone_again],
+            "speculative": spec,
+            "speculative_plain_options": snap_same["speculative"],
+            "speculative_32_concurrent": snap32["speculative"],
+            "requests_differing_from_plain": differ,
+            "rung_calls": snap["rung_calls"],
+            "rung_calls_plain_options": snap_same["rung_calls"],
+            "rung_calls_32_concurrent": snap32["rung_calls"],
+            "hybrid_steps": snap["hybrid_steps"],
+            "mean_batch_occupancy": snap["mean_batch_occupancy"],
+            "engine_phases": engine_phases(snap), "profile": prof}
+
+
+def draft_phase(card: str) -> dict:
+    """Draft-model speculation at full width: llama-3-8b bf16 as the
+    target and as its own draft (the target's params; one weight set,
+    two pools), γ 4, 4 concurrent requests of 32 tokens. Gates: every
+    request "length" with all its tokens, no failed dispatch, acceptance
+    above 0.5, the draft's prefill runs the bf16 prefill kernel beside
+    the target's (two forwards per prefill call), and the decode kernel
+    never launches (the reference's spec_round attends on the dense
+    path)."""
+    import gc
+
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    from tpu_inference_torch.models.registry import build_model
+    from tpu_inference_torch.server.http import InferenceServer
+    label = "draft spec"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mcfg = cfgs.PRESETS["llama-3-8b"]()
+    ecfg = cfgs.EngineConfig(max_pages_per_seq=128, num_pages=512,
+                             max_batch_size=8, num_speculative_tokens=4)
+    params, _ = build_model(mcfg, seed=SEED, device="cuda")
+    engine = InferenceEngine(mcfg, ecfg, params=params, device="cuda",
+                             draft_cfg=mcfg, draft_params=params)
+    server = InferenceServer(cfgs.FrameworkConfig(
+        model=mcfg, engine=ecfg, server=cfgs.ServerConfig(
+            model_name="llama-3-8b", tokenizer="byte")), engine=engine)
+    del params
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    n_layers = mcfg.n_layers
+    try:
+        port = server.start(port=0)
+        prompts = _prompts()[:4]
+        max_tokens = 32
+        pa.reset_counts()
+        pfa.reset_counts()
+        results, wall = run_requests(port, prompts, max_tokens)
+        snap = server_stats(port)
+        by_variant = {"paged_attention": dict(pa.launches_by_variant),
+                      "prefill_attention": dict(pfa.launches_by_variant)}
+        spec = snap["speculative"]
+        prefills = snap["phases"]["prefill_dispatch"]["count"] if \
+            "prefill_dispatch" in snap["phases"] else None
+        peak_mem = torch.cuda.max_memory_allocated()
+    finally:
+        server.shutdown()
+        del server, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    pf = by_variant["prefill_attention"]
+    if pa.launches or any(n for k, n in pf.items() if k != "bf16"):
+        raise AssertionError(f"{label}: decode kernel launches "
+                             f"{by_variant['paged_attention']}, prefill "
+                             f"{pf}")
+    if not prefills or pf["bf16"] != 2 * n_layers * prefills:
+        raise AssertionError(f"{label}: {pf['bf16']} bf16 prefill launches "
+                             f"are not two forwards of {n_layers} layers "
+                             f"for each of {prefills} prefill calls")
+    if spec["acceptance_rate"] <= 0.5:
+        raise AssertionError(f"{label}: acceptance {spec}")
+    return {"label": label, "model": "llama-3-8b", "quant": "none",
+            "kv_quant": "none", "variant": "bf16", "boot_s": boot_s,
+            "max_memory_allocated": peak_mem, **_summarize(results, wall),
+            "launches": {"paged_attention": pa.launches,
+                         "prefill_attention": pfa.launches},
+            "launches_by_variant": by_variant,
+            "decode_launches_by_batch": {},
+            "prefill_launches_by_len": {str(k): v for k, v in sorted(
+                pfa.launches_by_len.items())},
+            "prefill_calls": prefills,
+            "done_reasons": [r["done_reason"] for r in results],
+            "speculative": spec, "engine_phases": engine_phases(snap)}
 
 
 def log_new_path(mp: dict, card: str) -> None:
@@ -1189,7 +1757,12 @@ def log_new_path(mp: dict, card: str) -> None:
             "hybrid_steps",
             "decode_pipeline_depth", "decode_call_s", "alone", "returning",
             "preemptions", "recompute_resumes", "swap_in_resumes",
-            "preemptions_before_returning", "prefix_cache", "num_pages")
+            "preemptions_before_returning", "prefix_cache", "num_pages",
+            "speculative", "speculative_plain_options",
+            "speculative_32_concurrent", "plain_options_run", "options",
+            "rung_calls_plain_options",
+            "verify_rounds_by_width", "requests_differing_from_plain",
+            "prefill_launches_by_len", "prefill_calls")
     log(f"[{mp['label']}] " + json.dumps(
         {k: mp[k] for k in keys if k in mp}))
     for name, ph in mp["engine_phases"].items():
@@ -1200,7 +1773,10 @@ def log_new_path(mp: dict, card: str) -> None:
     if prof is not None and "by_class_ms" in prof:
         log(f"[{mp['label']}] profile ({prof['window_s']:.2f}s window): "
             f"device busy share {prof['device_busy_share']:.3f}; by class "
-            f"(ms) {json.dumps(prof['by_class_ms'])}")
+            f"(ms) {json.dumps(prof['by_class_ms'])}"
+            + (f"; prefill kernel by caller "
+               f"{json.dumps(prof['prefill_kernel_split'])}"
+               if "prefill_kernel_split" in prof else ""))
     elif prof is not None:
         log(f"[{mp['label']}] profile: not measured ({prof['error']})")
 
@@ -1257,7 +1833,7 @@ def main() -> int:
                     log(f"  ptxas {name}: {line.strip()}")
 
     kernels = kernel_phase()
-    for kind in ("decode", "prefill"):
+    for kind in ("decode", "prefill", "verify"):
         for c in kernels[kind]:
             log(f"kernel {c['variant']} [{c['dtype']}]: err "
                 f"{c['max_abs_err']:.3g} ({c['err_over_scale']:.3g} of the "
@@ -1276,6 +1852,12 @@ def main() -> int:
     log(f"library GEMM rows vs batch width (evidence, not a gate; max abs "
         f"diff of rows 0-7 from M 8): {json.dumps(gemm_evidence)}")
     engines = engine_phase()
+    spec_engines = spec_engine_phase()
+    chaos = chaos_phase()
+    log(f"chaos: failures fail their requests, health "
+        f"{' -> '.join(chaos['health_states'])}, tokens after recovery "
+        f"identical, watchdog fired, page pressure returned, pool clean: "
+        f"{json.dumps(chaos)}")
     main_paths = {}
     for label, quant, kv_quant, variant in MAIN_PATHS:
         mp = main_path_phase(label, quant, kv_quant, variant,
@@ -1286,6 +1868,12 @@ def main() -> int:
         mp = phase(card)
         log_new_path(mp, card)
         main_paths[mp["label"]] = mp
+    mp = ngram_phase(card, main_paths["reference chip config"])
+    log_new_path(mp, card)
+    main_paths[mp["label"]] = mp
+    mp = draft_phase(card)
+    log_new_path(mp, card)
+    main_paths[mp["label"]] = mp
 
     entries = []
     for kind, name, src, replaces in (
@@ -1328,10 +1916,32 @@ def main() -> int:
                         int(mp.get("decode_launches_by_batch", {}).get(
                             str(b), 0)) for mp in paths)}
                        if kind == "decode" else {})})
+            if kind == "decode":
+                continue
+            for head in (c for c in kernels["verify"]
+                         if c["kv"] == kv and c["dtype"] == "bfloat16"):
+                b, s_len = head["shape"]["B"], head["shape"]["S"]
+                entries.append({
+                    "name": (name if variant == "bf16"
+                             else f"{name}_{variant}")
+                    + f"_verify_bs{b}_s{s_len}",
+                    "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": launched,
+                    "launches_at_this_len": sum(
+                        int(mp.get("prefill_launches_by_len", {}).get(
+                            str(s_len), 0)) for mp in paths),
+                    "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                    "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
+                    "variant": head["variant"], "pool": variant,
+                    "main_paths": [mp["label"] for mp in paths]})
     report = {"card": card, "torch": torch.__version__,
               "kernels": entries, "kernel_cases": kernels,
               "main_paths": main_paths,
-              "engine_cases": engines, "rung_identity": rung_identity,
+              "engine_cases": engines, "spec_engine_cases": spec_engines,
+              "chaos": chaos, "rung_identity": rung_identity,
               "gemm_rung_evidence": gemm_evidence,
               "edge": {"checked": n_edge,
                                                 "max_abs_err_and_over_scale":
@@ -1342,7 +1952,8 @@ def main() -> int:
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"main_paths": {
-        v: {k: x for k, x in mp.items() if k not in ("ttft_s", "profile")}
+        v: {k: x for k, x in mp.items()
+            if k not in ("ttft_s", "profile", "generated")}
         for v, mp in main_paths.items()}, "card": card}))
     log(f"total_s {report['total_s']:.1f}")
     print(json.dumps({"kernels": entries}))

@@ -108,11 +108,6 @@ def test_warmup_writes_only_the_trash_page():
     ("role", "prefill", "1.15"),
     ("slo_ttft_ms", 250.0, "1.18"),
     ("slo_tpot_ms", 40.0, "1.18"),
-    ("num_speculative_tokens", 2, "1.13b"),
-    ("spec_mode", "ngram", "1.13b"),
-    ("chaos_page_pressure", 4, "1.13b"),
-    ("chaos_step_failure_rate", 0.5, "1.13b"),
-    ("chaos_step_wedge_s", 1.0, "1.13b"),
 ])
 def test_unported_features_raise(field, value, item):
     ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})
@@ -134,6 +129,30 @@ def test_engine_breadth_knobs_are_served(field, value):
     ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})
     eng = InferenceEngine(tcfg.tiny_llama(), ecfg, device="cpu")
     assert getattr(eng.engine_cfg, field) == value
+
+
+@pytest.mark.parametrize("knobs,check", [
+    ({"spec_mode": "ngram", "num_speculative_tokens": 2},
+     lambda e: e.spec_ngram and e._spec_widths == [2, 3]),
+    ({"spec_mode": "ngram", "num_speculative_tokens": 4, "ngram_window": 5},
+     lambda e: e.spec_enabled and e._spec_widths == [2, 5]),
+    ({"chaos_page_pressure": 4},
+     lambda e: e.chaos_page_pressure == 4
+     and e.allocator.num_free == ENGINE["num_pages"] - 1 - 4),
+    ({"chaos_step_failure_rate": 0.5},
+     lambda e: e.chaos_step_failure_rate == 0.5),
+    ({"chaos_step_wedge_s": 1.0}, lambda e: e.chaos_step_wedge_s == 1.0),
+], ids=["num_speculative_tokens", "spec_mode", "chaos_page_pressure",
+        "chaos_step_failure_rate", "chaos_step_wedge_s"])
+def test_spec_and_chaos_knobs_are_served(knobs, check):
+    """The speculation and fault-injection knobs boot the engine and land
+    in its state (speculation serves tokens: tests/test_torch_ngram_spec.py,
+    test_torch_speculative.py; faults: test_torch_chaos.py)."""
+    ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **knobs)
+    eng = InferenceEngine(tcfg.tiny_llama(), ecfg, device="cpu")
+    assert check(eng)
+    if not knobs.get("chaos_step_failure_rate"):
+        assert len(eng.generate([[1, 2, 3]], max_new_tokens=3)[0]) == 3
 
 
 def test_cuda_requested_without_a_card_raises():

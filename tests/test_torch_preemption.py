@@ -1,8 +1,8 @@
 """The port's optimistic admission, watermark preemption and
 recompute-resume against the reference's (tests/test_preemption.py
 cases, port beside reference). The reference forces exhaustion with
-``chaos_page_pressure``, which the port does not serve yet (ROADMAP
-1.13b); these tests make the pool small instead.
+``chaos_page_pressure``; these tests make the pool small instead (page
+pressure itself: tests/test_torch_chaos.py).
 
 Pinned: admission charges equal to the reference's; a preempted and
 resumed sequence gives the tokens of an unpreempted run; the scheduler

@@ -401,11 +401,23 @@ def test_metrics_expose_engine_breadth_series(weights):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_speculative_tokens", 4, "1.13b"), ("spec_mode", "ngram", "1.13b"),
-    ("chaos_step_failure_rate", 0.1, "1.13b"), ("role", "decode", "1.15"),
-    ("slo_ttft_ms", 100.0, "1.18")])
+    ("role", "decode", "1.15"), ("slo_ttft_ms", 100.0, "1.18")])
 def test_unported_knobs_raise_through_build_server(field, value, item):
     from tpu_inference_torch.server.http import build_server
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
         build_server("tiny-llama", warmup=False, device="cpu",
                      **{field: value})
+
+
+@pytest.mark.parametrize("kw,check", [
+    ({"spec_mode": "ngram", "num_speculative_tokens": 4},
+     lambda e: e.spec_ngram and e.engine_cfg.num_speculative_tokens == 4),
+    ({"num_speculative_tokens": 2, "draft_model": "tiny-llama"},
+     lambda e: e.spec_draft and e.draft_cfg.name == e.model_cfg.name),
+    ({"chaos_step_failure_rate": 0.1},
+     lambda e: e.chaos_step_failure_rate == 0.1)],
+    ids=["num_speculative_tokens", "spec_mode", "chaos_step_failure_rate"])
+def test_spec_and_chaos_knobs_through_build_server(kw, check):
+    from tpu_inference_torch.server.http import build_server
+    server = build_server("tiny-llama", warmup=False, device="cpu", **kw)
+    assert check(server.engine)

@@ -346,6 +346,34 @@ class EngineConfig:
         return self.prefill_buckets[-1]
 
 
+def validate_spec_config(spec_mode: str, num_speculative_tokens: int,
+                         ngram_window: int,
+                         has_draft_model: bool) -> None:
+    """Speculative-decoding knob validation shared by the engine and the
+    CLI, so a bad combination fails as a usage error before any weights
+    load. Raises ValueError with the reference's messages (they name the
+    flags)."""
+    if spec_mode not in ("draft", "ngram"):
+        raise ValueError(f"--spec-mode {spec_mode!r}: one of "
+                         "('draft', 'ngram')")
+    if spec_mode == "ngram" and has_draft_model:
+        raise ValueError(
+            "--spec-mode ngram does not take --draft-model: n-gram "
+            "self-drafting proposes from the sequence's own history "
+            "(drop the draft model, or use --spec-mode draft)")
+    if num_speculative_tokens > 0 or spec_mode == "ngram":
+        if not (1 <= num_speculative_tokens <= 16):
+            raise ValueError(
+                f"--num-speculative-tokens {num_speculative_tokens}: "
+                "must be in [1, 16] when speculative decoding is on "
+                "(γ drafts verify in one γ+1-position forward; huge γ "
+                "only compiles wider graphs to reject more)")
+    if spec_mode == "ngram" and not (1 <= ngram_window <= 8):
+        raise ValueError(
+            f"--ngram-window {ngram_window}: must be in [1, 8] "
+            "(longest suffix n-gram matched against the history)")
+
+
 # Request priority classes, best-first (the X-Priority header).
 PRIORITY_CLASSES = ("interactive", "batch", "background")
 

@@ -251,8 +251,8 @@ def resolve_sizing_args(args) -> tuple:
     """Turn 'auto' in ``args.max_batch_size`` / ``args.num_pages`` into
     card-derived values (no-op when both are ints). Reads model, quant,
     kv_quant, page_size, max_pages_per_seq, device and the optional
-    tp/target_ctx/batch_cap attributes. Returns (max_batch_size,
-    num_pages)."""
+    tp/target_ctx/batch_cap/draft_model attributes. Returns
+    (max_batch_size, num_pages)."""
     mbs, pages = args.max_batch_size, args.num_pages
     if "auto" not in (mbs, pages):
         return mbs, pages
@@ -265,7 +265,8 @@ def resolve_sizing_args(args) -> tuple:
         tp=getattr(args, "tp", 1), page_size=args.page_size,
         max_pages_per_seq=args.max_pages_per_seq,
         target_ctx=getattr(args, "target_ctx", 0) or None,
-        batch_cap=getattr(args, "batch_cap", 32))
+        batch_cap=getattr(args, "batch_cap", 32),
+        speculative=bool(getattr(args, "draft_model", None)))
     if mbs == "auto":
         mbs = sz.max_batch_size
     if pages == "auto":

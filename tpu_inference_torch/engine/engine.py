@@ -39,6 +39,20 @@ PyTorch:
   versions for CPU tensors) or the dense gather path (``"dense"``) read
   them back. The pool is updated in place (kv_cache.write_kv), which is
   what the reference's buffer donation achieves under XLA.
+- **Speculative decoding** (``spec_mode``, ``num_speculative_tokens``;
+  engine/speculative.py): "ngram" proposes from each sequence's own
+  history on the host and verifies γ+1 positions in one target forward
+  (the prefill kernel at S = γ+1), with adaptive per-sequence γ, rounds
+  at every ladder rung and through the dispatch-ahead pipeline, and the
+  plain K-step call when no lane proposes; "draft" runs a draft model
+  (its own pool, the target pool's positional twin) for γ+1 steps, then
+  the target verify, both on the dense gather path as the reference
+  builds them.
+- **Fault injection** (``chaos_*``): every prefill/decode dispatch entry
+  runs ``_chaos_step_gate`` (a sleep, then a random ``ChaosStepError``),
+  and ``set_page_pressure`` holds real pages out of the pool; both can
+  be armed from another thread (the page pressure applies on the engine
+  thread).
 - ``EngineConfig.quant`` stores the matmul weights as int8 or int4 codes
   with scales (models/quant.py); ``kv_quant`` makes the pool int8 or
   packed int4 with per-(token, head) scales, which both kernels
@@ -60,6 +74,7 @@ their ROADMAP item (``_UNPORTED``).
 from __future__ import annotations
 
 import dataclasses
+import random as _chaos_random
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -67,7 +82,8 @@ import numpy as np
 import torch
 
 from tpu_inference_torch import telemetry
-from tpu_inference_torch.config import EngineConfig, ModelConfig
+from tpu_inference_torch.config import (EngineConfig, ModelConfig,
+                                        validate_spec_config)
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine.autosize import validate_ladder
 from tpu_inference_torch.engine.kv_cache import PageAllocator
@@ -78,6 +94,10 @@ from tpu_inference_torch.engine.sampling import (
     roll_window,
     sample,
 )
+from tpu_inference_torch.engine.speculative import (NGRAM_SCAN_CAP,
+                                                     ngram_propose,
+                                                     spec_round,
+                                                     verify_round)
 from tpu_inference_torch.models.common import dense_causal_attention
 from tpu_inference_torch.models.quant import QuantizedArray, quantize_params
 from tpu_inference_torch.models.registry import build_model, get_model_fns
@@ -85,12 +105,6 @@ from tpu_inference_torch.models.registry import build_model, get_model_fns
 # EngineConfig fields the port does not serve: a value other than the
 # default raises NotImplementedError naming the ROADMAP item.
 _UNPORTED = {
-    "num_speculative_tokens": "1.13b (engine breadth: speculative "
-                              "decoding)",
-    "spec_mode": "1.13b (engine breadth: speculative decoding)",
-    "chaos_page_pressure": "1.13b (engine breadth: fault injection)",
-    "chaos_step_failure_rate": "1.13b (engine breadth: fault injection)",
-    "chaos_step_wedge_s": "1.13b (engine breadth: fault injection)",
     "slo_ttft_ms": "1.18 (observability: SLO gauges)",
     "slo_tpot_ms": "1.18 (observability: SLO gauges)",
     "role": "1.15 (process fleet: P/D worker roles)",
@@ -160,6 +174,13 @@ def make_paged_attn(cfg: ModelConfig, page_size: int,
     return attn
 
 
+class ChaosStepError(RuntimeError):
+    """Injected engine-step failure (EngineConfig.chaos_step_failure_rate):
+    a type of its own so tests tell injected faults from real ones; the
+    scheduler treats both alike (any step exception feeds the replica
+    health machine)."""
+
+
 @dataclasses.dataclass
 class Sequence:
     """Host-side state for one running sequence (one decode slot)."""
@@ -217,6 +238,19 @@ class Sequence:
     finish_time: float = 0.0
     trace_id: str = ""
     priority_class: str = "interactive"
+    # Adaptive γ of n-gram speculation: the current γ (-1 = not yet
+    # chosen, 0 = throttled), the acceptance EWMA (starts mildly
+    # optimistic), the countdown to a throttled lane's next probe and the
+    # probe interval (doubling per failed probe, capped at 8x
+    # spec_probe_every). Survives preemption: a stream's echo statistics
+    # do not change when its pages do.
+    spec_gamma: int = -1
+    spec_accept_ewma: float = 0.5
+    spec_probe_countdown: int = 0
+    spec_probe_interval: int = 0
+    # Speculative rounds this sequence proposed in, positions accepted.
+    spec_rounds: int = 0
+    spec_accepted_toks: int = 0
 
     @property
     def last_token(self) -> int:
@@ -228,7 +262,12 @@ class InferenceEngine:
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Optional[dict] = None, seed: int = 0,
-                 attn_backend: Optional[str] = None, device="cuda"):
+                 attn_backend: Optional[str] = None, device="cuda",
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_params: Optional[dict] = None):
+        """``draft_cfg`` (with ``spec_mode="draft"`` and
+        ``num_speculative_tokens`` > 0) turns on draft-model speculation;
+        its weights are ``draft_params`` or random from ``seed + 1``."""
         self.device = resolve_device(device)
         model_cfg.validate()
         check_engine_config(engine_cfg)
@@ -236,8 +275,32 @@ class InferenceEngine:
             raise ValueError(f"unknown admission mode "
                              f"{engine_cfg.admission!r}; "
                              "one of ('reserve', 'optimistic')")
+        # Speculative decoding: "draft" = a draft model proposes (its own
+        # pool, so several compositions below are gated off); "ngram" =
+        # host-side self-drafting, no draft pool, so the ladder, the host
+        # tier, SWA eviction and the repetition penalty all stay on.
+        if engine_cfg.spec_mode not in ("draft", "ngram"):
+            raise ValueError(f"unknown spec_mode {engine_cfg.spec_mode!r}; "
+                             "one of ('draft', 'ngram')")
+        if engine_cfg.spec_mode == "ngram":
+            validate_spec_config("ngram", engine_cfg.num_speculative_tokens,
+                                 engine_cfg.ngram_window,
+                                 draft_cfg is not None)
+        spec_draft = (engine_cfg.spec_mode == "draft"
+                      and draft_cfg is not None
+                      and engine_cfg.num_speculative_tokens > 0)
+        self.spec_draft = spec_draft
+        self.spec_ngram = engine_cfg.spec_mode == "ngram"
+        self.spec_enabled = spec_draft or self.spec_ngram
+        self.spec_mode = "ngram" if self.spec_ngram else "draft"
         self.ladder = validate_ladder(engine_cfg.ladder_rungs,
                                       engine_cfg.max_batch_size)
+        if spec_draft and len(self.ladder) > 1:
+            # The draft-model round runs at the full batch (the
+            # reference compiles it once, at the top rung).
+            print(f"[engine] {model_cfg.name}: draft-model speculative "
+                  "decoding - decode ladder collapsed to the top rung")
+            self.ladder = (engine_cfg.max_batch_size,)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.mod = get_model_fns(model_cfg)
@@ -281,6 +344,19 @@ class InferenceEngine:
         # perf_counter at the end of the last decode call; None when the
         # decode streak broke (idle or an interleaved prefill).
         self._last_decode_end: Optional[float] = None
+        # Fault injection, copied out of the frozen config so the
+        # /debug/chaos handler can arm and disarm it at run time.
+        self.chaos_step_failure_rate = engine_cfg.chaos_step_failure_rate
+        self.chaos_step_wedge_s = engine_cfg.chaos_step_wedge_s
+        # chaos_page_pressure holds real pages out of the pool. Another
+        # thread only stores a target (_pressure_target, a plain store);
+        # the engine thread applies it (the allocator is engine-thread
+        # only).
+        self._pressure_pages: List[int] = []
+        self.chaos_page_pressure = 0
+        self._pressure_target: Optional[int] = None
+        if engine_cfg.chaos_page_pressure > 0:
+            self.set_page_pressure(engine_cfg.chaos_page_pressure)
         # The window only binds when the serving context can exceed it.
         swa_binds = bool(model_cfg.sliding_window) and (
             engine_cfg.max_context > model_cfg.sliding_window)
@@ -289,16 +365,33 @@ class InferenceEngine:
         if engine_cfg.enable_prefix_cache and not swa_binds:
             # SWA models run without the prefix cache (as the reference):
             # behind-window pages are evicted while a sequence runs.
-            if engine_cfg.host_cache_pages > 0:
+            # Cached pages hold valid rows in both pools under draft
+            # speculation (the draft pool is the target's positional
+            # twin), but the host tier copies the target pool only, so
+            # it stays off there.
+            if engine_cfg.host_cache_pages > 0 and not spec_draft:
                 self.host_pool = kvc.HostPagePool(
                     engine_cfg.host_cache_pages)
                 self.telemetry.bind_host_pool(self.host_pool)
+            elif engine_cfg.host_cache_pages > 0:
+                print(f"[engine] {model_cfg.name}: host KV tier disabled "
+                      "- speculative decoding's draft pool has no host "
+                      "twin to restore")
             self.prefix_cache = PrefixCache(self.allocator,
                                             engine_cfg.page_size,
                                             host_pool=self.host_pool,
                                             offload_fn=self._offload_pages)
             self.prefix_cache.bind_telemetry(self.telemetry)
-        self.swa_evict = swa_binds and self.prefix_cache is None
+        # Behind-window eviction is off under draft speculation: the
+        # window-less draft attends the full context. (n-gram verify
+        # queries sit at or after plain decode's positions, so eviction
+        # composes.)
+        self.swa_evict = (swa_binds and self.prefix_cache is None
+                          and not spec_draft)
+        if swa_binds and spec_draft:
+            print(f"[engine] {model_cfg.name}: SWA + speculative decoding"
+                  " - behind-window eviction off (the window-less draft"
+                  " attends the full context)")
         self.max_pages = engine_cfg.max_pages_per_seq
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
@@ -312,6 +405,37 @@ class InferenceEngine:
         # Dispatch-ahead decode pipeline: calls queued on the stream,
         # oldest first (decode_steps_pipelined).
         self._inflight: List[dict] = []
+        # Speculative decoding counters: positions proposed and accepted;
+        # n-gram verify rounds, rounds that ran the plain call (no lane
+        # proposed) and lanes throttled to γ=0.
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rounds_total = 0
+        self.spec_fallback_rounds = 0
+        self.spec_throttles_total = 0
+        if self.spec_enabled:
+            self.telemetry.bind_spec(self)
+        if self.spec_ngram:
+            # Verify widths: the full γ+1 round and a narrow 2-wide probe
+            # round, so a throttled lane re-checks its echo at near-plain
+            # cost. Every (rung, width) is warmed.
+            gamma = engine_cfg.num_speculative_tokens
+            self._spec_widths = sorted({2, gamma + 1})
+        if spec_draft:
+            if draft_cfg.vocab_size != model_cfg.vocab_size:
+                raise ValueError("draft and target must share a "
+                                 "tokenizer/vocab")
+            draft_cfg.validate()
+            self.draft_cfg = draft_cfg
+            self.draft_mod = get_model_fns(draft_cfg)
+            if draft_params is None:
+                draft_params, _ = build_model(draft_cfg, seed=seed + 1,
+                                              device=self.device,
+                                              quant=engine_cfg.quant)
+            self.draft_params = quantize_params(draft_params,
+                                                engine_cfg.quant)
+            self.draft_kv = kvc.alloc_kv_pages(draft_cfg, engine_cfg,
+                                               device=self.device)
 
     # ------------------------------------------------------------------
     # Host <-> device transfers
@@ -364,21 +488,10 @@ class InferenceEngine:
         tokens occupy positions [prefix_len[i], prefix_len[i] +
         prompt_len[i]). Returns the sampled first tokens [P] int32 on
         the device."""
-        cfg, ecfg, dev = self.model_cfg, self.engine_cfg, self.device
-        toks = self._to_device(st["tokens"])
+        cfg, dev = self.model_cfg, self.device
+        hidden, self.kv = self._chunk_forward(st, cfg, self.mod, self.params,
+                                              self.kv)
         plen = self._to_device(st["prompt_len"])
-        pref = self._to_device(st["prefix_len"])
-        bts = self._to_device(st["bts"])
-        s = st["tokens"].shape[1]
-        ar = torch.arange(s, device=dev, dtype=torch.int32)[None, :]
-        positions = (pref[:, None] + ar).clamp(max=ecfg.max_context - 1)
-        valid = ar < plen[:, None]
-        total_len = pref + plen
-        attn = make_paged_attn(cfg, ecfg.page_size, bts, positions, valid,
-                               q_offset=pref, kv_len=total_len,
-                               attn_backend=self.attn_backend)
-        hidden, self.kv = self.mod.forward_hidden(self.params, cfg, toks,
-                                                  positions, self.kv, attn)
         lanes = torch.arange(hidden.shape[0], device=dev)
         last = hidden[lanes, (plen - 1).long()]                 # [P, D]
         logits = self.mod.unembed(self.params, cfg, last)       # [P, V]
@@ -390,6 +503,68 @@ class InferenceEngine:
                       if use_pen else None,
                       repeat_penalty=self._to_device(st["rpens"]),
                       repeat_last_n=self._to_device(st["rlasts"]))
+
+    def _chunk_forward(self, st: dict, cfg: ModelConfig, mod, params, kv):
+        """The forward of the prefill lanes ``st`` through one model
+        (the target's, or the draft's into its own pool); returns
+        (hidden [P, S, D], kv)."""
+        ecfg, dev = self.engine_cfg, self.device
+        toks = self._to_device(st["tokens"])
+        plen = self._to_device(st["prompt_len"])
+        pref = self._to_device(st["prefix_len"])
+        bts = self._to_device(st["bts"])
+        s = st["tokens"].shape[1]
+        ar = torch.arange(s, device=dev, dtype=torch.int32)[None, :]
+        positions = (pref[:, None] + ar).clamp(max=ecfg.max_context - 1)
+        attn = make_paged_attn(cfg, ecfg.page_size, bts, positions,
+                               ar < plen[:, None], q_offset=pref,
+                               kv_len=pref + plen,
+                               attn_backend=self.attn_backend)
+        return mod.forward_hidden(params, cfg, toks, positions, kv, attn)
+
+    @torch.no_grad()
+    def _draft_prefill_fn(self, st: dict) -> None:
+        """Write the prompt chunk's KV into the draft model's pool (no
+        sampling): the lanes and pages of ``_prefill_fn``."""
+        _, self.draft_kv = self._chunk_forward(
+            st, self.draft_cfg, self.draft_mod, self.draft_params,
+            self.draft_kv)
+
+    @torch.no_grad()
+    def _spec_round_fn(self, st: dict, cap, active):
+        """One draft-model round over staged arrays ``st`` (tokens, ctx,
+        bts and the sampling rows); returns (emitted, n_accepted) on the
+        device."""
+        temps = np.asarray(st["temps"])
+        out = spec_round(
+            self, self.params, self.draft_params, self.kv, self.draft_kv,
+            self._to_device(st["tokens"]), self._to_device(st["ctx"]),
+            self._to_device(st["bts"]), self._to_device(cap),
+            self._to_device(active), self._generator,
+            self._to_device(temps), self._to_device(st["top_ps"]),
+            self._to_device(st["top_ks"]),
+            all_greedy=bool(np.all(temps <= 0.0)))
+        self.kv, self.draft_kv = out.kv, out.draft_kv
+        return out.emitted, out.n_accepted
+
+    @torch.no_grad()
+    def _verify_fn(self, st: dict, cap, active, drafts, n_prop):
+        """One n-gram verify round over staged arrays ``st``; returns
+        (emitted, n_accepted) on the device."""
+        temps = np.asarray(st["temps"])
+        use_pen = bool(np.any(np.asarray(st["rpens"]) != 1.0))
+        out = verify_round(
+            self, self.params, self.kv, self._to_device(st["tokens"]),
+            self._to_device(st["ctx"]), self._to_device(st["bts"]),
+            self._to_device(cap), self._to_device(active),
+            self._to_device(drafts), self._to_device(n_prop),
+            self._generator, self._to_device(temps),
+            self._to_device(st["top_ps"]), self._to_device(st["top_ks"]),
+            self._to_device(st["rpens"]), self._to_device(st["rlasts"]),
+            self._to_device(st["windows"]) if use_pen else None,
+            all_greedy=bool(np.all(temps <= 0.0)))
+        self.kv = out.kv
+        return out.emitted, out.n_accepted
 
     @torch.no_grad()
     def _decode_multi_fn(self, st: dict, k_steps: int):
@@ -462,13 +637,23 @@ class InferenceEngine:
                 "allowed": zb, "eos": np.full((b,), -1, np.int32),
                 **self._lane_arrays([], b)}
 
+    def _spec_warm_arrays(self, b: int, width: int) -> tuple:
+        """Spec-round operands at rung ``b`` whose lanes are all inactive
+        (every write lands on the trash page): (st, cap, active, drafts,
+        n_prop) with ``width - 1`` proposal columns."""
+        zb = np.zeros((b,), np.int32)
+        return (self._decode_warm_arrays(b), zb, np.zeros((b,), bool),
+                np.zeros((b, width - 1), np.int32), zb)
+
     def warmup(self) -> float:
         """Build and load the kernels (CUDA, kernel backend), then run
         every shape serving meets: the prefill at every bucket and lane
-        count, the decode call (K steps and the one-step route) at every
-        ladder rung, and with hybrid steps the hybrid call at every
-        reachable bucket and rung. All writes land on the trash page.
-        Returns seconds spent."""
+        count (and the draft model's prefill), the decode call (K steps
+        and the one-step route) at every ladder rung, the n-gram verify
+        round at every (rung, width) or the draft-model round at the top
+        rung, and with hybrid steps the hybrid call at every reachable
+        bucket and rung. All writes land on the trash page. Returns
+        seconds spent."""
         t0 = time.perf_counter()
         if self.device.type == "cuda" and self.attn_backend == "kernel":
             from tpu_inference_torch.kernels import build_kernels
@@ -486,11 +671,25 @@ class InferenceEngine:
         for p in self._prefill_batch_sizes:
             for bucket in buckets:
                 self._prefill_fn(chunk_arrays(p, bucket))
+                if self.spec_draft:
+                    self._draft_prefill_fn(chunk_arrays(p, bucket))
         k = max(1, ecfg.decode_steps_per_call)
-        for b in self.ladder:
-            for steps in sorted({1, k}):
-                self._decode_multi_fn(self._decode_warm_arrays(b), steps)
-        if ecfg.hybrid_prefill:
+        if self.spec_draft:
+            # Every decode call of this mode is a spec round (top rung).
+            st, cap, act, _, _ = self._spec_warm_arrays(
+                ecfg.max_batch_size, 1)
+            self._spec_round_fn(st, cap, act)
+        else:
+            for b in self.ladder:
+                for steps in sorted({1, k}):
+                    self._decode_multi_fn(self._decode_warm_arrays(b),
+                                          steps)
+        if self.spec_ngram:
+            # Fallback rounds run the decode calls warmed above.
+            for b in self.ladder:
+                for width in self._spec_widths:
+                    self._verify_fn(*self._spec_warm_arrays(b, width))
+        if ecfg.hybrid_prefill and not self.spec_enabled:
             cap = ecfg.bucket_for(min(ecfg.chunk_tokens_cap,
                                       ecfg.max_context))
             for bucket in (b for b in buckets if b <= cap):
@@ -805,10 +1004,14 @@ class InferenceEngine:
             int(seq.seed) & 0x7FFFFFFF)
         return top_k, seed
 
-    @staticmethod
-    def _penalty_arrays(seq: Sequence) -> Tuple[float, int]:
+    def _penalty_arrays(self, seq: Sequence) -> Tuple[float, int]:
         """(repeat_penalty, repeat_last_n): last_n < 0 = whole context,
-        clamped to the static window; 0 disables."""
+        clamped to the static window; 0 disables. Under draft-model
+        speculation the penalty is off entirely, prefill included (the
+        q/p acceptance ratio needs both distributions unmodified); n-gram
+        speculation composes (verify_round penalizes each position)."""
+        if self.spec_draft:
+            return 1.0, 0
         rlast = int(seq.repeat_last_n)
         if rlast < 0:
             rlast = PENALTY_WINDOW
@@ -848,7 +1051,11 @@ class InferenceEngine:
         [P] on the host (this call syncs)."""
         t0 = time.perf_counter()
         self._last_decode_end = None     # prefill breaks the decode streak
-        out = self._prefill_fn(st).cpu().numpy()
+        out = self._prefill_fn(st)
+        if self.spec_draft:
+            # Mirror the chunk into the draft model's pool (same pages).
+            self._draft_prefill_fn(st)
+        out = out.cpu().numpy()
         self.telemetry.prefill_dispatch_s.observe(time.perf_counter() - t0)
         self.telemetry.prefill_dispatches.inc()
         return out
@@ -904,6 +1111,7 @@ class InferenceEngine:
         prompt = seq.prefill_prompt
         if prompt is None:
             raise RuntimeError("prefill_step without prefill_begin")
+        self._chaos_step_gate()
         seq.prefill_offset, tok = self._prefill_one_chunk(
             seq, prompt, seq.prefill_offset)
         if seq.prefill_offset < len(prompt):
@@ -948,6 +1156,7 @@ class InferenceEngine:
         """Admit several sequences, batching same-bucket single-chunk
         prefills into one [P, S] call; multi-chunk prompts run the
         serial chunked path."""
+        self._chaos_step_gate()
         ecfg = self.engine_cfg
         slots = self.free_slots()
         if len(slots) < len(seqs):
@@ -967,6 +1176,45 @@ class InferenceEngine:
         for bucket, group in groups.items():
             for i in range(0, len(group), cap):
                 self._prefill_run_batched(group[i:i + cap], bucket)
+
+    def _chaos_step_gate(self) -> None:
+        """Engine-level fault injection at the top of every prefill and
+        decode dispatch entry: the wedge sleeps before the failure roll,
+        so a wedged-and-failing replica meets the watchdog first, like a
+        hung call that is then killed."""
+        if self.chaos_step_wedge_s > 0:
+            time.sleep(self.chaos_step_wedge_s)
+        if (self.chaos_step_failure_rate > 0
+                and _chaos_random.random() < self.chaos_step_failure_rate):
+            raise ChaosStepError("chaos: injected engine step failure")
+
+    def set_page_pressure(self, n_pages: int) -> int:
+        """Arm/disarm chaos_page_pressure: hold ``n_pages`` real pages out
+        of the pool (clamped to what is free now). Engine thread only
+        (other threads use request_page_pressure). Returns the pages
+        held."""
+        self.allocator.free(self._pressure_pages)
+        self._pressure_pages = []
+        n = max(0, min(int(n_pages), self.allocator.num_free))
+        if n > 0:
+            self._pressure_pages = self.allocator.allocate(n)
+        self.chaos_page_pressure = len(self._pressure_pages)
+        return self.chaos_page_pressure
+
+    def request_page_pressure(self, n_pages: int) -> int:
+        """Thread-safe arm/disarm request: stores the target; the
+        scheduler loop applies it on the engine thread within one
+        iteration. Returns the requested target."""
+        n = max(0, int(n_pages))
+        self._pressure_target = n
+        return n
+
+    def apply_pending_page_pressure(self) -> None:
+        """Apply a cross-thread pressure request (engine thread only)."""
+        target = self._pressure_target
+        if target is not None:
+            self._pressure_target = None
+            self.set_page_pressure(target)
 
     def _maybe_finish(self, seq: Sequence, tok: int) -> None:
         if seq.eos_token_id is not None and tok == seq.eos_token_id:
@@ -1247,9 +1495,22 @@ class InferenceEngine:
         one host sync. Returns {request_id: [tokens, in order]}.
         ``max_steps`` caps every lane (1 = the latency route). Calls
         still in flight are drained first (their tokens land in each
-        sequence's ``generated``)."""
+        sequence's ``generated``). Under speculative decoding one
+        call is one spec round (n-gram: the plain call when no lane
+        proposes)."""
+        self._chaos_step_gate()
         if self._inflight:
             self.drain_pipeline()
+        if self.spec_draft:
+            return self._spec_decode_steps(max_steps)
+        if self.spec_ngram:
+            return self._ngram_decode_steps(max_steps)
+        return self._plain_decode_steps(max_steps)
+
+    def _plain_decode_steps(self, max_steps: Optional[int] = None
+                            ) -> Dict[int, List[int]]:
+        """The K-step decode call (decode_steps' body); also the call
+        an n-gram round degrades to when no lane proposes."""
         ecfg = self.engine_cfg
         k_steps = max(1, ecfg.decode_steps_per_call)
         if max_steps is not None:
@@ -1448,6 +1709,8 @@ class InferenceEngine:
         host state; tokens of lanes that finished in an earlier call are
         discarded."""
         call = self._inflight.pop(0)
+        if call.get("spec"):
+            return self._sync_spec_call(call)
         t0 = time.perf_counter()
         if call["event"] is not None:
             call["event"].synchronize()
@@ -1513,12 +1776,17 @@ class InferenceEngine:
         """Dispatch-ahead serving step: keep up to
         ``decode_pipeline_depth`` K-step calls in flight and sync only
         the oldest; tokens arrive depth-1 calls after their dispatch.
-        Depth <= 1 is the synchronous ``decode_steps``."""
+        Depth <= 1 (and draft-model speculation) is the synchronous
+        ``decode_steps``; n-gram speculation keeps one verify round in
+        flight (``_ngram_steps_pipelined``)."""
         depth = self.engine_cfg.decode_pipeline_depth
-        if depth <= 1:
-            return self.decode_steps()
+        if depth <= 1 or self.spec_draft:
+            return self.decode_steps()           # the gate runs inside
         if self.admission == "optimistic" and self.under_pressure:
             return self._pressure_settle_round()
+        self._chaos_step_gate()
+        if self.spec_ngram:
+            return self._ngram_steps_pipelined()
         result: Dict[int, List[int]] = {}
         if self._pipeline_rung_blocked():
             result = self.drain_pipeline()     # settle, then grow the rung
@@ -1539,7 +1807,11 @@ class InferenceEngine:
         syncs at once). Once the prompt is fully staged, calls degrade to
         plain decode staging; the final chunk's token folds at its sync
         (completion shows as ``seq.prefill_prompt is None``). Returns the
-        decode tokens folded by this call."""
+        decode tokens folded by this call. Not under speculative
+        decoding (the scheduler never asks then)."""
+        if self.spec_enabled:
+            raise RuntimeError("hybrid steps do not compose with "
+                               "speculative decoding")
         depth = max(1, self.engine_cfg.decode_pipeline_depth)
         if (self.admission == "optimistic" and self.under_pressure
                 and self.active_sequences()):
@@ -1549,6 +1821,7 @@ class InferenceEngine:
             if seq.prefill_prompt is not None and not seq.done:
                 self.prefill_step(seq)
             return result
+        self._chaos_step_gate()
         result: Dict[int, List[int]] = {}
         if self._pipeline_rung_blocked():
             result = self.drain_pipeline()
@@ -1641,6 +1914,361 @@ class InferenceEngine:
         return result
 
     # ------------------------------------------------------------------
+    # Speculative decoding (engine/speculative.py)
+    # ------------------------------------------------------------------
+
+    def _spec_grant(self, active_seqs: List[Sequence], s_len: int,
+                    max_steps: Optional[int]
+                    ) -> Tuple[List[Sequence], Dict[int, int]]:
+        """Per-slot emission caps and page grants for one spec round: the
+        device writes KV for up to ``s_len`` positions, so provision pages
+        for what fits and clamp emissions to written capacity. Pages are
+        charged against the pages held, not ctx (a partly accepted round
+        leaves rows past ctx in pages already held). Starved lanes
+        preempt (optimistic) or fail. Returns (surviving sequences,
+        {slot: emit cap})."""
+        ecfg = self.engine_cfg
+        emit_by_slot: Dict[int, int] = {}
+        for seq in active_seqs:
+            budget = seq.max_new_tokens - len(seq.generated)
+            room = ecfg.max_context - 1 - seq.ctx_len
+            emit_cap = max(0, min(s_len, budget, room))
+            if max_steps is not None:
+                emit_cap = min(emit_cap, max_steps)
+            want = min(s_len, room)
+            total_pages = kvc.pages_needed(seq.ctx_len + want,
+                                           ecfg.page_size)
+            need = max(0, min(total_pages, self.max_pages)
+                       - len(seq.pages))
+            grantable = self._free_plus_evictable()
+            if need > grantable:
+                slack = len(seq.pages) * ecfg.page_size - seq.ctx_len
+                emit_cap = min(emit_cap,
+                               slack + grantable * ecfg.page_size)
+                need = min(need, grantable)
+            if emit_cap <= 0:
+                self._starved(seq)
+                continue
+            if need > 0:
+                seq.pages.extend(self._allocate_reclaiming(need))
+            emit_by_slot[seq.slot] = emit_cap
+        return ([s for s in active_seqs if not s.done and s.slot >= 0],
+                emit_by_slot)
+
+    def _spec_stage(self, active_seqs: List[Sequence], b: int) -> tuple:
+        """(staged arrays, cap, active) of a spec round at rung ``b``:
+        cap = provisioned token capacity per slot (writes at or past it
+        land on the trash page)."""
+        st = self._stage_batch(active_seqs, b)
+        cap = np.zeros((b,), np.int32)
+        active = np.zeros((b,), bool)
+        for seq in active_seqs:
+            cap[seq.slot] = len(seq.pages) * self.engine_cfg.page_size
+            active[seq.slot] = True
+        return st, cap, active
+
+    def _spec_decode_steps(self, max_steps: Optional[int] = None
+                           ) -> Dict[int, List[int]]:
+        """One draft-model round: the draft proposes γ tokens, the target
+        verifies them in one forward, rejection sampling keeps an
+        exact-distribution prefix; 1..γ+1 tokens per sequence. Seeds and
+        repetition penalties do not reach the round (the acceptance
+        ratio needs the unmodified distributions, and the rejection
+        sampler draws at a data-dependent rate)."""
+        ecfg = self.engine_cfg
+        gamma = ecfg.num_speculative_tokens
+        s_len = gamma + 1
+        active_seqs = self.active_sequences()
+        if not active_seqs:
+            return {}
+        active_seqs = self._preempt_for_pressure(active_seqs, s_len)
+        active_seqs, emit_by_slot = self._spec_grant(active_seqs, s_len,
+                                                     max_steps)
+        if not active_seqs:
+            return {}
+        b = ecfg.max_batch_size       # draft spec runs at the top rung
+        st, cap, active = self._spec_stage(active_seqs, b)
+        t0 = self._note_decode_entry()
+        emitted, n_acc = self._spec_round_fn(st, cap, active)
+        emitted, n_acc = emitted.cpu().numpy(), n_acc.cpu().numpy()
+        self._note_decode_exit(t0)
+        result: Dict[int, List[int]] = {}
+        for seq in active_seqs:
+            got = self._fold_lane(seq, (int(t) for t in emitted[
+                seq.slot, :emit_by_slot[seq.slot]]))
+            # Count only the draft positions the host could emit (the cap
+            # truncates a round when budget or context run out), and
+            # clamp accepted to them, so capped rounds cannot drift the
+            # rate.
+            drafted = min(gamma, emit_by_slot[seq.slot])
+            accepted = min(int(n_acc[seq.slot]), drafted)
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+            if drafted > 0:
+                self.telemetry.spec_accept_rate.observe(accepted / drafted)
+                seq.spec_rounds += 1
+                seq.spec_accepted_toks += accepted
+            if got:
+                result[seq.request_id] = got
+        self.telemetry.tokens_per_dispatch.observe(
+            sum(len(t) for t in result.values()))
+        return result
+
+    # N-gram speculation: the host proposes continuations by suffix-
+    # matching each sequence's own history, and a verify round scores γ+1
+    # positions in one target forward. A per-sequence acceptance EWMA
+    # throttles cold streams to γ=0; rounds where nothing proposes run
+    # the plain K-step call.
+
+    def _seq_spec_gamma(self, seq: Sequence) -> int:
+        """Current adaptive γ of one sequence, ticking a throttled lane's
+        probe countdown. A fresh stream earns the full width: its first
+        proposal rides the narrow γ=1 round, and one clean accept
+        promotes it."""
+        gamma = self.engine_cfg.num_speculative_tokens
+        if seq.spec_gamma < 0:
+            seq.spec_gamma = 1 if gamma > 1 else gamma
+        if seq.spec_gamma == 0:
+            seq.spec_probe_countdown -= 1
+            if seq.spec_probe_countdown <= 0:
+                seq.spec_gamma = 1               # probe on the narrow width
+        return seq.spec_gamma
+
+    def _spec_update_adaptive(self, seq: Sequence, drafted: int,
+                              accepted: int) -> None:
+        """Fold one round's acceptance into the sequence's EWMA and
+        throttle or restore its γ; consecutive failed probes double the
+        probe interval (capped at 8x spec_probe_every)."""
+        if drafted <= 0:
+            return
+        ecfg = self.engine_cfg
+        rate = accepted / drafted
+        seq.spec_accept_ewma += ecfg.spec_ewma_alpha * (
+            rate - seq.spec_accept_ewma)
+        self.telemetry.spec_accept_rate.observe(rate)
+        seq.spec_rounds += 1
+        seq.spec_accepted_toks += accepted
+        thr = ecfg.spec_throttle_below
+        if thr > 0 and seq.spec_accept_ewma < thr:
+            if seq.spec_gamma != 0:
+                self.spec_throttles_total += 1
+            base = max(1, ecfg.spec_probe_every)
+            seq.spec_probe_interval = min(
+                8 * base, max(base, seq.spec_probe_interval * 2))
+            seq.spec_gamma = 0
+            seq.spec_probe_countdown = seq.spec_probe_interval
+        else:
+            seq.spec_gamma = ecfg.num_speculative_tokens
+            seq.spec_probe_interval = 0
+
+    def _ngram_proposals(self, active_seqs: List[Sequence]
+                         ) -> Dict[int, np.ndarray]:
+        """Prompt-lookup proposals of every lane not throttled: {slot:
+        proposed tokens (1..γ)}. Probe alignment: when any lane's probe
+        is due, every throttled lane probes in the same round (the batch
+        pays one verify, not one per lane's countdown)."""
+        ecfg = self.engine_cfg
+        gammas = [self._seq_spec_gamma(seq) for seq in active_seqs]
+        if any(g > 0 and s.spec_probe_interval > 0
+               for s, g in zip(active_seqs, gammas)):
+            gammas = [1 if g == 0 else g for g in gammas]
+        props: Dict[int, np.ndarray] = {}
+        for seq, gamma in zip(active_seqs, gammas):
+            if gamma <= 0:
+                continue
+            # Slice before concatenating: the proposer reads only the
+            # trailing NGRAM_SCAN_CAP tokens.
+            hist = seq.generated[-NGRAM_SCAN_CAP:]
+            if len(hist) < NGRAM_SCAN_CAP:
+                hist = (seq.prompt_tokens[len(hist) - NGRAM_SCAN_CAP:]
+                        + hist)
+            prop = ngram_propose(hist, gamma, ecfg.ngram_window)
+            if prop.size:
+                props[seq.slot] = prop
+            elif seq.spec_probe_interval > 0:
+                # A probing lane with nothing to propose goes back to
+                # sleep (no new evidence: the interval does not double).
+                seq.spec_gamma = 0
+                seq.spec_probe_countdown = seq.spec_probe_interval
+        return props
+
+    def _gate_mixed_batch(self, active_seqs: List[Sequence],
+                          proposals: Dict[int, np.ndarray]
+                          ) -> Dict[int, np.ndarray]:
+        """With K > 1 a verify round advances a lane that proposed nothing
+        by one token where the plain call advances it by up to K: verify
+        only when the proposers' expected accepted tokens (EWMA-weighted)
+        cover one token per bystander; otherwise return {} (the plain
+        call). K == 1 has no bystander deficit."""
+        k_steps = max(1, self.engine_cfg.decode_steps_per_call)
+        if k_steps <= 1 or not proposals:
+            return proposals
+        by_slot = {s.slot: s for s in active_seqs}
+        expected = sum(by_slot[slot].spec_accept_ewma * len(p)
+                       for slot, p in proposals.items() if slot in by_slot)
+        bystanders = len(active_seqs) - len(proposals)
+        return proposals if expected >= bystanders else {}
+
+    def _spec_width_for(self, proposals: Dict[int, np.ndarray]) -> int:
+        """Smallest verify width (γ+1) covering the round's longest
+        proposal: probe-only rounds run the narrow width."""
+        longest = max(len(p) for p in proposals.values())
+        for w in self._spec_widths:
+            if w >= longest + 1:
+                return w
+        return self._spec_widths[-1]
+
+    def _dispatch_verify(self, active_seqs: List[Sequence],
+                         proposals: Dict[int, np.ndarray], s_len: int):
+        """Stage and queue one verify round at the smallest rung covering
+        the batch and width ``s_len`` (non-blocking). Per-request seeds
+        do not reach spec rounds; greedy rows are unaffected. Returns
+        ((emitted, n_accepted) on the device, {slot: n proposed},
+        rung)."""
+        gamma = s_len - 1
+        b = self._rung_for_slots(active_seqs)
+        self._note_rung(b)
+        st, cap, act = self._spec_stage(active_seqs, b)
+        drafts = np.zeros((b, gamma), np.int32)
+        n_prop = np.zeros((b,), np.int32)
+        for seq in active_seqs:
+            prop = proposals.get(seq.slot)
+            if prop is not None and prop.size:
+                n = min(len(prop), gamma)
+                drafts[seq.slot, :n] = prop[:n]
+                n_prop[seq.slot] = n
+        t0 = self._note_decode_entry()
+        out = self._verify_fn(st, cap, act, drafts, n_prop)
+        self._note_decode_exit(t0)
+        self.spec_rounds_total += 1
+        full = self.engine_cfg.num_speculative_tokens
+        gammas = [s.spec_gamma if s.spec_gamma >= 0 else full
+                  for s in active_seqs]
+        self.telemetry.spec_gamma_g.set(sum(gammas) / len(gammas))
+        return out, {s.slot: int(n_prop[s.slot]) for s in active_seqs}, b
+
+    def _fold_spec_emissions(self, seqs: Dict[int, Sequence],
+                             emit_by_slot: Dict[int, int],
+                             prop_by_slot: Dict[int, int],
+                             emitted: np.ndarray, n_acc: np.ndarray
+                             ) -> Dict[int, List[int]]:
+        """Fold one verify round's emissions into host state (the sync and
+        the dispatch-ahead paths): emit caps truncate, EOS stops a lane
+        mid-round, each lane's acceptance updates its adaptive γ. Lanes
+        cancelled or preempted while the round was in flight are
+        skipped."""
+        result: Dict[int, List[int]] = {}
+        for slot, seq in seqs.items():
+            if seq.done or seq.slot != slot or self.slots[slot] is not seq:
+                continue
+            cap = emit_by_slot.get(slot, 0)
+            got = self._fold_lane(seq, (int(t) for t in emitted[slot, :cap]))
+            drafted = min(prop_by_slot.get(slot, 0), cap)
+            accepted = min(int(n_acc[slot]), drafted)
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+            self._spec_update_adaptive(seq, drafted, accepted)
+            if got:
+                result[seq.request_id] = got
+        self.telemetry.tokens_per_dispatch.observe(
+            sum(len(t) for t in result.values()))
+        return result
+
+    def _ngram_active(self) -> List[Sequence]:
+        """The lanes of the next n-gram round (ladder compacted, pressure
+        preemptions done)."""
+        self._compact_slots()
+        active_seqs = self.active_sequences()
+        if not active_seqs:
+            return []
+        active_seqs = self._preempt_for_pressure(
+            active_seqs, self.engine_cfg.num_speculative_tokens + 1)
+        return [s for s in active_seqs if not s.done and s.slot >= 0]
+
+    def _ngram_decode_steps(self, max_steps: Optional[int] = None
+                            ) -> Dict[int, List[int]]:
+        """One synchronous n-gram round: propose (host numpy), verify and
+        accept (one target forward at the current rung), fold. A round
+        where no lane proposes runs the plain K-step call instead."""
+        active_seqs = self._ngram_active()
+        if not active_seqs:
+            return {}
+        proposals = self._gate_mixed_batch(
+            active_seqs, self._ngram_proposals(active_seqs))
+        if not proposals:
+            self.spec_fallback_rounds += 1
+            return self._plain_decode_steps(max_steps)
+        s_len = self._spec_width_for(proposals)
+        active_seqs, emit_by_slot = self._spec_grant(active_seqs, s_len,
+                                                     max_steps)
+        if not active_seqs:
+            return {}
+        (emitted, n_acc), prop_by_slot, _ = self._dispatch_verify(
+            active_seqs, proposals, s_len)
+        return self._fold_spec_emissions(
+            {s.slot: s for s in active_seqs}, emit_by_slot, prop_by_slot,
+            emitted.cpu().numpy(), n_acc.cpu().numpy())
+
+    def _stage_ngram_call(self) -> Optional[dict]:
+        """Stage one n-gram round without blocking, as a pipeline call:
+        the host overlaps its device time with scheduler work and the
+        next round's matching. A round with no proposals stages the plain
+        K-step call. The caller guarantees the pipeline is empty
+        (proposals need the previous round's accepted tokens)."""
+        active_seqs = self._ngram_active()
+        if not active_seqs:
+            return None
+        proposals = self._gate_mixed_batch(
+            active_seqs, self._ngram_proposals(active_seqs))
+        if not proposals:
+            self.spec_fallback_rounds += 1
+            return self._stage_decode_call()
+        s_len = self._spec_width_for(proposals)
+        active_seqs, emit_by_slot = self._spec_grant(active_seqs, s_len,
+                                                     None)
+        if not active_seqs:
+            return None
+        (emitted, n_acc), prop_by_slot, rung = self._dispatch_verify(
+            active_seqs, proposals, s_len)
+        (emitted_h, n_acc_h), event = self._to_host_async(emitted, n_acc)
+        return {"spec": True, "emitted": emitted_h, "n_accepted": n_acc_h,
+                "event": event, "allowed": dict(emit_by_slot),
+                "n_prop": prop_by_slot,
+                "seqs": {s.slot: s for s in active_seqs},
+                "rung": rung, "outs": None, "final": None,
+                "final_window": None}
+
+    def _sync_spec_call(self, call: dict) -> Dict[int, List[int]]:
+        """Wait for an in-flight verify round and fold its emissions (the
+        _sync_oldest arm of ``spec`` calls)."""
+        t0 = time.perf_counter()
+        if call["event"] is not None:
+            call["event"].synchronize()
+        self.telemetry.decode_sync_s.observe(time.perf_counter() - t0)
+        # The wait was device time: the next bubble counts host work only.
+        self._last_decode_end = (
+            time.perf_counter()
+            if any(s is not None and not s.done for s in self.slots)
+            else None)
+        return self._fold_spec_emissions(
+            call["seqs"], call["allowed"], call["n_prop"],
+            call["emitted"].numpy(), call["n_accepted"].numpy())
+
+    def _ngram_steps_pipelined(self) -> Dict[int, List[int]]:
+        """Dispatch-ahead step of n-gram speculation: sync the round in
+        flight (its accepted tokens seed the next proposals; spec rounds
+        cannot chain blind like plain decode carries), then stage the
+        next one without blocking."""
+        result: Dict[int, List[int]] = {}
+        if self._inflight:
+            for rid, toks in self._sync_oldest().items():
+                result.setdefault(rid, []).extend(toks)
+        call = self._stage_ngram_call()
+        if call is not None:
+            self._inflight.append(call)
+        return result
+
+    # ------------------------------------------------------------------
 
     def _note_decode_entry(self) -> float:
         now = time.perf_counter()
@@ -1663,11 +2291,13 @@ class InferenceEngine:
         agree with its entries (no digest in both tiers), and once the
         prefix cache drops its references every page is free with no
         refcount and no slot is bound. Clears the prefix cache; raises
-        AssertionError naming what leaked."""
+        AssertionError naming what leaked. Disarms chaos page pressure
+        first."""
         assert not self._inflight, \
             "dispatch-ahead calls still in flight; drain before checking"
         assert not self._preempted_out, \
             "preempted sequences never collected (take_preempted)"
+        self.set_page_pressure(0)
         cache = self.prefix_cache
         if cache is not None and cache.host_pool is not None:
             pool = cache.host_pool

@@ -21,6 +21,13 @@ Twin of ``tpu_inference/engine/scheduler.py`` at the default path:
   decoding and nothing queued or in flight, one step per call so every
   token streams as it is sampled; otherwise K fused steps per call
   through the dispatch-ahead pipeline (``decode_steps_pipelined``).
+  Under speculative decoding every call is a spec round (no latency
+  mode, no hybrid steps).
+- Supervision: ``step_inflight_since`` marks the dispatch in progress
+  for the replica's step watchdog; a failed dispatch (an injected
+  ``ChaosStepError`` included) fails its requests with reason "error",
+  drops the calls in flight and feeds the health machine. Page-pressure
+  requests from other threads apply at the top of each loop iteration.
 """
 
 from __future__ import annotations
@@ -121,6 +128,20 @@ class SchedulerStats:
         }
         if engine.prefix_cache is not None:
             out["prefix_cache"] = engine.prefix_cache.stats()
+        if engine.spec_enabled:
+            d, a = engine.spec_drafted, engine.spec_accepted
+            out["speculative"] = {
+                # Proposal source and configured γ; the n-gram round mix:
+                # verify rounds, plain-call fallbacks (no lane proposed)
+                # and γ=0 throttles.
+                "mode": engine.spec_mode,
+                "gamma": ecfg.num_speculative_tokens,
+                "drafted": d, "accepted": a,
+                "acceptance_rate": (a / d) if d else 0.0,
+                "rounds": engine.spec_rounds_total,
+                "fallback_rounds": engine.spec_fallback_rounds,
+                "throttles": engine.spec_throttles_total,
+            }
         return out
 
 
@@ -152,7 +173,11 @@ class EngineScheduler:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # Supervision hooks (set by EngineGroup), fired on the engine
-        # thread after every dispatch.
+        # thread after every dispatch. step_inflight_since is the
+        # monotonic start of the dispatch in progress (None between
+        # dispatches); the step watchdog reads it from its own thread (a
+        # plain attribute store).
+        self.step_inflight_since: Optional[float] = None
         self.on_step_ok: Optional[Callable[[], None]] = None
         self.on_step_error: Optional[Callable[[BaseException], None]] = None
 
@@ -267,9 +292,11 @@ class EngineScheduler:
 
     def _hybrid_active(self) -> bool:
         """True when the in-progress incremental prefill advances through
-        hybrid steps (fused into the decode call): hybrid_prefill is on
+        hybrid steps (fused into the decode call): hybrid_prefill is on,
+        speculative decoding is off (its rounds are calls of their own),
         and there are decode lanes to fuse with."""
         return (self.engine.engine_cfg.hybrid_prefill
+                and not self.engine.spec_enabled
                 and self._prefilling is not None
                 and bool(self.engine.active_sequences()))
 
@@ -302,12 +329,15 @@ class EngineScheduler:
             self._prefilling = None
             self._finish(seq)
             return
+        self.step_inflight_since = time.monotonic()
         try:
             finished = self.engine.prefill_step(seq)
         except Exception as exc:  # noqa: BLE001 — keep the engine loop alive
             self._prefilling = None
             self._step_failed("incremental_prefill", exc, [seq])
             return
+        finally:
+            self.step_inflight_since = None
         self._note_ok()
         if finished:
             self._prefilling = None
@@ -398,11 +428,14 @@ class EngineScheduler:
             return
         if not batch:
             return
+        self.step_inflight_since = time.monotonic()
         try:
             engine.prefill_many([p.seq for p in batch])
         except Exception as exc:  # noqa: BLE001 — keep the engine loop alive
             self._step_failed("batched_prefill", exc, [p.seq for p in batch])
             return
+        finally:
+            self.step_inflight_since = None
         self._note_ok()
         for pending in batch:
             self._prefill_done(pending)
@@ -514,6 +547,9 @@ class EngineScheduler:
     def run(self) -> None:
         engine = self.engine
         while not self._stop.is_set():
+            # Cross-thread page-pressure requests (/debug/chaos) apply
+            # here: the allocator is engine-thread only.
+            engine.apply_pending_page_pressure()
             self._admit()
             active = engine.active_sequences()
             if not active:
@@ -542,12 +578,15 @@ class EngineScheduler:
                 hybrid_pf = None
             thresh = engine.engine_cfg.latency_decode_threshold
             t_call = time.perf_counter()
+            self.step_inflight_since = time.monotonic()
             try:
                 if hybrid_pf is not None:
                     new_tokens = engine.hybrid_step_pipelined(hybrid_pf.seq)
                 elif (0 < len(active) <= thresh and not self._waiting
                         and self._prefilling is None
-                        and not engine.pipeline_pending):
+                        and not engine.pipeline_pending
+                        and not engine.spec_enabled):
+                    # Latency mode; a spec round has its own cadence.
                     new_tokens = engine.decode_steps(max_steps=1)
                 else:
                     new_tokens = engine.decode_steps_pipelined()
@@ -566,6 +605,8 @@ class EngineScheduler:
                 self._step_failed("hybrid" if hybrid_pf is not None
                                   else "decode", exc, victims)
                 continue
+            finally:
+                self.step_inflight_since = None
             self._note_ok()
             self.stats.steps += 1
             self.stats.batch_occupancy_sum += len(active)

@@ -17,7 +17,9 @@ in shared memory, float32 q a CUDA-core kernel.
 ``paged_prefill_attention`` launches the kernel for CUDA tensors (building
 it on first use) and raises if it cannot; for CPU tensors it runs
 ``paged_prefill_attention_plain``. ``launches`` counts kernel launches
-and nothing else; ``launches_by_variant`` splits them by pool kind.
+and nothing else; ``launches_by_variant`` splits them by pool kind and
+``launches_by_len`` by query length S (prompt chunks at the prefill
+buckets, speculative verify rounds at S = γ+1 and the 2-wide probe).
 """
 
 from __future__ import annotations
@@ -34,16 +36,19 @@ from tpu_inference_torch.kernels import _build, _pool
 NEG_INF = -1e30
 launches = 0
 launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
+launches_by_len: dict = {}
 
 _lib = None
 
 
 def reset_counts() -> None:
-    """Set ``launches`` and every ``launches_by_variant`` count to 0."""
+    """Set ``launches`` and every per-variant and per-length count to
+    0."""
     global launches
     launches = 0
     for k in launches_by_variant:
         launches_by_variant[k] = 0
+    launches_by_len.clear()
 
 
 def _library() -> ctypes.CDLL:
@@ -163,4 +168,5 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check(lib, err, "paged_prefill_attention")
     launches += 1
     launches_by_variant[variant] += 1
+    launches_by_len[s] = launches_by_len.get(s, 0) + 1
     return out

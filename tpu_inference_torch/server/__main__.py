@@ -14,6 +14,12 @@ machine's available RAM. The reference's chip configuration::
     python -m tpu_inference_torch.server --model llama-3-8b --quant int8 \\
         --kv-quant int8 --max-batch-size auto --num-pages auto \\
         --batch-cap 32 --decode-pipeline-depth 2
+
+Speculative decoding: ``--spec-mode ngram`` (self-drafting from each
+sequence's history) or ``--draft-model <preset>`` (``--spec-mode auto``
+then means draft), ``--num-speculative-tokens`` γ. Fault injection:
+``--chaos-*``, the step watchdog ``--step-watchdog-s``, and ``--debug``
+for ``POST /debug/chaos``.
 """
 
 from __future__ import annotations
@@ -120,10 +126,90 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preempt-max-per-request", type=int, default=3,
                    help="starvation guard: after this many preemptions a "
                         "request re-admits under full reservation")
+    p.add_argument("--spec-mode", default="auto",
+                   choices=("auto", "off", "draft", "ngram"),
+                   help="speculative decoding proposal source: 'ngram' "
+                        "= draft-free self-drafting (prompt lookup "
+                        "against each sequence's own history; no draft "
+                        "model; composes with the decode ladder, host KV "
+                        "tier and repeat_penalty); 'draft' = a separate "
+                        "draft model (--draft-model); 'auto' = draft when "
+                        "--draft-model is given, else off")
+    p.add_argument("--draft-model", default=None,
+                   help="enable draft-model speculative decoding with "
+                        "this draft preset (random weights from "
+                        "--seed + 1)")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="checkpoint directory of the draft model "
+                        "(checkpoints are not ported yet: ROADMAP 1.9)")
+    p.add_argument("--num-speculative-tokens", type=int, default=4,
+                   help="speculation depth γ: proposed tokens verified "
+                        "per round (each round emits 1..γ+1 tokens from "
+                        "one target forward); [1, 16] when spec is on")
+    p.add_argument("--ngram-window", type=int, default=3,
+                   help="ngram spec: longest suffix n-gram matched "
+                        "against the sequence's history ([1, 8]; "
+                        "matching tries window..1, most recent match "
+                        "wins)")
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--request-timeout-s", type=float, default=600.0)
     p.add_argument("--admission-queue-depth", type=int, default=0)
+    p.add_argument("--step-watchdog-s", type=float, default=0.0,
+                   help="quarantine the replica whose prefill/decode "
+                        "dispatch stays in flight this long (a wedged "
+                        "card or call); 0 = off. With --no-warmup the "
+                        "first dispatch builds the kernels")
+    p.add_argument("--debug", action="store_true",
+                   help="serve POST /debug/chaos (the other /debug "
+                        "routes answer 501: ROADMAP 1.18)")
+    p.add_argument("--chaos-page-pressure", type=int, default=0,
+                   help="fault injection: hold this many KV pages out "
+                        "of the pool at boot (adjustable via POST "
+                        "/debug/chaos)")
+    p.add_argument("--chaos-failure-rate", type=float, default=0.0,
+                   help="HTTP fault injection: 503 this fraction of "
+                        "generate requests")
+    p.add_argument("--chaos-delay-s", type=float, default=0.0,
+                   help="HTTP fault injection: delay requests uniformly "
+                        "up to this many seconds")
+    p.add_argument("--chaos-step-failure-rate", type=float, default=0.0,
+                   help="engine fault injection: each prefill/decode "
+                        "dispatch raises with this probability")
+    p.add_argument("--chaos-step-wedge-s", type=float, default=0.0,
+                   help="engine fault injection: each dispatch sleeps "
+                        "this long first (exercises the step watchdog)")
     return p
+
+
+def resolve_spec_mode(args, p: argparse.ArgumentParser) -> str:
+    """``--spec-mode`` resolved and checked as the reference does
+    ("auto" = draft when --draft-model is given, else off); usage errors
+    go through ``p.error``. Returns "off", "draft" or "ngram"."""
+    from tpu_inference_torch.config import validate_spec_config
+
+    if args.draft_checkpoint:
+        p.error("--draft-checkpoint: checkpoint loading is not ported yet "
+                "(ROADMAP 1.9); --draft-model takes a preset with random "
+                "weights")
+    if args.draft_model is not None and args.draft_model not in PRESETS:
+        p.error(f"unknown --draft-model {args.draft_model!r}: one of "
+                f"{', '.join(sorted(PRESETS))}")
+    spec_mode = args.spec_mode
+    if spec_mode == "auto":
+        spec_mode = "draft" if args.draft_model else "off"
+    if spec_mode == "draft" and not args.draft_model:
+        p.error("--spec-mode draft requires --draft-model")
+    if spec_mode == "off" and args.draft_model:
+        p.error("--spec-mode off conflicts with --draft-model "
+                "(drop one)")
+    if spec_mode != "off":
+        try:
+            validate_spec_config(spec_mode, args.num_speculative_tokens,
+                                 args.ngram_window,
+                                 has_draft_model=bool(args.draft_model))
+        except ValueError as e:
+            p.error(str(e))
+    return spec_mode
 
 
 def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
@@ -132,6 +218,7 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
     through ``p.error``."""
     from tpu_inference_torch.engine import autosize
 
+    spec_mode = resolve_spec_mode(args, p)
     try:
         max_batch_size, num_pages = autosize.resolve_sizing_args(args)
         decode_ladder = autosize.parse_decode_ladder(args.decode_ladder,
@@ -168,7 +255,14 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         optimistic_headroom_pages=args.optimistic_headroom_pages,
         preempt_watermark_pages=args.preempt_watermark_pages,
         preempt_max_per_request=args.preempt_max_per_request,
-        max_new_tokens=args.max_new_tokens)
+        max_new_tokens=args.max_new_tokens,
+        spec_mode="ngram" if spec_mode == "ngram" else "draft",
+        ngram_window=args.ngram_window,
+        num_speculative_tokens=(args.num_speculative_tokens
+                                if spec_mode != "off" else 0),
+        chaos_page_pressure=args.chaos_page_pressure,
+        chaos_step_failure_rate=args.chaos_step_failure_rate,
+        chaos_step_wedge_s=args.chaos_step_wedge_s)
 
 
 def main(argv=None) -> None:
@@ -183,11 +277,15 @@ def main(argv=None) -> None:
 
     server = build_server(
         model=args.model, warmup=not args.no_warmup, device=args.device,
-        seed=args.seed,
+        seed=args.seed, draft_model=args.draft_model,
+        enable_debug=args.debug,
         server_overrides={"host": args.host, "port": args.port,
                           "request_timeout_s": args.request_timeout_s,
                           "admission_queue_depth":
-                              args.admission_queue_depth},
+                              args.admission_queue_depth,
+                          "step_watchdog_s": args.step_watchdog_s,
+                          "chaos_failure_rate": args.chaos_failure_rate,
+                          "chaos_delay_s": args.chaos_delay_s},
         **engine_args)
     port = server.start()
     print(f"serving {args.model} on http://{args.host}:{port} "

@@ -21,6 +21,12 @@ own scheduler thread). Wire contract, as the reference's:
 Also serves ``GET /api/tags``, ``/api/version``, ``/healthz`` and
 ``/metrics`` (Prometheus text; ``?format=json`` for the stats snapshot).
 ``/api/chat`` and ``/api/embeddings`` are ROADMAP items 1.10 and 1.11.
+
+Fault injection: ``ServerConfig.chaos_delay_s`` / ``chaos_failure_rate``
+delay or 503 a request before it is parsed (``chaos_gate``), and with
+``enable_debug`` ``POST /debug/chaos`` arms the engine's faults at run
+time (EngineGroup.apply_chaos). The other ``/debug/*`` routes answer 501
+(ROADMAP 1.18).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import datetime
 import itertools
 import json
 import queue
+import random
 import threading
 import time
 import uuid
@@ -81,12 +88,6 @@ def check_server_config(cfg: FrameworkConfig) -> None:
         raise NotImplementedError(
             "checkpoint loading is not ported yet (ROADMAP 1.9); the port "
             "serves random weights made from the seed")
-    if cfg.server.enable_debug:
-        raise NotImplementedError(
-            "debug endpoints are not ported yet (ROADMAP 1.18)")
-    if cfg.server.chaos_failure_rate or cfg.server.chaos_delay_s:
-        raise NotImplementedError(
-            "HTTP fault injection is not ported yet (ROADMAP 1.13b)")
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -104,9 +105,10 @@ class InferenceServer:
     def __init__(self, cfg: FrameworkConfig,
                  engine: Optional[InferenceEngine] = None,
                  load_duration_ns: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", draft_cfg=None):
         """``engine``: a prebuilt engine (tests); otherwise one is built
-        from ``cfg`` on ``device`` with random weights from ``cfg.seed``.
+        from ``cfg`` on ``device`` with random weights from ``cfg.seed``
+        (and with ``draft_cfg``, a draft model from ``cfg.seed + 1``).
         ``load_duration_ns`` feeds the Ollama ``load_duration`` field."""
         check_server_config(cfg)
         self.cfg = cfg
@@ -119,7 +121,7 @@ class InferenceServer:
         t0 = time.perf_counter()
         if engine is None:
             engine = InferenceEngine(cfg.model, cfg.engine, seed=cfg.seed,
-                                     device=device)
+                                     device=device, draft_cfg=draft_cfg)
         self.group = EngineGroup([engine], cfg.server)
         self.load_duration_ns = (load_duration_ns
                                  if load_duration_ns is not None else
@@ -194,6 +196,18 @@ class InferenceServer:
                         "quantization_level": self._quantization_level()},
         }]}
 
+    def chaos_gate(self) -> None:
+        """HTTP-level fault injection (off unless ServerConfig.chaos_* is
+        set): a uniform delay up to ``chaos_delay_s``, then a 503 with
+        probability ``chaos_failure_rate``. The engine-level counterpart
+        (EngineConfig.chaos_step_*) injects below the HTTP layer."""
+        scfg = self.cfg.server
+        if scfg.chaos_delay_s > 0:
+            time.sleep(random.uniform(0, scfg.chaos_delay_s))
+        if scfg.chaos_failure_rate > 0:
+            if random.random() < scfg.chaos_failure_rate:
+                raise HTTPError(503, "chaos: injected failure")
+
     def _retry_after_headers(self, retry_after_s: float) -> dict:
         return {"Retry-After": str(max(1, int(-(-retry_after_s // 1))))}
 
@@ -228,6 +242,13 @@ class InferenceServer:
                 warnings.append(
                     f"repeat_last_n={repeat_last_n} clamped to the static "
                     f"penalty window {PENALTY_WINDOW}")
+            if repeat_penalty != 1.0 and self.engine.spec_draft:
+                # The q/p acceptance ratio needs both distributions
+                # unmodified; n-gram speculation applies the penalty.
+                warnings.append(
+                    "repeat_penalty ignored: draft-model speculative "
+                    "decoding samples from the unmodified target "
+                    "distribution")
             stop = opts.get("stop", body.get("stop"))
             if stop is None:
                 stop = []
@@ -359,9 +380,12 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
         self.wfile.flush()
 
-    def _read_json(self) -> dict:
+    def _read_body(self) -> bytes:
         n = int(self.headers.get("Content-Length") or 0)
-        raw = self.rfile.read(n) if n > 0 else b""
+        return self.rfile.read(n) if n > 0 else b""
+
+    @staticmethod
+    def _parse_json(raw: bytes) -> dict:
         try:
             body = json.loads(raw or b"null")
         except (json.JSONDecodeError, UnicodeDecodeError):
@@ -372,9 +396,21 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ------------------------------------------------------- routes
 
+    def _debug_unported(self, path: str) -> bool:
+        """The /debug/* routes other than /debug/chaos answer 501 (with
+        ``enable_debug``; 404 without, as the reference)."""
+        if not (self.app.cfg.server.enable_debug
+                and path.startswith("/debug/") and path != "/debug/chaos"):
+            return False
+        self._send_json(501, {"error": f"{path} is not ported yet "
+                                       "(ROADMAP 1.18: observability)"})
+        return True
+
     def do_GET(self) -> None:   # noqa: N802
         url = urlsplit(self.path)
         app = self.app
+        if self._debug_unported(url.path):
+            return
         if url.path == "/api/tags":
             self._send_json(200, app.tags())
         elif url.path == "/api/version":
@@ -398,13 +434,28 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self) -> None:   # noqa: N802
         path = urlsplit(self.path).path
+        if self._debug_unported(path):
+            return
         try:
-            body = self._read_json()
+            raw = self._read_body()
+            if path == "/debug/chaos" and self.app.cfg.server.enable_debug:
+                self._chaos(self._parse_json(raw))
+                return
             if path != "/api/generate":
                 raise HTTPError(404, f"no route {path}")
-            self._generate(body)
+            # Gate before the body is parsed, as the reference does.
+            self.app.chaos_gate()
+            self._generate(self._parse_json(raw))
         except HTTPError as e:
             self._send_json(e.status, e.body, e.headers)
+
+    def _chaos(self, body: dict) -> None:
+        """POST /debug/chaos: arm/disarm engine fault injection."""
+        try:
+            result = self.app.group.apply_chaos(body)
+        except (IndexError, TypeError, ValueError, KeyError) as e:
+            raise HTTPError(400, f"invalid chaos spec: {e}")
+        self._send_json(200, result)
 
     def _generate(self, body: dict) -> None:
         app = self.app
@@ -546,22 +597,31 @@ class _Handler(BaseHTTPRequestHandler):
 
 def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
                  warmup: bool = True, device="cuda", seed: int = 0,
+                 draft_model: Optional[str] = None,
+                 enable_debug: bool = False,
                  server_overrides: Optional[dict] = None,
                  **engine_overrides) -> InferenceServer:
     """Convenience constructor used by the CLI, tests and chip_smoke.py.
-    ``model`` is a preset name (random weights from ``seed``);
-    ``engine_overrides`` are EngineConfig fields (``quant`` and
-    ``kv_quant`` among them), ``server_overrides`` ServerConfig fields."""
-    if model not in PRESETS:
-        raise NotImplementedError(
-            f"model {model!r}: the port serves the presets "
-            f"({', '.join(sorted(PRESETS))}); checkpoint directories are "
-            "ROADMAP 1.9")
+    ``model`` and ``draft_model`` are preset names (random weights from
+    ``seed``, the draft's from ``seed + 1``); ``engine_overrides`` are
+    EngineConfig fields (``quant``, ``kv_quant``, ``spec_mode``,
+    ``num_speculative_tokens``, ``chaos_*`` among them),
+    ``server_overrides`` ServerConfig fields (``step_watchdog_s``,
+    ``chaos_failure_rate``, ...)."""
+    for name in (model, draft_model):
+        if name is not None and name not in PRESETS:
+            raise NotImplementedError(
+                f"model {name!r}: the port serves the presets "
+                f"({', '.join(sorted(PRESETS))}); checkpoint directories "
+                "are ROADMAP 1.9")
     cfg = FrameworkConfig(
         model=PRESETS[model](),
         engine=EngineConfig(**engine_overrides),
         parallel=ParallelConfig(),
         server=ServerConfig(model_name=model, tokenizer=tokenizer,
-                            warmup=warmup, **(server_overrides or {})),
+                            warmup=warmup, enable_debug=enable_debug,
+                            **(server_overrides or {})),
         seed=seed)
-    return InferenceServer(cfg, device=device)
+    return InferenceServer(
+        cfg, device=device,
+        draft_cfg=PRESETS[draft_model]() if draft_model else None)

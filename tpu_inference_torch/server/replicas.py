@@ -2,23 +2,32 @@
 
 Twin of ``tpu_inference/server/replicas.py``'s ``EngineGroup`` for one
 in-process replica: submit and cancel through its scheduler, a health
-state machine driven by step failures, admission control, the health
-snapshot behind /healthz, and the Prometheus page behind /metrics.
-Several replicas, prefix-affinity routing and failover are ROADMAP
-items 1.15 and 1.16.
+state machine driven by step failures, a step watchdog, admission
+control, engine fault injection at run time (``apply_chaos``), the
+health snapshot behind /healthz, and the Prometheus page behind
+/metrics. Several replicas, prefix-affinity routing and resubmission on
+another replica are ROADMAP items 1.15 and 1.16.
 
 Health: healthy -> degraded (one failed step) -> quarantined
 (``quarantine_after_failures`` in a row) -> recovered (after
 ``quarantine_cooldown_s``) -> healthy (one clean step). A quarantined
 replica takes no requests (HTTP 503 with Retry-After).
+
+Step watchdog (``ServerConfig.step_watchdog_s`` > 0): a monitor thread
+quarantines the replica whose prefill/decode dispatch has been in flight
+longer than the deadline (a wedged card or call) and finishes its
+requests at once with reason "unavailable" (there is no other replica to
+resubmit them to); whatever the wedged engine thread does when it wakes
+reaches no client. The same thread runs the quarantine cooldown.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 import uuid
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import ServerConfig
@@ -55,6 +64,7 @@ class ReplicaHealth:
         self.cfg = cfg
         self.state = HEALTHY
         self.consecutive_failures = 0
+        self.wedges = 0                 # watchdog firings
         self.quarantines = 0
         self.since = time.monotonic()
         self._lock = threading.Lock()
@@ -83,7 +93,19 @@ class ReplicaHealth:
             elif self.state == HEALTHY:
                 self._transition(DEGRADED)
 
+    def mark_wedged(self) -> bool:
+        """Watchdog deadline exceeded. True only on the transition, so
+        the caller fails the stranded requests exactly once."""
+        with self._lock:
+            if self.state == QUARANTINED:
+                return False
+            self.wedges += 1
+            self._transition(QUARANTINED)
+            return True
+
     def maybe_recover(self) -> None:
+        """QUARANTINED -> RECOVERED after the cooldown (the caller does
+        not ask while the replica's dispatch is still wedged)."""
         with self._lock:
             if (self.state == QUARANTINED
                     and time.monotonic() - self.since
@@ -100,9 +122,39 @@ class ReplicaHealth:
             return {
                 "state": self.state,
                 "consecutive_failures": self.consecutive_failures,
+                "wedges": self.wedges,
                 "quarantines": self.quarantines,
                 "state_age_s": round(time.monotonic() - self.since, 3),
             }
+
+
+@dataclasses.dataclass
+class _Tracked:
+    """Group-side state of one submitted request: the caller's
+    callbacks, and whether the watchdog already finished it (then the
+    engine thread's late callbacks are dropped)."""
+
+    seq: Sequence
+    on_token: Callable
+    on_finish: Callable
+    orphaned: bool = False
+
+
+def _ghost(seq: Sequence, reason: str) -> Sequence:
+    """A finished copy of the client's request fields (nothing the engine
+    thread still holds), for a terminal callback on another thread."""
+    out = Sequence(request_id=seq.request_id,
+                   prompt_tokens=list(seq.prompt_tokens),
+                   max_new_tokens=seq.max_new_tokens,
+                   temperature=seq.temperature, top_p=seq.top_p,
+                   top_k=seq.top_k, seed=seq.seed,
+                   repeat_penalty=seq.repeat_penalty,
+                   repeat_last_n=seq.repeat_last_n,
+                   eos_token_id=seq.eos_token_id, trace_id=seq.trace_id,
+                   priority_class=seq.priority_class)
+    out.done, out.finish_reason = True, reason
+    out.finish_time = time.perf_counter()
+    return out
 
 
 class EngineGroup:
@@ -123,6 +175,10 @@ class EngineGroup:
             sched.on_step_error = lambda exc, h=health: h.on_error()
         self.requests_shed = 0
         self.requests_unavailable = 0
+        self._tracked: Dict[int, _Tracked] = {}
+        self._lock = threading.Lock()
+        self._watch_stop = threading.Event()
+        self._watch_thread: Optional[threading.Thread] = None
         self._fleet_registry = telemetry.Registry()
         self._fleet_registry.counter(
             "tpu_inf_requests_shed_total",
@@ -136,6 +192,17 @@ class EngineGroup:
             "tpu_inf_replica_healthy",
             "1 when the replica is routable", replica="0",
             fn=lambda: float(self.health[0].state != QUARANTINED))
+        self._fleet_registry.counter(
+            "tpu_inf_replica_wedges_total",
+            "Step-watchdog firings (wedged dispatches)", replica="0",
+            fn=lambda: self.health[0].wedges)
+        eng = engines[0]
+        kw = dict(backend=eng.device.type, fleet=self.server_cfg.fleet,
+                  kv_quant=eng.engine_cfg.kv_quant,
+                  spec_mode=eng.spec_mode if eng.spec_enabled else "off",
+                  routing=self.server_cfg.routing)
+        telemetry.emit_build_info(self._fleet_registry, **kw)
+        telemetry.emit_build_info(eng.telemetry.registry, **kw)
 
     @property
     def engine(self) -> InferenceEngine:
@@ -147,11 +214,74 @@ class EngineGroup:
     def start(self) -> "EngineGroup":
         for s in self.schedulers:
             s.start()
+        self._watch_stop.clear()
+        self._watch_thread = threading.Thread(
+            target=self._watch, name="replica-watchdog", daemon=True)
+        self._watch_thread.start()
         return self
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        self._watch_stop.set()
+        if self._watch_thread is not None:
+            self._watch_thread.join(timeout=5.0)
+            self._watch_thread = None
         for s in self.schedulers:
             s.stop(drain=drain, timeout=timeout)
+
+    # ------------------------------------------------------- supervision
+
+    def _watch_interval(self) -> float:
+        cfg = self.server_cfg
+        interval = 0.25
+        if cfg.step_watchdog_s > 0:
+            interval = min(interval, cfg.step_watchdog_s / 5)
+        if cfg.quarantine_cooldown_s > 0:
+            interval = min(interval, max(0.05, cfg.quarantine_cooldown_s / 5))
+        return max(0.02, interval)
+
+    def _wedged(self, sched: EngineScheduler) -> bool:
+        wd = self.server_cfg.step_watchdog_s
+        t0 = sched.step_inflight_since
+        return wd > 0 and t0 is not None and time.monotonic() - t0 > wd
+
+    def _watch(self) -> None:
+        """Monitor thread: watchdog deadlines and quarantine cooldowns."""
+        interval = self._watch_interval()
+        while not self._watch_stop.wait(interval):
+            for sched, health in zip(self.schedulers, self.health):
+                if self._wedged(sched):
+                    if health.mark_wedged():
+                        self._fail_stranded(sched)
+                else:
+                    health.maybe_recover()
+
+    def _routable(self, i: int) -> bool:
+        """Replica ``i`` takes requests; a cooled-down quarantine recovers
+        here too (lazily), unless the replica is still wedged."""
+        health = self.health[i]
+        if self._wedged(self.schedulers[i]):
+            return health.state != QUARANTINED
+        return health.routable
+
+    def _fail_stranded(self, sched: EngineScheduler) -> None:
+        """The watchdog quarantined the replica mid-dispatch: its engine
+        thread may stay stuck, so its requests cannot finish through
+        callbacks. Finish them now with "unavailable" (no other replica
+        to resubmit them to) and cancel the originals, so the engine
+        thread reaps them when it wakes; their late callbacks are
+        dropped."""
+        with self._lock:
+            stranded = list(self._tracked.values())
+            self._tracked.clear()
+            for entry in stranded:
+                entry.orphaned = True
+        for entry in stranded:
+            sched.cancel(entry.seq.request_id)
+            telemetry.log_event(
+                "request_failover", level="warning",
+                request_id=entry.seq.trace_id or str(entry.seq.request_id),
+                resubmitted=False)
+            entry.on_finish(_ghost(entry.seq, "unavailable"))
 
     def _retry_after(self) -> float:
         return self.server_cfg.retry_after_s
@@ -162,8 +292,8 @@ class EngineGroup:
         or FleetSaturated (admission queue cap) instead of queueing."""
         if not seq.trace_id:
             seq.trace_id = uuid.uuid4().hex[:16]
-        sched, health = self.schedulers[0], self.health[0]
-        if not health.routable:
+        sched = self.schedulers[0]
+        if not self._routable(0):
             self.requests_unavailable += 1
             raise FleetUnavailable("all replicas quarantined",
                                    self._retry_after())
@@ -173,9 +303,65 @@ class EngineGroup:
             raise FleetSaturated(
                 f"admission queue cap reached ({sched.load} >= {cap})",
                 self._retry_after())
-        sched.submit(seq, on_token, on_finish)
+        entry = _Tracked(seq, on_token, on_finish)
+
+        def token(s: Sequence, tok: int) -> None:
+            if not entry.orphaned:
+                entry.on_token(s, tok)
+
+        def finish(s: Sequence) -> None:
+            with self._lock:
+                if entry.orphaned:
+                    return
+                self._tracked.pop(s.request_id, None)
+            entry.on_finish(s)
+
+        with self._lock:
+            self._tracked[seq.request_id] = entry
+        sched.submit(seq, token, finish)
+
+    def apply_chaos(self, body: dict) -> dict:
+        """Arm/disarm engine fault injection (POST /debug/chaos):
+        ``{"replica": i | null, "step_failure_rate": p, "step_wedge_s": s,
+        "page_pressure": n}``, null replica = every replica. Process
+        kills ("kill") need a process fleet (ROADMAP 1.15). Raises
+        ValueError/IndexError/TypeError on a bad spec (HTTP 400). Returns
+        the settings now in effect."""
+        if body.get("kill") is not None:
+            raise ValueError(
+                "'kill' chaos (kill9/sigterm) needs --fleet subprocess; "
+                "the in-process fleet simulates faults via "
+                "step_failure_rate / step_wedge_s / page_pressure")
+        engines = self.engines
+        replica = body.get("replica")
+        targets = engines if replica is None else [engines[int(replica)]]
+        rate = body.get("step_failure_rate")
+        wedge = body.get("step_wedge_s")
+        pressure = body.get("page_pressure")
+        for eng in targets:
+            if rate is not None:
+                eng.chaos_step_failure_rate = float(rate)
+            if wedge is not None:
+                eng.chaos_step_wedge_s = float(wedge)
+            if pressure is not None:
+                # Applied by the engine loop (the allocator is
+                # engine-thread only), usually within milliseconds.
+                eng.request_page_pressure(int(pressure))
+
+        def _pp(e):
+            t = e._pressure_target
+            return e.chaos_page_pressure if t is None else t
+
+        return {"replicas": [
+            {"step_failure_rate": e.chaos_step_failure_rate,
+             "step_wedge_s": e.chaos_step_wedge_s,
+             "page_pressure": _pp(e)} for e in engines]}
 
     def cancel(self, request_id: int) -> None:
+        # A request cancelled while queued never finishes through the
+        # scheduler: release its entry here.
+        with self._lock:
+            self._tracked.pop(request_id, None)
         for s in self.schedulers:
             s.cancel(request_id)
 
@@ -186,7 +372,8 @@ class EngineGroup:
             d["pool_pressure"] = round(e.pool_pressure, 4)
             d["device"] = str(e.device)
             replicas.append(d)
-        routable = sum(1 for h in self.health if h.routable)
+        routable = sum(1 for i in range(len(self.health))
+                       if self._routable(i))
         status = ("unavailable" if routable == 0 else
                   "ok" if all(r["state"] == HEALTHY for r in replicas)
                   else "degraded")
@@ -203,4 +390,6 @@ class EngineGroup:
         return telemetry.render_prometheus(groups)
 
     def stats_snapshot(self) -> dict:
+        """The replica's scheduler snapshot; at dp=1 it is the aggregate
+        (its ``speculative`` block included when speculation is on)."""
         return self.schedulers[0].stats.snapshot(self.engines[0])

@@ -83,6 +83,8 @@ class Gauge(Counter):
 # Log-spaced bucket bounds: seconds ~7.6 us .. 1024 s; counts 1 .. 512.
 SECONDS_BUCKETS = tuple(2.0 ** e for e in range(-17, 11))
 COUNT_BUCKETS = tuple(float(2 ** e) for e in range(0, 10))
+# Rates in [0, 1] (speculative acceptance).
+RATE_BUCKETS = tuple(i / 8 for i in range(9))
 
 
 class Histogram:
@@ -228,6 +230,23 @@ PHASE_HISTOGRAMS = {
 }
 
 
+def emit_build_info(registry: Registry, *, backend: str = "",
+                    fleet: str = "", kv_quant: str = "",
+                    spec_mode: str = "", routing: str = "") -> None:
+    """The ``tpu_inf_build_info`` info-gauge (constant 1; the labels are
+    the payload: version and serving configuration, for dashboard
+    joins)."""
+    from tpu_inference_torch import __version__
+    registry.gauge(
+        "tpu_inf_build_info",
+        "Build/config info gauge (constant 1; the labels carry the "
+        "version and serving configuration for dashboard joins)",
+        fn=lambda: 1.0,
+        version=__version__, backend=backend or "unknown",
+        fleet=fleet or "none", kv_quant=kv_quant or "none",
+        spec_mode=spec_mode or "off", routing=routing or "none")
+
+
 class EngineTelemetry:
     """Per-engine metric bundle.
 
@@ -239,7 +258,9 @@ class EngineTelemetry:
     event), ``dispatch_bubble_s`` (host gap between consecutive decode
     calls while sequences were active), ``tokens_per_dispatch``,
     ``hybrid_dispatch_s`` (host wall of one hybrid prefill+decode call),
-    ``kv_swap_s`` (host wall of one host-tier page batch copy).
+    ``kv_swap_s`` (host wall of one host-tier page batch copy),
+    ``spec_accept_rate`` (acceptance per lane per spec round) and
+    ``spec_gamma_g`` (mean adaptive γ of the latest verify round).
     Request phases (engine/scheduler.py at finish): ``queue_wait_s``,
     ``prefill_phase_s``, ``decode_phase_s``, ``ttft_s``, ``e2e_s``.
     """
@@ -282,6 +303,16 @@ class EngineTelemetry:
         self.kv_restore_bytes = r.counter(
             "tpu_inf_kv_restore_bytes_total",
             "Bytes copied host->device by KV page promotion")
+        self.spec_accept_rate = r.histogram(
+            "tpu_inf_spec_acceptance_rate",
+            "Per-sequence-round speculative acceptance rate "
+            "(accepted / drafted positions; one observation per lane "
+            "per spec round)",
+            buckets=RATE_BUCKETS)
+        self.spec_gamma_g = r.gauge(
+            "tpu_inf_spec_gamma",
+            "Mean adaptive speculation depth γ across the latest spec "
+            "round's lanes (0 = every lane throttled to plain decode)")
         self.hybrid_steps = r.counter(
             "tpu_inf_hybrid_steps_total",
             "Hybrid prefill+decode fused dispatches issued")
@@ -357,6 +388,28 @@ class EngineTelemetry:
                 "Decode lane occupancy: bound slots / top ladder rung",
                 fn=lambda: (sum(s is not None for s in engine.slots)
                             / max(engine.ladder[-1], 1)))
+
+    def bind_spec(self, engine) -> None:
+        """Read-through speculative-decoding counters (bound only when
+        speculation is on, so other servers expose no dead series)."""
+        r = self.registry
+        r.counter("tpu_inf_spec_drafted_total",
+                  "Speculative positions proposed for verification "
+                  "(draft-model or n-gram proposals)",
+                  fn=lambda: engine.spec_drafted)
+        r.counter("tpu_inf_spec_accepted_total",
+                  "Speculative positions accepted by the target model",
+                  fn=lambda: engine.spec_accepted)
+        r.counter("tpu_inf_spec_rounds_total",
+                  "Verify rounds dispatched (ngram mode)",
+                  fn=lambda: engine.spec_rounds_total)
+        r.counter("tpu_inf_spec_fallback_rounds_total",
+                  "Spec-mode rounds that ran the plain fused-K decode "
+                  "call because no lane proposed",
+                  fn=lambda: engine.spec_fallback_rounds)
+        r.counter("tpu_inf_spec_throttles_total",
+                  "Sequences throttled to γ=0 by the acceptance EWMA",
+                  fn=lambda: engine.spec_throttles_total)
 
     def bind_host_pool(self, pool) -> None:
         """Read-through metrics over the host-RAM KV tier's accounting
