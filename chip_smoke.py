@@ -20,7 +20,8 @@ failing loudly (any failure exits non-zero before the result line):
    the split-KV decode's boundaries and empty splits and the prefill
    tile's ragged rows and keys (split_edge_cases); then the decode
    kernel's rung identity: a lane's output row bit-identical at batch 8,
-   16 and 32 and in reversed batch order (rung_identity_phase).
+   16 and 32 and in reversed batch order (rung_identity_phase). Both
+   kernels are timed at GPT-2's shapes too (Hq = Hkv = 12, D 64).
 4. engine: tiny-llama and tiny-mistral (float32) on the card, unquantized
    and with int8/int4 weights and int8/int4 KV pools: greedy tokens of
    the "kernel" backend identical to the "dense" backend, and through
@@ -28,6 +29,9 @@ failing loudly (any failure exits non-zero before the result line):
    decode ladder, pipeline depth 2, hybrid prefill, optimistic
    admission over a pool small enough to preempt and use the host
    tier), each mode's machinery seen running and the pool clean after.
+   The same for tiny-gpt2 and tiny-mixtral in every weight tier and KV
+   pool (FAMILY_CASES); a Mixtral with 8 experts, whose calls drop
+   tokens at the default capacity, is held kernel-vs-dense only.
    Then speculative decoding (spec_engine_phase: n-gram at every ladder
    rung, at depth 2 and under optimistic admission with the host tier,
    and draft-model rounds with the target as its own draft, with both
@@ -59,6 +63,19 @@ failing loudly (any failure exits non-zero before the result line):
    0.5, no decode-kernel launch in the dense rounds).
    The prefill kernel is also checked and timed at the verify round's
    shapes (verify_cases, in the kernel phase).
+6. the other families, each on the main path's six requests: Mixtral-
+   8x7B at full width with int8 weights over an int8 pool (46.7B
+   parameters: bf16 does not fit the card), and GPT-2 at full width in
+   bf16, whose prompts stay inside its 1024 learned positions, then one
+   request past them (clamped to the table's last row, as the
+   reference's gather does). Each lane records TTFT, tok/s, the device's
+   busy share, peak memory and launches by kernel variant; the previous
+   server must have freed the card first. Then a checkpoint lane: a
+   random full-width GPT-2 written as an HF directory under build/ and
+   served through the CLI's ``--model auto --checkpoint DIR
+   --check-numerics`` must give the tokens of the same weights carried
+   in by params_from_numpy (recorded as not run when safetensors is not
+   importable).
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -197,9 +214,16 @@ def check_close(name, got, want, dtype) -> tuple:
     return err.max().item(), err.max().item() / max(scale, 1e-30)
 
 
-def decode_case(name, b, kv_lens, window, dtype, flush, gen, kv="none"):
+# Attention heads (Hq, Hkv, head_dim) of the served models: Llama-3-8B's
+# (Mixtral-8x7B's too) and GPT-2's (multi-head, n_rep 1).
+LLAMA_HEADS = (32, 8, 128)
+GPT2_HEADS = (12, 12, 64)
+
+
+def decode_case(name, b, kv_lens, window, dtype, flush, gen, kv="none",
+                heads=LLAMA_HEADS):
     from tpu_inference_torch.kernels import paged_attention as pa
-    hq, hkv, d, pg = 32, 8, 128, 16
+    (hq, hkv, d), pg = heads, 16
     mp = max(-(-n // pg) for n in kv_lens)
     k_pages, v_pages, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype,
                                               kv)
@@ -244,12 +268,12 @@ def decode_case(name, b, kv_lens, window, dtype, flush, gen, kv="none"):
 
 
 def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
-                 kv="none", inactive: int = 0):
+                 kv="none", inactive: int = 0, heads=LLAMA_HEADS):
     """One prefill-kernel case; the last ``inactive`` lanes are inactive
     as a speculative verify round stages them (q_offset 0, kv_len S, an
     all-trash-page block table)."""
     from tpu_inference_torch.kernels import prefill_attention as pfa
-    hq, hkv, d, pg = 32, 8, 128, 16
+    (hq, hkv, d), pg = heads, 16
     b = len(kv_lens)
     mp = max(-(-n // pg) for n in kv_lens)
     k_pages, v_pages, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d, dtype,
@@ -352,8 +376,17 @@ def kernel_phase() -> dict:
         prefill_case("prefill chunk 512 at offset 1024 f32 int8 pool", 512,
                      [1024], [1500], 0, f32, flush, gen, "int8"),
     ]
+    # GPT-2's shapes (Hq = Hkv = 12, head_dim 64: one live row of the
+    # decode kernel's 16-row tile, the prefill tile's 64-row block).
+    gpt2 = [
+        decode_case("decode gpt2 bs8 ctx1024", 8, [1024] * 8, 0, bf16, flush,
+                    gen, heads=GPT2_HEADS),
+        prefill_case("prefill gpt2 4 lanes x 512 fresh", 512, [0, 0, 0, 0],
+                     [512, 300, 450, 129], 0, bf16, flush, gen,
+                     heads=GPT2_HEADS),
+    ]
     del flush
-    return {"decode": decode, "prefill": prefill,
+    return {"decode": decode, "prefill": prefill, "gpt2": gpt2,
             "verify": verify_cases(gen)}
 
 
@@ -683,13 +716,35 @@ ENGINE_CASES = (("tiny_llama", "none", "none"),
                 ("tiny_llama", "int4", "none"),
                 ("tiny_llama", "int8", "int8"),
                 ("tiny_mistral", "none", "int8"))
+# The Mixtral and GPT-2 families in every weight tier and KV pool.
+# tiny-mixtral (4 experts, top-2) sits at capacity factor E / k = 2.0,
+# where C >= T and no token drops, so it passes the cross-mode gate too;
+# tiny_mixtral_e8 (Mixtral-8x7B's 8 experts, C = T / 2) drops tokens, so
+# a token depends on which others share its call: kernel-vs-dense only.
+FAMILY_CASES = tuple((preset, q, kv)
+                     for preset in ("tiny_gpt2", "tiny_mixtral")
+                     for q, kv in (("none", "none"), ("none", "int8"),
+                                   ("none", "int4"), ("int8", "none"),
+                                   ("int4", "none"), ("int8", "int8"))) + (
+    ("tiny_mixtral_e8", "none", "none"), ("tiny_mixtral_e8", "int8", "int8"))
 
 
-def engine_phase() -> list:
+def tiny_config(preset: str):
+    import dataclasses
+
+    from tpu_inference_torch import config as cfgs
+    if preset == "tiny_mixtral_e8":
+        return dataclasses.replace(cfgs.tiny_mixtral(vocab_size=256),
+                                   name="tiny-mixtral-e8", n_experts=8)
+    return getattr(cfgs, preset)(vocab_size=256)
+
+
+def engine_phase(cases) -> list:
     """Tiny engines on the card: the "kernel" backend's greedy tokens
     identical to the "dense" backend's on the same weights, for every
-    case of ENGINE_CASES (the reference's own contract between its two
-    backends, tests/test_kv_quant.py)."""
+    case (the reference's own contract between its two backends,
+    tests/test_kv_quant.py), and through the scheduler identical across
+    ENGINE_MODES unless the model drops tokens."""
     import dataclasses
 
     import numpy as np
@@ -708,8 +763,8 @@ def engine_phase() -> list:
     mode_prompts = [mrng.integers(0, 256, size=n).tolist()
                     for n in (5, 9, 12, 40, 7, 14, 3, 70, 11, 6, 16, 10)]
     done = []
-    for preset, quant, kv_quant in ENGINE_CASES:
-        mcfg = getattr(cfgs, preset)(vocab_size=256)
+    for preset, quant, kv_quant in cases:
+        mcfg = tiny_config(preset)
         ecfg = dataclasses.replace(base, quant=quant, kv_quant=kv_quant)
         params, _ = build_model(mcfg, seed=SEED, device="cuda", quant=quant)
         rng = np.random.default_rng(3)
@@ -726,6 +781,10 @@ def engine_phase() -> list:
                                  f"from dense: {out}")
         log(f"engine {label}: kernel backend greedy-identical to dense "
             f"({sum(len(t) for t in out['kernel'])} tokens)")
+        if mcfg.n_experts and (mcfg.expert_capacity_factor
+                               < mcfg.n_experts / mcfg.n_experts_per_tok):
+            done.append({"label": label, "modes": None})
+            continue
         used = engine_modes(mcfg, dataclasses.replace(
             mode_base, quant=quant, kv_quant=kv_quant), params, mode_prompts)
         log(f"engine {label}: scheduler tokens identical across "
@@ -1164,28 +1223,49 @@ def _prompts() -> list:
     return [text(n) for n in (40, 100, 200, 400, 900, 1500)]
 
 
+def _free_card(label: str) -> int:
+    """Bytes still allocated on the card before ``label`` boots; the
+    previous lane's server must have given its memory back."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left > 2 * 2**30:
+        raise AssertionError(f"{label}: {left / 1e9:.2f} GB still allocated "
+                             "before boot; the previous server was not "
+                             "freed")
+    return left
+
+
 def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
-                    profile: bool = True) -> dict:
-    """Boot llama-3-8b at full width with these quant modes, serve the six
-    concurrent requests with every kernel count set to 0 just before and
-    read just after, check every gate, and free the server."""
+                    profile: bool = True, model: str = "llama-3-8b",
+                    prompts: list | None = None, engine_kw: dict | None = None,
+                    after=None) -> dict:
+    """Boot ``model`` at full width with these quant modes, serve the six
+    concurrent requests (``prompts``, default _prompts()) with every
+    kernel count set to 0 just before and read just after, check every
+    gate, run ``after(port, server)`` (extra checks, its dict kept), and
+    free the server."""
     import gc
 
     from tpu_inference_torch.kernels import paged_attention as pa
     from tpu_inference_torch.kernels import prefill_attention as pfa
     from tpu_inference_torch.server.http import build_server
 
+    allocated_before = _free_card(label)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    server = build_server("llama-3-8b", device="cuda", seed=SEED,
-                          max_pages_per_seq=128, num_pages=512,
-                          max_batch_size=8, quant=quant, kv_quant=kv_quant)
+    server = build_server(model, device="cuda", seed=SEED,
+                          **{"max_pages_per_seq": 128, "num_pages": 512,
+                             "max_batch_size": 8, "quant": quant,
+                             "kv_quant": kv_quant, **(engine_kw or {})})
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     boot_peak = torch.cuda.max_memory_allocated()
+    extra = {}
     try:
         port = server.start(port=0)
-        prompts = _prompts()
+        prompts = prompts or _prompts()
         max_tokens = 48
         pa.reset_counts()
         pfa.reset_counts()
@@ -1203,10 +1283,13 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
                     f"{label}: {name} launched {counts}; the path must run "
                     f"its {variant} variant and no other")
         phases = engine_phases(server_stats(port))
+        serve_peak = torch.cuda.max_memory_allocated()
         # Greedy determinism: the shortest prompt again, alone.
         again = _stream_request(port, prompts[0], max_tokens)
         if again["context"] != results[0]["context"]:
             raise AssertionError(f"{label}: greedy output not reproducible")
+        if after is not None:
+            extra = after(port, server)
         prof = (profile_requests(port, prompts, max_tokens) if profile
                 else {"error": "not profiled on this path"})
         server_stats(port)
@@ -1223,11 +1306,15 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
     total_eval = sum(r["eval_count"] for r in results)
     per_req = [r["eval_count"] / r["eval_duration_s"] for r in results
                if r["eval_duration_s"] > 0]
+    if any(r["done_reason"] != "length" for r in results):
+        raise AssertionError(f"{label}: a request did not finish 'length'")
     return {
-        "label": label, "model": "llama-3-8b", "layers": n_layers,
+        "label": label, "model": model, "layers": n_layers,
         "activations": "bfloat16", "quant": quant, "kv_quant": kv_quant,
         "variant": variant,
         "boot_s": boot_s, "boot_peak_bytes": boot_peak,
+        "allocated_before_boot_bytes": allocated_before,
+        "max_memory_allocated": serve_peak,
         "requests": len(results),
         "prompt_tokens": [r["prompt_tokens"] for r in results],
         "max_tokens": max_tokens,
@@ -1246,7 +1333,177 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         "decode_ms_per_token_per_request": [1e3 / x for x in per_req],
         "engine_phases": phases,
         "profile": prof,
+        **extra,
     }
+
+
+def _family_prompts(sizes) -> list:
+    """Prompts of these byte lengths, as _prompts() makes them."""
+    import random
+    rng = random.Random(SEED + 1)
+    words = ["expert", "router", "token", "layer", "norm", "position",
+             "cache", "stream", "gate", "kernel", "page", "softmax"]
+    out = []
+    for n in sizes:
+        text = ""
+        while len(text) < n:
+            text += rng.choice(words) + " "
+        out.append(text[:n])
+    return out
+
+
+def mixtral_phase(card: str) -> dict:
+    """Mixtral-8x7B at full width (32 layers, d_model 4096, 32/8 heads, 8
+    experts top-2, d_ff 14336, vocab 32000) with int8 weights over an
+    int8 pool, batch 8: 46.7B parameters do not fit the card in bf16.
+    The six requests of the llama lanes; expert capacity at the default
+    factor 2.0, so tokens may drop as the reference drops them."""
+    mp = main_path_phase("mixtral-8x7b int8 + int8 KV", "int8", "int8",
+                         "int8", model="mixtral-8x7b")
+    prof = mp["profile"]
+    if "by_class_ms" in prof:
+        mp["int8_to_bf16_share_of_busy"] = (
+            prof["by_class_ms"].get("copy_convert", 0.0)
+            / max(prof["device_busy_ms"], 1e-9))
+    return mp
+
+
+GPT2_MAX_POS = 1024
+
+
+def gpt2_phase(card: str) -> dict:
+    """GPT-2 at full width (12 layers, d_model 768, 12/12 heads, vocab
+    50257, bf16), batch 8: six concurrent requests whose prompts and 48
+    new tokens stay inside the 1024 learned positions (the longest, 976
+    tokens, prefills in two 512-token chunks), then one request alone
+    that runs past position 1023. There the reference's XLA gather reads
+    the table's last row; the port clamps to it: the request must finish
+    with all its tokens, and a forward over positions past the table
+    must equal the forward with the positions clamped."""
+    sizes = (40, 100, 200, 400, 700, GPT2_MAX_POS - 48 - 1)
+
+    def past_the_table(port: int, server) -> dict:
+        from tpu_inference_torch.models import common, gpt2
+        r = _stream_request(port, _family_prompts((1000,))[0], 48)
+        last = r["prompt_tokens"] + r["eval_count"] - 1
+        if last < GPT2_MAX_POS or r["done_reason"] != "length":
+            raise AssertionError(f"gpt2: the long request did not cross "
+                                 f"position {GPT2_MAX_POS}: {r}")
+        eng = server.engine
+        toks = torch.tensor([r["context"][:1100]], device="cuda")
+        pos = torch.arange(toks.shape[1], device="cuda")[None]
+        attn = common.make_dense_attn()
+        with torch.no_grad():
+            a, _ = gpt2.forward(eng.params, eng.model_cfg, toks, pos, None,
+                                attn)
+            b, _ = gpt2.forward(eng.params, eng.model_cfg, toks,
+                                pos.clamp(max=GPT2_MAX_POS - 1), None, attn)
+        if not (torch.isfinite(a).all() and torch.equal(a, b)):
+            raise AssertionError("gpt2: positions past the table do not "
+                                 "read its last row")
+        return {"past_the_table": {"prompt_tokens": r["prompt_tokens"],
+                                   "last_position": last,
+                                   "ttft_s": r["ttft_s"],
+                                   "eval_count": r["eval_count"]}}
+
+    return main_path_phase("gpt2 bf16", "none", "none", "bf16", model="gpt2",
+                           prompts=_family_prompts(sizes),
+                           engine_kw={"chunked_prefill_size": 512},
+                           after=past_the_table)
+
+
+def checkpoint_phase(card: str) -> dict:
+    """A random GPT-2 at full width (seed 0, bf16) written as an HF
+    directory (config.json + model.safetensors) under build/, served
+    through the CLI's path with ``--model auto --checkpoint DIR
+    --check-numerics``: four requests one at a time must give the tokens
+    of the same weights carried in by params_from_numpy and served the
+    same way. Not run (and recorded so) when safetensors is missing."""
+    try:
+        from safetensors.torch import save_file
+    except ImportError as e:
+        log(f"checkpoint lane: not run ({e!r}: safetensors is not "
+            "importable here)")
+        return {"label": "checkpoint", "run": False, "reason": repr(e)}
+    import dataclasses
+    import gc
+
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.models import gpt2, weights
+    from tpu_inference_torch.server.http import InferenceServer
+
+    _free_card("checkpoint")
+    cfg = cfgs.gpt2_small()
+    params = gpt2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    sd = {hf: params[leaf] for leaf, hf in weights.GPT2_TOP_KEYS.items()}
+    for leaf, hf in weights.GPT2_BLOCK_KEYS.items():
+        for i in range(cfg.n_layers):
+            sd[f"h.{i}.{hf}"] = params["blocks"][leaf][i]
+    sd = {k: v.contiguous().cpu() for k, v in sd.items()}
+    del params
+    path = os.path.join("build", "gpt2-checkpoint")
+    os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    save_file(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "gpt2", "vocab_size": cfg.vocab_size,
+                   "n_embd": cfg.d_model, "n_layer": cfg.n_layers,
+                   "n_head": cfg.n_heads, "n_positions": cfg.max_seq_len,
+                   "layer_norm_epsilon": cfg.norm_eps,
+                   "torch_dtype": "bfloat16"}, f)
+    write_s = time.perf_counter() - t0
+    prompts = _family_prompts((30, 200, 600, 900))
+    flags = ["--model", "auto", "--checkpoint", path, "--check-numerics",
+             "--max-pages-per-seq", "128", "--num-pages", "512",
+             "--max-batch-size", "8", "--host-cache-pages", "0"]
+
+    def serve(server) -> list:
+        try:
+            port = server.start(port=0)
+            return [_stream_request(port, p, 32)["context"] for p in prompts]
+        finally:
+            server.shutdown()
+
+    t0 = time.perf_counter()
+    server, _ = _serve_cli(flags)
+    load_s = time.perf_counter() - t0
+    if server.tags()["models"][0]["details"]["family"] != "gpt2":
+        raise AssertionError("checkpoint: /api/tags does not say gpt2")
+    loaded = server.engine.params
+    carried = weights.params_from_numpy(weights.convert_gpt2(
+        cfg, {k: v.float().numpy() for k, v in sd.items()}), cfg, "cuda")
+    same = all(torch.equal(a, b) for a, b in zip(
+        _tensors(loaded), _tensors(carried)))
+    if not same:
+        raise AssertionError("checkpoint: loaded weights differ from the "
+                             "params_from_numpy tree")
+    del loaded
+    from_ckpt = serve(server)
+    ref_cfg = dataclasses.replace(server.cfg, checkpoint_path=None)
+    del server
+    gc.collect()
+    engine = InferenceEngine(ref_cfg.model, ref_cfg.engine, params=carried,
+                             device="cuda")
+    from_numpy = serve(InferenceServer(ref_cfg, engine=engine))
+    del engine, carried
+    gc.collect()
+    torch.cuda.empty_cache()
+    if from_ckpt != from_numpy:
+        raise AssertionError("checkpoint: greedy tokens differ from the "
+                             "same weights served from params_from_numpy")
+    return {"label": "checkpoint", "run": True, "model": "gpt2",
+            "bytes": os.path.getsize(os.path.join(path,
+                                                  "model.safetensors")),
+            "write_s": write_s, "boot_with_check_numerics_s": load_s,
+            "requests": len(prompts),
+            "tokens_equal": True}
+
+
+def _tensors(tree) -> list:
+    return [t for v in tree.values()
+            for t in (_tensors(v) if isinstance(v, dict) else [v])]
 
 
 def _burst_prompts(n: int, echo: bool = False) -> list:
@@ -1274,17 +1531,12 @@ def _burst_prompts(n: int, echo: bool = False) -> list:
 
 def _serve_cli(flags: list):
     """Boot the server the way ``python -m tpu_inference_torch.server``
-    does with these flags (its parser, its "auto" resolution); returns
-    (server, the resolved EngineConfig fields)."""
-    from tpu_inference_torch.server.__main__ import (build_parser,
-                                                     resolve_engine_args)
-    from tpu_inference_torch.server.http import build_server
+    does with these flags (its parser, its "auto" resolution, its
+    numerics check); returns (server, the resolved EngineConfig
+    fields)."""
+    from tpu_inference_torch.server.__main__ import boot_server, build_parser
     parser = build_parser()
-    args = parser.parse_args(flags)
-    engine_args = resolve_engine_args(args, parser)
-    server = build_server(model=args.model, device="cuda", seed=args.seed,
-                          **engine_args)
-    return server, engine_args
+    return boot_server(parser.parse_args(flags), parser)
 
 
 def _check_variant(label: str, variant: str, need_decode: bool = True
@@ -1781,6 +2033,16 @@ def log_new_path(mp: dict, card: str) -> None:
         log(f"[{mp['label']}] profile: not measured ({prof['error']})")
 
 
+def log_family_path(mp: dict, card: str) -> None:
+    log_main_path(mp, card)
+    keys = ("max_memory_allocated", "boot_peak_bytes", "boot_s",
+            "allocated_before_boot_bytes", "decode_launches_by_batch",
+            "prefill_launches_by_len", "int8_to_bf16_share_of_busy",
+            "past_the_table")
+    log(f"[{mp['label']}] " + json.dumps(
+        {k: mp[k] for k in keys if k in mp}))
+
+
 def log_main_path(mp: dict, card: str) -> None:
     for name, ph in mp["engine_phases"].items():
         if ph["count"]:
@@ -1795,7 +2057,7 @@ def log_main_path(mp: dict, card: str) -> None:
             log(f"  {k['ms']:9.2f} ms x{k['count']:<6} {k['name']}")
     else:
         log(f"[{mp['label']}] profile: not measured ({prof['error']})")
-    log(f"main path llama-3-8b [{mp['label']}] on {card}: TTFT p50 "
+    log(f"main path {mp['model']} [{mp['label']}] on {card}: TTFT p50 "
         f"{mp['ttft_p50_s']:.3f}s max {mp['ttft_max_s']:.3f}s; decode "
         f"{min(mp['decode_tok_s_per_request']):.1f}-"
         f"{max(mp['decode_tok_s_per_request']):.1f} tok/s per request, "
@@ -1832,48 +2094,64 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
-    kernels = kernel_phase()
-    for kind in ("decode", "prefill", "verify"):
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    kernels = timed("kernels", kernel_phase)
+    for kind in ("decode", "prefill", "gpt2", "verify"):
         for c in kernels[kind]:
             log(f"kernel {c['variant']} [{c['dtype']}]: err "
                 f"{c['max_abs_err']:.3g} ({c['err_over_scale']:.3g} of the "
                 f"largest output) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
-                f"library "
-                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"library {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
                 f"({c['bound_by']})")
-    n_edge, edge_err = edge_phase()
+    n_edge, edge_err = timed("edge", edge_phase)
     log(f"kernel edge cases: {n_edge} shapes within tolerance of their "
         f"plain versions (max abs err, and over the largest output: "
         f"{json.dumps(edge_err)})")
-    rung_identity = rung_identity_phase()
+    rung_identity = timed("rung_identity", rung_identity_phase)
     log(f"decode kernel rung identity: a lane's row bit-identical at batch "
         f"8, 16 and 32 and in reversed order ({json.dumps(rung_identity)})")
-    gemm_evidence = gemm_rung_evidence()
+    gemm_evidence = timed("gemm_evidence", gemm_rung_evidence)
     log(f"library GEMM rows vs batch width (evidence, not a gate; max abs "
         f"diff of rows 0-7 from M 8): {json.dumps(gemm_evidence)}")
-    engines = engine_phase()
-    spec_engines = spec_engine_phase()
-    chaos = chaos_phase()
+    engines = (timed("engine", engine_phase, ENGINE_CASES)
+               + timed("families", engine_phase, FAMILY_CASES))
+    spec_engines = timed("spec", spec_engine_phase)
+    chaos = timed("chaos", chaos_phase)
     log(f"chaos: failures fail their requests, health "
         f"{' -> '.join(chaos['health_states'])}, tokens after recovery "
         f"identical, watchdog fired, page pressure returned, pool clean: "
         f"{json.dumps(chaos)}")
     main_paths = {}
     for label, quant, kv_quant, variant in MAIN_PATHS:
-        mp = main_path_phase(label, quant, kv_quant, variant,
-                             profile=variant != "int4")
+        mp = timed("main", main_path_phase, label, quant, kv_quant, variant,
+                   variant != "int4")
         log_main_path(mp, card)
         main_paths[label] = mp
-    for phase in (reference_config_phase, pressure_phase):
-        mp = phase(card)
+    for name, phase in (("reference", reference_config_phase),
+                        ("pressure", pressure_phase)):
+        mp = timed(name, phase, card)
         log_new_path(mp, card)
         main_paths[mp["label"]] = mp
-    mp = ngram_phase(card, main_paths["reference chip config"])
+    mp = timed("ngram", ngram_phase, card,
+               main_paths["reference chip config"])
     log_new_path(mp, card)
     main_paths[mp["label"]] = mp
-    mp = draft_phase(card)
+    mp = timed("draft", draft_phase, card)
     log_new_path(mp, card)
     main_paths[mp["label"]] = mp
+    for name, phase in (("mixtral", mixtral_phase), ("gpt2", gpt2_phase)):
+        mp = timed(name, phase, card)
+        log_family_path(mp, card)
+        main_paths[mp["label"]] = mp
+    checkpoint = timed("checkpoint", checkpoint_phase, card)
+    log(f"checkpoint lane: {json.dumps(checkpoint)}")
 
     entries = []
     for kind, name, src, replaces in (
@@ -1937,9 +2215,28 @@ def main() -> int:
                     "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
                     "variant": head["variant"], "pool": variant,
                     "main_paths": [mp["label"] for mp in paths]})
+    gpt2_paths = [mp for mp in main_paths.values() if mp["model"] == "gpt2"]
+    for head, name, src, replaces in zip(
+            kernels["gpt2"], ("paged_attention", "prefill_attention"),
+            ("tpu_inference_torch/csrc/paged_attention.cu",
+             "tpu_inference_torch/csrc/prefill_attention.cu"),
+            ("tpu_inference/kernels/paged_attention.py:46",
+             "tpu_inference/kernels/prefill_attention.py:46")):
+        entries.append({
+            "name": f"{name}_gpt2", "route": "cuda", "source": src,
+            "replaces": replaces,
+            # The bf16 variant's launches on the gpt2 lane alone.
+            "launches": sum(mp["launches_by_variant"][name]["bf16"]
+                            for mp in gpt2_paths),
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": LIBRARY_NOTE, "variant": head["variant"],
+            "pool": "bf16", "main_paths": [mp["label"] for mp in gpt2_paths]})
     report = {"card": card, "torch": torch.__version__,
               "kernels": entries, "kernel_cases": kernels,
-              "main_paths": main_paths,
+              "main_paths": main_paths, "checkpoint": checkpoint,
+              "phase_s": phase_s,
               "engine_cases": engines, "spec_engine_cases": spec_engines,
               "chaos": chaos, "rung_identity": rung_identity,
               "gemm_rung_evidence": gemm_evidence,
@@ -1955,7 +2252,8 @@ def main() -> int:
         v: {k: x for k, x in mp.items()
             if k not in ("ttft_s", "profile", "generated")}
         for v, mp in main_paths.items()}, "card": card}))
-    log(f"total_s {report['total_s']:.1f}")
+    log(f"total_s {report['total_s']:.1f}; by phase "
+        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

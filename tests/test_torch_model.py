@@ -79,12 +79,6 @@ def test_init_params_layout_matches_reference():
     assert torch.equal(again["embed"], port["embed"])
 
 
-@pytest.mark.parametrize("preset", ["tiny-mixtral", "tiny-gpt2"])
-def test_other_families_raise_not_implemented(preset):
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.14"):
-        get_model_fns(tcfg.PRESETS[preset]())
-
-
 def test_build_model_on_cpu_is_deterministic():
     a, mod = build_model(tcfg.tiny_llama(), seed=3, device="cpu")
     b, _ = build_model(tcfg.tiny_llama(), seed=3, device="cpu")

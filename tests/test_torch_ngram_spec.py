@@ -331,8 +331,9 @@ def test_engine_rejects_bad_spec_config():
      "--num-speculative-tokens 0: must be in [1, 16]"),
     (["--spec-mode", "ngram", "--ngram-window", "9"],
      "--ngram-window 9: must be in [1, 8]"),
+    # As the reference's CLI: the draft's checkpoint is read at boot.
     (["--draft-model", "tiny-llama", "--draft-checkpoint", "/x"],
-     "ROADMAP 1.9"),
+     ("draft", 4)),
 ])
 def test_cli_spec_mode_resolution(flags, want, capsys):
     """--spec-mode resolves and fails as the reference's CLI does

@@ -251,14 +251,12 @@ def resolve_sizing_args(args) -> tuple:
     """Turn 'auto' in ``args.max_batch_size`` / ``args.num_pages`` into
     card-derived values (no-op when both are ints). Reads model, quant,
     kv_quant, page_size, max_pages_per_seq, device and the optional
-    tp/target_ctx/batch_cap/draft_model attributes. Returns
+    checkpoint/tp/target_ctx/batch_cap/draft_model attributes. Returns
     (max_batch_size, num_pages)."""
     mbs, pages = args.max_batch_size, args.num_pages
     if "auto" not in (mbs, pages):
         return mbs, pages
-    from tpu_inference_torch.config import PRESETS
-
-    mcfg = PRESETS[args.model]()
+    mcfg = resolve_model_config(args.model, getattr(args, "checkpoint", None))
     sz = auto_size(
         mcfg, hbm_bytes=detect_hbm_bytes(getattr(args, "device", None)),
         quant=args.quant, kv_quant=args.kv_quant,
@@ -279,3 +277,32 @@ def resolve_sizing_args(args) -> tuple:
           f"{sz.kv_pool_bytes_per_chip / 1e9:.2f} GB, target ctx "
           f"{sz.target_ctx})", file=sys.stderr)
     return mbs, pages
+
+
+def resolve_model_and_checkpoint(model: str,
+                                 checkpoint: Optional[str] = None):
+    """(model config, checkpoint path) from a preset name, a local HF
+    checkpoint directory, or "auto" with ``checkpoint`` set. The one
+    model-resolution rule: build_server and the sizing path both call
+    it, so the model that is sized is the model that boots."""
+    import os
+
+    from tpu_inference_torch.config import PRESETS
+
+    if model in PRESETS:
+        return PRESETS[model](), checkpoint
+    src = checkpoint if (model == "auto" and checkpoint) else model
+    if not (isinstance(src, str)
+            and os.path.exists(os.path.join(src, "config.json"))):
+        raise ValueError(
+            f"unknown model {model!r}: not a preset "
+            f"({', '.join(sorted(PRESETS))}) and not a HF checkpoint "
+            f"directory with a config.json")
+    from tpu_inference_torch.models.weights import config_from_hf
+
+    return config_from_hf(src), (checkpoint or src)
+
+
+def resolve_model_config(model: str, checkpoint: Optional[str] = None):
+    """Model config only (see resolve_model_and_checkpoint)."""
+    return resolve_model_and_checkpoint(model, checkpoint)[0]

@@ -98,7 +98,8 @@ from tpu_inference_torch.engine.speculative import (NGRAM_SCAN_CAP,
                                                      ngram_propose,
                                                      spec_round,
                                                      verify_round)
-from tpu_inference_torch.models.common import dense_causal_attention
+from tpu_inference_torch.models.common import (dense_causal_attention,
+                                               make_dense_attn)
 from tpu_inference_torch.models.quant import QuantizedArray, quantize_params
 from tpu_inference_torch.models.registry import build_model, get_model_fns
 
@@ -700,6 +701,37 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
+    @torch.no_grad()
+    def check_numerics(self) -> None:
+        """Numerics check for a freshly loaded model (``--check-numerics``).
+
+        Raises FloatingPointError naming every non-finite parameter leaf;
+        then runs one dense forward over [1, 8] zero tokens and raises
+        naming the first layer whose output is non-finite (the check
+        after each layer is the counterpart of the reference's checkify'd
+        forward), or the logits."""
+        bad = [path for path, t in _named_leaves(self.params)
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise FloatingPointError(f"non-finite values in params at {bad}")
+        cfg = self.model_cfg
+
+        def check_layer(i: int, x: torch.Tensor) -> None:
+            if not bool(torch.isfinite(x).all()):
+                raise FloatingPointError(
+                    f"{cfg.name}: non-finite output at layer {i} of the "
+                    "numerics-check forward")
+
+        toks = torch.zeros((1, 8), dtype=torch.int32, device=self.device)
+        pos = torch.arange(8, dtype=torch.int32, device=self.device)[None]
+        hidden, _ = self.mod.forward_hidden(
+            self.params, cfg, toks, pos, None,
+            make_dense_attn(cfg.sliding_window), on_layer=check_layer)
+        if not bool(torch.isfinite(self.mod.unembed(self.params, cfg,
+                                                    hidden)).all()):
+            raise FloatingPointError(f"{cfg.name}: non-finite logits in the "
+                                     "numerics-check forward")
+
     # ------------------------------------------------------------------
     # Host-side orchestration
     # ------------------------------------------------------------------
@@ -1083,7 +1115,14 @@ class InferenceEngine:
         sampled token)."""
         st = self._stage_chunk_arrays(seq, prompt, offset,
                                       self.engine_cfg.chunk_tokens_cap)
-        out = self._run_prefill([seq], st)
+        # Active decode lanes wait behind this serial chunk (the stall
+        # hybrid steps remove); mid-prefill sequences are not active.
+        stalled = bool(self.active_sequences())
+        t0 = time.perf_counter()
+        out = self._run_prefill([seq], st)      # syncs on the chunk's token
+        if stalled:
+            self.telemetry.decode_stall_during_prefill_s.observe(
+                time.perf_counter() - t0)
         return offset + st["chunk_tokens"], int(out[0])
 
     def _prefill_chunked(self, seq: Sequence, prompt: List[int]) -> None:
@@ -2361,9 +2400,17 @@ class InferenceEngine:
         return [results[i] for i in range(len(seqs))]
 
 
-def _leaves(tree) -> List[torch.Tensor]:
+def _named_leaves(tree, path: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf, paths spelled as the reference's
+    ``jax.tree_util.keystr`` (``['blocks']['wq'].scale``); a quantized
+    leaf gives its codes and its scales."""
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{path}['{k}']")]
     if isinstance(tree, QuantizedArray):
-        return [tree.q, tree.scale]
-    return [tree]
+        return [(f"{path}.q", tree.q), (f"{path}.scale", tree.scale)]
+    return [(path, tree)]
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    return [t for _, t in _named_leaves(tree)]

@@ -34,6 +34,33 @@ _GATE_ACTS = {
 }
 
 
+def init_stacked(shapes: dict, dtype: torch.dtype,
+                 generator: torch.Generator, device,
+                 fill: Callable[[str], Optional[float]]) -> dict:
+    """Random init of the parameter tree ``shapes`` (leaf name -> shape).
+    ``fill(name)`` gives a constant leaf's value (norm weights 1, biases
+    0) or None for a drawn one: normal with 0.02 std, drawn in float32
+    one trailing ``[in, out]`` slab at a time (so the float32 draw never
+    holds more than one slab) and stored in ``dtype``."""
+    device = generator.device if device is None else torch.device(device)
+
+    def leaf(name, shape):
+        value = fill(name)
+        if value is not None:
+            return torch.full(shape, value, dtype=dtype, device=device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for slab in out.reshape(-1, *shape[-2:]):
+            slab.copy_(0.02 * torch.randn(slab.shape, generator=generator,
+                                          dtype=torch.float32, device=device))
+        return out
+
+    def build(tree):
+        return {k: build(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in tree.items()}
+
+    return build(shapes)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
              offset: float = 0.0) -> torch.Tensor:
     """RMSNorm with float32 statistics, output in x.dtype. ``offset``
@@ -42,6 +69,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (weight.float() + offset)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm (GPT-2 family) with float32 statistics (the population
+    variance), output in x.dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, scaling=None,

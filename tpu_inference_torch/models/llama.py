@@ -11,7 +11,7 @@ here; each layer reads a view of the stacked tensors.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -19,6 +19,7 @@ from tpu_inference_torch.config import ModelConfig
 from tpu_inference_torch.models.common import (
     AttentionFn,
     apply_rope_tables,
+    init_stacked,
     qdot,
     rms_norm,
     rope_tables,
@@ -55,28 +56,11 @@ def param_shapes(cfg: ModelConfig) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random init (normal, 0.02 std; norms ones, biases zeros) with
-    stacked layer weights.
-
-    Stacked tensors fill one layer at a time, so the float32 draw never
-    holds more than one layer's slab beside the cfg.dtype weights."""
-    device = generator.device if device is None else torch.device(device)
-
-    def leaf(name, shape):
-        if "norm" in name:
-            return torch.ones(shape, dtype=cfg.dtype, device=device)
-        out = torch.zeros(shape, dtype=cfg.dtype, device=device)
-        if name in ("bq", "bk", "bv"):
-            return out
-        for slab in (out if len(shape) == 3 else out[None]):
-            slab.copy_(0.02 * torch.randn(slab.shape, generator=generator,
-                                          dtype=torch.float32, device=device))
-        return out
-
-    def build(tree):
-        return {k: build(v) if isinstance(v, dict) else leaf(k, v)
-                for k, v in tree.items()}
-
-    return build(param_shapes(cfg))
+    stacked layer weights (models/common.py init_stacked)."""
+    return init_stacked(
+        param_shapes(cfg), cfg.dtype, generator, device,
+        lambda name: (1.0 if "norm" in name
+                      else 0.0 if name in ("bq", "bk", "bv") else None))
 
 
 def layer_params(params: dict, layer_idx: int) -> dict:
@@ -133,15 +117,19 @@ def embed_tokens(params: dict, cfg: ModelConfig,
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   positions: torch.Tensor, kv: Any,
-                   attn: AttentionFn) -> Tuple[torch.Tensor, Any]:
-    """Token ids -> final hidden states. tokens, positions: [B, S]."""
+                   positions: torch.Tensor, kv: Any, attn: AttentionFn,
+                   on_layer: Optional[Callable[[int, torch.Tensor], None]]
+                   = None) -> Tuple[torch.Tensor, Any]:
+    """Token ids -> final hidden states. tokens, positions: [B, S].
+    ``on_layer(i, x)`` sees each layer's output (check_numerics)."""
     x = embed_tokens(params, cfg, tokens)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                        cfg.rope_scaling)
     for i in range(cfg.n_layers):
         x, kv = decoder_block(cfg, i, layer_params(params, i), x, positions,
                               kv, attn, rope=rope)
+        if on_layer is not None:
+            on_layer(i, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
     return x, kv
 

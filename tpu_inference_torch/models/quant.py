@@ -19,13 +19,13 @@
   per call than a bf16 one until that GEMM exists.
 
 Codes and scales are byte-identical to the reference's
-(tests/test_torch_quant.py). ``qeinsum`` (MoE experts) comes with the
-Mixtral port.
+(tests/test_torch_quant.py). ``qeinsum`` is the batched twin of
+``qdot`` for the MoE expert contractions (models/mixtral.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
 
 import torch
 
@@ -156,6 +156,47 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w).float()
 
 
+def _contract_dtype(a: torch.Tensor) -> torch.dtype:
+    """Operand dtype of the grouped (int4) contractions: bf16 on the card
+    (tensor cores), float32 for bf16 operands on the CPU, as the
+    reference contracts off its TPU."""
+    if a.dtype == torch.bfloat16 and a.device.type == "cpu":
+        return torch.float32
+    return a.dtype
+
+
+# The expert contractions qeinsum serves: [E, C, in] x [E, in, out].
+_EXPERT_EQS = ("ecd,edf->ecf", "ecf,efd->ecd")
+
+
+def qeinsum(eq: str, a: torch.Tensor, w) -> torch.Tensor:
+    """``einsum(eq, a, w)`` returned in float32, for the MoE expert
+    contractions ``ecd,edf->ecf`` and ``ecf,efd->ecd`` (a [E, C, in], w
+    [E, in, out] or a QuantizedArray of that shape). Both are one batched
+    matmul over the expert axis.
+
+    int8 (one group): the codes convert to a's dtype, one batched matmul,
+    then the [E, 1, out] scale multiplies the float32 result. Grouped
+    int4: unpack, one batched contraction per group, the partials folded
+    with their [E, G, out] scales in float32."""
+    if eq not in _EXPERT_EQS:
+        raise ValueError(f"qeinsum serves the MoE expert contractions "
+                         f"{_EXPERT_EQS}, got {eq!r}")
+    if not isinstance(w, QuantizedArray):
+        return torch.bmm(a, w).float()
+    ngrp = w.scale.shape[-2]
+    if ngrp == 1:
+        return torch.bmm(a, w.q.to(a.dtype)).float() * w.scale
+    codes = unpack_int4(w.q)                              # [E, in, out]
+    e, in_dim, out = codes.shape
+    gsz = in_dim // ngrp
+    ct = _contract_dtype(a)
+    a4 = a.reshape(e, a.shape[1], ngrp, gsz).to(ct)         # [E, C, G, g]
+    q4 = codes.reshape(e, ngrp, gsz, out).to(ct)            # [E, G, g, out]
+    y = torch.einsum("ecgi,egio->egco", a4, q4).float()     # [E, G, C, out]
+    return (y * w.scale[:, :, None, :]).sum(dim=1)
+
+
 def _map_named(tree: dict, fn) -> dict:
     """Apply fn(name, leaf) to every leaf of a nested dict."""
     return {k: _map_named(v, fn) if isinstance(v, dict) else fn(k, v)
@@ -175,6 +216,25 @@ def quantize_params(params: dict, mode: str = "int8") -> dict:
         return leaf
 
     return _map_named(params, maybe_quant)
+
+
+def quantize_slabs(lead: tuple, slabs, mode: str) -> QuantizedArray:
+    """Quantize ``[in, out]`` slabs, one at a time, into one stacked
+    QuantizedArray with leading dims ``lead`` (the slabs in row-major
+    order over them). Codes and scales are allocated at the first slab,
+    so one full-precision slab is alive at a time; the scales reduce
+    over axis -2 only, so the codes equal the whole stack's."""
+    total = math.prod(lead)
+    q = scale = None
+    for i, slab in enumerate(slabs):
+        part = quantize_array(slab, mode)
+        if q is None:
+            q = part.q.new_empty((total, *part.q.shape))
+            scale = part.scale.new_empty((total, *part.scale.shape))
+        q[i].copy_(part.q)
+        scale[i].copy_(part.scale)
+    return QuantizedArray(q.reshape(*lead, *q.shape[1:]),
+                          scale.reshape(*lead, *scale.shape[1:]))
 
 
 def init_quantized_params(model_cfg, seed: int = 0, mode: str = "int8",
@@ -205,23 +265,9 @@ def init_quantized_params(model_cfg, seed: int = 0, mode: str = "int8",
                                    device=device)).to(dtype)
 
     def quantized(shape) -> QuantizedArray:
-        lead, slab = shape[:-2], shape[-2:]
-        n = 1
-        for x in lead:
-            n *= x
-        q: Optional[torch.Tensor] = None
-        scale: Optional[torch.Tensor] = None
-        for i in range(n):
-            part = quantize_array(draw(slab), mode)
-            if q is None:
-                q = torch.empty((n, *part.q.shape), dtype=part.q.dtype,
-                                device=device)
-                scale = torch.empty((n, *part.scale.shape),
-                                    dtype=torch.float32, device=device)
-            q[i].copy_(part.q)
-            scale[i].copy_(part.scale)
-        return QuantizedArray(q.reshape(*lead, *q.shape[1:]),
-                              scale.reshape(*lead, *scale.shape[1:]))
+        return quantize_slabs(shape[:-2], (draw(shape[-2:]) for _ in
+                                           range(math.prod(shape[:-2]))),
+                              mode)
 
     def leaf(name, shape):
         if name in QUANT_KEYS:

@@ -1,7 +1,5 @@
-"""Model family registry: ModelConfig.family -> module of plain functions.
-
-The port serves the llama family; the reference's mixtral and gpt2
-families raise until ROADMAP item 1.14 lands.
+"""Model family registry: ModelConfig.family -> module of plain functions
+(the reference's three families: llama, mixtral, gpt2).
 """
 
 from __future__ import annotations
@@ -15,13 +13,13 @@ from tpu_inference_torch.config import ModelConfig
 
 
 def get_model_fns(cfg: ModelConfig) -> types.ModuleType:
-    if cfg.family != "llama":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP 1.14: "
-            "Mixtral and GPT-2); the port serves the llama family")
-    from tpu_inference_torch.models import llama
+    from tpu_inference_torch.models import gpt2, llama, mixtral
 
-    return llama
+    families = {"llama": llama, "mixtral": mixtral, "gpt2": gpt2}
+    if cfg.family not in families:
+        raise ValueError(f"unknown model family {cfg.family!r}; one of "
+                         f"{sorted(families)}")
+    return families[cfg.family]
 
 
 def build_model(cfg: ModelConfig, seed: int = 0, device="cuda",

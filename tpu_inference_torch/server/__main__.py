@@ -1,9 +1,16 @@
 """CLI entry point: ``python -m tpu_inference_torch.server --model llama-3-8b``.
 
 Serves the Ollama protocol on the card (``--device cuda``, the default)
-or, for tests and small presets, on the CPU (``--device cpu``). Weights
-are random, made from ``--seed``. ``--quant int8 --kv-quant int8`` serves
-int8 weights over an int8 KV pool (int4 for either is the other tier).
+or, for tests and small presets, on the CPU (``--device cpu``). The
+model is a preset of any of the three families (``llama-3-8b``,
+``mixtral-8x7b``, ``gpt2``, ...) with random weights made from
+``--seed``, or a local HF checkpoint: ``--model auto --checkpoint DIR``
+reads the architecture from DIR/config.json and streams DIR's
+safetensors onto the card (``--tokenizer auto`` takes DIR's tokenizer;
+``--check-numerics`` checks the weights and one forward before
+serving). ``--quant int8 --kv-quant int8`` serves int8 weights over an
+int8 KV pool (int4 for either is the other tier); Mixtral-8x7B fits one
+80 GB card only with ``--quant int8`` or int4.
 
 The sizing and engine flags are the reference's, with its defaults and
 its order of resolving "auto": ``--max-batch-size``/``--num-pages auto``
@@ -42,7 +49,19 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA LLM inference server (Ollama-protocol "
                     "endpoint)")
     p.add_argument("--model", default="tiny-llama",
-                   help=f"preset ({', '.join(sorted(PRESETS))})")
+                   help=f"preset ({', '.join(sorted(PRESETS))}), a local "
+                        "HF checkpoint dir (config.json read for the "
+                        "architecture), or 'auto' with --checkpoint")
+    p.add_argument("--tokenizer", default="byte",
+                   help="'byte', a local HF tokenizer dir, or 'auto' "
+                        "(= the checkpoint dir's tokenizer when present)")
+    p.add_argument("--checkpoint", default=None,
+                   help="local HF safetensors directory (random weights "
+                        "from --seed if omitted)")
+    p.add_argument("--check-numerics", action="store_true",
+                   help="before serving: every parameter finite, and one "
+                        "forward finite layer by layer (catches corrupt "
+                        "checkpoints)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=11434)
     p.add_argument("--device", default="cuda",
@@ -137,11 +156,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--draft-model is given, else off")
     p.add_argument("--draft-model", default=None,
                    help="enable draft-model speculative decoding with "
-                        "this draft preset (random weights from "
-                        "--seed + 1)")
+                        "this draft preset or HF checkpoint dir (random "
+                        "weights from --seed + 1 without a checkpoint)")
     p.add_argument("--draft-checkpoint", default=None,
-                   help="checkpoint directory of the draft model "
-                        "(checkpoints are not ported yet: ROADMAP 1.9)")
+                   help="HF safetensors dir for the draft model (required "
+                        "when --checkpoint is set)")
     p.add_argument("--num-speculative-tokens", type=int, default=4,
                    help="speculation depth γ: proposed tokens verified "
                         "per round (each round emits 1..γ+1 tokens from "
@@ -159,6 +178,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch stays in flight this long (a wedged "
                         "card or call); 0 = off. With --no-warmup the "
                         "first dispatch builds the kernels")
+    p.add_argument("--quarantine-after", type=int, default=3,
+                   help="consecutive step failures before a replica is "
+                        "quarantined (first failure marks it degraded)")
+    p.add_argument("--quarantine-cooldown-s", type=float, default=30.0,
+                   help="quarantined replicas re-enter (probation) after "
+                        "this long; one clean step re-promotes, one "
+                        "failure re-quarantines")
+    p.add_argument("--default-class", default="interactive",
+                   choices=("interactive", "batch", "background"),
+                   help="priority class for requests without an "
+                        "X-Priority header")
     p.add_argument("--debug", action="store_true",
                    help="serve POST /debug/chaos (the other /debug "
                         "routes answer 501: ROADMAP 1.18)")
@@ -187,13 +217,6 @@ def resolve_spec_mode(args, p: argparse.ArgumentParser) -> str:
     go through ``p.error``. Returns "off", "draft" or "ngram"."""
     from tpu_inference_torch.config import validate_spec_config
 
-    if args.draft_checkpoint:
-        p.error("--draft-checkpoint: checkpoint loading is not ported yet "
-                "(ROADMAP 1.9); --draft-model takes a preset with random "
-                "weights")
-    if args.draft_model is not None and args.draft_model not in PRESETS:
-        p.error(f"unknown --draft-model {args.draft_model!r}: one of "
-                f"{', '.join(sorted(PRESETS))}")
     spec_mode = args.spec_mode
     if spec_mode == "auto":
         spec_mode = "draft" if args.draft_model else "off"
@@ -231,8 +254,8 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
     host_cache_pages = args.host_cache_pages
     if host_cache_pages == "auto":
         host_cache_pages = autosize.auto_host_cache_pages(
-            PRESETS[args.model](), kv_quant=args.kv_quant,
-            page_size=args.page_size)
+            autosize.resolve_model_config(args.model, args.checkpoint),
+            kv_quant=args.kv_quant, page_size=args.page_size)
         print(f"[autosize] host KV tier: {host_cache_pages} pages (from "
               "/proc/meminfo MemAvailable)", file=sys.stderr)
     return dict(
@@ -265,28 +288,54 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         chaos_step_wedge_s=args.chaos_step_wedge_s)
 
 
-def main(argv=None) -> None:
-    p = build_parser()
-    args = p.parse_args(argv)
-    if args.model not in PRESETS:
-        p.error(f"unknown model {args.model!r}: one of "
-                f"{', '.join(sorted(PRESETS))}")
+def server_overrides(args) -> dict:
+    """The ServerConfig fields of parsed ``args``."""
+    return {"host": args.host, "port": args.port,
+            "request_timeout_s": args.request_timeout_s,
+            "admission_queue_depth": args.admission_queue_depth,
+            "step_watchdog_s": args.step_watchdog_s,
+            "quarantine_after_failures": args.quarantine_after,
+            "quarantine_cooldown_s": args.quarantine_cooldown_s,
+            "default_class": args.default_class,
+            "chaos_failure_rate": args.chaos_failure_rate,
+            "chaos_delay_s": args.chaos_delay_s}
+
+
+def boot_server(args, p: argparse.ArgumentParser):
+    """The server of parsed ``args``, built and (with --check-numerics)
+    checked, not started; returns (server, the EngineConfig fields).
+    Usage errors go through ``p.error``."""
+    from tpu_inference_torch.engine.autosize import resolve_model_config
+
+    for model, ckpt, flag in ((args.model, args.checkpoint, "--model"),
+                              (args.draft_model, args.draft_checkpoint,
+                               "--draft-model")):
+        if model is not None:
+            try:
+                resolve_model_config(model, ckpt)
+            except ValueError as e:
+                p.error(f"{flag}: {e}")
     engine_args = resolve_engine_args(args, p)
 
     from tpu_inference_torch.server.http import build_server
 
     server = build_server(
-        model=args.model, warmup=not args.no_warmup, device=args.device,
-        seed=args.seed, draft_model=args.draft_model,
-        enable_debug=args.debug,
-        server_overrides={"host": args.host, "port": args.port,
-                          "request_timeout_s": args.request_timeout_s,
-                          "admission_queue_depth":
-                              args.admission_queue_depth,
-                          "step_watchdog_s": args.step_watchdog_s,
-                          "chaos_failure_rate": args.chaos_failure_rate,
-                          "chaos_delay_s": args.chaos_delay_s},
-        **engine_args)
+        model=args.model, tokenizer=args.tokenizer,
+        checkpoint=args.checkpoint, warmup=not args.no_warmup,
+        device=args.device, seed=args.seed, draft_model=args.draft_model,
+        draft_checkpoint=args.draft_checkpoint, enable_debug=args.debug,
+        server_overrides=server_overrides(args), **engine_args)
+    if args.check_numerics:
+        server.engine.check_numerics()
+        print("numerics check passed: params finite, forward finite",
+              flush=True)
+    return server, engine_args
+
+
+def main(argv=None) -> None:
+    p = build_parser()
+    args = p.parse_args(argv)
+    server, engine_args = boot_server(args, p)
     port = server.start()
     print(f"serving {args.model} on http://{args.host}:{port} "
           f"(device={server.engine.device}, "

@@ -46,7 +46,7 @@ from urllib.parse import parse_qs, urlsplit
 from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import (PRIORITY_CLASSES, EngineConfig,
                                         FrameworkConfig, ParallelConfig,
-                                        PRESETS, ServerConfig)
+                                        ServerConfig)
 from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
 from tpu_inference_torch.engine.sampling import PENALTY_WINDOW
 from tpu_inference_torch.server.replicas import (EngineGroup, FleetSaturated,
@@ -84,10 +84,6 @@ def check_server_config(cfg: FrameworkConfig) -> None:
         raise NotImplementedError(
             f"fleet={cfg.server.fleet!r} is not ported yet (ROADMAP 1.15: "
             "process fleet)")
-    if cfg.checkpoint_path:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP 1.9); the port "
-            "serves random weights made from the seed")
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -105,10 +101,14 @@ class InferenceServer:
     def __init__(self, cfg: FrameworkConfig,
                  engine: Optional[InferenceEngine] = None,
                  load_duration_ns: Optional[int] = None,
-                 device="cuda", draft_cfg=None):
+                 device="cuda", draft_cfg=None,
+                 draft_checkpoint: Optional[str] = None):
         """``engine``: a prebuilt engine (tests); otherwise one is built
-        from ``cfg`` on ``device`` with random weights from ``cfg.seed``
-        (and with ``draft_cfg``, a draft model from ``cfg.seed + 1``).
+        from ``cfg`` on ``device`` with the weights of
+        ``cfg.checkpoint_path`` (streamed onto the card, quantized as
+        they land under ``cfg.engine.quant``) or random ones from
+        ``cfg.seed``; with ``draft_cfg``, a draft model from
+        ``draft_checkpoint`` or random from ``cfg.seed + 1``.
         ``load_duration_ns`` feeds the Ollama ``load_duration`` field."""
         check_server_config(cfg)
         self.cfg = cfg
@@ -120,8 +120,20 @@ class InferenceServer:
                 f"model vocab ({cfg.model.vocab_size})")
         t0 = time.perf_counter()
         if engine is None:
-            engine = InferenceEngine(cfg.model, cfg.engine, seed=cfg.seed,
-                                     device=device, draft_cfg=draft_cfg)
+            from tpu_inference_torch.engine.engine import resolve_device
+            from tpu_inference_torch.models.weights import load_checkpoint
+
+            dev = resolve_device(device)
+
+            def load(mcfg, path):
+                return (load_checkpoint(mcfg, path, quant=cfg.engine.quant,
+                                        device=dev) if path else None)
+
+            engine = InferenceEngine(
+                cfg.model, cfg.engine,
+                params=load(cfg.model, cfg.checkpoint_path), seed=cfg.seed,
+                device=dev, draft_cfg=draft_cfg,
+                draft_params=load(draft_cfg, draft_checkpoint))
         self.group = EngineGroup([engine], cfg.server)
         self.load_duration_ns = (load_duration_ns
                                  if load_duration_ns is not None else
@@ -596,32 +608,53 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
-                 warmup: bool = True, device="cuda", seed: int = 0,
+                 checkpoint: Optional[str] = None, warmup: bool = True,
+                 device="cuda", seed: int = 0,
                  draft_model: Optional[str] = None,
+                 draft_checkpoint: Optional[str] = None,
                  enable_debug: bool = False,
                  server_overrides: Optional[dict] = None,
                  **engine_overrides) -> InferenceServer:
     """Convenience constructor used by the CLI, tests and chip_smoke.py.
-    ``model`` and ``draft_model`` are preset names (random weights from
-    ``seed``, the draft's from ``seed + 1``); ``engine_overrides`` are
-    EngineConfig fields (``quant``, ``kv_quant``, ``spec_mode``,
-    ``num_speculative_tokens``, ``chaos_*`` among them),
+
+    ``model``/``draft_model``: a preset name, a local HF checkpoint
+    directory (architecture from its config.json), or "auto" with
+    ``checkpoint`` set (engine/autosize.py resolve_model_and_checkpoint).
+    Without a checkpoint the weights are random from ``seed`` (the
+    draft's from ``seed + 1``). ``tokenizer``: "byte", a local HF
+    tokenizer directory, or "auto" (the checkpoint directory's tokenizer
+    when it has one, else bytes). ``engine_overrides`` are EngineConfig
+    fields (``quant``, ``kv_quant``, ``spec_mode``, ...),
     ``server_overrides`` ServerConfig fields (``step_watchdog_s``,
-    ``chaos_failure_rate``, ...)."""
-    for name in (model, draft_model):
-        if name is not None and name not in PRESETS:
-            raise NotImplementedError(
-                f"model {name!r}: the port serves the presets "
-                f"({', '.join(sorted(PRESETS))}); checkpoint directories "
-                "are ROADMAP 1.9")
+    ``quarantine_after_failures``, ``default_class``, ...)."""
+    import os
+
+    from tpu_inference_torch.engine.autosize import (
+        resolve_model_and_checkpoint)
+
+    model_cfg, checkpoint = resolve_model_and_checkpoint(model, checkpoint)
+    if tokenizer == "auto":
+        has_tok = checkpoint and any(
+            os.path.exists(os.path.join(checkpoint, f))
+            for f in ("tokenizer.json", "tokenizer_config.json"))
+        tokenizer = checkpoint if has_tok else "byte"
+    draft_cfg = None
+    if draft_model:
+        draft_cfg, draft_checkpoint = resolve_model_and_checkpoint(
+            draft_model, draft_checkpoint)
+    if draft_cfg is not None and checkpoint and not draft_checkpoint:
+        # A trained target with a random draft accepts almost nothing.
+        raise ValueError(
+            "--draft-model with --checkpoint requires "
+            "--draft-checkpoint: a random-weight draft makes "
+            "speculative decoding a pure slowdown")
     cfg = FrameworkConfig(
-        model=PRESETS[model](),
+        model=model_cfg,
         engine=EngineConfig(**engine_overrides),
         parallel=ParallelConfig(),
         server=ServerConfig(model_name=model, tokenizer=tokenizer,
                             warmup=warmup, enable_debug=enable_debug,
                             **(server_overrides or {})),
-        seed=seed)
-    return InferenceServer(
-        cfg, device=device,
-        draft_cfg=PRESETS[draft_model]() if draft_model else None)
+        checkpoint_path=checkpoint, seed=seed)
+    return InferenceServer(cfg, device=device, draft_cfg=draft_cfg,
+                           draft_checkpoint=draft_checkpoint)

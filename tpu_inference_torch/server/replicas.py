@@ -188,14 +188,34 @@ class EngineGroup:
             "tpu_inf_requests_unavailable_total",
             "Requests rejected with 503 (no routable replica)",
             fn=lambda: self.requests_unavailable)
-        self._fleet_registry.gauge(
-            "tpu_inf_replica_healthy",
-            "1 when the replica is routable", replica="0",
-            fn=lambda: float(self.health[0].state != QUARANTINED))
-        self._fleet_registry.counter(
-            "tpu_inf_replica_wedges_total",
-            "Step-watchdog firings (wedged dispatches)", replica="0",
-            fn=lambda: self.health[0].wedges)
+        # The reference's supervision series (its EngineGroup at dp=1).
+        # The port resubmits nothing (failover is ROADMAP 1.15), so the
+        # retry and failover counters stay at 0.
+        self.retries_attempted = 0
+        self.retries_succeeded = 0
+        self.failovers = 0
+        r = self._fleet_registry
+        r.gauge("tpu_inf_replicas", "Configured dp replicas",
+                fn=lambda: len(self.engines))
+        r.counter("tpu_inf_retries_attempted_total",
+                  "Failover resubmissions attempted",
+                  fn=lambda: self.retries_attempted)
+        r.counter("tpu_inf_retries_succeeded_total",
+                  "Failover resubmissions that finished cleanly",
+                  fn=lambda: self.retries_succeeded)
+        r.counter("tpu_inf_failovers_total",
+                  "Requests stranded by a wedged replica and resubmitted",
+                  fn=lambda: self.failovers)
+        for i, health in enumerate(self.health):
+            r.gauge("tpu_inf_replica_routable",
+                    "1 when the replica accepts traffic (not quarantined)",
+                    fn=lambda h=health: float(h.routable), replica=str(i))
+            r.counter("tpu_inf_replica_quarantines_total",
+                      "Entries into the quarantined state",
+                      fn=lambda h=health: h.quarantines, replica=str(i))
+            r.counter("tpu_inf_replica_wedges_total",
+                      "Step-watchdog firings (wedged dispatches)",
+                      fn=lambda h=health: h.wedges, replica=str(i))
         eng = engines[0]
         kw = dict(backend=eng.device.type, fleet=self.server_cfg.fleet,
                   kv_quant=eng.engine_cfg.kv_quant,

@@ -2,14 +2,16 @@
 
 - ``ByteTokenizer``: hermetic UTF-8 byte-level tokenizer (vocab 256
   bytes + BOS/EOS). No files, no network.
+- ``HFTokenizer``: a local HuggingFace tokenizer directory (Llama,
+  Mixtral, GPT-2 vocabularies) through ``transformers.AutoTokenizer``
+  with ``local_files_only``; never the network.
 - ``IncrementalDecoder``: token ids -> text deltas for streaming.
 - ``StopMatcher``: Ollama ``options.stop`` across chunk boundaries.
-
-Local HuggingFace tokenizers are ROADMAP item 1.9.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import List, Optional, Protocol
 
 
@@ -38,6 +40,49 @@ class ByteTokenizer:
     def decode(self, ids: List[int]) -> str:
         data = bytes(i for i in ids if 0 <= i < 256)
         return data.decode("utf-8", errors="replace")
+
+
+class HFTokenizer:
+    """Local HuggingFace tokenizer directory (no network)."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = len(self._tok)
+        self.bos_token_id = self._tok.bos_token_id
+        self.eos_token_id = self._tok.eos_token_id
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        ids = self._tok.encode(text, add_special_tokens=False)
+        if add_bos and self.bos_token_id is not None:
+            ids = [self.bos_token_id] + ids
+        return ids
+
+    def decode(self, ids: List[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages: List[dict]) -> Optional[str]:
+        """Chat messages rendered with the checkpoint's own chat template
+        (tokenizer_config.json), or None when it has none or the
+        template fails to render (the caller then falls back to a
+        role-prefix transcript). A leading BOS text is stripped: encode()
+        prepends the BOS id itself."""
+        if not getattr(self._tok, "chat_template", None):
+            return None
+        try:
+            rendered = self._tok.apply_chat_template(
+                messages, tokenize=False, add_generation_prompt=True)
+        # Templates raise jinja2 errors of their own (e.g. on roles that
+        # do not alternate) besides the standard ones.
+        except Exception as e:  # noqa: BLE001
+            print(f"[tokenizer] chat template failed ({e!r}); falling "
+                  "back to role-prefix transcript", file=sys.stderr)
+            return None
+        bos = self._tok.bos_token
+        if bos and rendered.startswith(bos):
+            rendered = rendered[len(bos):]
+        return rendered
 
 
 class IncrementalDecoder:
@@ -117,9 +162,8 @@ class StopMatcher:
 
 
 def build_tokenizer(spec: str, vocab_size: int = 512) -> Tokenizer:
-    """'byte' -> ByteTokenizer."""
+    """'byte' -> ByteTokenizer; anything else is a local HF tokenizer
+    directory."""
     if spec == "byte":
         return ByteTokenizer(vocab_size=max(vocab_size, 258))
-    raise NotImplementedError(
-        f"tokenizer {spec!r}: HF tokenizers are not ported yet (ROADMAP "
-        "1.9: HF tokenizer and checkpoint loading); use 'byte'")
+    return HFTokenizer(spec)

@@ -221,6 +221,7 @@ PHASE_HISTOGRAMS = {
     "dispatch_bubble": "dispatch_bubble_s",
     "tokens_per_dispatch": "tokens_per_dispatch",
     "hybrid_dispatch": "hybrid_dispatch_s",
+    "decode_stall_during_prefill": "decode_stall_during_prefill_s",
     "kv_swap": "kv_swap_s",
     "queue_wait": "queue_wait_s",
     "prefill_phase": "prefill_phase_s",
@@ -258,6 +259,9 @@ class EngineTelemetry:
     event), ``dispatch_bubble_s`` (host gap between consecutive decode
     calls while sequences were active), ``tokens_per_dispatch``,
     ``hybrid_dispatch_s`` (host wall of one hybrid prefill+decode call),
+    ``decode_stall_during_prefill_s`` (wall of one serial chunked-prefill
+    call, up to its synced output, while decode lanes were active: the
+    stall hybrid steps remove),
     ``kv_swap_s`` (host wall of one host-tier page batch copy),
     ``spec_accept_rate`` (acceptance per lane per spec round) and
     ``spec_gamma_g`` (mean adaptive γ of the latest verify round).
@@ -286,6 +290,12 @@ class EngineTelemetry:
         self.hybrid_dispatch_s = r.histogram(
             "tpu_inf_hybrid_dispatch_seconds",
             "Host wall time of one hybrid prefill+decode fused dispatch")
+        self.decode_stall_during_prefill_s = r.histogram(
+            "tpu_inf_decode_stall_during_prefill_seconds",
+            "Wall time active decode lanes sat stalled behind a serial "
+            "chunked-prefill dispatch (structurally zero while hybrid "
+            "steps fuse chunks into the decode dispatch; pressure-"
+            "degraded rounds chunk serially and record their real stalls)")
         self.kv_swap_s = r.histogram(
             "tpu_inf_kv_swap_seconds",
             "Host wall of one device<->host KV page-batch swap (both "
