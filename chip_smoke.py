@@ -63,12 +63,28 @@ failing loudly (any failure exits non-zero before the result line):
    0.5, no decode-kernel launch in the dense rounds).
    The prefill kernel is also checked and timed at the verify round's
    shapes (verify_cases, in the kernel phase).
+   Every lane's server runs with ``enable_debug``. On the bf16 lane,
+   after its six requests, the observability phase (observability_phase):
+   GET /debug/steps beside the dispatch counts of /metrics (the kinds
+   include prefill_chunk and decode, one ledger record per dispatch, the
+   MFU gauge finite and positive); /api/chat unary and streamed (greedy,
+   16 tokens, the role-prefix transcript: the chat text equals
+   /api/generate's for that transcript, no context field); /api/embed
+   with inputs of 41, 200 and 500 tokens and /api/embeddings with the
+   first ([3, 4096], finite, cosine with the batched row >= 0.999,
+   distinct rows; wall and peak memory recorded); /api/show and /api/ps
+   (the engine's parameter count and weight bytes, BF16); and POST
+   /debug/profile {"seconds": 2} while rounds of four requests stream
+   (a trace under build/profile/replica0 naming both kernels). Every profiled
+   lane records the step ledger's verdicts over its profiled window
+   beside the profiler's busy share.
 6. the other families, each on the main path's six requests: Mixtral-
    8x7B at full width with int8 weights over an int8 pool (46.7B
    parameters: bf16 does not fit the card), and GPT-2 at full width in
    bf16, whose prompts stay inside its 1024 learned positions, then one
    request past them (clamped to the table's last row, as the
-   reference's gather does). Each lane records TTFT, tok/s, the device's
+   reference's gather does); the Mixtral lane reads /debug/steps with
+   the bf16 lane's gates. Each lane records TTFT, tok/s, the device's
    busy share, peak memory and launches by kernel variant; the previous
    server must have freed the card first. Then a checkpoint lane: a
    random full-width GPT-2 written as an HF directory under build/ and
@@ -94,9 +110,11 @@ import time
 
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet; dense, 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Float32 peak outside the tensor cores (NVIDIA's H100 SXM data sheet,
+# 700 W). The bf16 peak and the memory rate are the port's own table
+# (engine/autosize.py detect_peak_flops / detect_peak_hbm_bw, keyed by the
+# card's name), which the MFU gauge and the step ledger divide by too.
+F32_PEAK_FLOPS = 67e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 SEED = 0
 # What library_ms times: one PyTorch call computing the same attention.
@@ -142,8 +160,11 @@ def time_ms(fn, iters: int = 20, flush: torch.Tensor | None = None) -> float:
 
 
 def bound(bytes_moved: float, flops: float, dtype) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    from tpu_inference_torch.engine import autosize
+    peak = (autosize.detect_peak_flops() if dtype == torch.bfloat16
+            else F32_PEAK_FLOPS)
+    t_bytes = bytes_moved / autosize.detect_peak_hbm_bw() * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1150,12 +1171,13 @@ def _kernel_class(name: str) -> str:
 
 def profile_requests(port: int, prompts: list, max_tokens: int,
                      trace_path: str | None = None,
-                     options: dict | None = None) -> dict:
+                     options: dict | None = None, engine=None) -> dict:
     """The same concurrent requests again, under torch.profiler: device
     time by kernel and by class, and the device's busy share of the
-    window (and with ``trace_path`` the chrome trace, written there). A
-    profiler that cannot trace here is reported, not fatal; a failed
-    request is."""
+    window (and with ``trace_path`` the chrome trace, written there). With
+    ``engine``, the step ledger's reading of the same window beside it
+    (ledger_summary). A profiler that cannot trace here is reported, not
+    fatal; a failed request is."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -1192,11 +1214,31 @@ def profile_requests(port: int, prompts: list, max_tokens: int,
         cls = _kernel_class(name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
     kernels.sort(key=lambda k: -k[1])
-    return {"window_s": wall, "device_busy_ms": busy,
-            "device_busy_share": busy / (wall * 1e3),
-            "by_class_ms": by_class,
-            "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
-                            for n, ms, c in kernels[:12]]}
+    out = {"window_s": wall, "device_busy_ms": busy,
+           "device_busy_share": busy / (wall * 1e3),
+           "by_class_ms": by_class,
+           "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
+                           for n, ms, c in kernels[:12]]}
+    if engine is not None:
+        out["ledger"] = ledger_summary(engine.telemetry.steps_report(
+            window_s=time.perf_counter() - t0))
+    return out
+
+
+def ledger_summary(report: dict) -> dict:
+    """The step ledger's reading (a /debug/steps replica report, or
+    EngineTelemetry.steps_report): verdict, roofline fractions and walls
+    by step kind, the MFU gauge and its replay."""
+    fields = ("records", "tokens", "chunk_tokens", "verdict",
+              "compute_frac", "hbm_frac", "host_frac", "device_s",
+              "staging_s", "bubble_s", "compile_events")
+    return {"records_window": report["records_window"],
+            "records_total": report["records_total"],
+            "truncated": report["truncated"],
+            "kinds": {k: {f: v[f] for f in fields}
+                      for k, v in report["kinds"].items()},
+            "top_sinks": report["top_sinks"], "mfu": report["mfu"],
+            "peaks": report["peaks"]}
 
 
 # The served paths: (label, quant, kv_quant, the kernels' variant).
@@ -1248,6 +1290,7 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
     free the server."""
     import gc
 
+    from tpu_inference_torch.engine import autosize
     from tpu_inference_torch.kernels import paged_attention as pa
     from tpu_inference_torch.kernels import prefill_attention as pfa
     from tpu_inference_torch.server.http import build_server
@@ -1255,7 +1298,8 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
     allocated_before = _free_card(label)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    server = build_server(model, device="cuda", seed=SEED,
+    server = build_server(model, device="cuda", seed=SEED, enable_debug=True,
+                          server_overrides={"profile_dir": PROFILE_DIR},
                           **{"max_pages_per_seq": 128, "num_pages": 512,
                              "max_batch_size": 8, "quant": quant,
                              "kv_quant": kv_quant, **(engine_kw or {})})
@@ -1290,7 +1334,8 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
             raise AssertionError(f"{label}: greedy output not reproducible")
         if after is not None:
             extra = after(port, server)
-        prof = (profile_requests(port, prompts, max_tokens) if profile
+        prof = (profile_requests(port, prompts, max_tokens,
+                                 engine=server.engine) if profile
                 else {"error": "not profiled on this path"})
         server_stats(port)
         n_layers = server.engine.model_cfg.n_layers
@@ -1329,12 +1374,215 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         "launches_per_forward": n_layers,
         "done_reasons": [r["done_reason"] for r in results],
         "weight_bytes": weight_bytes, "kv_pool_bytes": kv_pool_bytes,
-        "weight_read_bound_ms_per_step": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "weight_read_bound_ms_per_step": (
+            weight_bytes / autosize.detect_peak_hbm_bw() * 1e3),
         "decode_ms_per_token_per_request": [1e3 / x for x in per_req],
         "engine_phases": phases,
         "profile": prof,
         **extra,
     }
+
+
+# Where the lanes' servers write POST /debug/profile traces.
+PROFILE_DIR = os.path.join("build", "profile")
+
+
+def _http(port: int, method: str, path: str, body=None) -> tuple:
+    """(status, body bytes, perf_counter at the response headers)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        t_headers = time.perf_counter()
+        return resp.status, resp.read(), t_headers
+    finally:
+        conn.close()
+
+
+def _http_json(port: int, method: str, path: str, body=None):
+    status, raw, _ = _http(port, method, path, body)
+    if status != 200:
+        raise AssertionError(f"{method} {path}: HTTP {status}: {raw[:300]}")
+    return json.loads(raw)
+
+
+def steps_phase(port: int, label: str) -> dict:
+    """GET /debug/steps beside /metrics?format=json, the lane idle. Gates:
+    the kinds include prefill_chunk and decode, records_total equals the
+    prefill plus decode dispatches the lane made, the MFU gauge is
+    finite and positive."""
+    import math
+    rep = _http_json(port, "GET", "/debug/steps")["replicas"]["0"]
+    phases = server_stats(port)["phases"]
+    dispatches = (phases["prefill_dispatch_s"]["count"]
+                  + phases["decode_dispatch_s"]["count"])
+    if not {"prefill_chunk", "decode"} <= set(rep["kinds"]):
+        raise AssertionError(f"{label}: ledger kinds {list(rep['kinds'])}")
+    if rep["records_total"] != dispatches:
+        raise AssertionError(f"{label}: {rep['records_total']} ledger "
+                             f"records for {dispatches} dispatches")
+    gauge = rep["mfu"]["gauge"]
+    if gauge is None or not math.isfinite(gauge) or gauge <= 0:
+        raise AssertionError(f"{label}: MFU gauge {gauge}")
+    out = {**ledger_summary(rep), "dispatches": dispatches}
+    log(f"[{label}] /debug/steps: verdicts "
+        f"{json.dumps({k: v['verdict'] for k, v in rep['kinds'].items()})}"
+        f", mfu {json.dumps(rep['mfu'])}")
+    return out
+
+
+CHAT = [{"role": "system", "content": "You answer in one short line."},
+        {"role": "user", "content": "Name three prime numbers."}]
+
+
+def chat_phase(port: int) -> dict:
+    """/api/chat, unary then streamed (greedy, 16 tokens, the byte
+    tokenizer's role-prefix transcript), then /api/generate with that
+    transcript alone. The unary request caches the transcript's pages,
+    so the streamed chat and the generate see the same prefix hit. Gates:
+    chat records carry ``message`` and no ``context``/``response``, the
+    streamed text equals the generate text, eval_count 16 (or an EOS
+    "stop" at the generate's count)."""
+    opts = {"num_predict": 16, "temperature": 0}
+    body = {"model": "llama-3-8b", "messages": CHAT, "options": opts}
+    unary = _http_json(port, "POST", "/api/chat", dict(body, stream=False))
+    t0 = time.perf_counter()
+    status, raw, t_headers = _http(port, "POST", "/api/chat",
+                                   dict(body, stream=True))
+    if status != 200:
+        raise AssertionError(f"streamed chat: HTTP {status}")
+    lines = [json.loads(x) for x in raw.splitlines() if x]
+    streamed = "".join(x["message"]["content"] for x in lines)
+    transcript = "\n".join(f"{m['role']}: {m['content']}"
+                           for m in CHAT) + "\nassistant:"
+    gen = _http_json(port, "POST", "/api/generate", {
+        "model": "llama-3-8b", "prompt": transcript, "stream": False,
+        "options": opts})
+    for rec in (unary, lines[-1]):
+        if ("context" in rec or "response" in rec or "message" not in rec
+                or rec["eval_count"] != gen["eval_count"]
+                or not (rec["eval_count"] == 16
+                        or rec["done_reason"] == "stop")):
+            raise AssertionError(f"chat record {rec}")
+    if not all("message" in x and "response" not in x for x in lines):
+        raise AssertionError("a streamed chat line without 'message'")
+    if streamed != gen["response"]:
+        raise AssertionError(f"chat text {streamed!r} != generate "
+                             f"{gen['response']!r}")
+    return {"ttft_streamed_s": t_headers - t0,
+            "eval_count": lines[-1]["eval_count"],
+            "done_reason": lines[-1]["done_reason"],
+            "prompt_eval_count": gen["prompt_eval_count"],
+            "unary_equals_streamed":
+                unary["message"]["content"] == streamed}
+
+
+def embed_phase(port: int, d_model: int) -> dict:
+    """/api/embed with three inputs of 41, 200 and 500 tokens (byte
+    tokenizer: n bytes and BOS), /api/embeddings with the first. Gates:
+    [3, d_model], finite, the lone vector's cosine with row 0 >= 0.999
+    (another bucket and lane count: bf16 GEMM rows depend on M), no two
+    rows equal. Records the call's wall and the peak allocated memory."""
+    texts = _family_prompts((40, 199, 499))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    embs = torch.tensor(_http_json(port, "POST", "/api/embed",
+                                   {"input": texts})["embeddings"],
+                        dtype=torch.float64)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lone = torch.tensor(_http_json(port, "POST", "/api/embeddings",
+                                   {"prompt": texts[0]})["embedding"],
+                        dtype=torch.float64)
+    cos = float(torch.nn.functional.cosine_similarity(lone, embs[0], dim=0))
+    if tuple(embs.shape) != (3, d_model) or not bool(
+            torch.isfinite(embs).all()):
+        raise AssertionError(f"embeddings {tuple(embs.shape)}, finite "
+                             f"{bool(torch.isfinite(embs).all())}")
+    if cos < 0.999:
+        raise AssertionError(f"lone embedding's cosine with row 0: {cos}")
+    if any(torch.equal(embs[i], embs[j]) for i in range(3)
+           for j in range(i + 1, 3)):
+        raise AssertionError("distinct texts gave equal embeddings")
+    return {"tokens": [41, 200, 500], "wall_s": wall,
+            "max_memory_allocated": peak, "lone_cosine": cos}
+
+
+def card_phase(port: int, engine) -> dict:
+    """/api/show and /api/ps: the engine's parameter count and weight
+    bytes, quantization level BF16."""
+    show = _http_json(port, "POST", "/api/show", {"model": "llama-3-8b"})
+    (ps,) = _http_json(port, "GET", "/api/ps")["models"]
+    got = (show["model_info"]["general.parameter_count"], ps["size"],
+           show["details"]["quantization_level"],
+           ps["details"]["quantization_level"])
+    if got != (engine.n_params, engine.weight_bytes, "BF16", "BF16"):
+        raise AssertionError(f"model card {got}")
+    return {"parameter_count": got[0], "size": got[1],
+            "parameter_size": ps["details"]["parameter_size"]}
+
+
+def profile_phase(port: int) -> dict:
+    """POST /debug/profile {"seconds": 2} while requests stream: rounds
+    of four concurrent requests (fresh prompts, so each prefills) run
+    back to back until the capture returns, so the window sees prefills
+    and decode steps whenever the profiler comes up. Gates: a trace
+    under PROFILE_DIR/replica0 whose events name both hand-written
+    kernels."""
+    got: dict = {}
+
+    def capture() -> None:
+        try:
+            got["body"] = _http_json(port, "POST", "/debug/profile",
+                                     {"seconds": 2})
+        except AssertionError as e:
+            got["error"] = e
+
+    trace_dir = os.path.join(PROFILE_DIR, "replica0")
+    before = set(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else set()
+    th = threading.Thread(target=capture)
+    t0 = time.perf_counter()
+    th.start()
+    rounds = 0
+    while th.is_alive() and time.perf_counter() - t0 < 120:
+        sizes = tuple(60 + 40 * rounds + 10 * i for i in range(4))
+        run_requests(port, _family_prompts(sizes), 16)
+        rounds += 1
+    th.join(timeout=300)
+    if "error" in got or th.is_alive():
+        raise AssertionError(f"/debug/profile: {got.get('error')}")
+    new = sorted(set(os.listdir(trace_dir)) - before)
+    if got["body"]["dir"] != trace_dir or not new:
+        raise AssertionError(f"/debug/profile wrote {new} ({got['body']})")
+    with open(os.path.join(trace_dir, new[-1])) as f:
+        text = f.read()
+    names = {k: k in text for k in ("paged_decode_kernel",
+                                    "paged_prefill_kernel")}
+    if not all(names.values()):
+        raise AssertionError(f"profile trace kernels: {names} "
+                             f"({len(text)} bytes, {rounds} rounds)")
+    return {"trace": os.path.join(trace_dir, new[-1]),
+            "trace_bytes": len(text), "request_rounds": rounds,
+            "wall_s": time.perf_counter() - t0, "kernels_named": names,
+            **got["body"]}
+
+
+def observability_phase(port: int, server) -> dict:
+    """The bf16 lane's server, after its requests: the step ledger
+    (steps_phase), /api/chat, the embeddings, the model card and a
+    /debug/profile capture, each with its own gates."""
+    t0 = time.perf_counter()
+    out = {"steps": steps_phase(port, "bf16")}
+    out["chat"] = chat_phase(port)
+    out["embed"] = embed_phase(port, server.engine.model_cfg.d_model)
+    out["model_card"] = card_phase(port, server.engine)
+    out["profile"] = profile_phase(port)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[bf16] observability phase: {json.dumps(out)}")
+    return {"observability": out}
 
 
 def _family_prompts(sizes) -> list:
@@ -1358,8 +1606,10 @@ def mixtral_phase(card: str) -> dict:
     int8 pool, batch 8: 46.7B parameters do not fit the card in bf16.
     The six requests of the llama lanes; expert capacity at the default
     factor 2.0, so tokens may drop as the reference drops them."""
-    mp = main_path_phase("mixtral-8x7b int8 + int8 KV", "int8", "int8",
-                         "int8", model="mixtral-8x7b")
+    label = "mixtral-8x7b int8 + int8 KV"
+    mp = main_path_phase(label, "int8", "int8", "int8", model="mixtral-8x7b",
+                         after=lambda port, _: {
+                             "steps": steps_phase(port, label)})
     prof = mp["profile"]
     if "by_class_ms" in prof:
         mp["int8_to_bf16_share_of_busy"] = (
@@ -1599,7 +1849,8 @@ def reference_config_phase(card: str) -> dict:
         "--model", "llama-3-8b", "--quant", "int8", "--kv-quant", "int8",
         "--max-batch-size", "auto", "--num-pages", "auto", "--batch-cap",
         "32", "--max-pages-per-seq", "128", "--decode-pipeline-depth", "2",
-        "--hybrid-prefill", "--seed", str(SEED)])
+        "--hybrid-prefill", "--step-ledger-depth", "4096",
+        "--seed", str(SEED)])
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     eng = server.engine
@@ -1637,7 +1888,7 @@ def reference_config_phase(card: str) -> dict:
         if snap["hybrid_steps"] < 1:
             raise AssertionError(f"{label}: no hybrid step ran")
         peak_mem = torch.cuda.max_memory_allocated()
-        prof = profile_requests(port, prompts, max_tokens)
+        prof = profile_requests(port, prompts, max_tokens, engine=eng)
         server_stats(port)
     finally:
         server.shutdown()
@@ -1822,7 +2073,8 @@ def ngram_phase(card: str, plain: dict) -> dict:
         "--max-batch-size", "auto", "--num-pages", "auto", "--batch-cap",
         "32", "--max-pages-per-seq", "128", "--decode-pipeline-depth", "2",
         "--hybrid-prefill", "--spec-mode", "ngram",
-        "--num-speculative-tokens", "4", "--seed", str(SEED)])
+        "--num-speculative-tokens", "4", "--step-ledger-depth", "4096",
+        "--seed", str(SEED)])
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     eng = server.engine
@@ -1873,7 +2125,7 @@ def ngram_phase(card: str, plain: dict) -> dict:
         os.makedirs("build", exist_ok=True)
         trace = os.path.join("build", "ngram_profile.json")
         prof = profile_requests(port, prompts, max_tokens, trace_path=trace,
-                                options=LOOP_OPTIONS)
+                                options=LOOP_OPTIONS, engine=server.engine)
         if os.path.exists(trace):
             try:
                 prof["prefill_kernel_split"] = _verify_prefill_ms(trace)
@@ -1962,8 +2214,8 @@ def draft_phase(card: str) -> dict:
         by_variant = {"paged_attention": dict(pa.launches_by_variant),
                       "prefill_attention": dict(pfa.launches_by_variant)}
         spec = snap["speculative"]
-        prefills = snap["phases"]["prefill_dispatch"]["count"] if \
-            "prefill_dispatch" in snap["phases"] else None
+        prefills = snap["phases"]["prefill_dispatch_s"]["count"] if \
+            "prefill_dispatch_s" in snap["phases"] else None
         peak_mem = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
@@ -1993,6 +2245,18 @@ def draft_phase(card: str) -> dict:
             "prefill_calls": prefills,
             "done_reasons": [r["done_reason"] for r in results],
             "speculative": spec, "engine_phases": engine_phases(snap)}
+
+
+def log_ledger(label: str, prof: dict) -> None:
+    """The step ledger's verdicts over a profiled window."""
+    led = prof.get("ledger")
+    if led is None:
+        return
+    kinds = {k: {f: v[f] for f in ("records", "verdict", "compute_frac",
+                                   "hbm_frac", "host_frac")}
+             for k, v in led["kinds"].items()}
+    log(f"[{label}] step ledger over the profiled window: "
+        f"{json.dumps(kinds)}; mfu {json.dumps(led['mfu'])}")
 
 
 def log_new_path(mp: dict, card: str) -> None:
@@ -2029,6 +2293,7 @@ def log_new_path(mp: dict, card: str) -> None:
             + (f"; prefill kernel by caller "
                f"{json.dumps(prof['prefill_kernel_split'])}"
                if "prefill_kernel_split" in prof else ""))
+        log_ledger(mp["label"], prof)
     elif prof is not None:
         log(f"[{mp['label']}] profile: not measured ({prof['error']})")
 
@@ -2055,6 +2320,7 @@ def log_main_path(mp: dict, card: str) -> None:
             f"(ms) {json.dumps(prof['by_class_ms'])}")
         for k in prof["top_kernels"]:
             log(f"  {k['ms']:9.2f} ms x{k['count']:<6} {k['name']}")
+        log_ledger(mp["label"], prof)
     else:
         log(f"[{mp['label']}] profile: not measured ({prof['error']})")
     log(f"main path {mp['model']} [{mp['label']}] on {card}: TTFT p50 "
@@ -2096,9 +2362,9 @@ def main() -> int:
 
     phase_s = {}
 
-    def timed(name, fn, *args):
+    def timed(name, fn, *args, **kw):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
         return out
 
@@ -2131,7 +2397,8 @@ def main() -> int:
     main_paths = {}
     for label, quant, kv_quant, variant in MAIN_PATHS:
         mp = timed("main", main_path_phase, label, quant, kv_quant, variant,
-                   variant != "int4")
+                   variant != "int4",
+                   after=observability_phase if label == "bf16" else None)
         log_main_path(mp, card)
         main_paths[label] = mp
     for name, phase in (("reference", reference_config_phase),

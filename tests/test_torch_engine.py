@@ -106,8 +106,8 @@ def test_warmup_writes_only_the_trash_page():
 
 @pytest.mark.parametrize("field,value,item", [
     ("role", "prefill", "1.15"),
-    ("slo_ttft_ms", 250.0, "1.18"),
-    ("slo_tpot_ms", 40.0, "1.18"),
+    ("slo_ttft_ms", 250.0, "1.18b"),
+    ("slo_tpot_ms", 40.0, "1.18b"),
 ])
 def test_unported_features_raise(field, value, item):
     ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})

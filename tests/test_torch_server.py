@@ -401,7 +401,7 @@ def test_metrics_expose_engine_breadth_series(weights):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("role", "decode", "1.15"), ("slo_ttft_ms", 100.0, "1.18")])
+    ("role", "decode", "1.15"), ("slo_ttft_ms", 100.0, "1.18b")])
 def test_unported_knobs_raise_through_build_server(field, value, item):
     from tpu_inference_torch.server.http import build_server
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):

@@ -401,7 +401,8 @@ class ServerConfig:
     warmup: bool = True
     defer_headers_until_first_token: bool = True
     enable_debug: bool = False
-    profile_dir: str = "/tmp/jax-trace"
+    # Where POST /debug/profile writes torch.profiler traces.
+    profile_dir: str = "/tmp/torch-trace"
     blackbox_dir: str = ""
     blackbox_retain: int = 8
     chaos_failure_rate: float = 0.0

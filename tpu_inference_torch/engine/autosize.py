@@ -16,7 +16,9 @@ The card's memory is ``torch.cuda.get_device_properties(dev).total_memory``
 ``reserve_frac`` and the activation headroom stand for what the CUDA
 context, the caching allocator and the activations take. Off the card
 the caller passes ``hbm_bytes``; nothing here carries a table of
-accelerator sizes. ``decode_ladder_rungs``/``parse_decode_ladder`` give
+accelerator sizes. ``detect_peak_flops``/``detect_peak_hbm_bw`` read the
+card's published bf16 peak and memory rate (the MFU gauge's and the step
+ledger's denominators). ``decode_ladder_rungs``/``parse_decode_ladder`` give
 the decode batch ladder, ``auto_host_cache_pages`` sizes the host-RAM KV
 tier from ``/proc/meminfo``.
 """
@@ -186,6 +188,48 @@ def detect_hbm_bytes(device=None) -> int:
             "--num-pages (or hbm_bytes) off the card")
     dev = torch.device("cuda" if device is None else device)
     return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+# Per-card dense bf16 peak FLOP/s and memory rate (bytes/s), keyed by
+# torch.cuda.get_device_name(): NVIDIA's published H100 figures (SXM at
+# 700 W; PCIe). They are the denominators of the MFU gauge and of the
+# step ledger's roofline verdicts (telemetry.StepCostModel). The CPU and
+# unknown cards report against the H100 SXM entry, so both always
+# render (as the reference reports unknown chips against its default).
+H100_SXM = "NVIDIA H100 80GB HBM3"
+PEAK_FLOPS_BY_DEVICE_KIND = {
+    H100_SXM: 989.4e12,
+    "NVIDIA H100 PCIe": 756e12,
+}
+PEAK_HBM_BW_BY_DEVICE_KIND = {
+    H100_SXM: 3.35e12,
+    "NVIDIA H100 PCIe": 2.0e12,
+}
+
+
+def _device_kind(device=None) -> str:
+    """The card's name (the tables' key); H100 SXM off the card."""
+    import torch
+
+    if device is not None and torch.device(device).type != "cuda":
+        return H100_SXM
+    if not torch.cuda.is_available():
+        return H100_SXM
+    return torch.cuda.get_device_name(device)
+
+
+def detect_peak_flops(device=None) -> float:
+    """Dense bf16 peak FLOP/s of the card ``device`` (default: the
+    current one; H100 SXM for the CPU and unknown cards)."""
+    return PEAK_FLOPS_BY_DEVICE_KIND.get(_device_kind(device),
+                                         PEAK_FLOPS_BY_DEVICE_KIND[H100_SXM])
+
+
+def detect_peak_hbm_bw(device=None) -> float:
+    """Memory rate (bytes/s) of the card ``device``, same stance as
+    detect_peak_flops."""
+    return PEAK_HBM_BW_BY_DEVICE_KIND.get(
+        _device_kind(device), PEAK_HBM_BW_BY_DEVICE_KIND[H100_SXM])
 
 
 def decode_ladder_rungs(top: int, base: int = 8) -> tuple:

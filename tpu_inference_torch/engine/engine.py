@@ -60,6 +60,12 @@ PyTorch:
   KV on a TPU (``int4_mosaic_validated``) has no counterpart: on the
   card, chip_smoke.py holds the int4 variants of both kernels against
   their plain versions on every run.
+- **Step ledger**: every dispatch pushes one record (kind, rung, lanes,
+  tokens, device and host walls, cache reads, swap bytes) into
+  ``telemetry.step_ledger`` (``_ledger_push``); pipelined calls push at
+  their sync with the fields captured when they were staged.
+- **Embeddings** (``embed_many``): mean-pooled hidden states from dense,
+  cache-free forwards, apart from the pool and the scheduler.
 
 Index ranges the reference gets for free from XLA's clamping gathers
 are kept in range explicitly: positions clamp at ``max_context - 1``
@@ -106,8 +112,8 @@ from tpu_inference_torch.models.registry import build_model, get_model_fns
 # EngineConfig fields the port does not serve: a value other than the
 # default raises NotImplementedError naming the ROADMAP item.
 _UNPORTED = {
-    "slo_ttft_ms": "1.18 (observability: SLO gauges)",
-    "slo_tpot_ms": "1.18 (observability: SLO gauges)",
+    "slo_ttft_ms": "1.18b (observability: SLO gauges)",
+    "slo_tpot_ms": "1.18b (observability: SLO gauges)",
     "role": "1.15 (process fleet: P/D worker roles)",
 }
 
@@ -333,6 +339,19 @@ class InferenceEngine:
         self.rung_peak = self.ladder[0]
         self.rung_switches_total = 0
         self.rung_calls: Dict[int, int] = {}   # decode calls per rung
+        # Step-ledger scratch (telemetry.StepLedger): rungs and prefill
+        # buckets dispatched before (compile_event marks the first
+        # dispatch of each), the staging and bubble walls the next push
+        # takes, and the swap-byte watermark that turns the cumulative
+        # swap counters into per-record deltas.
+        self._rungs_seen: set = set()
+        self._prefill_buckets_seen: set = set()
+        self._pending_bubble = 0.0
+        self._last_staging_s = 0.0
+        self._last_swap_bytes_total = 0.0
+        self._last_compile_event = False
+        self._last_verify_dt = 0.0
+        self._last_verify_kv_read = 0
         self.admission = engine_cfg.admission
         self.preemptions_total = 0        # sequences evicted for pressure
         self.resumes_total = 0            # recompute-resume prefills
@@ -700,6 +719,52 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def embed(self, token_ids: List[int]) -> np.ndarray:
+        """Mean-pooled final hidden state of one token sequence (the
+        /api/embeddings backing); see embed_many."""
+        return self.embed_many([token_ids])[0]
+
+    # Rows per embedding forward; lane counts pad to powers of two, so an
+    # /api/embed list never builds an unbounded [N, S] forward.
+    EMBED_CHUNK = 16
+
+    @torch.no_grad()     # grad mode is per thread: HTTP threads call this
+    def embed_many(self, batch: List[List[int]]) -> np.ndarray:
+        """Mean-pooled final hidden states of N token sequences: dense,
+        cache-free [n, S] forwards of at most EMBED_CHUNK rows (n padded
+        to a power of two, S the bucket of the chunk's longest row), each
+        row pooled under its length mask (padding sits causally after
+        the valid tokens). Rows keep their last min(max_context - 1,
+        largest bucket) ids; an empty row embeds [0]. The pad rows go
+        through the forward too, so Mixtral's expert capacity sees the
+        reference's shape. Returns [N, d_model] float32."""
+        ecfg, cfg, dev = self.engine_cfg, self.model_cfg, self.device
+        if not batch:
+            return np.zeros((0, cfg.d_model), np.float32)
+        cap = min(ecfg.max_context - 1, ecfg.prefill_buckets[-1])
+        rows = [list(ids)[-cap:] or [0] for ids in batch]
+        out = []
+        for at in range(0, len(rows), self.EMBED_CHUNK):
+            chunk = rows[at:at + self.EMBED_CHUNK]
+            bucket = ecfg.bucket_for(max(len(r) for r in chunk))
+            n = 1 << (len(chunk) - 1).bit_length()     # pad lanes to 2^k
+            toks = np.zeros((n, bucket), np.int32)
+            lengths = np.zeros((n,), np.int32)
+            for i, r in enumerate(chunk):
+                toks[i, :len(r)] = r
+                lengths[i] = len(r)
+            lengths_d = self._to_device(lengths)
+            ar = torch.arange(bucket, dtype=torch.int32, device=dev)
+            pos = ar[None].expand(n, bucket).contiguous()
+            hidden, _ = self.mod.forward_hidden(
+                self.params, cfg, self._to_device(toks), pos, None,
+                make_dense_attn(cfg.sliding_window))
+            mask = (ar[None, :] < lengths_d[:, None])[..., None]
+            pooled = ((hidden * mask).sum(dim=1)
+                      / lengths_d.clamp(min=1)[:, None])
+            out.append(pooled.float().cpu().numpy()[:len(chunk)])
+        return np.concatenate(out, axis=0)
 
     @torch.no_grad()
     def check_numerics(self) -> None:
@@ -1078,9 +1143,9 @@ class InferenceEngine:
                 a["windows"][i] = self._penalty_window_row(seq)
         return a
 
-    def _run_prefill(self, seqs: List[Sequence], st: dict) -> np.ndarray:
-        """One prefill call with telemetry; returns the sampled tokens
-        [P] on the host (this call syncs)."""
+    def _run_prefill(self, st: dict) -> Tuple[np.ndarray, float]:
+        """One prefill call with telemetry; returns (the sampled tokens
+        [P] on the host, the call's wall: it syncs)."""
         t0 = time.perf_counter()
         self._last_decode_end = None     # prefill breaks the decode streak
         out = self._prefill_fn(st)
@@ -1088,9 +1153,10 @@ class InferenceEngine:
             # Mirror the chunk into the draft model's pool (same pages).
             self._draft_prefill_fn(st)
         out = out.cpu().numpy()
-        self.telemetry.prefill_dispatch_s.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.telemetry.prefill_dispatch_s.observe(dt)
         self.telemetry.prefill_dispatches.inc()
-        return out
+        return out, dt
 
     def _stage_chunk_arrays(self, seq: Sequence, prompt: List[int],
                             offset: int, chunk_cap: int) -> dict:
@@ -1118,11 +1184,19 @@ class InferenceEngine:
         # Active decode lanes wait behind this serial chunk (the stall
         # hybrid steps remove); mid-prefill sequences are not active.
         stalled = bool(self.active_sequences())
-        t0 = time.perf_counter()
-        out = self._run_prefill([seq], st)      # syncs on the chunk's token
+        out, dt = self._run_prefill(st)      # syncs on the chunk's token
         if stalled:
-            self.telemetry.decode_stall_during_prefill_s.observe(
-                time.perf_counter() - t0)
+            self.telemetry.decode_stall_during_prefill_s.observe(dt)
+        if self.telemetry.enabled:
+            c = st["chunk_tokens"]
+            self._ledger_push(
+                "prefill_chunk", rung=0, slots=1,
+                tokens=1 if offset + c >= len(prompt) else 0,
+                chunk_tokens=c, device_s=dt,
+                kv_read=_chunk_kv_read(c, offset),
+                compile_event=st["bucket"]
+                not in self._prefill_buckets_seen)
+            self._prefill_buckets_seen.add(st["bucket"])
         return offset + st["chunk_tokens"], int(out[0])
 
     def _prefill_chunked(self, seq: Sequence, prompt: List[int]) -> None:
@@ -1187,7 +1261,16 @@ class InferenceEngine:
             st["prompt_len"][i] = len(chunk)
             st["prefix_len"][i] = seq.cached_tokens
             st["bts"][i] = self._block_table_array(seq.pages)
-        out = self._run_prefill([s for s, _ in group], st)
+        out, dt = self._run_prefill(st)
+        if self.telemetry.enabled:
+            n = len(group)
+            plen, pref = st["prompt_len"][:n], st["prefix_len"][:n]
+            self._ledger_push(
+                "prefill_chunk", rung=0, slots=n, tokens=n,
+                chunk_tokens=int(plen.sum()), device_s=dt,
+                kv_read=int(_chunk_kv_read(plen, pref).sum()),
+                compile_event=(bucket, p) not in self._prefill_buckets_seen)
+            self._prefill_buckets_seen.add((bucket, p))
         for i, (seq, prompt) in enumerate(group):
             self._prefill_finish(seq, prompt, int(out[i]))
 
@@ -1423,7 +1506,11 @@ class InferenceEngine:
         return self.ladder[-1]
 
     def _note_rung(self, rung: int) -> None:
+        """Count the call at its rung and flag the rung's first call for
+        the step ledger (compile_event)."""
         self.rung_calls[rung] = self.rung_calls.get(rung, 0) + 1
+        self._last_compile_event = rung not in self._rungs_seen
+        self._rungs_seen.add(rung)
         if rung != self.decode_rung:
             self.rung_switches_total += 1
             self.decode_rung = rung
@@ -1482,7 +1569,9 @@ class InferenceEngine:
         """The per-slot host arrays of a decode call at ``rung`` (copies:
         the buffers change at the next call). Rows of freed slots go
         stale, which is harmless: their ``allowed`` is 0, so every write
-        lands on the trash page and their token is discarded."""
+        lands on the trash page and their token is discarded. Its wall
+        is the step ledger's staging_s."""
+        t_stage = time.perf_counter()
         if not self._stage_reuse:
             st = {"tokens": np.zeros((rung,), np.int32),
                   "ctx": np.zeros((rung,), np.int32),
@@ -1493,6 +1582,7 @@ class InferenceEngine:
                 st["tokens"][seq.slot] = seq.last_token
                 st["ctx"][seq.slot] = seq.ctx_len
                 st["bts"][seq.slot] = self._block_table_array(seq.pages)
+            self._last_staging_s = time.perf_counter() - t_stage
             return st
         buf = self._stage_buffers(rung)
         owner, bt_key = buf["owner"], buf["bt_key"]
@@ -1517,7 +1607,9 @@ class InferenceEngine:
                 buf["bts"][i, n:] = 0
             if buf["rpens"][i] != 1.0:
                 buf["windows"][i] = self._penalty_window_row(seq)
-        return {k: buf[k].copy() for k in self._STAGED}
+        st = {k: buf[k].copy() for k in self._STAGED}
+        self._last_staging_s = time.perf_counter() - t_stage
+        return st
 
     # ------------------------------------------------------------------
     # Synchronous decode
@@ -1583,15 +1675,20 @@ class InferenceEngine:
         t0 = self._note_decode_entry()
         outs, _, _ = self._decode_multi_fn(st, k_steps)
         outs = outs.cpu().numpy()                      # [K, B]: one sync
-        self._note_decode_exit(t0)
+        dt = self._note_decode_exit(t0)
+        kv_read = sum(s.ctx_len for s in active) * k_steps
         result: Dict[int, List[int]] = {}
         for seq in active:
             got = self._fold_lane(seq, (int(outs[s, seq.slot])
                                         for s in range(k_steps)))
             if got:
                 result[seq.request_id] = got
-        self.telemetry.tokens_per_dispatch.observe(
-            sum(len(t) for t in result.values()))
+        if self.telemetry.enabled:
+            n_tokens = sum(len(t) for t in result.values())
+            self.telemetry.tokens_per_dispatch.observe(n_tokens)
+            self._ledger_push("decode", rung=b, slots=len(active),
+                              tokens=n_tokens, steps=k_steps,
+                              device_s=dt, kv_read=kv_read)
         return result
 
     # ------------------------------------------------------------------
@@ -1636,11 +1733,24 @@ class InferenceEngine:
         self._last_decode_end = None   # prefill breaks the decode streak
         p_tok = self._prefill_fn(chunk)
         (p_host,), event = self._to_host_async(p_tok)
-        self.telemetry.prefill_dispatch_s.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.telemetry.prefill_dispatch_s.observe(dt)
         self.telemetry.prefill_dispatches.inc()
-        return {"outs": None, "final": None, "final_window": None,
+        call = {"outs": None, "final": None, "final_window": None,
                 "event": event, "allowed": {}, "seqs": {}, "rung": 0,
                 "prefill": self._chunk_record(chunk, p_host)}
+        if self.telemetry.enabled:
+            c = chunk["chunk_tokens"]
+            call["ledger"] = {
+                "kind": "prefill_chunk", "rung": 0, "slots": 1,
+                "tokens": 1 if chunk["final"] else 0,
+                "chunk_tokens": c, "steps": 1, "dispatch_s": dt,
+                "staging_s": 0.0, "bubble_s": 0.0,
+                "kv_read": _chunk_kv_read(c, int(chunk["prefix_len"][0])),
+                "compile": chunk["bucket"]
+                not in self._prefill_buckets_seen}
+            self._prefill_buckets_seen.add(chunk["bucket"])
+        return call
 
     def _stage_decode_call(self, prefill_seq: Optional[Sequence] = None
                            ) -> Optional[dict]:
@@ -1731,7 +1841,7 @@ class InferenceEngine:
         (outs_h, p_host), event = self._to_host_async(outs, p_tok)
         # Non-blocking: this wall is the host's dispatch; the device
         # wait shows in decode_sync_s at _sync_oldest.
-        self._note_decode_exit(t0)
+        dispatch_dt = self._note_decode_exit(t0)
         if chunk is not None:
             self.telemetry.hybrid_dispatch_s.observe(
                 time.perf_counter() - t0)
@@ -1741,6 +1851,35 @@ class InferenceEngine:
                 "seqs": {s.slot: s for s in staged}}
         if chunk is not None:
             call["prefill"] = self._chunk_record(chunk, p_host)
+        if self.telemetry.enabled:
+            # The ledger fields known at stage time (this dispatch's
+            # staging and bubble walls); the record is pushed at sync
+            # with device_s = dispatch + sync wall and the folded tokens.
+            kv_read = sum(int(st["ctx"][s.slot]) * allowed_by_slot[s.slot]
+                          for s in staged)
+            compile_ev = self._last_compile_event
+            self._last_compile_event = False
+            if chunk is not None:
+                kv_read += _chunk_kv_read(chunk["chunk_tokens"],
+                                          int(chunk["prefix_len"][0]))
+                hkey = ("hybrid", chunk["bucket"])
+                compile_ev = compile_ev or (
+                    hkey not in self._prefill_buckets_seen)
+                self._prefill_buckets_seen.add(hkey)
+            call["ledger"] = {
+                "kind": "decode" if chunk is None else "hybrid",
+                "rung": b, "slots": len(staged),
+                # the final chunk's sampled first token folds at sync
+                "tokens": 1 if chunk is not None and chunk["final"]
+                else 0,
+                "chunk_tokens": 0 if chunk is None
+                else chunk["chunk_tokens"],
+                "steps": k_steps, "dispatch_s": dispatch_dt,
+                "staging_s": self._last_staging_s,
+                "bubble_s": self._pending_bubble,
+                "kv_read": kv_read, "compile": compile_ev}
+            self._last_staging_s = 0.0
+            self._pending_bubble = 0.0
         return call
 
     def _sync_oldest(self) -> Dict[int, List[int]]:
@@ -1753,8 +1892,9 @@ class InferenceEngine:
         t0 = time.perf_counter()
         if call["event"] is not None:
             call["event"].synchronize()
+        sync_dt = time.perf_counter() - t0
         if call["outs"] is not None:
-            self.telemetry.decode_sync_s.observe(time.perf_counter() - t0)
+            self.telemetry.decode_sync_s.observe(sync_dt)
         # The wait was device time: the next bubble counts host work only.
         self._last_decode_end = (
             time.perf_counter()
@@ -1783,6 +1923,12 @@ class InferenceEngine:
                 self._prefill_finish(seq, pf["prompt"],
                                      int(pf["tok"].numpy()[0]))
                 seq.prefill_prompt = None
+        led = call.get("ledger")
+        if led is not None:
+            tokens = led["tokens"]
+            if led["kind"] != "prefill_chunk":
+                tokens += sum(len(t) for t in result.values())
+            self._push_staged(led, tokens, sync_dt)
         return result
 
     def _pressure_settle_round(self) -> Dict[int, List[int]]:
@@ -1928,6 +2074,8 @@ class InferenceEngine:
         st["eos"] = np.full((b,), -1, np.int32)
         ctx0 = st["ctx"].copy()
         outs_all = []
+        kv_read = sum(s.ctx_len for s in active) * total
+        dispatch_wall = 0.0
         for c in range(n_calls):
             st["ctx"] = ctx0 + c * st["allowed"]
             t0 = self._note_decode_entry()
@@ -1936,10 +2084,11 @@ class InferenceEngine:
             if st["windows"] is None:
                 st["windows"] = np.full((b, PENALTY_WINDOW), -1, np.int64)
             outs_all.append(outs)
-            self._note_decode_exit(t0)
+            dispatch_wall += self._note_decode_exit(t0)
         t_sync = time.perf_counter()
         outs_all = torch.cat(outs_all).cpu().numpy()   # the one sync
-        self.telemetry.decode_sync_s.observe(time.perf_counter() - t_sync)
+        sync_dt = time.perf_counter() - t_sync
+        self.telemetry.decode_sync_s.observe(sync_dt)
         self._last_decode_end = time.perf_counter()
         result: Dict[int, List[int]] = {}
         for seq in active:
@@ -1950,6 +2099,12 @@ class InferenceEngine:
                 seq.first_token_time = time.perf_counter()
             result[seq.request_id] = got
             self._maybe_finish(seq, seq.last_token)
+        if self.telemetry.enabled:
+            # One record for the chained run (one sync).
+            self._ledger_push(
+                "decode", rung=b, slots=len(active),
+                tokens=sum(len(t) for t in result.values()), steps=total,
+                device_s=dispatch_wall + sync_dt, kv_read=kv_read)
         return result
 
     # ------------------------------------------------------------------
@@ -2030,7 +2185,11 @@ class InferenceEngine:
         t0 = self._note_decode_entry()
         emitted, n_acc = self._spec_round_fn(st, cap, active)
         emitted, n_acc = emitted.cpu().numpy(), n_acc.cpu().numpy()
-        self._note_decode_exit(t0)
+        dt = self._note_decode_exit(t0)
+        # The verify forward read the cache at the ctx the lanes entered
+        # the round with.
+        kv_read = sum(s.ctx_len for s in active_seqs) * s_len
+        acc0 = self.spec_accepted
         result: Dict[int, List[int]] = {}
         for seq in active_seqs:
             got = self._fold_lane(seq, (int(t) for t in emitted[
@@ -2049,8 +2208,13 @@ class InferenceEngine:
                 seq.spec_accepted_toks += accepted
             if got:
                 result[seq.request_id] = got
-        self.telemetry.tokens_per_dispatch.observe(
-            sum(len(t) for t in result.values()))
+        if self.telemetry.enabled:
+            n_toks = sum(len(t) for t in result.values())
+            self.telemetry.tokens_per_dispatch.observe(n_toks)
+            self._ledger_push(
+                "spec_verify", rung=b, slots=len(active_seqs),
+                tokens=n_toks, device_s=dt, kv_read=kv_read,
+                spec_accepted=self.spec_accepted - acc0)
         return result
 
     # N-gram speculation: the host proposes continuations by suffix-
@@ -2178,7 +2342,11 @@ class InferenceEngine:
                 n_prop[seq.slot] = n
         t0 = self._note_decode_entry()
         out = self._verify_fn(st, cap, act, drafts, n_prop)
-        self._note_decode_exit(t0)
+        # The dispatch wall and the cache reads, for whichever caller
+        # pushes this round's ledger record (after the fold, or at sync).
+        self._last_verify_dt = self._note_decode_exit(t0)
+        self._last_verify_kv_read = (
+            sum(s.ctx_len for s in active_seqs) * s_len)
         self.spec_rounds_total += 1
         full = self.engine_cfg.num_speculative_tokens
         gammas = [s.spec_gamma if s.spec_gamma >= 0 else full
@@ -2242,11 +2410,20 @@ class InferenceEngine:
                                                      max_steps)
         if not active_seqs:
             return {}
-        (emitted, n_acc), prop_by_slot, _ = self._dispatch_verify(
+        (emitted, n_acc), prop_by_slot, rung = self._dispatch_verify(
             active_seqs, proposals, s_len)
-        return self._fold_spec_emissions(
+        acc0 = self.spec_accepted
+        result = self._fold_spec_emissions(
             {s.slot: s for s in active_seqs}, emit_by_slot, prop_by_slot,
             emitted.cpu().numpy(), n_acc.cpu().numpy())
+        if self.telemetry.enabled:
+            self._ledger_push(
+                "spec_verify", rung=rung, slots=len(active_seqs),
+                tokens=sum(len(t) for t in result.values()),
+                device_s=self._last_verify_dt,
+                kv_read=self._last_verify_kv_read,
+                spec_accepted=self.spec_accepted - acc0)
+        return result
 
     def _stage_ngram_call(self) -> Optional[dict]:
         """Stage one n-gram round without blocking, as a pipeline call:
@@ -2270,12 +2447,27 @@ class InferenceEngine:
         (emitted, n_acc), prop_by_slot, rung = self._dispatch_verify(
             active_seqs, proposals, s_len)
         (emitted_h, n_acc_h), event = self._to_host_async(emitted, n_acc)
-        return {"spec": True, "emitted": emitted_h, "n_accepted": n_acc_h,
+        call = {"spec": True, "emitted": emitted_h, "n_accepted": n_acc_h,
                 "event": event, "allowed": dict(emit_by_slot),
                 "n_prop": prop_by_slot,
                 "seqs": {s.slot: s for s in active_seqs},
                 "rung": rung, "outs": None, "final": None,
                 "final_window": None}
+        if self.telemetry.enabled:
+            # Stage-time fields ride on the call; the record is pushed at
+            # sync with the dispatch + sync wall (_sync_spec_call).
+            call["ledger"] = {
+                "kind": "spec_verify", "rung": rung,
+                "slots": len(active_seqs), "chunk_tokens": 0, "steps": 1,
+                "dispatch_s": self._last_verify_dt,
+                "staging_s": self._last_staging_s,
+                "bubble_s": self._pending_bubble,
+                "kv_read": self._last_verify_kv_read,
+                "compile": self._last_compile_event}
+            self._last_staging_s = 0.0
+            self._pending_bubble = 0.0
+            self._last_compile_event = False
+        return call
 
     def _sync_spec_call(self, call: dict) -> Dict[int, List[int]]:
         """Wait for an in-flight verify round and fold its emissions (the
@@ -2283,15 +2475,22 @@ class InferenceEngine:
         t0 = time.perf_counter()
         if call["event"] is not None:
             call["event"].synchronize()
-        self.telemetry.decode_sync_s.observe(time.perf_counter() - t0)
+        sync_dt = time.perf_counter() - t0
+        self.telemetry.decode_sync_s.observe(sync_dt)
         # The wait was device time: the next bubble counts host work only.
         self._last_decode_end = (
             time.perf_counter()
             if any(s is not None and not s.done for s in self.slots)
             else None)
-        return self._fold_spec_emissions(
+        acc0 = self.spec_accepted
+        result = self._fold_spec_emissions(
             call["seqs"], call["allowed"], call["n_prop"],
             call["emitted"].numpy(), call["n_accepted"].numpy())
+        led = call.get("ledger")
+        if led is not None:
+            self._push_staged(led, sum(len(t) for t in result.values()),
+                              sync_dt, self.spec_accepted - acc0)
+        return result
 
     def _ngram_steps_pipelined(self) -> Dict[int, List[int]]:
         """Dispatch-ahead step of n-gram speculation: sync the round in
@@ -2310,19 +2509,76 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _note_decode_entry(self) -> float:
+        """Observe the host bubble since the last decode call ended (while
+        the decode streak lasts; the step ledger's bubble_s) and return
+        the call's start."""
         now = time.perf_counter()
+        self._pending_bubble = 0.0
         if self._last_decode_end is not None:
-            self.telemetry.dispatch_bubble_s.observe(
-                now - self._last_decode_end)
+            self._pending_bubble = now - self._last_decode_end
+            self.telemetry.dispatch_bubble_s.observe(self._pending_bubble)
         return now
 
-    def _note_decode_exit(self, t0: float) -> None:
+    def _note_decode_exit(self, t0: float) -> float:
+        """Observe one decode call's host wall and return it."""
         now = time.perf_counter()
-        self.telemetry.decode_dispatch_s.observe(now - t0)
+        dt = now - t0
+        self.telemetry.decode_dispatch_s.observe(dt)
         self.telemetry.decode_dispatches.inc()
         self._last_decode_end = (
             now if any(s is not None and not s.done for s in self.slots)
             else None)
+        return dt
+
+    def _ledger_push(self, kind: str, *, rung: int, slots: int,
+                     tokens: int, chunk_tokens: int = 0, steps: int = 1,
+                     device_s: float = 0.0, kv_read: int = 0,
+                     spec_accepted: int = 0,
+                     staging_s: Optional[float] = None,
+                     bubble_s: Optional[float] = None,
+                     compile_event: Optional[bool] = None) -> None:
+        """Push one dispatch's record into the step ledger, with the
+        staged bubble and staging walls (unless the caller captured them
+        at stage time: pipelined calls push at sync, when the scratch
+        belongs to a newer dispatch) and the KV-swap bytes since the
+        previous record. Callers push only while telemetry is on (the
+        swap counters are NULL_METRIC otherwise).
+
+        compile_event marks the first dispatch of a rung, prefill bucket
+        or hybrid bucket, the reference's rule. Eager PyTorch compiles
+        nothing; on the card it marks the first launch of that shape,
+        where cuBLAS picks its kernels and the caching allocator grows."""
+        tel = self.telemetry
+        swap_total = (tel.kv_offload_bytes.value
+                      + tel.kv_restore_bytes.value)
+        swap = max(0.0, swap_total - self._last_swap_bytes_total)
+        self._last_swap_bytes_total = swap_total
+        if staging_s is None:
+            staging_s = self._last_staging_s
+            self._last_staging_s = 0.0
+        if bubble_s is None:
+            bubble_s = self._pending_bubble
+            self._pending_bubble = 0.0
+        if compile_event is None:
+            compile_event = self._last_compile_event
+            self._last_compile_event = False
+        tel.step_ledger.push(
+            kind, rung, slots, tokens, chunk_tokens, steps, device_s,
+            staging_s, bubble_s, kv_read, swap, spec_accepted,
+            compile_event)
+
+    def _push_staged(self, led: dict, tokens: int, sync_dt: float,
+                     spec_accepted: int = 0) -> None:
+        """A pipelined call's record, pushed at its sync: the fields
+        captured at stage time (``led``) with device_s = the dispatch
+        wall + the sync wall."""
+        self._ledger_push(
+            led["kind"], rung=led["rung"], slots=led["slots"],
+            tokens=tokens, chunk_tokens=led["chunk_tokens"],
+            steps=led["steps"], device_s=led["dispatch_s"] + sync_dt,
+            kv_read=led["kv_read"], staging_s=led["staging_s"],
+            bubble_s=led["bubble_s"], compile_event=led["compile"],
+            spec_accepted=spec_accepted)
 
     def check_pool_clean(self) -> None:
         """The page-leak invariant, for tests and chip_smoke.py: with no
@@ -2398,6 +2654,14 @@ class InferenceEngine:
                 results[s.request_id] = s.generated
                 self.release(s)
         return [results[i] for i in range(len(seqs))]
+
+
+def _chunk_kv_read(c, offset):
+    """(query, context token) pairs a causal chunk of ``c`` tokens at
+    ``offset`` attends: each query reads the cache before it and the
+    chunk up to itself (the step ledger's kv_read; numpy arrays
+    elementwise)."""
+    return c * offset + c * (c + 1) // 2
 
 
 def _named_leaves(tree, path: str = "") -> List[Tuple[str, torch.Tensor]]:

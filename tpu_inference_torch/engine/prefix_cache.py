@@ -90,7 +90,10 @@ class PrefixCache:
         self.peeks = telemetry.Counter("tpu_inf_prefix_cache_peeks_total")
 
     def bind_telemetry(self, tel) -> None:
-        """Registry-backed counters, so /metrics exposes them."""
+        """Registry-backed counters, so /metrics exposes them (kept
+        standalone when telemetry is off)."""
+        if not tel.enabled:
+            return
         r = tel.registry
         help_hits = ("Prefix-cache lookups served (by tier that contributed "
                      "pages)")

@@ -113,10 +113,14 @@ class SchedulerStats:
             "lane_occupancy": round(
                 sum(s is not None for s in engine.slots)
                 / max(engine.ladder[-1], 1), 4),
+            # The MFU gauge's EWMA (None with telemetry off).
+            "mfu_estimate": engine.telemetry.mfu_estimate(),
             "kv_pages_total": total,
             "kv_pages_in_use": total - engine.allocator.num_free,
             "peak_pages_in_use": self.peak_pages_in_use,
             "model_params": engine.n_params,
+            # ~2 FLOPs per parameter per decoded token.
+            "approx_flops_per_token": 2 * engine.n_params,
             "attn_backend": engine.attn_backend,
             "quant": ecfg.quant,
             "kv_quant": ecfg.kv_quant,

@@ -25,8 +25,10 @@ machine's available RAM. The reference's chip configuration::
 Speculative decoding: ``--spec-mode ngram`` (self-drafting from each
 sequence's history) or ``--draft-model <preset>`` (``--spec-mode auto``
 then means draft), ``--num-speculative-tokens`` γ. Fault injection:
-``--chaos-*``, the step watchdog ``--step-watchdog-s``, and ``--debug``
-for ``POST /debug/chaos``.
+``--chaos-*``, the step watchdog ``--step-watchdog-s``. ``--debug``
+serves ``POST /debug/chaos``, ``GET /debug/steps`` (the step ledger's
+roofline report, ``--step-ledger-depth`` records) and ``POST
+/debug/profile`` (torch.profiler traces under ``--profile-dir``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import signal
 import sys
 import threading
 
-from tpu_inference_torch.config import PRESETS
+from tpu_inference_torch.config import PRESETS, ServerConfig
 from tpu_inference_torch.engine.autosize import int_or_auto
 
 
@@ -70,6 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--no-warmup", action="store_true")
+    p.add_argument("--step-ledger-depth", type=int, default=256,
+                   help="step-ledger ring depth (per-dispatch records "
+                        "behind GET /debug/steps; floor 8)")
+    p.add_argument("--profile-dir", default=ServerConfig.profile_dir,
+                   help="where POST /debug/profile writes its traces "
+                        "(chosen by the operator, never by a client)")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int_or_auto, default=512,
                    help="KV pool pages, or 'auto': fill the card's memory "
@@ -190,8 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="priority class for requests without an "
                         "X-Priority header")
     p.add_argument("--debug", action="store_true",
-                   help="serve POST /debug/chaos (the other /debug "
-                        "routes answer 501: ROADMAP 1.18)")
+                   help="serve POST /debug/chaos, GET /debug/steps and "
+                        "POST /debug/profile (/debug/requests, /trace "
+                        "and /blackbox answer 501: ROADMAP 1.18b)")
     p.add_argument("--chaos-page-pressure", type=int, default=0,
                    help="fault injection: hold this many KV pages out "
                         "of the pool at boot (adjustable via POST "
@@ -285,7 +294,8 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
                                 if spec_mode != "off" else 0),
         chaos_page_pressure=args.chaos_page_pressure,
         chaos_step_failure_rate=args.chaos_step_failure_rate,
-        chaos_step_wedge_s=args.chaos_step_wedge_s)
+        chaos_step_wedge_s=args.chaos_step_wedge_s,
+        step_ledger_depth=args.step_ledger_depth)
 
 
 def server_overrides(args) -> dict:
@@ -297,6 +307,7 @@ def server_overrides(args) -> dict:
             "quarantine_after_failures": args.quarantine_after,
             "quarantine_cooldown_s": args.quarantine_cooldown_s,
             "default_class": args.default_class,
+            "profile_dir": args.profile_dir,
             "chaos_failure_rate": args.chaos_failure_rate,
             "chaos_delay_s": args.chaos_delay_s}
 
@@ -343,7 +354,9 @@ def main(argv=None) -> None:
           f"quant={args.quant}, kv_quant={args.kv_quant}, "
           f"batch={engine_args['max_batch_size']} "
           f"ladder={list(server.engine.ladder)}, "
-          f"pages={engine_args['num_pages']})", flush=True)
+          f"pages={engine_args['num_pages']}, "
+          f"step_ledger={server.engine.telemetry.step_ledger.depth})",
+          flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())
     try:

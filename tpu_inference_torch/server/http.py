@@ -18,15 +18,31 @@ own scheduler thread). Wire contract, as the reference's:
 - **Headers are withheld until the first token is ready**, so client-side
   TTFT (first streamed chunk ~ header arrival) measures model latency.
 
-Also serves ``GET /api/tags``, ``/api/version``, ``/healthz`` and
-``/metrics`` (Prometheus text; ``?format=json`` for the stats snapshot).
-``/api/chat`` and ``/api/embeddings`` are ROADMAP items 1.10 and 1.11.
+- ``POST /api/chat`` with ``{"model", "messages": [{"role", "content"},
+  ...], "stream", "options"}``: the messages render through the
+  tokenizer's chat template when it has one, else as the transcript
+  ``"role: content\n...\nassistant:"``; records carry ``message``
+  (``{"role": "assistant", "content"}``) and no ``response`` or
+  ``context``; ``messages: []`` is the load probe.
+- ``POST /api/embeddings`` (``{"prompt": str}`` -> ``{"embedding"}``)
+  and ``POST /api/embed`` (``{"input": str | [str]}`` -> ``{"model",
+  "embeddings"}``): mean-pooled final hidden states (the shape follows
+  the route, not the body).
+- ``POST /api/show`` (the model card) and ``GET /api/ps`` (the loaded
+  model), ``GET /api/tags``, ``/api/version``, ``/healthz`` and
+  ``/metrics`` (Prometheus text; ``?format=json`` for the stats
+  snapshot).
 
 Fault injection: ``ServerConfig.chaos_delay_s`` / ``chaos_failure_rate``
-delay or 503 a request before it is parsed (``chaos_gate``), and with
-``enable_debug`` ``POST /debug/chaos`` arms the engine's faults at run
-time (EngineGroup.apply_chaos). The other ``/debug/*`` routes answer 501
-(ROADMAP 1.18).
+delay or 503 a generate, chat or embed request before it is parsed
+(``chaos_gate``). With ``enable_debug``: ``POST /debug/chaos`` arms the
+engine's faults at run time (EngineGroup.apply_chaos), ``GET
+/debug/steps`` serves the step ledger's roofline report, and ``POST
+/debug/profile`` runs torch.profiler (``{"seconds": N, "replica": i}``,
+or ``{"action": "start"|"stop"}``), writing traces only under
+``ServerConfig.profile_dir``. ``/debug/requests``, ``/debug/trace`` and
+``/debug/blackbox`` answer 501 (ROADMAP 1.18b). Without
+``enable_debug`` every ``/debug/*`` route is 404.
 """
 
 from __future__ import annotations
@@ -34,6 +50,7 @@ from __future__ import annotations
 import datetime
 import itertools
 import json
+import os
 import queue
 import random
 import threading
@@ -141,6 +158,11 @@ class InferenceServer:
         self._ids = itertools.count()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # One profiler at a time: a /debug/profile capture or a started
+        # trace holds it (_profiling); _profiler is the started trace.
+        self._profile_mutex = threading.Lock()
+        self._profiling = False
+        self._profiler = None
 
     @property
     def engine(self) -> InferenceEngine:
@@ -199,14 +221,88 @@ class InferenceServer:
         return {torch.bfloat16: "BF16", torch.float16: "F16"}.get(
             self.cfg.model.dtype, "F32")
 
+    def _details(self) -> dict:
+        return {"family": self.cfg.model.family,
+                "parameter_size": self._parameter_size(),
+                "quantization_level": self._quantization_level()}
+
     def tags(self) -> dict:
         return {"models": [{
             "name": self.cfg.server.model_name,
             "model": self.cfg.server.model_name,
-            "details": {"family": self.cfg.model.family,
+            "details": self._details(),
+        }]}
+
+    def ps(self) -> dict:
+        """Ollama GET /api/ps: the one loaded model, never unloaded
+        (``expires_at`` is Ollama's zero time); ``size`` is one copy of
+        the weights, all on the card."""
+        size = int(self.engine.weight_bytes)
+        return {"models": [{
+            "name": self.cfg.server.model_name,
+            "model": self.cfg.server.model_name,
+            "size": size,
+            "size_vram": size,
+            "replicas": len(self.group.engines),
+            "details": self._details(),
+            "expires_at": "0001-01-01T00:00:00Z",
+        }]}
+
+    def show(self) -> dict:
+        """Ollama POST /api/show: the loaded model's card, whatever name
+        was asked for (a one-model server)."""
+        mc, ec = self.cfg.model, self.cfg.engine
+        fam = mc.family
+        return {
+            "modelfile": "",
+            "details": {"family": fam, "format": "safetensors",
                         "parameter_size": self._parameter_size(),
                         "quantization_level": self._quantization_level()},
-        }]}
+            "model_info": {
+                "general.architecture": fam,
+                "general.parameter_count": self.engine.n_params,
+                f"{fam}.context_length": ec.max_context,
+                f"{fam}.embedding_length": mc.d_model,
+                f"{fam}.block_count": mc.n_layers,
+                f"{fam}.attention.head_count": mc.n_heads,
+                f"{fam}.attention.head_count_kv": mc.n_kv_heads,
+                f"{fam}.vocab_size": mc.vocab_size,
+                # The resolved backend, as /metrics reports it.
+                "serving.attn_backend": self.engine.attn_backend,
+                "serving.kv_quant": ec.kv_quant,
+                f"{fam}.attention.sliding_window": mc.sliding_window or 0,
+                "serving.swa_eviction": self.engine.swa_evict,
+                "serving.prefix_cache": self.engine.prefix_cache is not None,
+            },
+        }
+
+    def chat_prompt(self, msgs) -> str:
+        """The prompt of /api/chat ``messages``: the tokenizer's chat
+        template when it renders, else the role-prefix transcript.
+        Raises HTTPError(400) on a malformed list."""
+        if (not isinstance(msgs, list) or not msgs
+                or not all(isinstance(m, dict) and "content" in m
+                           for m in msgs)):
+            raise HTTPError(400, "missing 'messages'")
+        prompt = None
+        if hasattr(self.tokenizer, "apply_chat_template"):
+            prompt = self.tokenizer.apply_chat_template(
+                [{"role": m.get("role", "user"), "content": m["content"]}
+                 for m in msgs])
+        if prompt is None:
+            prompt = "\n".join(f"{m.get('role', 'user')}: {m['content']}"
+                               for m in msgs) + "\nassistant:"
+        return prompt
+
+    def embed_texts(self, texts: list) -> list:
+        """Embeddings of ``texts`` as lists of floats; FleetUnavailable
+        (quarantined replica) becomes a 503 with Retry-After."""
+        ids = [self.tokenizer.encode(t) for t in texts]
+        try:
+            return self.group.embed_many(ids).tolist()
+        except FleetUnavailable as e:
+            raise HTTPError(503, str(e),
+                            self._retry_after_headers(e.retry_after_s))
 
     def chaos_gate(self) -> None:
         """HTTP-level fault injection (off unless ServerConfig.chaos_* is
@@ -223,9 +319,12 @@ class InferenceServer:
     def _retry_after_headers(self, retry_after_s: float) -> dict:
         return {"Retry-After": str(max(1, int(-(-retry_after_s // 1))))}
 
-    def parse_generate(self, body: dict, headers) -> tuple:
-        """Validate a /api/generate body -> (Sequence, stream, model name,
-        stop strings, warnings). Raises HTTPError(400) on bad input."""
+    def parse_generate(self, body: dict, headers, chat: bool = False
+                       ) -> tuple:
+        """Validate a /api/generate body (or /api/chat's, its prompt
+        rendered; ``context`` is ignored there, as Ollama's chat emits
+        none) -> (Sequence, stream, model name, stop strings, warnings).
+        Raises HTTPError(400) on bad input."""
         prompt = body.get("prompt")
         if not isinstance(prompt, str):
             raise HTTPError(400, "missing 'prompt'")
@@ -274,7 +373,7 @@ class InferenceServer:
             raise HTTPError(400, f"invalid sampling options: {e}")
         prompt_ids = self.tokenizer.encode(prompt)
         # Stateful continuation: a prior response's context ids prepend.
-        ctx_ids = body.get("context")
+        ctx_ids = body.get("context") if not chat else None
         if ctx_ids is not None:
             if not (isinstance(ctx_ids, list)
                     and all(isinstance(t, int) and not isinstance(t, bool)
@@ -328,12 +427,19 @@ class InferenceServer:
                             max_tokens=seq.max_new_tokens)
         return events
 
-    def token_line(self, model_name: str, chunk: str) -> dict:
-        return {"model": model_name, "created_at": _now_iso(),
-                "response": chunk, "done": False}
+    def token_line(self, model_name: str, chunk: str,
+                   chat: bool = False) -> dict:
+        line = {"model": model_name, "created_at": _now_iso(),
+                "done": False}
+        if chat:
+            line["message"] = {"role": "assistant", "content": chunk}
+        else:
+            line["response"] = chunk
+        return line
 
     def final_record(self, seq: Sequence, model_name: str, recv_t: float,
-                     warnings: Optional[list] = None) -> dict:
+                     warnings: Optional[list] = None,
+                     chat: bool = False) -> dict:
         now = time.perf_counter()
         prompt_eval_ns = max(0, int((seq.first_token_time - seq.prefill_start)
                                     * 1e9)) if seq.first_token_time else 0
@@ -357,7 +463,90 @@ class InferenceServer:
         }
         if warnings:
             rec["warnings"] = list(warnings)
+        if chat:
+            # Ollama chat records carry `message` and no `context`.
+            del rec["response"], rec["context"]
+            rec["message"] = {"role": "assistant", "content": ""}
         return rec
+
+
+    # ------------------------------------------------------- profiler
+
+    def _claim_profiler(self) -> None:
+        with self._profile_mutex:
+            if self._profiling:
+                raise HTTPError(409, "the profiler is already tracing")
+            self._profiling = True
+
+    def _release_profiler(self) -> None:
+        with self._profile_mutex:
+            self._profiling = False
+
+    def profile_capture(self, replica: int, seconds: float) -> dict:
+        """POST /debug/profile {"seconds", "replica"}: one capture while
+        serving goes on. 409 while another trace runs; a capture that
+        fails answers 503 with its error."""
+        self._claim_profiler()
+        try:
+            result = self.group.capture_profile(replica, seconds)
+        except Exception as e:  # noqa: BLE001 — the error is the answer
+            raise HTTPError(503, f"profile capture failed: {e!r}")
+        finally:
+            self._release_profiler()
+        return {"status": "captured", **result}
+
+    def profile_start(self) -> dict:
+        """{"action": "start"}: trace this process until "stop"."""
+        self._claim_profiler()
+        trace = _TraceThread(self.cfg.server.profile_dir)
+        trace.start()
+        trace.started.wait()
+        if trace.error is not None:      # another profiler in the process
+            self._release_profiler()
+            raise HTTPError(409, str(trace.error))
+        self._profiler = trace
+        return {"status": "tracing", "dir": self.cfg.server.profile_dir}
+
+    def profile_stop(self) -> dict:
+        """{"action": "stop"}: end the started trace, written under
+        profile_dir."""
+        with self._profile_mutex:
+            trace, self._profiler = self._profiler, None
+        if trace is None:
+            raise HTTPError(409, "no profiler trace was started")
+        try:
+            trace.stop.set()
+            trace.join(timeout=self.cfg.server.request_timeout_s)
+            if trace.error is not None:
+                raise HTTPError(503, f"profile trace failed: "
+                                     f"{trace.error!r}")
+        finally:
+            self._release_profiler()
+        return {"status": "stopped", "dir": self.cfg.server.profile_dir}
+
+
+class _TraceThread(threading.Thread):
+    """Holds a started torch.profiler trace until ``stop`` is set. The
+    start and the stop arrive on different request threads, and torch
+    lets only the thread that started a profiler stop it."""
+
+    def __init__(self, trace_dir: str):
+        super().__init__(name="profiler", daemon=True)
+        self.trace_dir = trace_dir
+        self.started = threading.Event()
+        self.stop = threading.Event()
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        def until() -> None:
+            self.started.set()
+            self.stop.wait()
+        try:
+            telemetry.torch_trace(self.trace_dir, until)
+        except (RuntimeError, OSError) as e:
+            self.error = e
+        finally:
+            self.started.set()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -408,14 +597,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ------------------------------------------------------- routes
 
+    _DEBUG_UNPORTED = ("/debug/requests", "/debug/trace", "/debug/blackbox")
+
     def _debug_unported(self, path: str) -> bool:
-        """The /debug/* routes other than /debug/chaos answer 501 (with
-        ``enable_debug``; 404 without, as the reference)."""
+        """/debug/requests, /debug/trace and /debug/blackbox answer 501
+        (with ``enable_debug``; 404 without, as the reference)."""
         if not (self.app.cfg.server.enable_debug
-                and path.startswith("/debug/") and path != "/debug/chaos"):
+                and path in self._DEBUG_UNPORTED):
             return False
         self._send_json(501, {"error": f"{path} is not ported yet "
-                                       "(ROADMAP 1.18: observability)"})
+                                       "(ROADMAP 1.18b: observability)"})
         return True
 
     def do_GET(self) -> None:   # noqa: N802
@@ -425,6 +616,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if url.path == "/api/tags":
             self._send_json(200, app.tags())
+        elif url.path == "/api/ps":
+            self._send_json(200, app.ps())
+        elif url.path == "/debug/steps" and app.cfg.server.enable_debug:
+            self._send_json(200, app.group.steps_snapshot())
         elif url.path == "/api/version":
             from tpu_inference_torch import __version__
             self._send_json(200, {"version": __version__})
@@ -448,16 +643,28 @@ class _Handler(BaseHTTPRequestHandler):
         path = urlsplit(self.path).path
         if self._debug_unported(path):
             return
+        app = self.app
         try:
             raw = self._read_body()
-            if path == "/debug/chaos" and self.app.cfg.server.enable_debug:
+            if app.cfg.server.enable_debug and path == "/debug/chaos":
                 self._chaos(self._parse_json(raw))
-                return
-            if path != "/api/generate":
+            elif app.cfg.server.enable_debug and path == "/debug/profile":
+                self._send_json(200, self._profile(self._parse_json(raw)))
+            elif path == "/api/show":
+                self._send_json(200, app.show())
+            elif path in ("/api/generate", "/api/chat", "/api/embeddings",
+                          "/api/embed"):
+                # Gate before the body is parsed, as the reference does.
+                app.chaos_gate()
+                body = self._parse_json(raw)
+                if path == "/api/generate":
+                    self._generate(body)
+                elif path == "/api/chat":
+                    self._chat(body)
+                else:
+                    self._embeddings(path, body)
+            else:
                 raise HTTPError(404, f"no route {path}")
-            # Gate before the body is parsed, as the reference does.
-            self.app.chaos_gate()
-            self._generate(self._parse_json(raw))
         except HTTPError as e:
             self._send_json(e.status, e.body, e.headers)
 
@@ -469,10 +676,75 @@ class _Handler(BaseHTTPRequestHandler):
             raise HTTPError(400, f"invalid chaos spec: {e}")
         self._send_json(200, result)
 
-    def _generate(self, body: dict) -> None:
+    def _profile(self, body: dict) -> dict:
+        """POST /debug/profile: ``{"seconds": N, "replica": i}`` captures
+        N seconds (0 < N <= 60); ``{"action": "start"|"stop"}`` brackets
+        a trace. A client ``dir`` is ignored."""
+        app = self.app
+        if body.get("seconds") is not None:
+            try:
+                seconds = float(body["seconds"])
+                replica = int(body.get("replica", 0))
+                if not 0 < seconds <= 60:
+                    raise ValueError("'seconds' must be in (0, 60]")
+                if not 0 <= replica < len(app.group.engines):
+                    raise ValueError(f"no replica {replica}")
+            except (TypeError, ValueError) as e:
+                raise HTTPError(400, str(e))
+            return app.profile_capture(replica, seconds)
+        action = body.get("action")
+        if action == "start":
+            return app.profile_start()
+        if action == "stop":
+            return app.profile_stop()
+        raise HTTPError(400, "action must be 'start' or 'stop'")
+
+    def _chat(self, body: dict) -> None:
+        """POST /api/chat: the messages' prompt through the generate
+        path, answered in chat records."""
+        app = self.app
+        msgs = body.get("messages")
+        if msgs == []:
+            # The chat flavour of the load probe: an immediate ack.
+            self._send_json(200, {
+                "model": body.get("model") or app.cfg.server.model_name,
+                "created_at": _now_iso(),
+                "message": {"role": "assistant", "content": ""},
+                "done": True, "done_reason": "load"})
+            return
+        self._generate(dict(body, prompt=app.chat_prompt(msgs)), chat=True)
+
+    def _embeddings(self, path: str, body: dict) -> None:
+        """POST /api/embeddings ({"prompt": str} -> {"embedding"}) and
+        /api/embed ({"input": str | [str]} -> {"model", "embeddings"}).
+        The forward runs on this connection's own thread, so it holds up
+        no other request (the reference moves it off its event loop)."""
+        app = self.app
+        legacy = path.endswith("/embeddings")
+        if legacy:
+            texts = body.get("prompt")
+            if not isinstance(texts, str):
+                raise HTTPError(400, "missing 'prompt' string")
+            texts = [texts]
+        else:
+            texts = body.get("input")
+            if isinstance(texts, str):
+                texts = [texts]
+            if (not isinstance(texts, list) or not texts
+                    or not all(isinstance(t, str) for t in texts)):
+                raise HTTPError(400,
+                                "missing 'input' string or list of strings")
+        vecs = app.embed_texts(texts)
+        if legacy:
+            self._send_json(200, {"embedding": vecs[0]})
+        else:
+            self._send_json(200, {"model": app.cfg.server.model_name,
+                                  "embeddings": vecs})
+
+    def _generate(self, body: dict, chat: bool = False) -> None:
         app = self.app
         recv_t = time.perf_counter()
-        if body.get("prompt") == "" and not body.get("context"):
+        if not chat and body.get("prompt") == "" and not body.get("context"):
             # Ollama load/ping contract: an empty prompt acks at once.
             self._send_json(200, {
                 "model": body.get("model") or app.cfg.server.model_name,
@@ -480,13 +752,15 @@ class _Handler(BaseHTTPRequestHandler):
                 "done_reason": "load"})
             return
         seq, stream, model_name, stop, warnings = app.parse_generate(
-            body, self.headers)
+            body, self.headers, chat)
         events = app.submit(seq)
         try:
             if stream:
-                self._stream(events, seq, model_name, recv_t, stop, warnings)
+                self._stream(events, seq, model_name, recv_t, stop, warnings,
+                             chat)
             else:
-                self._unary(events, seq, model_name, recv_t, stop, warnings)
+                self._unary(events, seq, model_name, recv_t, stop, warnings,
+                            chat)
         except (BrokenPipeError, ConnectionResetError):
             app.group.cancel(seq.request_id)     # client went away
             self.close_connection = True
@@ -498,7 +772,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.app.group.cancel(seq.request_id)
             raise HTTPError(504, "request timed out")
 
-    def _stream(self, events, seq, model_name, recv_t, stop, warnings):
+    def _stream(self, events, seq, model_name, recv_t, stop, warnings,
+                chat):
         app = self.app
         decoder = IncrementalDecoder(app.tokenizer,
                                      prompt_tail=seq.prompt_tokens[-8:])
@@ -520,13 +795,15 @@ class _Handler(BaseHTTPRequestHandler):
             self._write_chunk(json.dumps(obj).encode() + b"\n")
 
         def finish(fseq: Sequence, stopped: bool) -> None:
-            final = app.final_record(fseq, model_name, recv_t, warnings)
+            final = app.final_record(fseq, model_name, recv_t, warnings,
+                                     chat)
             if stopped:
                 # Report only what this handler consumed: the engine may
                 # append more before the cancel lands.
                 final["done_reason"] = "stop"
                 final["eval_count"] = len(consumed)
-                final["context"] = list(seq.prompt_tokens) + consumed
+                if "context" in final:
+                    final["context"] = list(seq.prompt_tokens) + consumed
             line(final)
             self._write_chunk(b"")
 
@@ -545,11 +822,11 @@ class _Handler(BaseHTTPRequestHandler):
                     begin()
                 if stopped:
                     if emit:
-                        line(app.token_line(model_name, emit))
+                        line(app.token_line(model_name, emit, chat))
                     app.group.cancel(seq.request_id)
                     finish(seq, stopped=True)
                     return
-                line(app.token_line(model_name, emit))
+                line(app.token_line(model_name, emit, chat))
                 continue
             if (payload.finish_reason in ("error", "unavailable")
                     and not consumed and not started):
@@ -562,11 +839,11 @@ class _Handler(BaseHTTPRequestHandler):
             if not stopped:
                 tail += matcher.flush()
             if tail:
-                line(app.token_line(model_name, tail))
+                line(app.token_line(model_name, tail, chat))
             finish(payload, stopped)
             return
 
-    def _unary(self, events, seq, model_name, recv_t, stop, warnings):
+    def _unary(self, events, seq, model_name, recv_t, stop, warnings, chat):
         app = self.app
         decoder = IncrementalDecoder(app.tokenizer,
                                      prompt_tail=seq.prompt_tokens[-8:])
@@ -575,12 +852,18 @@ class _Handler(BaseHTTPRequestHandler):
         consumed: list = []
 
         def respond(fseq: Sequence, stopped: bool) -> None:
-            final = app.final_record(fseq, model_name, recv_t, warnings)
+            final = app.final_record(fseq, model_name, recv_t, warnings,
+                                     chat)
             if stopped:
                 final["done_reason"] = "stop"
                 final["eval_count"] = len(consumed)
-                final["context"] = list(seq.prompt_tokens) + consumed
-            final["response"] = "".join(parts)
+                if "context" in final:
+                    final["context"] = list(seq.prompt_tokens) + consumed
+            text = "".join(parts)
+            if chat:
+                final["message"] = {"role": "assistant", "content": text}
+            else:
+                final["response"] = text
             self._send_json(200, final, {"X-Request-Id": seq.trace_id})
 
         while True:

@@ -4,9 +4,11 @@ Twin of ``tpu_inference/server/replicas.py``'s ``EngineGroup`` for one
 in-process replica: submit and cancel through its scheduler, a health
 state machine driven by step failures, a step watchdog, admission
 control, engine fault injection at run time (``apply_chaos``), the
-health snapshot behind /healthz, and the Prometheus page behind
-/metrics. Several replicas, prefix-affinity routing and resubmission on
-another replica are ROADMAP items 1.15 and 1.16.
+health snapshot behind /healthz, the Prometheus page behind /metrics,
+embeddings (``embed_many``), the step-ledger report behind /debug/steps
+and the profiler capture behind /debug/profile. Several replicas,
+prefix-affinity routing and resubmission on another replica are ROADMAP
+items 1.15 and 1.16.
 
 Health: healthy -> degraded (one failed step) -> quarantined
 (``quarantine_after_failures`` in a row) -> recovered (after
@@ -339,6 +341,32 @@ class EngineGroup:
         with self._lock:
             self._tracked[seq.request_id] = entry
         sched.submit(seq, token, finish)
+
+    def embed_many(self, batch) -> "np.ndarray":  # noqa: F821
+        """Embeddings on the replica (the reference picks the least
+        loaded one); FleetUnavailable when it is quarantined, counted
+        with the generate 503s."""
+        if not self._routable(0):
+            with self._lock:
+                self.requests_unavailable += 1
+            raise FleetUnavailable("all replicas quarantined",
+                                   self._retry_after())
+        return self.engines[0].embed_many(batch)
+
+    def steps_snapshot(self) -> dict:
+        """Step-ledger attribution (GET /debug/steps): per-replica
+        verdicts and the merged report (at dp=1 the merge of one)."""
+        reports = {str(i): e.telemetry.steps_report()
+                   for i, e in enumerate(self.engines)}
+        return {"replicas": reports,
+                "fleet": telemetry.merge_steps_reports(
+                    list(reports.values()))}
+
+    def capture_profile(self, replica: int, seconds: float) -> dict:
+        """POST /debug/profile {"seconds": N}: a torch.profiler capture
+        in this process (the replica argument names the trace dir)."""
+        return telemetry.capture_torch_profile(
+            self.server_cfg.profile_dir, replica, seconds)
 
     def apply_chaos(self, body: dict) -> dict:
         """Arm/disarm engine fault injection (POST /debug/chaos):

@@ -1,5 +1,5 @@
-"""Metrics and structured logs for the port's engine, scheduler and HTTP
-layer.
+"""Metrics, structured logs and the step ledger for the port's engine,
+scheduler and HTTP layer.
 
 Twin of the parts of ``tpu_inference/telemetry.py`` that this slice's
 engine, scheduler and server call, with the reference's metric names:
@@ -7,17 +7,30 @@ engine, scheduler and server call, with the reference's metric names:
 - ``log_event``: one-line structured JSON logs on stderr, leveled via
   ``TPU_INF_LOG`` (default "warning").
 - ``Counter`` / ``Gauge`` / ``Histogram`` / ``Registry`` and
-  ``render_prometheus``: Prometheus text exposition (format 0.0.4).
+  ``render_prometheus``: Prometheus text exposition (format 0.0.4), with
+  the exposition's own cost in ``tpu_inf_metrics_render_seconds``.
 - ``EngineTelemetry``: the per-engine metric bundle (dispatch and
-  request-phase histograms, read-through pool and scheduler gauges).
+  request-phase histograms, read-through pool and scheduler gauges, the
+  ``tpu_inf_mfu_estimate`` gauge).
+- The step ledger (``StepLedger``, ``StepCostModel``,
+  ``roofline_report``, ``merge_steps_reports``): one record per engine
+  dispatch, graded against the card's peaks into compute-, HBM- or
+  host-bound verdicts per step kind (GET /debug/steps).
+- ``capture_torch_profile``: the torch.profiler capture behind POST
+  /debug/profile.
 
-Span recording, the step ledger, SLO windows and the flight recorder
-wait for ROADMAP item 1.18.
+``TPU_INF_TELEMETRY=0`` turns collection off: every metric the engine
+updates becomes the shared no-op ``NULL_METRIC``, the ledger
+``NULL_LEDGER``, and the phase snapshot is empty.
+
+Span recording, SLO windows and the flight recorder wait for ROADMAP
+item 1.18b.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
@@ -45,6 +58,30 @@ def log_event(event: str, level: str = "info", **fields: Any) -> None:
         line = json.dumps({"ts": rec["ts"], "level": level, "event": event,
                            "error": "unserializable fields"})
     print(line, file=sys.stderr, flush=True)
+
+
+class _NullMetric:
+    """Shared no-op stand-in when telemetry is disabled: every mutator is
+    an attribute lookup and an empty call, so instrumented code needs no
+    ``if enabled`` branches of its own."""
+
+    __slots__ = ()
+
+    def inc(self, n: float = 1) -> None:
+        pass
+
+    def set(self, v: float) -> None:
+        pass
+
+    def observe(self, v: float) -> None:
+        pass
+
+
+NULL_METRIC = _NullMetric()
+
+
+def telemetry_enabled() -> bool:
+    return os.environ.get("TPU_INF_TELEMETRY", "1") != "0"
 
 
 class Counter:
@@ -179,10 +216,23 @@ def _fmt_labels(labels: Mapping[str, str],
                           for k, v in merged.items()) + "}"
 
 
+# Self-metrics: the exposition observes its own cost. One registry per
+# process, rendered as an extra unlabeled group on every scrape (a render
+# exposes the histogram of the renders before it).
+_SELF_REGISTRY = Registry()
+_RENDER_SECONDS = _SELF_REGISTRY.histogram(
+    "tpu_inf_metrics_render_seconds",
+    "Host wall of one Prometheus text exposition render")
+
+
 def render_prometheus(groups: Iterable[Tuple[Mapping[str, str], Registry]]
                       ) -> str:
     """Render label-tagged registries as one Prometheus text page;
     HELP/TYPE once per metric name, samples of a name contiguous."""
+    t_render = time.perf_counter()
+    groups = list(groups)
+    if telemetry_enabled():
+        groups.append(({}, _SELF_REGISTRY))
     families: Dict[str, Tuple[str, str, List[Tuple[Dict[str, str], Any]]]] = {}
     for shared, registry in groups:
         for m in registry.collect():
@@ -208,26 +258,29 @@ def render_prometheus(groups: Iterable[Tuple[Mapping[str, str], Registry]]
             else:
                 ls = _fmt_labels(m.labels, shared)
                 lines.append(f"{name}{ls} {_fmt_value(m.collect_value())}")
-    return "\n".join(lines) + "\n"
+    out = "\n".join(lines) + "\n"
+    _RENDER_SECONDS.observe(time.perf_counter() - t_render)
+    return out
 
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-# Histogram attribute -> JSON phases key (stats snapshot).
+# JSON phases key (stats snapshot) -> histogram attribute.
 PHASE_HISTOGRAMS = {
-    "prefill_dispatch": "prefill_dispatch_s",
-    "decode_dispatch": "decode_dispatch_s",
-    "decode_sync": "decode_sync_s",
-    "dispatch_bubble": "dispatch_bubble_s",
+    "prefill_dispatch_s": "prefill_dispatch_s",
+    "decode_dispatch_s": "decode_dispatch_s",
+    "decode_sync_s": "decode_sync_s",
+    "dispatch_bubble_s": "dispatch_bubble_s",
     "tokens_per_dispatch": "tokens_per_dispatch",
-    "hybrid_dispatch": "hybrid_dispatch_s",
-    "decode_stall_during_prefill": "decode_stall_during_prefill_s",
-    "kv_swap": "kv_swap_s",
-    "queue_wait": "queue_wait_s",
-    "prefill_phase": "prefill_phase_s",
-    "decode_phase": "decode_phase_s",
-    "ttft": "ttft_s",
-    "e2e": "e2e_s",
+    "hybrid_dispatch_s": "hybrid_dispatch_s",
+    "decode_stall_during_prefill_s": "decode_stall_during_prefill_s",
+    "kv_swap_s": "kv_swap_s",
+    "spec_acceptance_rate": "spec_accept_rate",
+    "queue_wait_s": "queue_wait_s",
+    "prefill_phase_s": "prefill_phase_s",
+    "decode_phase_s": "decode_phase_s",
+    "ttft_s": "ttft_s",
+    "e2e_s": "e2e_s",
 }
 
 
@@ -246,6 +299,415 @@ def emit_build_info(registry: Registry, *, backend: str = "",
         version=__version__, backend=backend or "unknown",
         fleet=fleet or "none", kv_quant=kv_quant or "none",
         spec_mode=spec_mode or "off", routing=routing or "none")
+
+
+def torch_trace(trace_dir: str, until: Callable[[], Any]) -> str:
+    """Run torch.profiler (CPU activity, and the card's kernels when CUDA
+    is available) around ``until()``, which blocks (a sleep, a wait for a
+    stop signal), and write one Chrome trace into ``trace_dir``; returns
+    its path. The profiler starts and stops on the calling thread: torch
+    does not allow one thread to stop what another started, and records
+    CPU ops of that thread only (the card's kernels, of every thread)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        until()
+    finally:
+        prof.stop()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"trace-{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def capture_torch_profile(profile_dir: str, replica: int,
+                          seconds: float) -> Dict[str, Any]:
+    """The capture behind POST /debug/profile: clamp the window to
+    [0.1, 60] s and trace it while serving goes on, into
+    ``{profile_dir}/replica{i}/`` (the operator's directory, never a
+    client-chosen path). Raises whatever the profiler raises (another
+    profiler running, a trace that cannot be written)."""
+    seconds = min(max(0.1, float(seconds)), 60.0)
+    trace_dir = os.path.join(profile_dir, f"replica{int(replica)}")
+    torch_trace(trace_dir, lambda: time.sleep(seconds))
+    return {"dir": trace_dir, "seconds": seconds, "replica": int(replica)}
+
+
+# ---------------------------------------------------------------------------
+# Step ledger and roofline attribution.
+#
+# The phase histograms say how long dispatches take; the step ledger says
+# why. Every engine dispatch pushes one fixed-shape record into a ring; an
+# analytic cost model (FLOPs from the architecture, HBM bytes from the
+# weight bytes per device loop iteration plus the KV bytes touched at the
+# serving kv_quant) turns each record into achieved FLOP/s and bytes/s,
+# and a windowed aggregation gives one verdict per step kind:
+# compute-bound, hbm-bound or host-bound (staging + bubble dominate).
+# ---------------------------------------------------------------------------
+
+STEP_KINDS = ("prefill_chunk", "decode", "hybrid", "spec_verify")
+
+# Record layout (one tuple per dispatch; /debug/steps serializes it).
+STEP_FIELDS = (
+    "ts",             # unix seconds the record was pushed (~ sync time)
+    "kind",           # one of STEP_KINDS
+    "rung",           # batch-ladder rung dispatched (0 = prefill)
+    "slots",          # decode lanes occupied in the dispatch
+    "tokens",         # tokens generated (the MFU gauge's unit)
+    "chunk_tokens",   # prompt tokens processed (prefill / hybrid chunk)
+    "steps",          # device loop iterations (the weights stream from
+                      # memory once per iteration)
+    "device_s",       # dispatch wall + sync wall
+    "staging_s",      # host batch-staging wall
+    "bubble_s",       # host gap before the dispatch while lanes were
+                      # active
+    "kv_read_tokens",  # sum of (query position, context token) pairs
+    "kv_swap_bytes",  # host<->device KV tier traffic since last record
+    "spec_accepted",  # speculative positions accepted (spec_verify)
+    "compile_event",  # 1 = first dispatch of this rung / bucket
+)
+
+
+class StepLedger:
+    """Fixed-depth ring of per-dispatch step records.
+
+    ``push`` is the hot-path write: one tuple, one list store, one int
+    add (each atomic under the GIL); no locks. Readers copy the ring
+    first, so a concurrent push can at worst duplicate or miss the newest
+    record, never tear one."""
+
+    __slots__ = ("depth", "_ring", "_n")
+
+    def __init__(self, depth: int = 256):
+        self.depth = max(8, int(depth))
+        self._ring: List[Optional[tuple]] = [None] * self.depth
+        self._n = 0
+
+    def push(self, kind: str, rung: int, slots: int, tokens: int,
+             chunk_tokens: int, steps: int, device_s: float,
+             staging_s: float, bubble_s: float, kv_read_tokens: int,
+             kv_swap_bytes: float, spec_accepted: int,
+             compile_event: bool) -> None:
+        self._ring[self._n % self.depth] = (
+            time.time(), kind, int(rung), int(slots), int(tokens),
+            int(chunk_tokens), int(steps), float(device_s),
+            float(staging_s), float(bubble_s), int(kv_read_tokens),
+            float(kv_swap_bytes), int(spec_accepted),
+            1 if compile_event else 0)
+        self._n += 1
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    @property
+    def overflowed(self) -> bool:
+        return self._n > self.depth
+
+    def records(self) -> List[tuple]:
+        """Resident records, oldest first (a copy of the ring)."""
+        ring, n = list(self._ring), self._n
+        if n <= self.depth:
+            return [r for r in ring[:n] if r is not None]
+        i = n % self.depth
+        return [r for r in ring[i:] + ring[:i] if r is not None]
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """JSON-able dump, one dict per record keyed by STEP_FIELDS."""
+        return [dict(zip(STEP_FIELDS, r)) for r in self.records()]
+
+
+class _NullLedger:
+    """No-op ledger when telemetry is disabled (a shared singleton, as
+    NULL_METRIC)."""
+
+    __slots__ = ()
+    depth = 0
+    count = 0
+    overflowed = False
+
+    def push(self, *a, **k) -> None:
+        pass
+
+    def records(self) -> List[tuple]:
+        return []
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        return []
+
+
+NULL_LEDGER = _NullLedger()
+
+
+class StepCostModel:
+    """Analytic per-record FLOPs and HBM bytes from the architecture: no
+    device counters, so the same model grades CPU runs and the card.
+
+    - matmul FLOPs: 2 x params per position processed (generated tokens
+      + prompt chunk tokens).
+    - attention FLOPs: 4 x n_heads x head_dim per layer per (query
+      position, context token) pair (QK^T and AV).
+    - HBM bytes: the weight bytes once per device loop iteration, KV
+      bytes for every context token attended and every new position (at
+      the serving kv_quant's per-token size), and host<->device swap
+      traffic. Weight bytes are counted as stored: a path that also
+      writes and reads a bf16 copy of each quantized slab moves more.
+    """
+
+    __slots__ = ("n_params", "n_layers", "n_heads", "head_dim",
+                 "weight_bytes", "kv_token_bytes", "peak_flops",
+                 "peak_hbm_bw")
+
+    def __init__(self, *, n_params: int, n_layers: int, n_heads: int,
+                 head_dim: int, weight_bytes: int, kv_token_bytes: int,
+                 peak_flops: float, peak_hbm_bw: float):
+        self.n_params = int(n_params)
+        self.n_layers = int(n_layers)
+        self.n_heads = int(n_heads)
+        self.head_dim = int(head_dim)
+        self.weight_bytes = int(weight_bytes)
+        self.kv_token_bytes = int(kv_token_bytes)
+        self.peak_flops = float(peak_flops)
+        self.peak_hbm_bw = float(peak_hbm_bw)
+
+    @classmethod
+    def from_engine(cls, engine) -> "StepCostModel":
+        from tpu_inference_torch.engine import autosize
+        mcfg, ecfg = engine.model_cfg, engine.engine_cfg
+        return cls(n_params=engine.n_params, n_layers=mcfg.n_layers,
+                   n_heads=mcfg.n_heads, head_dim=mcfg.head_dim,
+                   weight_bytes=autosize.weight_bytes(mcfg, ecfg.quant),
+                   kv_token_bytes=autosize.kv_bytes_per_token(
+                       mcfg, ecfg.kv_quant),
+                   peak_flops=autosize.detect_peak_flops(engine.device),
+                   peak_hbm_bw=autosize.detect_peak_hbm_bw(engine.device))
+
+    def flops(self, rec: tuple) -> float:
+        positions = rec[4] + rec[5]          # tokens + chunk_tokens
+        return (2.0 * self.n_params * positions
+                + 4.0 * self.n_layers * self.n_heads * self.head_dim
+                * rec[10])                   # kv_read_tokens
+
+    def hbm_bytes(self, rec: tuple) -> float:
+        positions = rec[4] + rec[5]
+        return (float(self.weight_bytes) * max(1, rec[6])   # steps
+                + float(self.kv_token_bytes) * (rec[10] + positions)
+                + rec[11])                   # kv_swap_bytes
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self.__slots__}
+
+
+def _finalize_kind(agg: Dict[str, Any], peak_flops: float,
+                   peak_hbm_bw: float) -> Dict[str, Any]:
+    """Achieved rates, roofline fractions and the verdict from one kind's
+    raw sums (shared by the per-replica report and the merge, so the two
+    cannot disagree)."""
+    device_s = agg["device_s"]
+    host_s = agg["staging_s"] + agg["bubble_s"]
+    out = dict(agg)
+    out["host_s"] = round(host_s, 6)
+    if device_s > 0:
+        out["achieved_flops_per_s"] = round(agg["flops"] / device_s, 3)
+        out["achieved_bytes_per_s"] = round(agg["hbm_bytes"] / device_s, 3)
+    else:
+        out["achieved_flops_per_s"] = 0.0
+        out["achieved_bytes_per_s"] = 0.0
+    compute_frac = out["achieved_flops_per_s"] / max(peak_flops, 1.0)
+    hbm_frac = out["achieved_bytes_per_s"] / max(peak_hbm_bw, 1.0)
+    host_frac = host_s / max(host_s + device_s, 1e-12)
+    out["compute_frac"] = round(compute_frac, 6)
+    out["hbm_frac"] = round(hbm_frac, 6)
+    out["host_frac"] = round(host_frac, 6)
+    if host_frac > 0.5:
+        out["verdict"] = "host-bound"
+    elif compute_frac >= hbm_frac:
+        out["verdict"] = "compute-bound"
+    else:
+        out["verdict"] = "hbm-bound"
+    for k in ("device_s", "staging_s", "bubble_s", "flops", "hbm_bytes",
+              "kv_swap_bytes"):
+        out[k] = round(out[k], 6)
+    return out
+
+
+def _ledger_mfu_ewma(recs: Sequence[tuple], n_params: int,
+                     peak_flops: float, bind_unix: Optional[float],
+                     now: float, tau_s: float = 30.0) -> Optional[float]:
+    """Replay the MFU gauge's dt-weighted EWMA (alpha = 1 - exp(-dt/tau))
+    over the ledger's (ts, tokens) events from the gauge's bind time: the
+    value /debug/steps compares with ``tpu_inf_mfu_estimate`` (a plain
+    window average would not agree over short windows)."""
+    if not recs:
+        return None
+    rate = 0.0
+    t = bind_unix if bind_unix is not None else recs[0][0]
+    for r in recs:
+        ts, tokens = r[0], r[4]
+        dt = max(1e-6, ts - t)
+        inst = tokens / dt
+        rate += (1.0 - math.exp(-dt / tau_s)) * (inst - rate)
+        t = ts
+    dt = now - t
+    if dt > 1e-3:
+        rate *= math.exp(-dt / tau_s)   # the gauge's zero-rate tail
+    return rate * 2.0 * n_params / max(peak_flops, 1.0)
+
+
+def _top_sinks(kinds: Dict[str, Dict[str, Any]]) -> List[Dict[str, Any]]:
+    return sorted(
+        ({"sink": f"{k}.{comp}", "seconds": v[f"{comp}_s"]}
+         for k, v in kinds.items() for comp in ("device", "staging",
+                                                "bubble")
+         if v[f"{comp}_s"] > 0),
+        key=lambda s: -s["seconds"])[:3]
+
+
+def _agreement(gauge: Optional[float], ledger: Optional[float]
+               ) -> Optional[float]:
+    if gauge and ledger is not None and gauge > 0:
+        return round(ledger / gauge, 4)
+    return None
+
+
+def roofline_report(ledger, model: StepCostModel, *,
+                    mfu_gauge: Optional[float] = None,
+                    bind_unix: Optional[float] = None,
+                    window_s: float = 60.0,
+                    now: Optional[float] = None) -> Dict[str, Any]:
+    """One replica's step attribution over the trailing window: per-kind
+    roofline sums and verdicts, per-rung occupancy, the top three time
+    sinks, and the ledger-replayed MFU beside the gauge's."""
+    now = time.time() if now is None else now
+    recs = ledger.records()
+    cutoff = now - window_s
+    window = [r for r in recs if r[0] >= cutoff]
+    kinds: Dict[str, Dict[str, Any]] = {}
+    rungs: Dict[str, Dict[str, float]] = {}
+    for r in window:
+        agg = kinds.get(r[1])
+        if agg is None:
+            agg = kinds[r[1]] = {
+                "records": 0, "tokens": 0, "chunk_tokens": 0,
+                "device_s": 0.0, "staging_s": 0.0, "bubble_s": 0.0,
+                "flops": 0.0, "hbm_bytes": 0.0, "kv_swap_bytes": 0.0,
+                "kv_read_tokens": 0, "spec_accepted": 0,
+                "compile_events": 0}
+        agg["records"] += 1
+        agg["tokens"] += r[4]
+        agg["chunk_tokens"] += r[5]
+        agg["device_s"] += r[7]
+        agg["staging_s"] += r[8]
+        agg["bubble_s"] += r[9]
+        agg["kv_read_tokens"] += r[10]
+        agg["kv_swap_bytes"] += r[11]
+        agg["spec_accepted"] += r[12]
+        agg["compile_events"] += r[13]
+        agg["flops"] += model.flops(r)
+        agg["hbm_bytes"] += model.hbm_bytes(r)
+        if r[1] != "prefill_chunk":
+            ra = rungs.setdefault(str(r[2]), {"dispatches": 0,
+                                              "slots_sum": 0})
+            ra["dispatches"] += 1
+            ra["slots_sum"] += r[3]
+    kinds = {k: _finalize_kind(v, model.peak_flops, model.peak_hbm_bw)
+             for k, v in kinds.items()}
+    occupancy = {rung: {"dispatches": ra["dispatches"],
+                        "mean_slots": round(ra["slots_sum"]
+                                            / max(ra["dispatches"], 1), 2)}
+                 for rung, ra in rungs.items()}
+    ledger_mfu = _ledger_mfu_ewma(recs, model.n_params, model.peak_flops,
+                                  bind_unix, now)
+    mfu = {"gauge": mfu_gauge,
+           "ledger": None if ledger_mfu is None else round(ledger_mfu, 12),
+           "agreement": _agreement(mfu_gauge, ledger_mfu)}
+    return {
+        "enabled": True,
+        "ts": round(now, 3),
+        "window_s": window_s,
+        "records_window": len(window),
+        "records_total": ledger.count,
+        "ledger_depth": ledger.depth,
+        "truncated": bool(ledger.overflowed),
+        "peaks": {"flops_per_s": model.peak_flops,
+                  "hbm_bytes_per_s": model.peak_hbm_bw},
+        "kinds": kinds,
+        "rung_occupancy": occupancy,
+        "top_sinks": _top_sinks(kinds),
+        "compile_events": sum(r[13] for r in window),
+        "mfu": mfu,
+    }
+
+
+# Raw per-kind sums merge_steps_reports adds up before it derives the
+# verdict fields again (fractions and verdicts do not sum).
+_KIND_SUM_FIELDS = ("records", "tokens", "chunk_tokens", "device_s",
+                    "staging_s", "bubble_s", "flops", "hbm_bytes",
+                    "kv_swap_bytes", "kv_read_tokens", "spec_accepted",
+                    "compile_events")
+
+
+def merge_steps_reports(reports: Sequence[Optional[Dict[str, Any]]]
+                        ) -> Dict[str, Any]:
+    """The fleet's step attribution from per-replica reports: per-kind
+    sums pooled and graded again, occupancy pooled, the MFU gauge and
+    replay averaged over replicas (MFU is a per-card share)."""
+    reports = [r for r in reports if r and r.get("enabled")]
+    if not reports:
+        return {"enabled": False}
+    peaks = reports[0].get("peaks") or {}
+    peak_flops = peaks.get("flops_per_s") or 1.0
+    peak_bw = peaks.get("hbm_bytes_per_s") or 1.0
+    kinds: Dict[str, Dict[str, Any]] = {}
+    rungs: Dict[str, Dict[str, float]] = {}
+    for rep in reports:
+        for k, v in (rep.get("kinds") or {}).items():
+            agg = kinds.setdefault(k, {f: 0 for f in _KIND_SUM_FIELDS})
+            for f in _KIND_SUM_FIELDS:
+                agg[f] += v.get(f, 0)
+        for rung, ra in (rep.get("rung_occupancy") or {}).items():
+            dst = rungs.setdefault(rung, {"dispatches": 0,
+                                          "slots_sum": 0.0})
+            dst["dispatches"] += ra.get("dispatches", 0)
+            dst["slots_sum"] += (ra.get("mean_slots", 0)
+                                 * ra.get("dispatches", 0))
+    kinds = {k: _finalize_kind(v, peak_flops, peak_bw)
+             for k, v in kinds.items()}
+    occupancy = {rung: {"dispatches": int(ra["dispatches"]),
+                        "mean_slots": round(ra["slots_sum"]
+                                            / max(ra["dispatches"], 1), 2)}
+                 for rung, ra in rungs.items()}
+    gauges = [r["mfu"].get("gauge") for r in reports
+              if (r.get("mfu") or {}).get("gauge") is not None]
+    ledgers = [r["mfu"].get("ledger") for r in reports
+               if (r.get("mfu") or {}).get("ledger") is not None]
+    mfu = {"gauge": round(sum(gauges) / len(gauges), 12) if gauges
+           else None,
+           "ledger": round(sum(ledgers) / len(ledgers), 12) if ledgers
+           else None}
+    mfu["agreement"] = _agreement(mfu["gauge"], mfu["ledger"])
+    return {
+        "enabled": True,
+        "replicas_merged": len(reports),
+        "window_s": max(r.get("window_s", 0) for r in reports),
+        "records_window": sum(r.get("records_window", 0)
+                              for r in reports),
+        "records_total": sum(r.get("records_total", 0) for r in reports),
+        "truncated": any(r.get("truncated") for r in reports),
+        "peaks": {"flops_per_s": peak_flops, "hbm_bytes_per_s": peak_bw},
+        "kinds": kinds,
+        "rung_occupancy": occupancy,
+        "top_sinks": _top_sinks(kinds),
+        "compile_events": sum(r.get("compile_events", 0)
+                              for r in reports),
+        "mfu": mfu,
+    }
 
 
 class EngineTelemetry:
@@ -267,10 +729,26 @@ class EngineTelemetry:
     ``spec_gamma_g`` (mean adaptive γ of the latest verify round).
     Request phases (engine/scheduler.py at finish): ``queue_wait_s``,
     ``prefill_phase_s``, ``decode_phase_s``, ``ttft_s``, ``e2e_s``.
+    ``step_ledger``: one record per dispatch (engine._ledger_push),
+    graded by ``cost_model`` in ``steps_report``. ``enabled`` defaults to
+    ``TPU_INF_TELEMETRY`` != "0".
     """
 
-    def __init__(self, engine=None):
+    def __init__(self, engine=None, enabled: Optional[bool] = None):
+        self.enabled = telemetry_enabled() if enabled is None else enabled
         self.registry = r = Registry()
+        # Sized and bound in bind_engine.
+        self.step_ledger = NULL_LEDGER
+        self.cost_model: Optional[StepCostModel] = None
+        if not self.enabled:
+            for attr in PHASE_HISTOGRAMS.values():
+                setattr(self, attr, NULL_METRIC)
+            for attr in ("decode_dispatches", "prefill_dispatches",
+                         "hybrid_steps", "spec_gamma_g",
+                         "kv_offload_pages", "kv_restore_pages",
+                         "kv_offload_bytes", "kv_restore_bytes"):
+                setattr(self, attr, NULL_METRIC)
+            return
         self.prefill_dispatch_s = r.histogram(
             "tpu_inf_prefill_dispatch_seconds",
             "Host wall time of one prefill dispatch")
@@ -350,7 +828,13 @@ class EngineTelemetry:
             self.bind_engine(engine)
 
     def bind_engine(self, engine) -> None:
-        """Read-through metrics over state the engine already tracks."""
+        """The step ledger (``step_ledger_depth`` records) and its cost
+        model, and read-through metrics over state the engine already
+        tracks."""
+        if not self.enabled:
+            return
+        self.step_ledger = StepLedger(engine.engine_cfg.step_ledger_depth)
+        self.cost_model = StepCostModel.from_engine(engine)
         r = self.registry
         alloc = engine.allocator
         total = engine.engine_cfg.num_pages - 1   # page 0 = trash page
@@ -402,6 +886,8 @@ class EngineTelemetry:
     def bind_spec(self, engine) -> None:
         """Read-through speculative-decoding counters (bound only when
         speculation is on, so other servers expose no dead series)."""
+        if not self.enabled:
+            return
         r = self.registry
         r.counter("tpu_inf_spec_drafted_total",
                   "Speculative positions proposed for verification "
@@ -424,6 +910,8 @@ class EngineTelemetry:
     def bind_host_pool(self, pool) -> None:
         """Read-through metrics over the host-RAM KV tier's accounting
         (engine/kv_cache.py HostPagePool)."""
+        if not self.enabled:
+            return
         r = self.registry
         r.gauge("tpu_inf_kv_host_pages_total",
                 "Host-RAM KV tier capacity (pages)",
@@ -437,7 +925,14 @@ class EngineTelemetry:
                   fn=lambda: pool.evicted_total)
 
     def bind_scheduler(self, sched) -> None:
-        """Read-through metrics over SchedulerStats counters."""
+        """Read-through metrics over SchedulerStats counters, and the MFU
+        gauge: decoded tokens/s x 2 x params over the card's bf16 peak
+        (engine/autosize.py; the CPU reports against the H100 SXM). The
+        rate is a dt-weighted EWMA (~30 s time constant) updated by
+        whoever collects (/metrics scrapes, stats snapshots), so a fast
+        poller cannot reset a slow scraper's window."""
+        if not self.enabled:
+            return
         r = self.registry
         stats = sched.stats
         r.counter("tpu_inf_steps_total", "Scheduler loop decode steps",
@@ -457,15 +952,65 @@ class EngineTelemetry:
                   fn=lambda: stats.step_failures)
         r.gauge("tpu_inf_queue_depth", "Requests waiting for admission",
                 fn=lambda: len(sched._waiting))
+        from tpu_inference_torch.engine import autosize
+
+        engine = sched.engine
+        peak = autosize.detect_peak_flops(engine.device)
+        tau_s = 30.0
+        state = {"tokens": stats.tokens_generated,
+                 "t": time.perf_counter(), "rate": 0.0}
+        # The EWMA's wall-clock origin: /debug/steps replays the gauge's
+        # smoothing over the ledger's timestamps from the same point.
+        self._mfu_bind_unix = time.time()
+
+        def _mfu() -> float:
+            now = time.perf_counter()
+            dt = now - state["t"]
+            if dt >= 1e-3:
+                tok = stats.tokens_generated
+                inst = max(0, tok - state["tokens"]) / dt
+                alpha = 1.0 - math.exp(-dt / tau_s)
+                state["rate"] += alpha * (inst - state["rate"])
+                state["tokens"], state["t"] = tok, now
+            return state["rate"] * 2 * engine.n_params / peak
+
+        self._mfu_gauge = r.gauge(
+            "tpu_inf_mfu_estimate",
+            "Estimated model FLOPs utilization (EWMA decode tokens/s "
+            "x 2 x params / card bf16 peak, ~30s time constant)",
+            fn=_mfu)
+
+    def mfu_estimate(self) -> Optional[float]:
+        """The MFU gauge's value (None when telemetry is off or no
+        scheduler is bound). 12 decimals: a tiny CPU model against the
+        card's peak sits near 1e-9, and the /debug/steps agreement needs
+        the ratio, not a pair rounded to zero."""
+        g = getattr(self, "_mfu_gauge", None)
+        return round(g.collect_value(), 12) if g is not None else None
+
+    def steps_report(self, window_s: float = 60.0) -> Dict[str, Any]:
+        """This replica's step attribution (GET /debug/steps)."""
+        if not self.enabled or self.cost_model is None:
+            return {"enabled": False}
+        return roofline_report(
+            self.step_ledger, self.cost_model,
+            mfu_gauge=self.mfu_estimate(),
+            bind_unix=getattr(self, "_mfu_bind_unix", None),
+            window_s=window_s)
 
     def request_finished(self, reason: str) -> None:
         """Per-finish-reason counter (lazy label children)."""
+        if not self.enabled:
+            return
         self.registry.counter(
             "tpu_inf_requests_finished_total",
             "Finished requests by terminal reason",
             reason=reason or "unknown").inc()
 
     def phase_snapshot(self) -> Dict[str, Dict[str, Any]]:
-        """JSON dump of the phase histograms (/metrics?format=json)."""
+        """JSON dump of the phase histograms (/metrics?format=json; empty
+        when telemetry is off)."""
+        if not self.enabled:
+            return {}
         return {key: getattr(self, attr).phase_snapshot()
                 for key, attr in PHASE_HISTOGRAMS.items()}
