@@ -38,7 +38,9 @@ failing loudly (any failure exits non-zero before the result line):
    backends, tokens identical to plain decode) and fault injection
    (chaos_phase: a failure armed with verify rounds in flight, health
    degraded then quarantined then recovered, the same tokens after, the
-   step watchdog, page pressure, the pool clean).
+   step watchdog, page pressure, the pool clean; the flight recorder's
+   step_error and watchdog captures listed newest first, each with step
+   records).
 5. main paths: the Ollama server in-process with llama-3-8b at full
    width (32 layers, bf16 activations, random weights from a seed, byte
    tokenizer), concurrent streamed /api/generate requests over
@@ -65,7 +67,16 @@ failing loudly (any failure exits non-zero before the result line):
    shapes (verify_cases, in the kernel phase).
    Every lane's server runs with ``enable_debug``. On the bf16 lane,
    after its six requests, the observability phase (observability_phase):
-   GET /debug/steps beside the dispatch counts of /metrics (the kinds
+   six fresh streamed requests, then their timelines from GET
+   /debug/requests?n=6 (queue + prefill + decode within 1 ms of e2e),
+   each one's span tree from /debug/trace?id= (route, queue_wait,
+   prefill, decode, durations within 1 ms of its timeline; the chunked
+   one's prefill_chunk children cover its uncached prompt), the Chrome
+   export
+   (one X event per span of every recent trace) and /metrics' fleet
+   TTFT p50 gauge equal to the exact p50 of the timelines' TTFTs, with
+   the host cost of a span logged; GET /debug/steps beside the dispatch
+   counts of /metrics (the kinds
    include prefill_chunk and decode, one ledger record per dispatch, the
    MFU gauge finite and positive); /api/chat unary and streamed (greedy,
    16 tokens, the role-prefix transcript: the chat text equals
@@ -75,7 +86,8 @@ failing loudly (any failure exits non-zero before the result line):
    distinct rows; wall and peak memory recorded); /api/show and /api/ps
    (the engine's parameter count and weight bytes, BF16); and POST
    /debug/profile {"seconds": 2} while rounds of four requests stream
-   (a trace under build/profile/replica0 naming both kernels). Every profiled
+   (a trace under build/profile/replica0 naming both kernels, with CPU
+   op events on the engine thread's native id). Every profiled
    lane records the step ledger's verdicts over its profiled window
    beside the profiler's busy share.
 6. the other families, each on the main path's six requests: Mixtral-
@@ -938,7 +950,17 @@ def chaos_phase() -> dict:
     recovers, and the next requests finish "length" with the tokens of
     before the fault; a wedge longer than step_watchdog_s trips the
     watchdog; page pressure holds real pages and returns them; the pool
-    is clean."""
+    is clean. The group's flight recorder writes under a temporary
+    directory: the failures must leave a step_error capture and the
+    wedge a watchdog capture, listed by blackbox_index newest first,
+    each with step records."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-blackbox-") as bb:
+        return _chaos_run(bb)
+
+
+def _chaos_run(blackbox_dir: str) -> dict:
     import numpy as np
     from tpu_inference_torch import config as cfgs
     from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
@@ -955,7 +977,7 @@ def chaos_phase() -> dict:
     eng.warmup()
     group = EngineGroup([eng], cfgs.ServerConfig(
         quarantine_after_failures=2, quarantine_cooldown_s=0.5,
-        step_watchdog_s=0.5))
+        step_watchdog_s=0.5, blackbox_dir=blackbox_dir))
     prompts = _echo_prompts(np.random.default_rng(12), 3, (18, 9, 26))
     states = []
 
@@ -1049,14 +1071,28 @@ def chaos_phase() -> dict:
         held = eng.chaos_page_pressure
         group.apply_chaos({"page_pressure": 0})
         wait_for(lambda: eng.allocator.num_free == free, "pressure release")
+        captures = group.blackbox_index()["captures"]
     finally:
         group.apply_chaos({"step_wedge_s": 0.0, "step_failure_rate": 0.0})
         group.stop(drain=True, timeout=30)
     eng.check_pool_clean()
+    triggers = [c.get("trigger") for c in captures]
+    ts = [c.get("ts") or 0.0 for c in captures]
+    firsts = {t: triggers.index(t) for t in ("watchdog", "step_error")
+              if t in triggers}
+    if (len(firsts) != 2 or firsts["watchdog"] > firsts["step_error"]
+            or ts != sorted(ts, reverse=True)
+            or any(c.get("n_steps", 0) <= 0 for c in captures
+                   if c.get("trigger") in firsts)):
+        raise AssertionError(f"chaos phase: flight-recorder captures "
+                             f"{captures}")
     return {"calls_in_flight_at_failures": aborted, "health_states": states,
             "step_failures": failures, "wedges": wedges,
             "pressure_pages_held": held,
-            "spec_rounds": eng.spec_rounds_total}
+            "spec_rounds": eng.spec_rounds_total,
+            "blackbox": [{k: c.get(k) for k in ("file", "trigger",
+                                                "n_steps", "n_spans")}
+                         for c in captures]}
 
 
 def _stream_request(port: int, prompt: str, max_tokens: int,
@@ -1074,6 +1110,7 @@ def _stream_request(port: int, prompt: str, max_tokens: int,
         t_headers = time.perf_counter()   # headers wait for the 1st token
         if resp.status != 200:
             raise AssertionError(f"HTTP {resp.status}: {resp.read()[:500]}")
+        request_id = resp.getheader("X-Request-Id")
         lines = [json.loads(x) for x in resp.read().splitlines() if x]
         t_end = time.perf_counter()
     finally:
@@ -1096,7 +1133,8 @@ def _stream_request(port: int, prompt: str, max_tokens: int,
             "prompt_tokens": final["prompt_eval_count"],
             "eval_count": final["eval_count"],
             "eval_duration_s": final["eval_duration"] / 1e9,
-            "done_reason": final["done_reason"], "context": ctx}
+            "done_reason": final["done_reason"], "context": ctx,
+            "request_id": request_id}
 
 
 def run_requests(port: int, prompts: list, max_tokens: int,
@@ -1525,13 +1563,15 @@ def card_phase(port: int, engine) -> dict:
             "parameter_size": ps["details"]["parameter_size"]}
 
 
-def profile_phase(port: int) -> dict:
+def profile_phase(port: int, server) -> dict:
     """POST /debug/profile {"seconds": 2} while requests stream: rounds
     of four concurrent requests (fresh prompts, so each prefills) run
     back to back until the capture returns, so the window sees prefills
     and decode steps whenever the profiler comes up. Gates: a trace
     under PROFILE_DIR/replica0 whose events name both hand-written
-    kernels."""
+    kernels, and CPU op events on the engine thread's native id (the
+    scheduler's ``thread_native_id``): the launch loop, not only the
+    capturing thread."""
     got: dict = {}
 
     def capture() -> None:
@@ -1564,22 +1604,151 @@ def profile_phase(port: int) -> dict:
     if not all(names.values()):
         raise AssertionError(f"profile trace kernels: {names} "
                              f"({len(text)} bytes, {rounds} rounds)")
+    engine_tid = server.group.schedulers[0].thread_native_id
+    cpu_ops: dict = {}
+    for ev in json.loads(text)["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("cat") == "cpu_op":
+            cpu_ops[ev.get("tid")] = cpu_ops.get(ev.get("tid"), 0) + 1
+    engine_ops = cpu_ops.get(engine_tid, 0)
+    if engine_ops <= 0:
+        raise AssertionError(f"profile trace: no CPU op on the engine "
+                             f"thread {engine_tid} (ops by thread "
+                             f"{cpu_ops})")
     return {"trace": os.path.join(trace_dir, new[-1]),
             "trace_bytes": len(text), "request_rounds": rounds,
             "wall_s": time.perf_counter() - t0, "kernels_named": names,
+            "engine_thread": engine_tid,
+            "engine_thread_cpu_ops": engine_ops,
+            "cpu_ops_by_thread": {str(k): n for k, n in cpu_ops.items()},
             **got["body"]}
 
 
+def _span_add_cost_s(n: int = 10_000) -> float:
+    """Median host wall of one SpanRecorder.add over ``n`` calls, eight
+    spans per trace (a request's worth), on a recorder of its own."""
+    from tpu_inference_torch.telemetry import SpanRecorder
+    rec = SpanRecorder(enabled=True)
+    walls = []
+    for i in range(n):
+        t = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        rec.add("decode", f"cost-{i // 8}", t, t + 0.001,
+                output_tokens=48, reason="length", preemptions=0)
+        walls.append(time.perf_counter_ns() - t0)
+    walls.sort()
+    return walls[n // 2] / 1e9
+
+
+def request_observability_phase(port: int) -> dict:
+    """Six fresh streamed requests (the main path's lengths, new text),
+    then the request half of observability. Gates: GET
+    /debug/requests?n=6 gives their six timelines, each's queue +
+    prefill + decode within 1 ms of its e2e; /debug/trace?id= of each
+    is a tree rooted at ``request`` with route, queue_wait, prefill and
+    decode, whose prefill and decode durations are within 1 ms of its
+    timeline, and the chunked request's prefill_chunk children cover
+    its uncached prompt; /debug/trace?format=chrome is
+    trace-event JSON with one ``X`` event per span of every recent
+    trace; /metrics' fleet tpu_inf_slo_ttft_seconds{q="0.5"} equals the
+    exact quantile of the timelines' TTFTs (to their 6 decimals). Logs
+    the host cost of one SpanRecorder.add, the spans per request and
+    their share of the median request's e2e."""
+    import re
+
+    from tpu_inference_torch.telemetry import pooled_quantile
+    t0 = time.perf_counter()
+    results, _ = run_requests(port, _family_prompts(
+        (41, 101, 201, 401, 901, 1501)), 48)
+    ids = [r["request_id"] for r in results]
+    timelines = _http_json(port, "GET", "/debug/requests?n=6")
+    if sorted(t["trace_id"] for t in timelines) != sorted(ids):
+        raise AssertionError(f"/debug/requests?n=6 gave "
+                             f"{[t['trace_id'] for t in timelines]}, the "
+                             f"requests were {ids}")
+    for t in timelines:
+        gap = abs(t["queue_wait_s"] + t["prefill_s"] + t["decode_s"]
+                  - t["e2e_s"])
+        if gap > 1e-3 or t["output_tokens"] != 48:
+            raise AssertionError(f"timeline {t}: phases off e2e by {gap}")
+    spans_per_request = []
+    for t in timelines:
+        snap = _http_json(port, "GET", f"/debug/trace?id={t['trace_id']}")
+        spans_per_request.append(snap["n_spans"])
+        root = snap["tree"]
+        kids = {c["name"]: c for c in root["children"]}
+        if (root["name"] != "request" or root.get("synthetic")
+                or not {"route", "queue_wait", "prefill",
+                        "decode"} <= set(kids)):
+            raise AssertionError(f"trace {t['trace_id']}: root "
+                                 f"{root['name']}, children {list(kids)}")
+        for name, key in (("prefill", "prefill_s"), ("decode", "decode_s")):
+            if abs(kids[name]["dur"] - t[key]) > 1e-3:
+                raise AssertionError(f"trace {t['trace_id']}: {name} span "
+                                     f"{kids[name]['dur']} s, timeline "
+                                     f"{t[key]} s")
+        chunks = [c for c in kids["prefill"]["children"]
+                  if c["name"] == "prefill_chunk"]
+        if t["prompt_tokens"] > 1024:
+            covered = sum(c["attrs"]["tokens"] for c in chunks)
+            if (len(chunks) < 2 or covered
+                    != t["prompt_tokens"] - t["cached_tokens"]):
+                raise AssertionError(f"chunked request's prefill_chunk "
+                                     f"spans {len(chunks)} covering "
+                                     f"{covered} tokens ({t})")
+    everything = _http_json(port, "GET", "/debug/requests?n=256")
+    chrome = _http_json(port, "GET", "/debug/trace?format=chrome")
+    per_trace: dict = {}
+    for ev in chrome["traceEvents"]:
+        if ev["ph"] == "X" and ev.get("cat") == "request":
+            if not all(isinstance(ev[k], (int, float))
+                       for k in ("ts", "dur", "pid", "tid")):
+                raise AssertionError(f"malformed trace event {ev}")
+            tid = ev["args"]["trace_id"]
+            per_trace[tid] = per_trace.get(tid, 0) + 1
+    for t in everything:
+        n = _http_json(port, "GET",
+                       f"/debug/trace?id={t['trace_id']}")["n_spans"]
+        if per_trace.get(t["trace_id"]) != n:
+            raise AssertionError(f"chrome export: {per_trace.get(t['trace_id'])}"
+                                 f" events for trace {t['trace_id']} of "
+                                 f"{n} spans")
+    status, raw, _ = _http(port, "GET", "/metrics")
+    m = re.search(r'^tpu_inf_slo_ttft_seconds\{q="0\.5"\} (\S+)$',
+                  raw.decode(), re.M)
+    want = pooled_quantile([[t["ttft_s"] for t in everything]], 0.5)
+    if status != 200 or m is None or abs(float(m.group(1)) - want) > 1e-6:
+        raise AssertionError(f"tpu_inf_slo_ttft_seconds{{q=0.5}} "
+                             f"{m and m.group(1)} != the timelines' exact "
+                             f"p50 {want} ({len(everything)} requests)")
+    add_s = _span_add_cost_s()
+    e2e = sorted(t["e2e_s"] for t in timelines)[len(timelines) // 2]
+    spans = sum(spans_per_request) / len(spans_per_request)
+    out = {"requests": len(timelines), "timelines_total": len(everything),
+           "spans_per_request": spans_per_request,
+           "chrome_events": sum(per_trace.values()),
+           "slo_ttft_p50_s": float(m.group(1)),
+           "span_add_median_s": add_s, "median_e2e_s": e2e,
+           "span_share_of_median_e2e": spans * add_s / e2e,
+           "wall_s": time.perf_counter() - t0}
+    log(f"[bf16] request observability: SpanRecorder.add median "
+        f"{add_s * 1e6:.2f} us over 10000 calls; {spans:.1f} spans per "
+        f"request = {out['span_share_of_median_e2e']:.2e} of the median "
+        f"e2e {e2e:.3f} s")
+    return out
+
+
 def observability_phase(port: int, server) -> dict:
-    """The bf16 lane's server, after its requests: the step ledger
+    """The bf16 lane's server, after its requests: the request half of
+    observability (request_observability_phase), the step ledger
     (steps_phase), /api/chat, the embeddings, the model card and a
     /debug/profile capture, each with its own gates."""
     t0 = time.perf_counter()
-    out = {"steps": steps_phase(port, "bf16")}
+    out = {"requests": request_observability_phase(port)}
+    out["steps"] = steps_phase(port, "bf16")
     out["chat"] = chat_phase(port)
     out["embed"] = embed_phase(port, server.engine.model_cfg.d_model)
     out["model_card"] = card_phase(port, server.engine)
-    out["profile"] = profile_phase(port)
+    out["profile"] = profile_phase(port, server)
     out["wall_s"] = time.perf_counter() - t0
     log(f"[bf16] observability phase: {json.dumps(out)}")
     return {"observability": out}

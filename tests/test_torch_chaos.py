@@ -304,7 +304,7 @@ def test_debug_chaos_endpoint_arms_engine_faults():
         assert _post(port, {"replica": 7}, "/debug/chaos")[0] == 400
         assert _post(port, {"kill": "kill9"}, "/debug/chaos")[0] == 400
         status, _, raw = _get(port, "/debug/requests")
-        assert status == 501 and b"ROADMAP 1.18" in raw
+        assert status == 200 and isinstance(json.loads(raw), list)
     finally:
         srv.shutdown(timeout=5.0)
 

@@ -400,8 +400,7 @@ def test_metrics_expose_engine_breadth_series(weights):
         server.shutdown(timeout=TIMEOUT)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("role", "decode", "1.15"), ("slo_ttft_ms", 100.0, "1.18b")])
+@pytest.mark.parametrize("field,value,item", [("role", "decode", "1.15")])
 def test_unported_knobs_raise_through_build_server(field, value, item):
     from tpu_inference_torch.server.http import build_server
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
@@ -415,8 +414,12 @@ def test_unported_knobs_raise_through_build_server(field, value, item):
     ({"num_speculative_tokens": 2, "draft_model": "tiny-llama"},
      lambda e: e.spec_draft and e.draft_cfg.name == e.model_cfg.name),
     ({"chaos_step_failure_rate": 0.1},
-     lambda e: e.chaos_step_failure_rate == 0.1)],
-    ids=["num_speculative_tokens", "spec_mode", "chaos_step_failure_rate"])
+     lambda e: e.chaos_step_failure_rate == 0.1),
+    ({"slo_ttft_ms": 100.0},
+     lambda e: (e.engine_cfg.slo_ttft_ms == 100.0
+                and e.telemetry.slo.ttft_target_s == 0.1))],
+    ids=["num_speculative_tokens", "spec_mode", "chaos_step_failure_rate",
+         "slo_ttft_ms"])
 def test_spec_and_chaos_knobs_through_build_server(kw, check):
     from tpu_inference_torch.server.http import build_server
     server = build_server("tiny-llama", warmup=False, device="cpu", **kw)

@@ -112,8 +112,6 @@ from tpu_inference_torch.models.registry import build_model, get_model_fns
 # EngineConfig fields the port does not serve: a value other than the
 # default raises NotImplementedError naming the ROADMAP item.
 _UNPORTED = {
-    "slo_ttft_ms": "1.18b (observability: SLO gauges)",
-    "slo_tpot_ms": "1.18b (observability: SLO gauges)",
     "role": "1.15 (process fleet: P/D worker roles)",
 }
 
@@ -243,8 +241,25 @@ class Sequence:
     prefill_start: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0
+    # The client-visible request id (X-Request-Id): it keys the
+    # request's spans and structured logs. attempt counts resubmissions
+    # (always 0 at dp=1: failover is ROADMAP 1.15).
     trace_id: str = ""
+    attempt: int = 0
     priority_class: str = "interactive"
+    # Routing: the replica this attempt was dispatched to (-1 when
+    # submitted to a scheduler directly) and the prefix-cache pages the
+    # router counted on, of them host-tier ones, and pages pulled from a
+    # fleet KV fabric (always 0: the port has none).
+    routed_replica: int = -1
+    route_hit_pages: int = 0
+    route_host_hit_pages: int = 0
+    route_fabric_hit_pages: int = 0
+    # Exposure accrued by the engine: the wall of every dispatch this
+    # request took part in, and its share of the host bubbles between
+    # decode calls (a shared dispatch accrues to each participant).
+    dispatch_wall_s: float = 0.0
+    bubble_s: float = 0.0
     # Adaptive γ of n-gram speculation: the current γ (-1 = not yet
     # chosen, 0 = throttled), the acceptance EWMA (starts mildly
     # optimistic), the countdown to a throttled lane's next probe and the
@@ -899,31 +914,46 @@ class InferenceEngine:
         """The prefix cache's demote copy, with swap telemetry."""
         t0 = time.perf_counter()
         out = kvc.offload_pages(self.kv, pages)
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
         if out:
-            self.host_pool.note_swap_wall("out", dt)
+            self.host_pool.note_swap_wall("out", t1 - t0)
             tel = self.telemetry
-            tel.kv_swap_s.observe(dt)
+            tel.kv_swap_s.observe(t1 - t0)
             tel.kv_offload_pages.inc(len(out))
-            tel.kv_offload_bytes.inc(sum(hp.nbytes for hp in out))
+            nbytes = sum(hp.nbytes for hp in out)
+            tel.kv_offload_bytes.inc(nbytes)
+            # An eviction batch mixes victims: no request owns the span.
+            tel.recorder.add_maintenance("kv_swap_out", t0, t1,
+                                         pages=len(out), bytes=nbytes)
         return out
 
     def _restore_batch(self, fresh: List[int],
-                       entries: List[kvc.HostKVPage]) -> None:
+                       entries: List[kvc.HostKVPage],
+                       trace_id: str = "") -> None:
         """Scatter host copies into freshly allocated pages (queued on
-        the stream, the following prefill runs behind it)."""
+        the stream, the following prefill runs behind it). The swap-in
+        span goes to ``trace_id``'s trace, or to the maintenance lane
+        when it is empty."""
         t0 = time.perf_counter()
         self.kv = kvc.restore_pages(self.kv, fresh, entries)
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
         if self.host_pool is not None:
-            self.host_pool.note_swap_wall("in", dt)
+            self.host_pool.note_swap_wall("in", t1 - t0)
         tel = self.telemetry
-        tel.kv_swap_s.observe(dt)
+        tel.kv_swap_s.observe(t1 - t0)
         tel.kv_restore_pages.inc(len(fresh))
-        tel.kv_restore_bytes.inc(sum(e.nbytes for e in entries))
+        nbytes = sum(e.nbytes for e in entries)
+        tel.kv_restore_bytes.inc(nbytes)
+        if trace_id:
+            tel.recorder.add("kv_swap_in", trace_id, t0, t1,
+                             pages=len(fresh), bytes=nbytes)
+        else:
+            tel.recorder.add_maintenance("kv_swap_in", t0, t1,
+                                         pages=len(fresh), bytes=nbytes)
 
     def _restore_host_entries(self, pages: List[Optional[int]],
-                              host_entries) -> List[int]:
+                              host_entries,
+                              trace_id: str = "") -> List[int]:
         """Fill the host-tier slots of a tiered lookup: allocate fresh
         pages, swap the copies in, publish them back in the device tier.
         On allocation failure every reference the lookup took is undone
@@ -937,7 +967,8 @@ class InferenceEngine:
             self.prefix_cache.readmit_host(
                 [(d, e) for _, d, e in host_entries])
             raise
-        self._restore_batch(fresh, [e for _, _, e in host_entries])
+        self._restore_batch(fresh, [e for _, _, e in host_entries],
+                            trace_id=trace_id)
         out = list(pages)
         for (i, digest, _), page in zip(host_entries, fresh):
             out[i] = page
@@ -986,7 +1017,8 @@ class InferenceEngine:
             self.prefix_cache.readmit_host(taken[free:])
             taken = taken[:free]
         fresh = self.allocator.allocate(len(taken))
-        self._restore_batch(fresh, [e for _, e in taken])
+        self._restore_batch(fresh, [e for _, e in taken],
+                            trace_id=seq.trace_id or str(seq.request_id))
         for (digest, _), page in zip(taken, fresh):
             self.prefix_cache.adopt(digest, page)
         if complete:
@@ -1067,7 +1099,9 @@ class InferenceEngine:
             pages, host_entries, seq.cached_tokens = self.prefix_cache.lookup(
                 prompt, max_tokens=len(prompt) - 1,
                 digests=self._seq_digests(seq, prompt))
-            shared = self._restore_host_entries(pages, host_entries)
+            shared = self._restore_host_entries(
+                pages, host_entries,
+                trace_id=seq.trace_id or str(seq.request_id))
             n_restored = len(host_entries)
         n_new = kvc.pages_needed(len(prompt), ecfg.page_size) - len(shared)
         try:
@@ -1184,10 +1218,18 @@ class InferenceEngine:
         # Active decode lanes wait behind this serial chunk (the stall
         # hybrid steps remove); mid-prefill sequences are not active.
         stalled = bool(self.active_sequences())
+        t0 = time.perf_counter()
         out, dt = self._run_prefill(st)      # syncs on the chunk's token
         if stalled:
             self.telemetry.decode_stall_during_prefill_s.observe(dt)
         if self.telemetry.enabled:
+            seq.dispatch_wall_s += dt
+            # A child of the request's prefill span: a long prompt's
+            # chunk cadence on the trace.
+            self.telemetry.recorder.add(
+                "prefill_chunk", seq.trace_id or str(seq.request_id),
+                t0, t0 + dt, parent="prefill",
+                offset=int(offset), tokens=int(st["chunk_tokens"]))
             c = st["chunk_tokens"]
             self._ledger_push(
                 "prefill_chunk", rung=0, slots=1,
@@ -1263,6 +1305,8 @@ class InferenceEngine:
             st["bts"][i] = self._block_table_array(seq.pages)
         out, dt = self._run_prefill(st)
         if self.telemetry.enabled:
+            for seq, _ in group:
+                seq.dispatch_wall_s += dt
             n = len(group)
             plen, pref = st["prompt_len"][:n], st["prefix_len"][:n]
             self._ledger_push(
@@ -1672,10 +1716,10 @@ class InferenceEngine:
             st["allowed"][seq.slot] = allowed_by_slot[seq.slot]
             if seq.eos_token_id is not None:
                 st["eos"][seq.slot] = seq.eos_token_id
-        t0 = self._note_decode_entry()
+        t0 = self._note_decode_entry(active)
         outs, _, _ = self._decode_multi_fn(st, k_steps)
         outs = outs.cpu().numpy()                      # [K, B]: one sync
-        dt = self._note_decode_exit(t0)
+        dt = self._note_decode_exit(t0, active)
         kv_read = sum(s.ctx_len for s in active) * k_steps
         result: Dict[int, List[int]] = {}
         for seq in active:
@@ -1740,6 +1784,7 @@ class InferenceEngine:
                 "event": event, "allowed": {}, "seqs": {}, "rung": 0,
                 "prefill": self._chunk_record(chunk, p_host)}
         if self.telemetry.enabled:
+            chunk["seq"].dispatch_wall_s += dt
             c = chunk["chunk_tokens"]
             call["ledger"] = {
                 "kind": "prefill_chunk", "rung": 0, "slots": 1,
@@ -1829,7 +1874,7 @@ class InferenceEngine:
                 window_d = torch.where(carried_d[:, None],
                                        call["final_window"], window_d)
         st["tokens"], st["windows"] = tokens_d, window_d
-        t0 = self._note_decode_entry()
+        t0 = self._note_decode_entry(staged)
         if chunk is None:
             outs, final, final_window = self._decode_multi_fn(st, k_steps)
             p_tok = None
@@ -1841,10 +1886,11 @@ class InferenceEngine:
         (outs_h, p_host), event = self._to_host_async(outs, p_tok)
         # Non-blocking: this wall is the host's dispatch; the device
         # wait shows in decode_sync_s at _sync_oldest.
-        dispatch_dt = self._note_decode_exit(t0)
-        if chunk is not None:
-            self.telemetry.hybrid_dispatch_s.observe(
-                time.perf_counter() - t0)
+        dispatch_dt = self._note_decode_exit(t0, staged)
+        if chunk is not None and self.telemetry.enabled:
+            dt = time.perf_counter() - t0
+            self.telemetry.hybrid_dispatch_s.observe(dt)
+            chunk["seq"].dispatch_wall_s += dt
         call = {"outs": outs_h, "final": final,
                 "final_window": final_window, "event": event,
                 "allowed": allowed_by_slot, "rung": b,
@@ -1893,8 +1939,16 @@ class InferenceEngine:
         if call["event"] is not None:
             call["event"].synchronize()
         sync_dt = time.perf_counter() - t0
-        if call["outs"] is not None:
-            self.telemetry.decode_sync_s.observe(sync_dt)
+        if self.telemetry.enabled:
+            if call["outs"] is not None:
+                self.telemetry.decode_sync_s.observe(sync_dt)
+            pf = call.get("prefill")
+            if pf is not None:
+                # The chunk's request waited on the same sync.
+                pf["seq"].dispatch_wall_s += sync_dt
+            for seq in call["seqs"].values():
+                if not seq.done and self.slots[seq.slot] is seq:
+                    seq.dispatch_wall_s += sync_dt
         # The wait was device time: the next bubble counts host work only.
         self._last_decode_end = (
             time.perf_counter()
@@ -2078,13 +2132,13 @@ class InferenceEngine:
         dispatch_wall = 0.0
         for c in range(n_calls):
             st["ctx"] = ctx0 + c * st["allowed"]
-            t0 = self._note_decode_entry()
+            t0 = self._note_decode_entry(active)
             outs, st["tokens"], st["windows"] = self._decode_multi_fn(
                 st, k_steps)
             if st["windows"] is None:
                 st["windows"] = np.full((b, PENALTY_WINDOW), -1, np.int64)
             outs_all.append(outs)
-            dispatch_wall += self._note_decode_exit(t0)
+            dispatch_wall += self._note_decode_exit(t0, active)
         t_sync = time.perf_counter()
         outs_all = torch.cat(outs_all).cpu().numpy()   # the one sync
         sync_dt = time.perf_counter() - t_sync
@@ -2182,10 +2236,10 @@ class InferenceEngine:
             return {}
         b = ecfg.max_batch_size       # draft spec runs at the top rung
         st, cap, active = self._spec_stage(active_seqs, b)
-        t0 = self._note_decode_entry()
+        t0 = self._note_decode_entry(active_seqs)
         emitted, n_acc = self._spec_round_fn(st, cap, active)
         emitted, n_acc = emitted.cpu().numpy(), n_acc.cpu().numpy()
-        dt = self._note_decode_exit(t0)
+        dt = self._note_decode_exit(t0, active_seqs)
         # The verify forward read the cache at the ctx the lanes entered
         # the round with.
         kv_read = sum(s.ctx_len for s in active_seqs) * s_len
@@ -2340,11 +2394,11 @@ class InferenceEngine:
                 n = min(len(prop), gamma)
                 drafts[seq.slot, :n] = prop[:n]
                 n_prop[seq.slot] = n
-        t0 = self._note_decode_entry()
+        t0 = self._note_decode_entry(active_seqs)
         out = self._verify_fn(st, cap, act, drafts, n_prop)
         # The dispatch wall and the cache reads, for whichever caller
         # pushes this round's ledger record (after the fold, or at sync).
-        self._last_verify_dt = self._note_decode_exit(t0)
+        self._last_verify_dt = self._note_decode_exit(t0, active_seqs)
         self._last_verify_kv_read = (
             sum(s.ctx_len for s in active_seqs) * s_len)
         self.spec_rounds_total += 1
@@ -2476,7 +2530,12 @@ class InferenceEngine:
         if call["event"] is not None:
             call["event"].synchronize()
         sync_dt = time.perf_counter() - t0
-        self.telemetry.decode_sync_s.observe(sync_dt)
+        if self.telemetry.enabled:
+            self.telemetry.decode_sync_s.observe(sync_dt)
+            for seq in call["seqs"].values():
+                if (not seq.done and seq.slot >= 0
+                        and self.slots[seq.slot] is seq):
+                    seq.dispatch_wall_s += sync_dt
         # The wait was device time: the next bubble counts host work only.
         self._last_decode_end = (
             time.perf_counter()
@@ -2508,23 +2567,31 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
 
-    def _note_decode_entry(self) -> float:
+    def _note_decode_entry(self, active_seqs: List[Sequence]) -> float:
         """Observe the host bubble since the last decode call ended (while
-        the decode streak lasts; the step ledger's bubble_s) and return
-        the call's start."""
+        the decode streak lasts; the step ledger's bubble_s), accrue it to
+        the lanes of this call, and return the call's start."""
         now = time.perf_counter()
         self._pending_bubble = 0.0
-        if self._last_decode_end is not None:
-            self._pending_bubble = now - self._last_decode_end
-            self.telemetry.dispatch_bubble_s.observe(self._pending_bubble)
+        if self._last_decode_end is not None and self.telemetry.enabled:
+            gap = now - self._last_decode_end
+            self.telemetry.dispatch_bubble_s.observe(gap)
+            self._pending_bubble = gap
+            for seq in active_seqs:
+                seq.bubble_s += gap
         return now
 
-    def _note_decode_exit(self, t0: float) -> float:
-        """Observe one decode call's host wall and return it."""
+    def _note_decode_exit(self, t0: float,
+                          active_seqs: List[Sequence]) -> float:
+        """Observe one decode call's host wall, accrue it to the call's
+        lanes, and return it."""
         now = time.perf_counter()
         dt = now - t0
-        self.telemetry.decode_dispatch_s.observe(dt)
-        self.telemetry.decode_dispatches.inc()
+        if self.telemetry.enabled:
+            self.telemetry.decode_dispatch_s.observe(dt)
+            self.telemetry.decode_dispatches.inc()
+            for seq in active_seqs:
+                seq.dispatch_wall_s += dt
         self._last_decode_end = (
             now if any(s is not None and not s.done for s in self.slots)
             else None)

@@ -26,8 +26,14 @@ Twin of ``tpu_inference/engine/scheduler.py`` at the default path:
 - Supervision: ``step_inflight_since`` marks the dispatch in progress
   for the replica's step watchdog; a failed dispatch (an injected
   ``ChaosStepError`` included) fails its requests with reason "error",
-  drops the calls in flight and feeds the health machine. Page-pressure
-  requests from other threads apply at the top of each loop iteration.
+  drops the calls in flight, leaves a ``step_error`` flight-recorder
+  capture and feeds the health machine. Page-pressure requests from
+  other threads apply at the top of each loop iteration, and the flight
+  recorder's heartbeat refreshes there.
+- Request observability at finish: the phase histograms, the
+  ``queue_wait``/``prefill``/``decode`` spans (the engine records the
+  ``prefill_chunk`` and ``kv_swap_in`` children), the rolling SLO
+  windows, and one timeline in ``recent`` (GET /debug/requests).
 """
 
 from __future__ import annotations
@@ -146,6 +152,10 @@ class SchedulerStats:
                 "fallback_rounds": engine.spec_fallback_rounds,
                 "throttles": engine.spec_throttles_total,
             }
+        # Exact windowed TTFT/TPOT quantiles and breach counts, with the
+        # raw windows (absent with telemetry off).
+        if engine.telemetry.slo is not None:
+            out["slo"] = engine.telemetry.slo.snapshot()
         return out
 
 
@@ -168,6 +178,11 @@ class EngineScheduler:
         self.max_prefills_per_step = engine.engine_cfg.max_prefill_batch
         self.stats = SchedulerStats()
         engine.telemetry.bind_scheduler(self)
+        # The last 256 finished requests' timelines (/debug/requests).
+        self.recent: Deque[dict] = collections.deque(maxlen=256)
+        # The engine thread's native id (what a profiler trace names it
+        # by), set when the loop starts.
+        self.thread_native_id: Optional[int] = None
         self._waiting: Deque[_Pending] = collections.deque()
         self._callbacks: Dict[int, _Pending] = {}
         # At most one multi-chunk prompt prefills incrementally.
@@ -278,14 +293,20 @@ class EngineScheduler:
 
     def _step_failed(self, phase: str, exc: BaseException,
                      seqs: List[Sequence]) -> None:
-        """One structured error record per failed dispatch; the affected
-        requests finish with reason "error"."""
+        """One structured error record and one flight-recorder capture
+        per failed dispatch; the affected requests finish with reason
+        "error"."""
         self.stats.step_failures += 1
         telemetry.log_event(
             "step_error", level="error", phase=phase, error=repr(exc),
             request_ids=[s.trace_id or str(s.request_id) for s in seqs],
             traceback="".join(traceback.format_exception(
                 type(exc), exc, exc.__traceback__, limit=8)))
+        flight = self.engine.telemetry.flight
+        if flight is not None:
+            # Evidence first, while the failed step's records are the
+            # newest in the ledger.
+            flight.capture("step_error")
         if self.on_step_error is not None:
             self.on_step_error(exc)
         for s in seqs:
@@ -506,12 +527,16 @@ class EngineScheduler:
         self.engine.release(seq)
         self.stats.requests_finished += 1
         self._observe_finish(seq)
+        with self._lock:
+            self.recent.append(self._timeline(seq))
         if pending is not None:
             pending.on_finish(seq)
 
     def _observe_finish(self, seq: Sequence) -> None:
-        """Fold one finished request into the phase histograms and the
-        structured log (queue + prefill + decode sums to e2e)."""
+        """Fold one finished request into the phase histograms, its
+        spans and SLO windows, and the structured log. The phases come
+        from the timestamps of the /debug/requests timeline, so queue +
+        prefill + decode sums to e2e."""
         tel = self.engine.telemetry
         tel.request_finished(seq.finish_reason)
         fin = seq.finish_time or time.perf_counter()
@@ -523,16 +548,113 @@ class EngineScheduler:
             tel.decode_phase_s.observe(max(0.0, fin - first))
             tel.ttft_s.observe(max(0.0, first - enq))
             tel.e2e_s.observe(max(0.0, fin - enq))
+        self._observe_trace(seq, enq, start, first, fin)
         telemetry.log_event(
             "request_finish", level="info",
             request_id=seq.trace_id or str(seq.request_id),
-            reason=seq.finish_reason,
+            reason=seq.finish_reason, attempt=seq.attempt,
+            routed_replica=seq.routed_replica,
+            route_hit_pages=seq.route_hit_pages,
+            route_host_hit_pages=seq.route_host_hit_pages,
+            route_fabric_hit_pages=seq.route_fabric_hit_pages,
+            host_restored_pages=seq.host_restored_pages,
+            preemptions=seq.preemptions,
             prompt_tokens=len(seq.prompt_tokens),
             output_tokens=len(seq.generated),
             queue_wait_s=round(max(0.0, start - enq), 6),
             prefill_s=round(max(0.0, first - start), 6),
             decode_s=round(max(0.0, fin - first), 6),
             e2e_s=round(max(0.0, fin - enq), 6))
+
+    def _observe_trace(self, seq: Sequence, enq: float, start: float,
+                       first: float, fin: float) -> None:
+        """Record the request's phase spans, seal its trace, and fold its
+        TTFT/TPOT into the rolling SLO windows.
+
+        Spans: queue_wait covers enqueue -> prefill start (admission
+        included); prefill covers prefill start -> first token (its
+        prefill_chunk children were recorded by the engine); decode
+        covers first token -> finish, and is skipped on a "handoff"
+        finish (no decode ran here). Sealing moves the trace into the
+        recorder's recent ring, where /debug/trace reads it."""
+        tel = self.engine.telemetry
+        rec = tel.recorder
+        tid = seq.trace_id or str(seq.request_id)
+        if rec.enabled and seq.enqueue_time:
+            rec.add("queue_wait", tid, enq, max(enq, start),
+                    admission=self.engine.admission)
+            rec.add("prefill", tid, start, max(start, first),
+                    cached_tokens=seq.cached_tokens,
+                    host_restored_pages=seq.host_restored_pages,
+                    attempt=seq.attempt)
+            if seq.finish_reason != "handoff":
+                attrs = {"output_tokens": len(seq.generated),
+                         "reason": seq.finish_reason,
+                         "preemptions": seq.preemptions}
+                if seq.spec_rounds:
+                    attrs["spec_rounds"] = seq.spec_rounds
+                    attrs["spec_accepted_tokens"] = seq.spec_accepted_toks
+                rec.add("decode", tid, first, max(first, fin), **attrs)
+        rec.seal(tid)
+        # TTFT counts only on a fresh first attempt (attempt 0, no
+        # resume, a first token, no error): a resume's local gap is not
+        # what the client waited. TPOT only where decode steps ran here:
+        # the first token is `first`, so decoded - 1 gaps follow it.
+        slo = tel.slo
+        if slo is None or not seq.enqueue_time:
+            return
+        ttft = (max(0.0, first - enq)
+                if not seq.resume_base and seq.attempt == 0
+                and seq.first_token_time
+                and seq.finish_reason != "error" else None)
+        gaps = len(seq.generated) - seq.resume_base - 1
+        tpot = (max(0.0, fin - first) / gaps
+                if gaps > 0 and seq.finish_reason != "handoff"
+                else None)
+        slo.observe(ttft, tpot)
+
+    def recent_snapshot(self, n: int) -> List[dict]:
+        """A copy of the last ``n`` request timelines (the deque is
+        appended on the engine thread)."""
+        with self._lock:
+            items = list(self.recent)
+        return items[-n:]
+
+    @staticmethod
+    def _timeline(seq: Sequence) -> dict:
+        """One request's lifecycle as durations (seconds), with the
+        reference's keys."""
+        fin = seq.finish_time or time.perf_counter()
+        first = seq.first_token_time or fin
+        n_out = len(seq.generated)
+        return {
+            "request_id": seq.request_id,
+            "trace_id": seq.trace_id,
+            "attempt": seq.attempt,
+            "routed_replica": seq.routed_replica,
+            "route_hit_pages": seq.route_hit_pages,
+            "route_host_hit_pages": seq.route_host_hit_pages,
+            "route_fabric_hit_pages": seq.route_fabric_hit_pages,
+            "finished_unix": round(time.time(), 3),
+            "prompt_tokens": len(seq.prompt_tokens),
+            "cached_tokens": seq.cached_tokens,
+            "host_restored_pages": seq.host_restored_pages,
+            "output_tokens": n_out,
+            "preemptions": seq.preemptions,
+            "finish_reason": seq.finish_reason,
+            "queue_wait_s": round(max(0.0, (seq.prefill_start or fin)
+                                      - seq.enqueue_time), 6),
+            "prefill_s": round(max(0.0, first - (seq.prefill_start or first)),
+                               6),
+            "decode_s": round(max(0.0, fin - first), 6),
+            "e2e_s": round(max(0.0, fin - (seq.enqueue_time
+                                           or seq.prefill_start or fin)), 6),
+            "ttft_s": round(max(0.0, first - (seq.enqueue_time or first)), 6),
+            "dispatch_wall_s": round(seq.dispatch_wall_s, 6),
+            "bubble_s": round(seq.bubble_s, 6),
+            "tpot_s": round((fin - first) / (n_out - 1), 6)
+            if n_out > 1 else None,
+        }
 
     def _deliver(self, new_tokens: Dict[int, List[int]]) -> None:
         for rid, toks in new_tokens.items():
@@ -550,7 +672,14 @@ class EngineScheduler:
 
     def run(self) -> None:
         engine = self.engine
+        self.thread_native_id = threading.get_native_id()
         while not self._stop.is_set():
+            # Re-read each iteration: the recorder may be attached after
+            # the loop starts.
+            flight = engine.telemetry.flight
+            if flight is not None:
+                # The heartbeat capture a kill -9 leaves behind.
+                flight.maybe_periodic()
             # Cross-thread page-pressure requests (/debug/chaos) apply
             # here: the allocator is engine-thread only.
             engine.apply_pending_page_pressure()

@@ -27,15 +27,22 @@ sequence's history) or ``--draft-model <preset>`` (``--spec-mode auto``
 then means draft), ``--num-speculative-tokens`` γ. Fault injection:
 ``--chaos-*``, the step watchdog ``--step-watchdog-s``. ``--debug``
 serves ``POST /debug/chaos``, ``GET /debug/steps`` (the step ledger's
-roofline report, ``--step-ledger-depth`` records) and ``POST
-/debug/profile`` (torch.profiler traces under ``--profile-dir``).
+roofline report, ``--step-ledger-depth`` records), ``POST
+/debug/profile`` (torch.profiler traces under ``--profile-dir``), ``GET
+/debug/requests`` (request timelines), ``GET /debug/trace`` (span trees
+and their Chrome export) and ``GET /debug/blackbox`` (the flight
+recorder's captures under ``--blackbox-dir``, newest
+``--blackbox-retain`` kept). ``--slo-ttft-ms`` / ``--slo-tpot-ms`` set
+the targets the SLO breach counters count against.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
+import tempfile
 import threading
 
 from tpu_inference_torch.config import PRESETS, ServerConfig
@@ -78,6 +85,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=ServerConfig.profile_dir,
                    help="where POST /debug/profile writes its traces "
                         "(chosen by the operator, never by a client)")
+    p.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                   help="rolling SLO target for time-to-first-token "
+                        "(ms): requests past it count into "
+                        "tpu_inf_slo_breaches_total{slo=\"ttft\"}; the "
+                        "windowed p50/p95 gauges export regardless. "
+                        "0 = no target")
+    p.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                   help="rolling SLO target for time-per-output-token "
+                        "(ms): breaches count into "
+                        "tpu_inf_slo_breaches_total{slo=\"tpot\"}; "
+                        "0 = no target")
+    # The reference's /tmp/tpu-inf-blackbox, under TMPDIR when it is set.
+    p.add_argument("--blackbox-dir",
+                   default=os.path.join(tempfile.gettempdir(),
+                                        "tpu-inf-blackbox"),
+                   help="crash flight-recorder root (per-replica "
+                        "capture dirs survive kill -9; '' disables). "
+                        "Operator-chosen — clients never name capture "
+                        "paths")
+    p.add_argument("--blackbox-retain", type=int, default=8,
+                   help="flight-recorder retention cap: newest N "
+                        "trigger captures kept per replica")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int_or_auto, default=512,
                    help="KV pool pages, or 'auto': fill the card's memory "
@@ -198,9 +227,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="priority class for requests without an "
                         "X-Priority header")
     p.add_argument("--debug", action="store_true",
-                   help="serve POST /debug/chaos, GET /debug/steps and "
-                        "POST /debug/profile (/debug/requests, /trace "
-                        "and /blackbox answer 501: ROADMAP 1.18b)")
+                   help="expose the unauthenticated /debug/* endpoints "
+                        "(request timelines, span traces, step ledger, "
+                        "flight-recorder index, chaos and profiler "
+                        "control)")
     p.add_argument("--chaos-page-pressure", type=int, default=0,
                    help="fault injection: hold this many KV pages out "
                         "of the pool at boot (adjustable via POST "
@@ -295,7 +325,8 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         chaos_page_pressure=args.chaos_page_pressure,
         chaos_step_failure_rate=args.chaos_step_failure_rate,
         chaos_step_wedge_s=args.chaos_step_wedge_s,
-        step_ledger_depth=args.step_ledger_depth)
+        step_ledger_depth=args.step_ledger_depth,
+        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms)
 
 
 def server_overrides(args) -> dict:
@@ -308,6 +339,8 @@ def server_overrides(args) -> dict:
             "quarantine_cooldown_s": args.quarantine_cooldown_s,
             "default_class": args.default_class,
             "profile_dir": args.profile_dir,
+            "blackbox_dir": args.blackbox_dir,
+            "blackbox_retain": args.blackbox_retain,
             "chaos_failure_rate": args.chaos_failure_rate,
             "chaos_delay_s": args.chaos_delay_s}
 

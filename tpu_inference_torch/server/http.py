@@ -37,11 +37,13 @@ Fault injection: ``ServerConfig.chaos_delay_s`` / ``chaos_failure_rate``
 delay or 503 a generate, chat or embed request before it is parsed
 (``chaos_gate``). With ``enable_debug``: ``POST /debug/chaos`` arms the
 engine's faults at run time (EngineGroup.apply_chaos), ``GET
-/debug/steps`` serves the step ledger's roofline report, and ``POST
+/debug/steps`` serves the step ledger's roofline report, ``POST
 /debug/profile`` runs torch.profiler (``{"seconds": N, "replica": i}``,
 or ``{"action": "start"|"stop"}``), writing traces only under
-``ServerConfig.profile_dir``. ``/debug/requests``, ``/debug/trace`` and
-``/debug/blackbox`` answer 501 (ROADMAP 1.18b). Without
+``ServerConfig.profile_dir``, ``GET /debug/requests?n=`` the latest
+request timelines, ``GET /debug/trace?id=`` one request's span tree
+(``?format=chrome&n=``: the latest traces as Chrome trace-event JSON)
+and ``GET /debug/blackbox`` the flight recorder's captures. Without
 ``enable_debug`` every ``/debug/*`` route is 404.
 """
 
@@ -597,24 +599,46 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ------------------------------------------------------- routes
 
-    _DEBUG_UNPORTED = ("/debug/requests", "/debug/trace", "/debug/blackbox")
+    @staticmethod
+    def _int_arg(query: dict, name: str, default: int) -> int:
+        try:
+            return int(query.get(name, [default])[0])
+        except ValueError:
+            raise HTTPError(400, f"'{name}' must be an integer")
 
-    def _debug_unported(self, path: str) -> bool:
-        """/debug/requests, /debug/trace and /debug/blackbox answer 501
-        (with ``enable_debug``; 404 without, as the reference)."""
-        if not (self.app.cfg.server.enable_debug
-                and path in self._DEBUG_UNPORTED):
-            return False
-        self._send_json(501, {"error": f"{path} is not ported yet "
-                                       "(ROADMAP 1.18b: observability)"})
-        return True
+    def _debug_get(self, path: str, query: dict) -> None:
+        """GET /debug/requests, /debug/trace and /debug/blackbox: the
+        reference's bodies and status codes."""
+        group = self.app.group
+        if path == "/debug/requests":
+            n = self._int_arg(query, "n", 50)
+            self._send_json(200, group.recent_snapshot(n) if n > 0 else [])
+        elif path == "/debug/blackbox":
+            self._send_json(200, group.blackbox_index())
+        elif query.get("format") == ["chrome"]:
+            self._send_json(200, group.trace_chrome(
+                self._int_arg(query, "n", 128)))
+        else:
+            tid = (query.get("id", [""])[0]).strip()
+            if not tid:
+                raise HTTPError(400, "pass ?id=<trace_id> or ?format=chrome")
+            snap = group.trace_snapshot(tid)
+            if snap is None:
+                raise HTTPError(404, f"no trace {tid!r} in the recent ring")
+            self._send_json(200, snap)
+
+    _DEBUG_GETS = ("/debug/requests", "/debug/trace", "/debug/blackbox")
 
     def do_GET(self) -> None:   # noqa: N802
         url = urlsplit(self.path)
         app = self.app
-        if self._debug_unported(url.path):
-            return
-        if url.path == "/api/tags":
+        if url.path in self._DEBUG_GETS and app.cfg.server.enable_debug:
+            try:
+                self._debug_get(url.path,
+                                parse_qs(url.query, keep_blank_values=True))
+            except HTTPError as e:
+                self._send_json(e.status, e.body, e.headers)
+        elif url.path == "/api/tags":
             self._send_json(200, app.tags())
         elif url.path == "/api/ps":
             self._send_json(200, app.ps())
@@ -641,8 +665,6 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self) -> None:   # noqa: N802
         path = urlsplit(self.path).path
-        if self._debug_unported(path):
-            return
         app = self.app
         try:
             raw = self._read_body()

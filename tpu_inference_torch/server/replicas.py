@@ -6,9 +6,20 @@ state machine driven by step failures, a step watchdog, admission
 control, engine fault injection at run time (``apply_chaos``), the
 health snapshot behind /healthz, the Prometheus page behind /metrics,
 embeddings (``embed_many``), the step-ledger report behind /debug/steps
-and the profiler capture behind /debug/profile. Several replicas,
-prefix-affinity routing and resubmission on another replica are ROADMAP
-items 1.15 and 1.16.
+and the profiler capture behind /debug/profile. Several replicas and
+resubmission on another replica are ROADMAP items 1.15 and 1.16.
+
+Request observability at dp=1, as the reference's EngineGroup: the
+router's own span recorder (replica -1) holds each request's root
+``request`` span and its ``route`` span, and the engine's recorder the
+phase spans; /debug/trace joins the two (``trace_snapshot``,
+``trace_chrome``), /debug/requests reads the scheduler's timelines
+(``recent_snapshot``). The route peeks the prefix cache as the
+reference's prefix-affinity router does for its one candidate, so the
+timelines' routing keys carry the reference's values. The fleet SLO
+gauges pool the replica's windows; with ``ServerConfig.blackbox_dir``
+set, a flight recorder captures on step errors, watchdog trips and
+exit (``blackbox_index`` behind /debug/blackbox).
 
 Health: healthy -> degraded (one failed step) -> quarantined
 (``quarantine_after_failures`` in a row) -> recovered (after
@@ -34,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import ServerConfig
 from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+from tpu_inference_torch.engine.prefix_cache import _chain_hashes
 from tpu_inference_torch.engine.scheduler import EngineScheduler
 
 
@@ -133,13 +145,16 @@ class ReplicaHealth:
 @dataclasses.dataclass
 class _Tracked:
     """Group-side state of one submitted request: the caller's
-    callbacks, and whether the watchdog already finished it (then the
-    engine thread's late callbacks are dropped)."""
+    callbacks, whether the watchdog already finished it (then the engine
+    thread's late callbacks are dropped), the tokens forwarded and the
+    submit time (the root span's)."""
 
     seq: Sequence
     on_token: Callable
     on_finish: Callable
     orphaned: bool = False
+    delivered: int = 0
+    t_submit: float = 0.0
 
 
 def _ghost(seq: Sequence, reason: str) -> Sequence:
@@ -181,7 +196,13 @@ class EngineGroup:
         self._lock = threading.Lock()
         self._watch_stop = threading.Event()
         self._watch_thread: Optional[threading.Thread] = None
+        # The router's spans (request root, route); the engines' phase
+        # spans carry their replica index.
+        self._recorder = telemetry.SpanRecorder(replica=-1)
+        for i, e in enumerate(engines):
+            e.telemetry.recorder.replica = i
         self._fleet_registry = telemetry.Registry()
+        telemetry.register_span_ring(self._fleet_registry, self._recorder)
         self._fleet_registry.counter(
             "tpu_inf_requests_shed_total",
             "Requests rejected with 429 at the admission queue cap",
@@ -225,6 +246,35 @@ class EngineGroup:
                   routing=self.server_cfg.routing)
         telemetry.emit_build_info(self._fleet_registry, **kw)
         telemetry.emit_build_info(eng.telemetry.registry, **kw)
+        # Fleet SLO gauges: exact quantiles pooled over the replicas'
+        # windows (the per-replica series render under replica="i").
+        telemetry.register_fleet_slo(
+            r, self._pooled_slo_quantile,
+            lambda k: sum(getattr(e.telemetry.slo, f"{k}_breaches", 0)
+                          for e in self.engines
+                          if e.telemetry.slo is not None))
+        if self.server_cfg.blackbox_dir:
+            for i, (e, s) in enumerate(zip(self.engines, self.schedulers)):
+                telemetry.attach_flight_recorder(
+                    e.telemetry, self.server_cfg.blackbox_dir, i,
+                    retain=self.server_cfg.blackbox_retain,
+                    config=dataclasses.asdict(self.server_cfg),
+                    stats_fn=lambda s=s, e=e: s.stats.snapshot(e))
+
+    def _pooled_slo_quantile(self, which: str, q: float) -> float:
+        windows = []
+        for e in self.engines:
+            slo = e.telemetry.slo
+            if slo is not None:
+                ring = slo.ttft if which == "ttft" else slo.tpot
+                windows.append(ring.values())
+        v = telemetry.pooled_quantile(windows, q)
+        return float("nan") if v is None else v
+
+    def _fleet_slo(self) -> dict:
+        return telemetry.pooled_slo(
+            [e.telemetry.slo.snapshot() for e in self.engines
+             if e.telemetry.slo is not None])
 
     @property
     def engine(self) -> InferenceEngine:
@@ -249,6 +299,9 @@ class EngineGroup:
             self._watch_thread = None
         for s in self.schedulers:
             s.stop(drain=drain, timeout=timeout)
+        for e in self.engines:
+            if e.telemetry.flight is not None:
+                e.telemetry.flight.close()
 
     # ------------------------------------------------------- supervision
 
@@ -273,6 +326,11 @@ class EngineGroup:
             for sched, health in zip(self.schedulers, self.health):
                 if self._wedged(sched):
                     if health.mark_wedged():
+                        flight = sched.engine.telemetry.flight
+                        if flight is not None:
+                            # The wedged dispatch's records are still the
+                            # newest in the ledger.
+                            flight.capture("watchdog")
                         self._fail_stranded(sched)
                 else:
                     health.maybe_recover()
@@ -303,7 +361,40 @@ class EngineGroup:
                 "request_failover", level="warning",
                 request_id=entry.seq.trace_id or str(entry.seq.request_id),
                 resubmitted=False)
+            self._finish_trace(entry, "unavailable")
             entry.on_finish(_ghost(entry.seq, "unavailable"))
+
+    def _finish_trace(self, entry: _Tracked, reason: str) -> None:
+        """The terminal end of a tracked request: the router's root span
+        (submit -> terminal) and its seal. The engine's recorder sealed
+        the phase spans at the scheduler's finish."""
+        tid = entry.seq.trace_id or str(entry.seq.request_id)
+        self._recorder.add("request", tid, entry.t_submit
+                           or time.perf_counter(), time.perf_counter(),
+                           parent="", reason=reason, attempts=0,
+                           output_tokens=entry.delivered)
+        self._recorder.seal(tid)
+
+    def _route_hit_pages(self, sched: EngineScheduler,
+                         seq: Sequence) -> tuple:
+        """(hbm, host, fabric) prefix-cache pages the reference's
+        prefix-affinity router peeks for its one candidate: the most
+        recent max_context-1 prompt tokens, never the final one (its
+        logits are always recomputed). The digests are kept on the
+        Sequence for admission's lookup. The port has no KV fabric."""
+        pc = sched.engine.prefix_cache
+        if self.server_cfg.routing != "prefix_affinity" or pc is None:
+            return (0, 0, 0)
+        ecfg = sched.engine.engine_cfg
+        prompt_len = min(len(seq.prompt_tokens), ecfg.max_context - 1)
+        cap = (prompt_len - 1) // ecfg.page_size
+        if cap <= 0:
+            return (0, 0, 0)
+        if seq.prefix_digests is None:
+            seq.prefix_digests = _chain_hashes(
+                seq.prompt_tokens[-prompt_len:], ecfg.page_size)
+        hbm, host = pc.peek_digests_tiered(seq.prefix_digests[:cap])
+        return (hbm, host, 0)
 
     def _retry_after(self) -> float:
         return self.server_cfg.retry_after_s
@@ -319,16 +410,30 @@ class EngineGroup:
             self.requests_unavailable += 1
             raise FleetUnavailable("all replicas quarantined",
                                    self._retry_after())
+        t_route = time.perf_counter()
+        hbm, host, fabric = self._route_hit_pages(sched, seq)
+        self._recorder.add("route", seq.trace_id, t_route,
+                           time.perf_counter(), dest=0, hbm_hit=hbm,
+                           host_hit=host, fabric_hit=fabric)
         cap = self.server_cfg.admission_queue_depth
         if cap > 0 and sched.load >= cap:
             self.requests_shed += 1
+            # A shed is terminal: seal the route span, so sustained
+            # overload cannot fill the open table and evict live traces.
+            self._recorder.seal(seq.trace_id)
             raise FleetSaturated(
                 f"admission queue cap reached ({sched.load} >= {cap})",
                 self._retry_after())
-        entry = _Tracked(seq, on_token, on_finish)
+        seq.routed_replica = 0
+        seq.route_hit_pages = hbm + host + fabric
+        seq.route_host_hit_pages = host
+        seq.route_fabric_hit_pages = fabric
+        entry = _Tracked(seq, on_token, on_finish,
+                         t_submit=time.perf_counter())
 
         def token(s: Sequence, tok: int) -> None:
             if not entry.orphaned:
+                entry.delivered += 1
                 entry.on_token(s, tok)
 
         def finish(s: Sequence) -> None:
@@ -336,6 +441,7 @@ class EngineGroup:
                 if entry.orphaned:
                     return
                 self._tracked.pop(s.request_id, None)
+            self._finish_trace(entry, s.finish_reason)
             entry.on_finish(s)
 
         with self._lock:
@@ -361,6 +467,50 @@ class EngineGroup:
         return {"replicas": reports,
                 "fleet": telemetry.merge_steps_reports(
                     list(reports.values()))}
+
+    def recent_snapshot(self, n: int) -> List[dict]:
+        """The latest ``n`` request timelines (GET /debug/requests),
+        ordered by finish time."""
+        items: List[dict] = []
+        for s in self.schedulers:
+            items.extend(s.recent_snapshot(n))
+        items.sort(key=lambda t: t.get("finished_unix", 0.0))
+        return items[-n:]
+
+    def _trace_spans(self, trace_id: str) -> List[dict]:
+        spans = self._recorder.get_trace(trace_id) or []
+        for e in self.engines:
+            spans.extend(e.telemetry.recorder.get_trace(trace_id) or ())
+        return spans
+
+    def trace_snapshot(self, trace_id: str) -> Optional[dict]:
+        """One request's span tree (GET /debug/trace?id=): the router's
+        spans and the replica's, joined; None when neither holds it."""
+        spans = self._trace_spans(trace_id)
+        if not spans:
+            return None
+        return telemetry.assemble_trace(trace_id, spans)
+
+    def trace_chrome(self, n: int = 128) -> dict:
+        """The latest ``n`` sealed traces as Chrome trace-event JSON (GET
+        /debug/trace?format=chrome): pid 0 the router's spans, pid i+1
+        replica i's, and each replica's maintenance lane."""
+        traces = {tid: self._trace_spans(tid)
+                  for tid in self._recorder.recent_traces(n)}
+        maintenance: List[dict] = []
+        for e in self.engines:
+            maintenance.extend(e.telemetry.recorder.maintenance_spans())
+        return telemetry.spans_to_chrome(
+            traces,
+            {0: "router", **{i + 1: f"replica {i}"
+                             for i in range(len(self.engines))}},
+            maintenance=maintenance,
+            other_data={"fleet": self.server_cfg.fleet,
+                        "spans_dropped": self._recorder.spans_dropped})
+
+    def blackbox_index(self) -> dict:
+        """The flight recorder's captures (GET /debug/blackbox)."""
+        return telemetry.blackbox_index(self.server_cfg.blackbox_dir)
 
     def capture_profile(self, replica: int, seconds: float) -> dict:
         """POST /debug/profile {"seconds": N}: a torch.profiler capture
@@ -419,6 +569,8 @@ class EngineGroup:
             d = h.snapshot()
             d["pool_pressure"] = round(e.pool_pressure, 4)
             d["device"] = str(e.device)
+            if e.telemetry.slo is not None:
+                d["slo"] = e.telemetry.slo.snapshot(include_window=False)
             replicas.append(d)
         routable = sum(1 for i in range(len(self.health))
                        if self._routable(i))
@@ -426,6 +578,7 @@ class EngineGroup:
                   "ok" if all(r["state"] == HEALTHY for r in replicas)
                   else "degraded")
         return {"status": status, "replicas": replicas,
+                "slo": self._fleet_slo(),
                 "supervision": {
                     "requests_shed": self.requests_shed,
                     "requests_unavailable": self.requests_unavailable,
@@ -439,5 +592,11 @@ class EngineGroup:
 
     def stats_snapshot(self) -> dict:
         """The replica's scheduler snapshot; at dp=1 it is the aggregate
-        (its ``speculative`` block included when speculation is on)."""
-        return self.schedulers[0].stats.snapshot(self.engines[0])
+        (its ``speculative`` block included when speculation is on), with
+        the raw SLO windows stripped as the reference's aggregation
+        does."""
+        out = self.schedulers[0].stats.snapshot(self.engines[0])
+        if isinstance(out.get("slo"), dict):
+            out["slo"] = {k: v for k, v in out["slo"].items()
+                          if not k.endswith("_window")}
+        return out

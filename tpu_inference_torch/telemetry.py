@@ -17,22 +17,29 @@ engine, scheduler and server call, with the reference's metric names:
   dispatch, graded against the card's peaks into compute-, HBM- or
   host-bound verdicts per step kind (GET /debug/steps).
 - ``capture_torch_profile``: the torch.profiler capture behind POST
-  /debug/profile.
+  /debug/profile, CPU ops of every thread (the engine thread's launch
+  loop included) beside the card's kernels.
+- Request tracing: ``SpanRecorder`` (one per replica and one for the
+  router), ``assemble_trace`` and ``spans_to_chrome`` (GET /debug/trace).
+- Rolling SLO gauges: ``RollingWindow``, ``pooled_quantile``,
+  ``SLOTracker``, ``pooled_slo``, ``register_fleet_slo``.
+- The crash flight recorder: ``FlightRecorder``, ``blackbox_index``
+  (GET /debug/blackbox), ``attach_flight_recorder``.
 
 ``TPU_INF_TELEMETRY=0`` turns collection off: every metric the engine
 updates becomes the shared no-op ``NULL_METRIC``, the ledger
-``NULL_LEDGER``, and the phase snapshot is empty.
-
-Span recording, SLO windows and the flight recorder wait for ROADMAP
-item 1.18b.
+``NULL_LEDGER``, the span recorder a no-op, no SLO tracker or flight
+recorder is bound, and the phase snapshot is empty.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
 import sys
+import threading
 import time
 from bisect import bisect_left
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
@@ -305,16 +312,21 @@ def torch_trace(trace_dir: str, until: Callable[[], Any]) -> str:
     """Run torch.profiler (CPU activity, and the card's kernels when CUDA
     is available) around ``until()``, which blocks (a sleep, a wait for a
     stop signal), and write one Chrome trace into ``trace_dir``; returns
-    its path. The profiler starts and stops on the calling thread: torch
-    does not allow one thread to stop what another started, and records
-    CPU ops of that thread only (the card's kernels, of every thread)."""
+    its path. The profiler starts and stops on the calling thread (torch
+    does not allow one thread to stop what another started) and records
+    the CPU ops of every thread: by default it would record only the
+    calling thread's, and the engine thread's launch loop is the one that
+    matters. A torch without the all-threads option raises (TypeError)."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=_ExperimentalConfig(
+                       profile_all_threads=True))
     prof.start()
     try:
         until()
@@ -710,6 +722,641 @@ def merge_steps_reports(reports: Sequence[Optional[Dict[str, Any]]]
     }
 
 
+# ---------------------------------------------------------------------------
+# Request tracing. A span is one JSON-able dict describing a timed phase
+# of one request:
+#
+#     {"name", "trace": trace_id, "parent": parent span NAME ("" = the
+#      root "request" span), "ts": unix seconds, "dur": seconds,
+#      "replica": emitting replica (-1 = the router), "attrs": {...}}
+#
+# Instrumented code passes time.perf_counter() readings; the recorder
+# maps them to unix seconds through a (time.time(), perf_counter())
+# anchor taken at construction, so spans of different recorders land on
+# one timeline. Parents are linked by NAME within a trace (names are
+# unique per trace per replica except prefill_chunk, whose parent
+# "prefill" is unambiguous).
+# ---------------------------------------------------------------------------
+
+
+class SpanRecorder:
+    """Bounded span sink (one per engine replica, one in the router).
+    Finished traces move to a recent ring at ``seal()``; spans no
+    request owns (cache-eviction swap-outs) land in a maintenance ring.
+    A lock guards the tables (spans are recorded per request and per
+    chunk, never per decode step); every export returns a copy.
+    Disabled (``TPU_INF_TELEMETRY=0``) every method is a no-op."""
+
+    MAX_TRACES = 256
+    MAX_SPANS_PER_TRACE = 96
+
+    def __init__(self, enabled: Optional[bool] = None, replica: int = -1):
+        self.enabled = telemetry_enabled() if enabled is None else enabled
+        self.replica = replica
+        self._anchor_unix = time.time()
+        self._anchor_mono = time.perf_counter()
+        self._open: "collections.OrderedDict[str, List[dict]]" = \
+            collections.OrderedDict()
+        self._recent: "collections.OrderedDict[str, List[dict]]" = \
+            collections.OrderedDict()
+        self._maintenance: collections.deque = collections.deque(maxlen=128)
+        self._lock = threading.Lock()
+        self.spans_dropped = 0
+        self.traces_evicted = 0
+
+    def to_unix(self, t_mono: float) -> float:
+        return self._anchor_unix + (t_mono - self._anchor_mono)
+
+    def _span(self, name: str, trace_id: str, t0: float, t1: float,
+              parent: str, attrs: Dict[str, Any]) -> dict:
+        span = {"name": name, "trace": trace_id, "parent": parent,
+                "ts": round(self.to_unix(t0), 6),
+                "dur": round(max(0.0, t1 - t0), 6),
+                "replica": self.replica}
+        if attrs:
+            span["attrs"] = attrs
+        return span
+
+    def add(self, name: str, trace_id: str, t0: float, t1: float,
+            parent: str = "request", **attrs: Any) -> None:
+        """Record one finished span (perf_counter start and end). The
+        spans per trace and the open traces are both capped, so a trace
+        that is never sealed cannot grow without bound."""
+        if not self.enabled or not trace_id:
+            return
+        span = self._span(name, trace_id, t0, t1, parent, attrs)
+        with self._lock:
+            spans = self._open.get(trace_id)
+            if spans is None:
+                while len(self._open) >= self.MAX_TRACES:
+                    self._open.popitem(last=False)
+                    self.traces_evicted += 1
+                spans = self._open[trace_id] = []
+            if len(spans) >= self.MAX_SPANS_PER_TRACE:
+                self.spans_dropped += 1
+                return
+            spans.append(span)
+
+    def add_maintenance(self, name: str, t0: float, t1: float,
+                        **attrs: Any) -> None:
+        """Record a span no single request owns: it shows in the Chrome
+        timeline on the replica's maintenance lane, never in a tree."""
+        if not self.enabled:
+            return
+        self._maintenance.append(self._span(name, "-maintenance-",
+                                            t0, t1, "", attrs))
+
+    def ingest(self, trace_id: str, spans: Sequence[dict]) -> None:
+        """Fold spans another recorder exported (with their own replica
+        tags and unix timestamps) into this one's open table, or into
+        the sealed trace when it is already sealed."""
+        if not self.enabled or not trace_id or not spans:
+            return
+        with self._lock:
+            dest = self._open.get(trace_id)
+            if dest is None:
+                dest = self._recent.get(trace_id)
+            if dest is None:
+                while len(self._open) >= self.MAX_TRACES:
+                    self._open.popitem(last=False)
+                    self.traces_evicted += 1
+                dest = self._open[trace_id] = []
+            room = self.MAX_SPANS_PER_TRACE - len(dest)
+            if room < len(spans):
+                self.spans_dropped += len(spans) - max(0, room)
+            dest.extend(list(spans)[:max(0, room)])
+
+    def seal(self, trace_id: str) -> None:
+        """The request finished: move its spans to the recent ring (what
+        /debug/trace and the Chrome export read)."""
+        if not self.enabled or not trace_id:
+            return
+        with self._lock:
+            spans = self._open.pop(trace_id, None)
+            if spans is None:
+                return
+            prior = self._recent.pop(trace_id, None)
+            if prior:
+                spans = prior + spans
+            while len(self._recent) >= self.MAX_TRACES:
+                self._recent.popitem(last=False)
+                self.traces_evicted += 1
+            self._recent[trace_id] = spans
+
+    def get_trace(self, trace_id: str) -> Optional[List[dict]]:
+        with self._lock:
+            spans = self._recent.get(trace_id) or self._open.get(trace_id)
+            return list(spans) if spans else None
+
+    def export_recent(self, trace_id: str) -> List[dict]:
+        """A copy of a sealed trace's spans (they stay in the ring)."""
+        with self._lock:
+            return list(self._recent.get(trace_id) or ())
+
+    def export_open(self, trace_id: str) -> List[dict]:
+        """A copy of an unfinished trace's spans so far."""
+        with self._lock:
+            return list(self._open.get(trace_id) or ())
+
+    def recent_traces(self, n: int = 64) -> Dict[str, List[dict]]:
+        """The last ``n`` sealed traces, oldest first (none for n <= 0)."""
+        if n <= 0:
+            return {}
+        with self._lock:
+            ids = list(self._recent)[-n:]
+            return {tid: list(self._recent[tid]) for tid in ids}
+
+    def maintenance_spans(self, n: int = 128) -> List[dict]:
+        return list(self._maintenance)[-n:]
+
+
+# Every span name a recorder of the port emits (a subset of the
+# reference's vocabulary: the process fleet's handoff, migration and
+# elastic spans wait for ROADMAP 1.15).
+SPAN_NAMES = (
+    "request", "route", "queue_wait", "prefill", "prefill_chunk",
+    "decode", "kv_swap_in", "kv_swap_out",
+)
+
+
+def register_span_ring(registry: Registry, recorder: SpanRecorder) -> None:
+    """Span-ring self-metrics over one SpanRecorder: occupancy gauges and
+    drop/eviction counters, so trace loss under ring pressure shows on
+    /metrics instead of silently truncating /debug/trace."""
+    registry.gauge("tpu_inf_trace_ring_traces",
+                   "Sealed request traces resident in the recent ring",
+                   fn=lambda: float(len(recorder._recent)))
+    registry.gauge("tpu_inf_trace_ring_open",
+                   "Unsealed (in-flight or abandoned) traces in the "
+                   "open table",
+                   fn=lambda: float(len(recorder._open)))
+    registry.counter("tpu_inf_trace_spans_dropped_total",
+                     "Spans dropped by the per-trace span cap",
+                     fn=lambda: recorder.spans_dropped)
+    registry.counter("tpu_inf_trace_evictions_total",
+                     "Whole traces evicted from the rings by the "
+                     "trace-count cap",
+                     fn=lambda: recorder.traces_evicted)
+
+
+def assemble_trace(trace_id: str, spans: Sequence[dict]) -> dict:
+    """One request's span tree: spans sorted by start time, children
+    nested under their parent by NAME (first match in the same replica
+    wins, then any replica; orphans attach to the root). The root is
+    the router's ``request`` span when present, else a synthetic
+    envelope covering every span."""
+    spans = sorted(spans, key=lambda s: (s.get("ts", 0.0),
+                                         -s.get("dur", 0.0)))
+    nodes = [{**s, "children": []} for s in spans]
+    root = next((n for n in nodes if n["name"] == "request"), None)
+    if root is None:
+        t0 = min((n["ts"] for n in nodes), default=0.0)
+        t1 = max((n["ts"] + n["dur"] for n in nodes), default=0.0)
+        root = {"name": "request", "trace": trace_id, "parent": "",
+                "ts": round(t0, 6), "dur": round(t1 - t0, 6),
+                "replica": -1, "children": [], "synthetic": True}
+    by_name: Dict[Tuple[str, Optional[int]], dict] = {}
+    for n in nodes:
+        by_name.setdefault((n["name"], n.get("replica", -1)), n)
+        by_name.setdefault((n["name"], None), n)
+    for n in nodes:
+        if n is root:
+            continue
+        parent = n.get("parent") or "request"
+        if parent == n["name"]:
+            parent = "request"
+        target = (by_name.get((parent, n.get("replica", -1)))
+                  or by_name.get((parent, None)))
+        if target is None or target is n:
+            target = root
+        target["children"].append(n)
+    return {"trace_id": trace_id, "n_spans": len(spans),
+            "replicas": sorted({s.get("replica", -1) for s in spans}),
+            "spans": spans, "tree": root}
+
+
+def spans_to_chrome(traces: Mapping[str, Sequence[dict]],
+                    pid_names: Optional[Mapping[int, str]] = None,
+                    maintenance: Optional[Sequence[dict]] = None,
+                    other_data: Optional[dict] = None) -> dict:
+    """Span traces as Chrome trace-event JSON (complete ``ph:"X"``
+    events, loadable in Perfetto): one pid per replica (router = pid 0,
+    replica i = pid i+1), one tid per trace, unix microsecond
+    timestamps."""
+    events: List[dict] = []
+    seen_pids: Dict[int, str] = {}
+    seen_tids: set = set()
+    pid_names = dict(pid_names or {})
+
+    def _pid(replica: int) -> int:
+        pid = replica + 1 if replica >= 0 else 0
+        if pid not in seen_pids:
+            seen_pids[pid] = pid_names.get(
+                pid, "router" if pid == 0 else f"replica {pid - 1}")
+        return pid
+
+    for tidx, (trace_id, spans) in enumerate(traces.items(), start=1):
+        for s in spans:
+            pid = _pid(int(s.get("replica", -1)))
+            if (pid, tidx) not in seen_tids:
+                seen_tids.add((pid, tidx))
+                events.append({"name": "thread_name", "ph": "M",
+                               "pid": pid, "tid": tidx,
+                               "args": {"name": f"trace {trace_id}"}})
+            events.append({
+                "name": s["name"], "cat": "request", "ph": "X",
+                "ts": round(s["ts"] * 1e6, 1),
+                "dur": round(max(s["dur"], 1e-6) * 1e6, 1),
+                "pid": pid, "tid": tidx,
+                "args": {**(s.get("attrs") or {}),
+                         "trace_id": trace_id,
+                         "parent": s.get("parent", "")},
+            })
+    for s in maintenance or ():
+        pid = _pid(int(s.get("replica", -1)))
+        events.append({
+            "name": s["name"], "cat": "maintenance", "ph": "X",
+            "ts": round(s["ts"] * 1e6, 1),
+            "dur": round(max(s["dur"], 1e-6) * 1e6, 1),
+            "pid": pid, "tid": 0,
+            "args": dict(s.get("attrs") or {}),
+        })
+    meta = [{"name": "process_name", "ph": "M", "pid": pid,
+             "args": {"name": name}}
+            for pid, name in sorted(seen_pids.items())]
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+            "otherData": dict(other_data or {})}
+
+
+# ---------------------------------------------------------------------------
+# Rolling SLO gauges: a ring of the latest request latencies gives EXACT
+# windowed quantiles (the log-bucketed histograms interpolate). Ring
+# writes are single list stores; quantile reads sort a copy.
+# ---------------------------------------------------------------------------
+
+SLO_WINDOW = 512
+SLO_QUANTILES = (0.5, 0.95)
+
+
+class RollingWindow:
+    """Ring of the last ``size`` observations with exact quantiles."""
+
+    __slots__ = ("_ring", "_n")
+
+    def __init__(self, size: int = SLO_WINDOW):
+        self._ring = [0.0] * size
+        self._n = 0
+
+    def observe(self, v: float) -> None:
+        self._ring[self._n % len(self._ring)] = v
+        self._n += 1
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def values(self) -> List[float]:
+        return self._ring[:min(self._n, len(self._ring))]
+
+    def quantile(self, q: float) -> Optional[float]:
+        return pooled_quantile([self.values()], q)
+
+
+def pooled_quantile(windows: Sequence[Sequence[float]],
+                    q: float) -> Optional[float]:
+    """Exact quantile over several windows' pooled contents (per-window
+    quantiles do not compose)."""
+    xs = sorted(v for w in windows for v in (w or ()))
+    if not xs:
+        return None
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+class SLOTracker:
+    """Windowed TTFT/TPOT quantiles and breach counts against the
+    ``--slo-ttft-ms`` / ``--slo-tpot-ms`` targets (0 = no target: the
+    quantile gauges still export, breaches never count)."""
+
+    def __init__(self, ttft_target_s: float = 0.0,
+                 tpot_target_s: float = 0.0):
+        self.ttft_target_s = max(0.0, ttft_target_s)
+        self.tpot_target_s = max(0.0, tpot_target_s)
+        self.ttft = RollingWindow()
+        self.tpot = RollingWindow()
+        self.ttft_breaches = 0
+        self.tpot_breaches = 0
+
+    def observe(self, ttft_s: Optional[float],
+                tpot_s: Optional[float]) -> None:
+        if ttft_s is not None:
+            self.ttft.observe(ttft_s)
+            if self.ttft_target_s > 0 and ttft_s > self.ttft_target_s:
+                self.ttft_breaches += 1
+        if tpot_s is not None:
+            self.tpot.observe(tpot_s)
+            if self.tpot_target_s > 0 and tpot_s > self.tpot_target_s:
+                self.tpot_breaches += 1
+
+    def gauge_value(self, which: str, q: float) -> float:
+        """The Prometheus gauges' value (NaN = empty window)."""
+        ring = self.ttft if which == "ttft" else self.tpot
+        v = ring.quantile(q)
+        return float("nan") if v is None else v
+
+    def snapshot(self, include_window: bool = True) -> dict:
+        def _r(v):
+            return None if v is None else round(v, 6)
+
+        out = {
+            "ttft_target_s": self.ttft_target_s or None,
+            "tpot_target_s": self.tpot_target_s or None,
+            "ttft_p50_s": _r(self.ttft.quantile(0.5)),
+            "ttft_p95_s": _r(self.ttft.quantile(0.95)),
+            "tpot_p50_s": _r(self.tpot.quantile(0.5)),
+            "tpot_p95_s": _r(self.tpot.quantile(0.95)),
+            "ttft_breaches": self.ttft_breaches,
+            "tpot_breaches": self.tpot_breaches,
+            "window_requests": min(self.ttft.count, SLO_WINDOW),
+        }
+        if include_window:
+            # Raw ring contents, so a fleet view can pool exact quantiles.
+            out["ttft_window"] = [round(v, 6) for v in self.ttft.values()]
+            out["tpot_window"] = [round(v, 6) for v in self.tpot.values()]
+        return out
+
+
+def pooled_slo(slos: Sequence[Optional[dict]]) -> dict:
+    """The fleet's SLO view from per-replica snapshots (with windows):
+    pooled exact quantiles and summed breach counts."""
+    slos = [s for s in slos if s]
+
+    def _r(v):
+        return None if v is None else round(v, 6)
+
+    ttft = [s.get("ttft_window") or [] for s in slos]
+    tpot = [s.get("tpot_window") or [] for s in slos]
+    return {
+        "ttft_target_s": next((s.get("ttft_target_s") for s in slos
+                               if s.get("ttft_target_s")), None),
+        "tpot_target_s": next((s.get("tpot_target_s") for s in slos
+                               if s.get("tpot_target_s")), None),
+        "ttft_p50_s": _r(pooled_quantile(ttft, 0.5)),
+        "ttft_p95_s": _r(pooled_quantile(ttft, 0.95)),
+        "tpot_p50_s": _r(pooled_quantile(tpot, 0.5)),
+        "tpot_p95_s": _r(pooled_quantile(tpot, 0.95)),
+        "ttft_breaches": sum(s.get("ttft_breaches", 0) for s in slos),
+        "tpot_breaches": sum(s.get("tpot_breaches", 0) for s in slos),
+        "window_requests": sum(s.get("window_requests", 0) for s in slos),
+    }
+
+
+def register_fleet_slo(registry: Registry,
+                       quantile_fn: Callable[[str, float], float],
+                       breaches_fn: Callable[[str], float]) -> None:
+    """The fleet-level SLO series: ``quantile_fn(kind, q)`` returns the
+    pooled exact quantile (NaN = no data), ``breaches_fn(kind)`` the
+    fleet's breach total."""
+    for q in SLO_QUANTILES:
+        registry.gauge("tpu_inf_slo_ttft_seconds",
+                       "Fleet rolling exact TTFT quantile (pooled "
+                       "across replica windows; NaN = no data)",
+                       fn=lambda q=q: quantile_fn("ttft", q),
+                       q=f"{q:g}")
+        registry.gauge("tpu_inf_slo_tpot_seconds",
+                       "Fleet rolling exact TPOT quantile (pooled "
+                       "across replica windows; NaN = no data)",
+                       fn=lambda q=q: quantile_fn("tpot", q),
+                       q=f"{q:g}")
+    for kind in ("ttft", "tpot"):
+        registry.counter("tpu_inf_slo_breaches_total",
+                         "Fleet SLO target breaches (monotone across "
+                         "worker restarts)",
+                         fn=lambda k=kind: breaches_fn(k), slo=kind)
+
+
+# ---------------------------------------------------------------------------
+# Crash flight recorder: a bounded per-replica blackbox directory of JSON
+# captures (the last step records, recent spans, the resolved config and
+# the stats), written on a watchdog trip, a step error and at exit, plus
+# a periodic heartbeat that survives kill -9 (tmp + rename keeps every
+# file whole). GET /debug/blackbox serves the index. Only ``capture``
+# and the heartbeat swallow their errors: the recorder never takes
+# serving down with it.
+# ---------------------------------------------------------------------------
+
+
+class FlightRecorder:
+    """Per-replica capture sink under ``{root}/replica-{i}/``.
+
+    ``capture(trigger)`` writes ``capture-{seq:06d}-{trigger}.json``
+    atomically and prunes past the retention cap (oldest first);
+    ``maybe_periodic()`` refreshes one ``periodic.json`` at most every
+    ``periodic_interval_s``. A per-trigger rate limit keeps a storm of
+    step errors from churning the whole retention window."""
+
+    def __init__(self, root_dir: str, replica: int = 0, *,
+                 retain: int = 8, config: Optional[dict] = None,
+                 steps_fn: Optional[Callable[[], list]] = None,
+                 spans_fn: Optional[Callable[[], list]] = None,
+                 stats_fn: Optional[Callable[[], dict]] = None,
+                 periodic_interval_s: float = 10.0):
+        self.root = root_dir
+        self.replica = int(replica)
+        self.dir = os.path.join(root_dir, f"replica-{self.replica}")
+        self.retain = max(1, int(retain))
+        self.config = dict(config or {})
+        self.steps_fn = steps_fn
+        self.spans_fn = spans_fn
+        self.stats_fn = stats_fn
+        self.periodic_interval_s = max(0.5, float(periodic_interval_s))
+        self._last_periodic = 0.0
+        self._last_by_trigger: Dict[str, float] = {}
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._atexit: Optional[Callable[[], Any]] = None
+        try:
+            os.makedirs(self.dir, exist_ok=True)
+            for fname in os.listdir(self.dir):
+                if fname.startswith("capture-"):
+                    try:
+                        self._seq = max(self._seq,
+                                        int(fname.split("-")[1]) + 1)
+                    except (ValueError, IndexError):
+                        pass
+            # A heartbeat a previous process left behind is its kill -9
+            # postmortem: keep it under a sequence number before this
+            # process's first beat overwrites it.
+            prior = os.path.join(self.dir, "periodic.json")
+            if os.path.exists(prior):
+                dest = os.path.join(
+                    self.dir, f"capture-{self._seq:06d}-postmortem.json")
+                try:
+                    with open(prior) as f:
+                        payload = json.load(f)
+                    payload["trigger"] = "postmortem"
+                    self._write(dest, payload)
+                    os.remove(prior)
+                except (OSError, ValueError):
+                    os.replace(prior, dest)
+                self._seq += 1
+        except OSError:
+            pass
+
+    def _payload(self, trigger: str) -> Dict[str, Any]:
+        payload: Dict[str, Any] = {
+            "ts": round(time.time(), 3), "replica": self.replica,
+            "pid": os.getpid(), "trigger": trigger,
+            "config": self.config}
+        for key, fn, empty in (("steps", self.steps_fn, []),
+                               ("spans", self.spans_fn, []),
+                               ("stats", self.stats_fn, {})):
+            try:
+                payload[key] = fn() if fn is not None else empty
+            except Exception:  # noqa: BLE001 — a section degrades to empty
+                payload[key] = empty
+        return payload
+
+    def _write(self, path: str, payload: Dict[str, Any]) -> None:
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, default=str)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def capture(self, trigger: str,
+                min_interval_s: float = 1.0) -> Optional[str]:
+        """Write one capture; returns its path (None = rate-limited or
+        failed: the recorder never raises into serving code)."""
+        try:
+            with self._lock:
+                now = time.time()
+                if (now - self._last_by_trigger.get(trigger, -1e9)
+                        < min_interval_s):
+                    return None
+                self._last_by_trigger[trigger] = now
+                seq = self._seq
+                self._seq += 1
+            path = os.path.join(self.dir,
+                                f"capture-{seq:06d}-{trigger}.json")
+            self._write(path, self._payload(trigger))
+            self._prune()
+            log_event("blackbox_capture", trigger=trigger, path=path,
+                      replica=self.replica)
+            return path
+        except Exception:  # noqa: BLE001 — never raise into serving code
+            return None
+
+    def _prune(self) -> None:
+        caps = sorted(f for f in os.listdir(self.dir)
+                      if f.startswith("capture-") and f.endswith(".json"))
+        for fname in caps[:-self.retain]:
+            try:
+                os.unlink(os.path.join(self.dir, fname))
+            except OSError:
+                pass
+
+    def maybe_periodic(self) -> None:
+        """The scheduler loop's hook: refresh the heartbeat at most once
+        per interval (a clock read and a compare otherwise)."""
+        now = time.time()
+        if now - self._last_periodic < self.periodic_interval_s:
+            return
+        self._last_periodic = now
+        try:
+            self._write(os.path.join(self.dir, "periodic.json"),
+                        self._payload("periodic"))
+        except Exception:  # noqa: BLE001 — never raise into serving code
+            pass
+
+    def install_atexit(self) -> None:
+        import atexit
+        self._atexit = lambda: self.capture("atexit", min_interval_s=0.0)
+        atexit.register(self._atexit)
+
+    def close(self) -> None:
+        """Take the exit capture now and drop the interpreter-exit hook:
+        a group that stops frees its engine, which the hook (through
+        ``stats_fn``) would otherwise keep alive until exit."""
+        hook, self._atexit = self._atexit, None
+        if hook is not None:
+            import atexit
+            atexit.unregister(hook)
+            hook()
+
+
+def blackbox_index(root_dir: str) -> Dict[str, Any]:
+    """The captures under a blackbox root, newest first (the GET
+    /debug/blackbox body): trigger, timestamp, pid and the sizes of each
+    payload section, enough to triage without reading the capture."""
+    out: Dict[str, Any] = {"dir": root_dir, "captures": []}
+    if not root_dir or not os.path.isdir(root_dir):
+        return out
+    for sub in sorted(os.listdir(root_dir)):
+        rdir = os.path.join(root_dir, sub)
+        if not (sub.startswith("replica-") and os.path.isdir(rdir)):
+            continue
+        try:
+            replica = int(sub.split("-", 1)[1])
+        except ValueError:
+            continue
+        try:
+            fnames = sorted(os.listdir(rdir))
+        except OSError:
+            continue
+        for fname in fnames:
+            if not fname.endswith(".json"):
+                continue
+            path = os.path.join(rdir, fname)
+            entry: Dict[str, Any] = {"replica": replica, "file": fname,
+                                     "path": path}
+            try:
+                with open(path) as f:
+                    payload = json.load(f)
+                entry.update({
+                    "trigger": payload.get("trigger"),
+                    "ts": payload.get("ts"),
+                    "pid": payload.get("pid"),
+                    "n_steps": len(payload.get("steps") or ()),
+                    "n_spans": len(payload.get("spans") or ()),
+                    "has_config": bool(payload.get("config")),
+                    "has_stats": bool(payload.get("stats")),
+                })
+            except (OSError, ValueError):
+                entry["error"] = "unreadable"
+            out["captures"].append(entry)
+    out["captures"].sort(key=lambda e: e.get("ts") or 0.0, reverse=True)
+    return out
+
+
+def attach_flight_recorder(tel: "EngineTelemetry", root_dir: str,
+                           replica: int, *, retain: int = 8,
+                           config: Optional[dict] = None,
+                           stats_fn: Optional[Callable[[], dict]] = None
+                           ) -> Optional[FlightRecorder]:
+    """Bind a FlightRecorder to one engine's telemetry bundle: the step
+    ledger, the latest 32 sealed traces and maintenance spans, the
+    config and ``stats_fn``. None when ``root_dir`` is empty or
+    telemetry is off."""
+    if not root_dir or not tel.enabled:
+        return None
+    recorder = tel.recorder
+
+    def spans_fn() -> list:
+        spans: list = []
+        for trace in recorder.recent_traces(32).values():
+            spans.extend(trace)
+        spans.extend(recorder.maintenance_spans(32))
+        return spans
+
+    fr = FlightRecorder(root_dir, replica, retain=retain, config=config,
+                        steps_fn=lambda: tel.step_ledger.snapshot(),
+                        spans_fn=spans_fn, stats_fn=stats_fn)
+    tel.flight = fr
+    fr.install_atexit()
+    return fr
+
+
 class EngineTelemetry:
     """Per-engine metric bundle.
 
@@ -730,16 +1377,23 @@ class EngineTelemetry:
     Request phases (engine/scheduler.py at finish): ``queue_wait_s``,
     ``prefill_phase_s``, ``decode_phase_s``, ``ttft_s``, ``e2e_s``.
     ``step_ledger``: one record per dispatch (engine._ledger_push),
-    graded by ``cost_model`` in ``steps_report``. ``enabled`` defaults to
-    ``TPU_INF_TELEMETRY`` != "0".
+    graded by ``cost_model`` in ``steps_report``. ``recorder``: the
+    replica's span sink (the owning EngineGroup stamps its replica
+    index). ``slo``: the rolling TTFT/TPOT windows, bound in
+    ``bind_engine``. ``flight``: the crash flight recorder, attached by
+    the owning EngineGroup when the operator set a blackbox directory.
+    ``enabled`` defaults to ``TPU_INF_TELEMETRY`` != "0".
     """
 
     def __init__(self, engine=None, enabled: Optional[bool] = None):
         self.enabled = telemetry_enabled() if enabled is None else enabled
         self.registry = r = Registry()
+        self.recorder = SpanRecorder(enabled=self.enabled)
+        self.slo: Optional[SLOTracker] = None
         # Sized and bound in bind_engine.
         self.step_ledger = NULL_LEDGER
         self.cost_model: Optional[StepCostModel] = None
+        self.flight: Optional[FlightRecorder] = None
         if not self.enabled:
             for attr in PHASE_HISTOGRAMS.values():
                 setattr(self, attr, NULL_METRIC)
@@ -749,6 +1403,7 @@ class EngineTelemetry:
                          "kv_offload_bytes", "kv_restore_bytes"):
                 setattr(self, attr, NULL_METRIC)
             return
+        register_span_ring(r, self.recorder)
         self.prefill_dispatch_s = r.histogram(
             "tpu_inf_prefill_dispatch_seconds",
             "Host wall time of one prefill dispatch")
@@ -882,6 +1537,31 @@ class EngineTelemetry:
                 "Decode lane occupancy: bound slots / top ladder rung",
                 fn=lambda: (sum(s is not None for s in engine.slots)
                             / max(engine.ladder[-1], 1)))
+        # Rolling SLO gauges: exact TTFT/TPOT quantiles over the last
+        # SLO_WINDOW requests and breach counters against the
+        # --slo-ttft-ms / --slo-tpot-ms targets.
+        ecfg = engine.engine_cfg
+        slo = self.slo = SLOTracker(ecfg.slo_ttft_ms / 1e3,
+                                    ecfg.slo_tpot_ms / 1e3)
+        for q in SLO_QUANTILES:
+            r.gauge("tpu_inf_slo_ttft_seconds",
+                    "Rolling exact TTFT quantile over the last "
+                    f"{SLO_WINDOW} requests (NaN = no data)",
+                    fn=lambda q=q: slo.gauge_value("ttft", q),
+                    q=f"{q:g}")
+            r.gauge("tpu_inf_slo_tpot_seconds",
+                    "Rolling exact TPOT quantile over the last "
+                    f"{SLO_WINDOW} requests (NaN = no data)",
+                    fn=lambda q=q: slo.gauge_value("tpot", q),
+                    q=f"{q:g}")
+        r.counter("tpu_inf_slo_breaches_total",
+                  "Finished requests whose TTFT exceeded --slo-ttft-ms "
+                  "(never counts while no target is set)",
+                  fn=lambda: slo.ttft_breaches, slo="ttft")
+        r.counter("tpu_inf_slo_breaches_total",
+                  "Finished requests whose TPOT exceeded --slo-tpot-ms "
+                  "(never counts while no target is set)",
+                  fn=lambda: slo.tpot_breaches, slo="tpot")
 
     def bind_spec(self, engine) -> None:
         """Read-through speculative-decoding counters (bound only when
