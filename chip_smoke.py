@@ -105,6 +105,31 @@ failing loudly (any failure exits non-zero before the result line):
    in by params_from_numpy (recorded as not run when safetensors is not
    importable).
 
+7. dp > 1 on the one card (the replicas share it): fleet_tiny_phase,
+   after the chaos phase, runs tiny-llama (float32, so greedy tokens do
+   not depend on the batch) at dp 2: a pinned greedy mix gives one
+   outputs_sha256 through the in-process group, the subprocess fleet
+   and one dp-1 engine on the same weights; in the fleet, kill -9 and
+   SIGTERM of the worker holding a mid-decode stream (tokens identical,
+   failovers counted, the worker back under its replica label, no
+   /metrics counter or histogram series falls, pages migrated and a
+   swap-in-resume after the next stats refresh) and a seeded corrupt
+   and delay transport-chaos run (the same sha, frame errors, no
+   restart); every worker's pool clean. fleet_phase, after the draft
+   lane, serves llama-3-8b (bf16, full width) through the CLI with
+   ``--dp 2 --fleet subprocess --num-pages 512``: two waves of 8
+   concurrent BurstGPT-length requests, SIGTERM to one worker mid-
+   decode in the first and, once healed, kill -9 to the other in the
+   second; every stream "length" with its 48 tokens, pages migrated
+   with a swap-in-resume, the drain inside drain_timeout_s, no worker
+   process left and the card's free memory back after. In both lanes
+   the kernels run inside the worker processes: their launch counts
+   (and each worker's device and peak memory) are read through the
+   workers' stats RPC, every replica must have launched both kernels on
+   the card, and the lanes' launches join the kernels line. The CRC-32C
+   paths (the one in use, numpy, the card's) are timed on 64 MiB and
+   must agree.
+
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
 {...}}. A copy of every number goes to build/chip_smoke.json.
@@ -115,6 +140,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -2416,6 +2442,533 @@ def draft_phase(card: str) -> dict:
             "speculative": spec, "engine_phases": engine_phases(snap)}
 
 
+# --------------------------------------------------------------------------
+# The process fleet (dp 2 on the one card): the in-process group, the
+# subprocess fleet and its faults.
+# --------------------------------------------------------------------------
+
+_SAMPLE_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s+(\S+)$")
+
+
+def _monotone_series(text: str) -> dict:
+    """{(name, labels): value} of every counter and histogram sample of a
+    Prometheus text page (the series that must never fall)."""
+    kinds = dict(re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M))
+    out = {}
+    for line in text.splitlines():
+        m = _SAMPLE_LINE.match(line)
+        if not m:
+            continue
+        name = m.group(1)
+        fam = re.sub(r"_(bucket|sum|count)$", "", name)
+        if kinds.get(name) == "counter" or kinds.get(fam) == "histogram":
+            out[(name, m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _no_series_fell(label: str, before: dict, after: dict) -> int:
+    fell = {k: (v, after.get(k)) for k, v in before.items()
+            if after.get(k) is None or after[k] < v}
+    if fell:
+        raise AssertionError(f"{label}: /metrics series fell or vanished "
+                             f"across a restart: {list(fell.items())[:8]}")
+    return len(before)
+
+
+def _fleet_submit(group, rid: int, prompt: list, max_new: int) -> tuple:
+    from tpu_inference_torch.engine.engine import Sequence
+    toks, done, box = [], threading.Event(), {}
+    group.submit(Sequence(request_id=rid, prompt_tokens=list(prompt),
+                          max_new_tokens=max_new),
+                 lambda s, t: toks.append(t),
+                 lambda s: (box.update(seq=s), done.set()))
+    return toks, done, box
+
+
+def _fleet_finish(label: str, pend: tuple) -> list:
+    toks, done, box = pend
+    if not done.wait(300):
+        raise AssertionError(f"{label}: a request did not finish")
+    if box["seq"].finish_reason != "length":
+        raise AssertionError(f"{label}: finished {box['seq'].finish_reason}")
+    return list(toks)
+
+
+def _wait_fleet(group, label: str, pred, what: str, timeout: float = 180.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"{label}: {what} not reached in {timeout:.0f} s "
+                         f"(states {[h.state for h in group.workers]})")
+
+
+def _healed(group) -> bool:
+    return all(h.state == "up" for h in group.workers)
+
+
+def _tracked_worker(group, rid: int) -> int:
+    with group._lock:
+        return group._tracked[rid].worker.replica
+
+
+def _worker_reads(group, reads: dict, label: str) -> list:
+    """Read every live worker's stats RPC (its device and its kernels'
+    counts, which live in that process) into ``reads``, keyed by pid, so
+    a restarted worker is a new entry; each must sit on the card."""
+    out = group.worker_stats()
+    for w in out:
+        if not str(w["device"]).startswith("cuda"):
+            raise AssertionError(f"{label}: worker {w['replica']} serves on "
+                                 f"{w['device']}, not the card")
+        reads[w["pid"]] = w
+    return out
+
+
+def _gate_launches(reads: dict, label: str, variant: str) -> None:
+    """Every replica launched both kernels (some incarnation of it, as
+    last read), and every worker process only in ``variant``."""
+    for w in reads.values():
+        for kind in ("decode", "prefill"):
+            others = {k: n for k, n in w["kernels"][kind].items()
+                      if k != variant and n}
+            if others:
+                raise AssertionError(f"{label}: worker {w['replica']} "
+                                     f"{kind} launches {others}")
+    for r in {w["replica"] for w in reads.values()} | {0, 1}:
+        ran = [w for w in reads.values() if w["replica"] == r
+               and w["kernels"]["decode"][variant] > 0
+               and w["kernels"]["prefill"][variant] > 0]
+        if not ran:
+            raise AssertionError(
+                f"{label}: replica {r} never launched both kernels in "
+                f"{variant}: {[w['kernels'] for w in reads.values()]}")
+
+
+def _launch_totals(reads: dict) -> dict:
+    """Launches summed over worker processes (each one's last read)."""
+    by_variant = {"paged_attention": {}, "prefill_attention": {}}
+    by_batch, by_len = {}, {}
+    for w in reads.values():
+        for name, kind in (("paged_attention", "decode"),
+                           ("prefill_attention", "prefill")):
+            for k, n in w["kernels"][kind].items():
+                by_variant[name][k] = by_variant[name].get(k, 0) + n
+        for b, n in w["kernels"]["decode_by_batch"].items():
+            by_batch[b] = by_batch.get(b, 0) + n
+        for q, n in w["kernels"]["prefill_by_len"].items():
+            by_len[q] = by_len.get(q, 0) + n
+    return {"by_variant": by_variant, "decode_by_batch": by_batch,
+            "prefill_by_len": by_len}
+
+
+def _pids_gone(label: str, pids) -> None:
+    deadline = time.monotonic() + 30
+    alive = set(pids)
+    while alive and time.monotonic() < deadline:
+        for pid in list(alive):
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                alive.discard(pid)
+        time.sleep(0.1)
+    if alive:
+        raise AssertionError(f"{label}: worker processes {sorted(alive)} "
+                             "outlived the fleet")
+
+
+def _pool_clean(label: str, group) -> None:
+    for h in group.workers:
+        snap = h.client.rpc("debug", clear=True)
+        bad = (snap["pipeline_pending"] or snap["preempted_uncollected"]
+               or snap["slots_bound"] or snap["refs_held"]
+               or snap["evictable_count"] or snap["host_used"]
+               or snap.get("tier_overlap", 0)
+               or snap["num_free"] != snap["num_pages"] - 1)
+        if bad:
+            raise AssertionError(f"{label}: worker {h.replica} pool not "
+                                 f"clean: {snap}")
+
+
+def _mix_sha(outs: list) -> str:
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(np.asarray(o, np.int32).tobytes() + b"|")
+    return h.hexdigest()
+
+
+FLEET_TINY_ENGINE = dict(page_size=8, num_pages=256, max_pages_per_seq=32,
+                         max_batch_size=4, prefill_buckets=(16, 32, 64, 128),
+                         decode_steps_per_call=4, host_cache_pages=64)
+
+
+def fleet_tiny_phase(card: str) -> dict:
+    """tiny-llama (float32) at dp 2 on the card, where greedy tokens do
+    not depend on the batch's width: a pinned greedy mix gives one
+    outputs_sha256 through the in-process group, the subprocess fleet
+    and one dp-1 engine on the same weights (random from SEED); then, in
+    the subprocess fleet, kill -9 and SIGTERM of the worker holding a
+    mid-decode stream (tokens identical; failovers up; the worker back
+    under its replica label; no /metrics counter falls; after the next
+    stats refresh, pages migrated and a swap-in-resume), and a seeded
+    corrupt/delay transport-chaos run (the same sha, frame errors > 0,
+    no restart). Every worker's pool invariants clean after; both
+    kernels launched in every worker, on the card."""
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.server.http import build_engine_group
+
+    label = "fleet tiny-llama f32 dp2"
+    mcfg = tiny_config("tiny_llama")
+
+    def cfg(fleet: str):
+        return cfgs.FrameworkConfig(
+            model=mcfg, engine=cfgs.EngineConfig(**FLEET_TINY_ENGINE),
+            parallel=cfgs.ParallelConfig(dp=2),
+            server=cfgs.ServerConfig(
+                model_name="tiny-llama", warmup=False, fleet=fleet,
+                worker_restart_max=10, worker_restart_backoff_s=0.1,
+                drain_timeout_s=10.0),
+            seed=SEED)
+
+    rng = np.random.default_rng(11)
+    mix = [rng.integers(0, 256, size=n).tolist()
+           for n in (5, 12, 27, 40, 70, 9)]
+    long_a, long_b = (rng.integers(0, 256, size=40).tolist()
+                      for _ in range(2))
+    mix_new, long_new = 32, 160
+    # The oracle: one dp-1 engine on the same weights (SEED).
+    dp1 = InferenceEngine(mcfg, cfgs.EngineConfig(**FLEET_TINY_ENGINE),
+                          seed=SEED, device="cuda")
+    want_mix = _sched_run(dp1, mix, mix_new)
+    want_mix = [want_mix[i] for i in range(len(mix))]
+    want_long = _sched_run(dp1, [long_a, long_b], long_new)
+    del dp1
+
+    def run_mix(group, base: int) -> list:
+        pend = [_fleet_submit(group, base + i, p, mix_new)
+                for i, p in enumerate(mix)]
+        return [_fleet_finish(label, x) for x in pend]
+
+    inproc = build_engine_group(cfg("in-process"), device="cuda").start()
+    try:
+        sha_in = _mix_sha(run_mix(inproc, 0))
+    finally:
+        inproc.stop(drain=False)
+        del inproc
+    t0 = time.perf_counter()
+    group = build_engine_group(cfg("subprocess"), device="cuda")
+    pids, reads = set(), {}
+    try:
+        group.start()
+        boot_s = time.perf_counter() - t0
+        pids |= {h.pid for h in group.workers}
+        sha_sub = _mix_sha(run_mix(group, 100))
+        sha_dp1 = _mix_sha(want_mix)
+        if not sha_in == sha_sub == sha_dp1:
+            raise AssertionError(f"{label}: outputs_sha256 differ: "
+                                 f"in-process {sha_in}, subprocess "
+                                 f"{sha_sub}, dp-1 {sha_dp1}")
+        _worker_reads(group, reads, label)
+        out = {"label": label, "variant": "f32", "model": mcfg.name,
+               "outputs_sha256": sha_sub, "boot_s": boot_s}
+
+        # kill -9 of the worker holding a mid-decode stream.
+        group._refresh_caches()
+        before = _monotone_series(group.prometheus_text())
+        failovers0 = group.failovers
+        a = _fleet_submit(group, 200, long_a, long_new)
+        b = _fleet_submit(group, 201, long_b, long_new)
+        _wait_fleet(group, label, lambda: min(len(a[0]), len(b[0])) >= 8,
+                    "two streams mid-decode")
+        victim = _tracked_worker(group, 200)
+        _worker_reads(group, reads, label)
+        group.apply_chaos({"replica": victim, "kill": "sigkill"})
+        if [_fleet_finish(label, a), _fleet_finish(label, b)] != \
+                [want_long[0], want_long[1]]:
+            raise AssertionError(f"{label}: tokens after kill -9 differ")
+        if group.failovers <= failovers0:
+            raise AssertionError(f"{label}: no failover counted")
+        _wait_fleet(group, label,
+                    lambda: group.workers[victim].restarts >= 1
+                    and _healed(group), "the restart after kill -9")
+        pids |= {h.pid for h in group.workers}
+        group._refresh_caches()
+        n_series = _no_series_fell(label, before,
+                                   _monotone_series(group.prometheus_text()))
+        out["kill9"] = {"replica": victim, "failovers": group.failovers,
+                        "restarts": group.workers[victim].restarts,
+                        "series_checked": n_series}
+
+        # SIGTERM: drain, KV migration, swap-in-resume.
+        mig0 = group.migrated_pages
+        a = _fleet_submit(group, 300, long_a, long_new)
+        _wait_fleet(group, label, lambda: len(a[0]) >= 24,
+                    "a stream mid-decode")
+        src = _tracked_worker(group, 300)
+        _worker_reads(group, reads, label)
+        restarts0 = group.workers[src].restarts
+        group.apply_chaos({"replica": src, "kill": "sigterm"})
+        if _fleet_finish(label, a) != want_long[0]:
+            raise AssertionError(f"{label}: tokens after the drain differ")
+        _wait_fleet(group, label,
+                    lambda: group.workers[src].restarts > restarts0
+                    and _healed(group), "the restart after the drain")
+        pids |= {h.pid for h in group.workers}
+        _wait_fleet(group, label,
+                    lambda: group.supervision_counters()[
+                        "swap_in_resumes"] >= 1, "a swap-in-resume", 30.0)
+        if group.migrated_pages <= mig0:
+            raise AssertionError(f"{label}: the drain migrated no page")
+        sup = group.supervision_counters()
+        out["sigterm"] = {k: sup[k] for k in (
+            "migrations", "migrated_pages", "migrated_bytes",
+            "swap_in_resumes", "resume_reused_tokens",
+            "resume_recomputed_tokens")}
+
+        # Seeded transport chaos: corrupt and delay worker->router frames.
+        restarts0 = sum(h.restarts for h in group.workers)
+        frame_errors0 = group.frame_errors
+        group.apply_chaos({"rpc": {"seed": 42, "corrupt_rate": 0.05,
+                                   "delay_rate": 0.1, "delay_s": 0.002,
+                                   "verbs": ["token"],
+                                   "direction": "recv"}})
+        try:
+            sha_chaos = _mix_sha(run_mix(group, 400))
+        finally:
+            group.apply_chaos({"rpc": {"corrupt_rate": 0.0,
+                                       "delay_rate": 0.0}})
+        if sha_chaos != sha_dp1:
+            raise AssertionError(f"{label}: outputs differ under transport "
+                                 "chaos")
+        if group.frame_errors <= frame_errors0:
+            raise AssertionError(f"{label}: no corrupted frame rejected")
+        if sum(h.restarts for h in group.workers) != restarts0:
+            raise AssertionError(f"{label}: transport chaos restarted a "
+                                 "worker")
+        out["chaos_rpc"] = {"frame_errors": group.frame_errors
+                            - frame_errors0,
+                            "reconnects": group.reconnects}
+        _worker_reads(group, reads, label)
+        _gate_launches(reads, label, "f32")
+        _pool_clean(label, group)
+        launches = _launch_totals(reads)
+        out.update({
+            "launches_by_variant": launches["by_variant"],
+            "decode_launches_by_batch": launches["decode_by_batch"],
+            "prefill_launches_by_len": launches["prefill_by_len"],
+            "workers_read": len(reads),
+            "boot_walls_s": {h.replica: h.boot_walls for h in group.workers},
+        })
+    finally:
+        group.stop(drain=False)
+    _pids_gone(label, pids)
+    log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
+        f"/ dp-1; " + json.dumps({k: v for k, v in out.items()
+                                  if k not in ("label", "outputs_sha256")}))
+    return out
+
+
+def _crc_mb_s() -> dict:
+    """CRC-32C of the port's integrity module on this machine, 64 MiB of
+    seeded bytes: each path's MB/s (the one crc32c resolves to, numpy,
+    and the card's block path), every path's value equal."""
+    import numpy as np
+    from tpu_inference_torch import integrity
+    data = np.random.default_rng(SEED).integers(
+        0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    out = {"crc32c_is": ("google_crc32c"
+                         if integrity.crc32c is not integrity._crc32c_fast
+                         else "the port's (card for >= 1 MiB, else numpy)")}
+    values = set()
+    for name, fn in (("crc32c", integrity.crc32c),
+                     ("numpy", integrity._crc32c_np),
+                     ("card", lambda d: integrity._crc32c_blocks(d, 0,
+                                                                 "cuda"))):
+        fn(data[:1 << 20])                       # warm (the card's tables)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        values.add(fn(data))
+        out[f"{name}_mb_s"] = len(data) / 1e6 / (time.perf_counter() - t)
+    if len(values) != 1:
+        raise AssertionError(f"CRC-32C paths disagree: {values}")
+    return out
+
+
+def fleet_phase(card: str, dp1: dict) -> dict:
+    """llama-3-8b (bf16, full width) at dp 2 through the CLI's
+    ``--dp 2 --fleet subprocess --num-pages 512``: two workers of 16 GB
+    weights share the card. Two waves of 8 concurrent BurstGPT-length
+    requests (48 tokens): SIGTERM to one worker mid-decode in the first,
+    and once healed, kill -9 to the other in the second. Gates: every
+    stream "length" with its 48 tokens (the router's stream indices are
+    gapless), pages migrated with a swap-in-resume, the drain inside
+    drain_timeout_s, both kernels launched (bf16 only) in every worker
+    on the card, and after the lane no worker process left and the
+    card's free memory back. bf16 GEMM rows depend on M, so a resumed
+    request may diverge from an uninterrupted run: tokens are not
+    compared."""
+    label = "fleet llama-3-8b bf16 dp2"
+    free_before = torch.cuda.mem_get_info()[0]
+    crc = _crc_mb_s()
+    t0 = time.perf_counter()
+    server, ea = _serve_cli([
+        "--model", "llama-3-8b", "--dp", "2", "--fleet", "subprocess",
+        "--num-pages", "512", "--max-pages-per-seq", "128",
+        "--max-batch-size", "8", "--host-cache-pages", "2048",
+        "--no-warmup", "--seed", str(SEED)])
+    group = server.group
+    pids, reads = set(), {}
+    try:
+        port = server.start(port=0)
+        boot_s = time.perf_counter() - t0
+        pids |= {h.pid for h in group.workers}
+        drain_budget = group.server_cfg.drain_timeout_s
+        prompts = _burst_prompts(16)
+        max_tokens = 48
+        waves, all_results = [], []
+        drain = {}
+        for wave, kill in ((0, "sigterm"), (1, "sigkill")):
+            box: dict = {}
+
+            def traffic(ps=prompts[8 * wave:8 * wave + 8]):
+                box["results"], box["wall"] = run_requests(port, ps,
+                                                           max_tokens)
+
+            th = threading.Thread(target=traffic)
+            th.start()
+
+            victim = wave % 2
+
+            def mid_decode():
+                # Keep the last counts of every worker before the fault.
+                _worker_reads(group, reads, label)
+                with group._lock:
+                    return any(e.worker is group.workers[victim]
+                               and 2 <= len(e.tokens) <= max_tokens - 8
+                               for e in group._tracked.values())
+
+            _wait_fleet(group, label, mid_decode,
+                        f"a stream mid-decode on replica {victim}", 300.0)
+            mig0, bytes0 = group.migrations, group.migrated_bytes
+            restarts0 = group.workers[victim].restarts
+            vh = group.workers[victim]
+            with group._lock:
+                held = {rid: len(e.template.prompt_tokens) + len(e.tokens)
+                        for rid, e in group._tracked.items()
+                        if e.worker is vh}
+
+            def settled():
+                # Every request the victim held finished or runs on the
+                # other worker.
+                with group._lock:
+                    return all(
+                        rid not in group._tracked
+                        or group._tracked[rid].worker not in (None, vh)
+                        for rid in held)
+            t_kill = time.perf_counter()
+            group.apply_chaos({"replica": victim, "kill": kill})
+            if kill == "sigterm":
+                _wait_fleet(group, label,
+                            lambda: group.workers[victim].state != "up",
+                            "the drain", drain_budget + 30)
+                exit_s = time.perf_counter() - t_kill
+                _wait_fleet(group, label, settled, "the migration",
+                            drain_budget + 30)
+                # The worker's own drain (SIGTERM to its exit), then every
+                # request it held re-dispatched on the other worker.
+                drain = {"replica": victim,
+                         "held_tokens": sorted(held.values()),
+                         "worker_exit_s": exit_s,
+                         "settled_s": time.perf_counter() - t_kill,
+                         "migrations": group.migrations - mig0,
+                         "migrated_bytes": group.migrated_bytes - bytes0}
+            th.join(timeout=900)
+            if th.is_alive() or "results" not in box:
+                raise AssertionError(f"{label}: wave {wave} did not finish")
+            _wait_fleet(group, label,
+                        lambda: group.workers[victim].restarts > restarts0
+                        and _healed(group), f"the restart after {kill}")
+            pids |= {h.pid for h in group.workers}
+            all_results += box["results"]
+            waves.append({"kill": kill, "replica": victim,
+                          **_summarize(box["results"], box["wall"]),
+                          "done_reasons": [r["done_reason"]
+                                           for r in box["results"]]})
+            if kill == "sigterm":
+                # The destination's swap-in shows in the router's view
+                # with its next stats refresh (once a second), and only
+                # until that worker restarts: read it before wave 2.
+                _wait_fleet(group, label,
+                            lambda: group.supervision_counters()[
+                                "swap_in_resumes"] >= 1,
+                            "a swap-in-resume", 30.0)
+                drain["swap_in_resumes"] = group.supervision_counters()[
+                    "swap_in_resumes"]
+        sup = group.supervision_counters()
+        if drain.get("migrated_bytes", 0) <= 0 or sup["migrated_pages"] <= 0:
+            raise AssertionError(f"{label}: the drain migrated nothing: "
+                                 f"{drain} {sup}")
+        if drain["settled_s"] > drain_budget:
+            raise AssertionError(f"{label}: the drain took "
+                                 f"{drain['settled_s']:.2f} s, over its "
+                                 f"{drain_budget} s budget: {drain}; CRC "
+                                 f"{crc}")
+        final = _worker_reads(group, reads, label)
+        _gate_launches(reads, label, "bf16")
+        snap = server_stats(port)
+        launches = _launch_totals(reads)
+        boot_walls = {h.replica: h.boot_walls for h in group.workers}
+    finally:
+        server.shutdown()
+        del server, group
+    _pids_gone(label, pids)
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free_before - 2**30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    free_after = torch.cuda.mem_get_info()[0]
+    if free_after < free_before - 2**30:
+        raise AssertionError(f"{label}: {(free_before - free_after) / 1e9:.2f}"
+                             " GB of card memory not given back")
+    ttfts = sorted(r["ttft_s"] for r in all_results)
+    out = {"label": label, "model": "llama-3-8b", "quant": "none",
+           "kv_quant": "none", "variant": "bf16", "dp": 2,
+           "fleet": "subprocess", "boot_s": boot_s,
+           "boot_walls_s": boot_walls, "waves": waves, "drain": drain,
+           "crc32c": crc, "supervision": {k: sup[k] for k in (
+               "failovers", "migrations", "migrated_pages",
+               "migrated_bytes", "swap_in_resumes", "worker_restarts",
+               "resume_reused_tokens", "resume_recomputed_tokens")},
+           "worker_peak_memory_bytes": {str(w["replica"]):
+                                        w["max_memory_allocated"]
+                                        for w in final},
+           "requests": len(all_results),
+           "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+           "aggregate_tok_s": waves[0]["aggregate_tok_s"],
+           "dp1_bf16_aggregate_tok_s": dp1["aggregate_tok_s"],
+           "launches_by_variant": launches["by_variant"],
+           "decode_launches_by_batch": launches["decode_by_batch"],
+           "prefill_launches_by_len": launches["prefill_by_len"],
+           "workers_read": len(reads), "step_failures":
+               snap["step_failures"],
+           "free_memory_before_after_bytes": [free_before, free_after]}
+    log(f"[{label}] on {card}: boot {boot_s:.1f} s, per worker and restart "
+        f"{json.dumps(boot_walls)}; drain {json.dumps(drain)}; CRC-32C "
+        f"{json.dumps(crc)}; waves {json.dumps(waves)}; aggregate "
+        f"{out['aggregate_tok_s']:.1f} tok/s (dp-1 bf16 lane "
+        f"{dp1['aggregate_tok_s']:.1f}, not comparable as a claim); worker "
+        f"peaks {json.dumps(out['worker_peak_memory_bytes'])}; launches "
+        f"{json.dumps(launches['by_variant'])} over {len(reads)} worker "
+        f"processes; supervision {json.dumps(out['supervision'])}")
+    return out
+
+
 def log_ledger(label: str, prof: dict) -> None:
     """The step ledger's verdicts over a profiled window."""
     led = prof.get("ledger")
@@ -2564,6 +3117,8 @@ def main() -> int:
         f"identical, watchdog fired, page pressure returned, pool clean: "
         f"{json.dumps(chaos)}")
     main_paths = {}
+    mp = timed("fleet_tiny", fleet_tiny_phase, card)
+    main_paths[mp["label"]] = mp
     for label, quant, kv_quant, variant in MAIN_PATHS:
         mp = timed("main", main_path_phase, label, quant, kv_quant, variant,
                    variant != "int4",
@@ -2581,6 +3136,8 @@ def main() -> int:
     main_paths[mp["label"]] = mp
     mp = timed("draft", draft_phase, card)
     log_new_path(mp, card)
+    main_paths[mp["label"]] = mp
+    mp = timed("fleet", fleet_phase, card, main_paths["bf16"])
     main_paths[mp["label"]] = mp
     for name, phase in (("mixtral", mixtral_phase), ("gpt2", gpt2_phase)):
         mp = timed(name, phase, card)

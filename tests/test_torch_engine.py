@@ -105,7 +105,7 @@ def test_warmup_writes_only_the_trash_page():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("role", "prefill", "1.15"),
+    pytest.param("role", "prefill", "1.15b", id="role-prefill-1.15"),
 ])
 def test_unported_features_raise(field, value, item):
     ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})

@@ -1,6 +1,7 @@
-"""The port imports PyTorch, never JAX, and nothing of the reference
-package: every .py under tpu_inference_torch/ (and chip_smoke.py, which
-drives the port on the card) is scanned with ``ast``."""
+"""The port imports PyTorch, never JAX (nor ``ml_dtypes``, which the
+card's machine does not have), and nothing of the reference package:
+every .py under tpu_inference_torch/ (and chip_smoke.py, which drives
+the port on the card) is scanned with ``ast``."""
 
 import ast
 import os
@@ -20,7 +21,7 @@ def _port_files():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "tpu_inference")
+    return top in ("jax", "jaxlib", "ml_dtypes", "tpu_inference")
 
 
 def _imports(path: str):
@@ -40,6 +41,9 @@ def test_port_has_sources():
     assert len(files) > 15
     assert os.path.isfile(os.path.join(PKG, "csrc", "paged_attention.cu"))
     assert os.path.isfile(os.path.join(PKG, "csrc", "prefill_attention.cu"))
+    for mod in ("integrity.py", "server/transport.py", "server/worker.py",
+                "server/fleet.py"):
+        assert os.path.join(PKG, mod) in files, mod
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -54,7 +58,9 @@ def test_scanner_catches_forbidden_forms(tmp_path):
     p.write_text("import jax.numpy as jnp\n"
                  "from tpu_inference.engine import kv_cache\n"
                  "import tpu_inference\n"
+                 "import ml_dtypes\n"
                  "import tpu_inference_torch\n"
                  "from tpu_inference_torch.config import PRESETS\n")
     bad = [mod for _, mod in _imports(str(p)) if _forbidden(mod)]
-    assert bad == ["jax.numpy", "tpu_inference.engine", "tpu_inference"]
+    assert bad == ["jax.numpy", "tpu_inference.engine", "tpu_inference",
+                   "ml_dtypes"]

@@ -66,6 +66,10 @@ PyTorch:
   their sync with the fields captured when they were staged.
 - **Embeddings** (``embed_many``): mean-pooled hidden states from dense,
   cache-free forwards, apart from the pool and the scheduler.
+- **Drain and import** (the process fleet): ``export_sequence_kv``
+  copies a live sequence's full pages off the pool for migration, and
+  ``request_import_host`` / ``apply_pending_imports`` adopt another
+  replica's export into the host tier on the engine thread.
 
 Index ranges the reference gets for free from XLA's clamping gathers
 are kept in range explicitly: positions clamp at ``max_context - 1``
@@ -81,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import random as _chaos_random
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -112,7 +117,7 @@ from tpu_inference_torch.models.registry import build_model, get_model_fns
 # EngineConfig fields the port does not serve: a value other than the
 # default raises NotImplementedError naming the ROADMAP item.
 _UNPORTED = {
-    "role": "1.15 (process fleet: P/D worker roles)",
+    "role": "1.15b (process fleet: P/D worker roles)",
 }
 
 
@@ -125,6 +130,14 @@ def check_engine_config(engine_cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={value!r} is not ported yet (ROADMAP "
                 f"{item}); the port serves the default")
+
+
+class ImportDone(threading.Event):
+    """Set once a queued migration import was applied; ``adopted`` is the
+    pages it added to the host tier (imports queued side by side are
+    applied in one pass, so a counter's delta would mix them)."""
+
+    adopted = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -242,8 +255,8 @@ class Sequence:
     first_token_time: float = 0.0
     finish_time: float = 0.0
     # The client-visible request id (X-Request-Id): it keys the
-    # request's spans and structured logs. attempt counts resubmissions
-    # (always 0 at dp=1: failover is ROADMAP 1.15).
+    # request's spans and structured logs. attempt counts failover
+    # resubmissions.
     trace_id: str = ""
     attempt: int = 0
     priority_class: str = "interactive"
@@ -371,6 +384,19 @@ class InferenceEngine:
         self.preemptions_total = 0        # sequences evicted for pressure
         self.resumes_total = 0            # recompute-resume prefills
         self.swap_in_resumes = 0          # resumes that restored KV pages
+        # Drain-time KV migration (the process fleet): pages and bytes
+        # exported to, and adopted from, sibling replicas.
+        self.migrate_out_pages = 0
+        self.migrate_out_bytes = 0
+        self.migrate_in_pages = 0
+        self.migrate_in_bytes = 0
+        # Corrupt KV blobs this replica rejected at import (counted,
+        # never adopted; the request recomputes).
+        self.kv_integrity_rejections = 0
+        # Migration imports queued by another thread, applied by the
+        # engine loop before admission: (entries, done event).
+        self._pending_imports: List[tuple] = []
+        self._pending_imports_lock = threading.Lock()
         self.hybrid_steps_total = 0       # fused prefill+decode calls
         self._admit_counter = 0
         # Sequences preempted since the caller last collected them.
@@ -916,7 +942,8 @@ class InferenceEngine:
         out = kvc.offload_pages(self.kv, pages)
         t1 = time.perf_counter()
         if out:
-            self.host_pool.note_swap_wall("out", t1 - t0)
+            if self.host_pool is not None:
+                self.host_pool.note_swap_wall("out", t1 - t0)
             tel = self.telemetry
             tel.kv_swap_s.observe(t1 - t0)
             tel.kv_offload_pages.inc(len(out))
@@ -1419,6 +1446,65 @@ class InferenceEngine:
                                            - 1):]
         gen = seq.generated[seq.resume_base:]
         return base + (gen[:-1] if drop_last else gen)
+
+    def export_sequence_kv(self, seq: Sequence
+                           ) -> Tuple[List[bytes], List[kvc.HostKVPage]]:
+        """Drain-time migration export: (chain digests, host page copies)
+        of the sequence's full, settled KV pages (prompt plus generated
+        so far), the stream a destination's recompute-resume prefill
+        hashes, so the import lands as host-tier hits there and admission
+        is a swap-in-resume. Only the run of full, non-evicted pages from
+        page 0 exports; the partial last page recomputes. Call with the
+        scheduler stopped and the pipeline drained. The copies have
+        landed when this returns (the stream is synchronized)."""
+        if not seq.pages or seq.ctx_len <= 0:
+            return [], []
+        ecfg = self.engine_cfg
+        in_kv = self._tokens_in_kv(seq)[:seq.ctx_len]
+        digests = _chain_hashes(in_kv, ecfg.page_size)
+        n = min(len(digests), len(seq.pages))
+        run = 0
+        while run < n and seq.pages[run] != 0:
+            run += 1
+        if run == 0:
+            return [], []
+        host = self._offload_pages(seq.pages[:run])
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.migrate_out_pages += len(host)
+        self.migrate_out_bytes += sum(hp.nbytes for hp in host)
+        return digests[:run], host
+
+    def request_import_host(self, entries) -> "ImportDone":
+        """Queue migrated (digest, HostKVPage) entries for adoption into
+        the host tier. Any thread; the returned event is set once the
+        engine loop applied them (the worker's import-kv RPC replies only
+        then, so the resubmitted request's prefill sees the pages), with
+        the pages this request adopted in ``adopted``."""
+        done = ImportDone()
+        with self._pending_imports_lock:
+            self._pending_imports.append((list(entries), done))
+        return done
+
+    def apply_pending_imports(self) -> None:
+        """Adopt queued migration imports (engine thread, before
+        admission). Without a host tier nothing is adopted, but every
+        event is still set so no RPC waits."""
+        with self._pending_imports_lock:
+            pending, self._pending_imports = self._pending_imports, []
+        for entries, done in pending:
+            try:
+                if (self.prefix_cache is not None
+                        and self.host_pool is not None):
+                    # The pool's byte delta: import_host skips resident
+                    # digests anywhere in the list.
+                    before = self.host_pool.import_bytes_total
+                    done.adopted = self.prefix_cache.import_host(entries)
+                    self.migrate_in_pages += done.adopted
+                    self.migrate_in_bytes += (
+                        self.host_pool.import_bytes_total - before)
+            finally:
+                done.set()
 
     def _publish_to_cache(self, seq: Sequence) -> None:
         """Publish a sequence's full pages (prompt + generated history) to

@@ -29,18 +29,29 @@ into freshly allocated pool pages, both as non-blocking copies on the
 current stream; ``HostPagePool`` does the tier's capacity accounting.
 The copies move the pool's stored bytes (float elements, int8 codes or
 packed int4 codes, with their float32 scales), so every pool kind
-round-trips bit-identically. The tier's wire format
-(``serialize_host_pages``) is ROADMAP 1.15.
+round-trips bit-identically.
+
+Migration wire format (the process fleet's drain-time KV migration):
+``serialize_host_pages`` packs host pages into the reference's blob,
+byte for byte (``[u32 header_len][json header][raw k|v|k_scale|v_scale
+per page]``, the header's ``crc32c`` over the page bytes), and
+``deserialize_host_pages`` / ``verify_host_pages_blob`` read and check
+it. bfloat16 has no numpy dtype: its bytes are written through a byte
+view and the header still names it ``"bfloat16"``.
 """
 
 from __future__ import annotations
 
+import json
+import struct
+import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 import torch
 
+from tpu_inference_torch import integrity
 from tpu_inference_torch.config import EngineConfig, ModelConfig
 
 
@@ -403,8 +414,10 @@ class HostPagePool:
         self.offloaded_total = 0          # pages demoted device -> host
         self.restored_total = 0           # pages promoted host -> device
         self.evicted_total = 0            # second-tier (host LRU) drops
+        self.imported_total = 0           # pages migrated in (fleet)
         self.offload_bytes_total = 0
         self.restore_bytes_total = 0
+        self.import_bytes_total = 0
         # Host wall spent in swap batches, per direction.
         self.swap_out_s_total = 0.0
         self.swap_in_s_total = 0.0
@@ -440,6 +453,15 @@ class HostPagePool:
         self.bytes_resident -= nbytes
         self.evicted_total += 1
 
+    def note_import(self, nbytes: int) -> None:
+        """A page migrated in from another replica's drain export: it
+        takes capacity like a demote and is counted apart (warmth
+        received, not local churn)."""
+        self.used += 1
+        self.bytes_resident += nbytes
+        self.imported_total += 1
+        self.import_bytes_total += nbytes
+
     def readmit(self, nbytes: int) -> bool:
         """Undo one note_restore for an entry a failed swap-in returns;
         False when an intervening demote took the room (the caller then
@@ -452,3 +474,144 @@ class HostPagePool:
         self.used += 1
         self.bytes_resident += nbytes
         return True
+
+
+# ---------------------------------------------------------------------------
+# Migration wire format: host pages serialized for the fleet's drain-time
+# KV migration, the reference's bytes exactly.
+# ---------------------------------------------------------------------------
+
+# Header dtype names (numpy's, as the reference writes them).
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8",
+                torch.uint8: "uint8"}
+_WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def _raw_bytes(t: torch.Tensor) -> bytes:
+    """A CPU tensor's bytes in row-major order (any dtype, bfloat16
+    included, through a byte view)."""
+    return t.detach().contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def serialize_host_pages_parts(pages: List[HostKVPage]) -> List[bytes]:
+    """The blob of :func:`serialize_host_pages` as its constituent
+    buffers, ``[u32 header_len + json header, page buffers...]`` in
+    stream order; the embedded digest is chained across the parts.
+    Pages copied off a CUDA pool must have landed (the caller
+    synchronizes the stream the offload copies were queued on)."""
+    if not pages:
+        return [struct.pack(">I", 2) + b"{}"]
+    first = pages[0]
+    meta = {
+        "n": len(pages),
+        "k_dtype": _WIRE_DTYPES[first.k.dtype],
+        "k_shape": list(first.k.shape),
+        "scaled": first.k_scale is not None,
+    }
+    if meta["scaled"]:
+        meta["scale_dtype"] = _WIRE_DTYPES[first.k_scale.dtype]
+        meta["scale_shape"] = list(first.k_scale.shape)
+    parts = []
+    for hp in pages:
+        parts.append(_raw_bytes(hp.k))
+        parts.append(_raw_bytes(hp.v))
+        if meta["scaled"]:
+            parts.append(_raw_bytes(hp.k_scale))
+            parts.append(_raw_bytes(hp.v_scale))
+    # Per-blob digest over the raw page bytes, inside the header, so every
+    # import path verifies end to end independent of the frame checksum.
+    # One pass over the joined pages (the reference chains it part by
+    # part: the same value, but a call per page).
+    meta["crc32c"] = integrity.crc32c(b"".join(parts))
+    header = json.dumps(meta).encode()
+    return [struct.pack(">I", len(header)) + header] + parts
+
+
+def serialize_host_pages(pages: List[HostKVPage]) -> bytes:
+    """Pack host page copies into one blob: ``[u32 header_len][json
+    header][raw k|v|k_scale|v_scale per page]``. The pages of a batch come
+    from one pool, so shapes and dtypes live once in the header."""
+    return b"".join(serialize_host_pages_parts(pages))
+
+
+def _check_header(blob: bytes):
+    """(header dict, payload offset) or the rejection reason."""
+    if len(blob) < 4:
+        return f"KV blob truncated ({len(blob)} bytes)"
+    (hlen,) = struct.unpack(">I", blob[:4])
+    if 4 + hlen > len(blob):
+        return f"KV blob header overruns blob ({hlen} > {len(blob) - 4})"
+    try:
+        meta = json.loads(blob[4:4 + hlen].decode())
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        return f"KV blob header unparseable: {e}"
+    want = meta.get("crc32c") if meta else None
+    if want is not None:
+        got = integrity.crc32c(blob[4 + hlen:])
+        if got != want:
+            return ("KV blob digest mismatch "
+                    f"(want 0x{want:08x} got 0x{got:08x})")
+    return meta, 4 + hlen
+
+
+def deserialize_host_pages(blob: bytes,
+                           copy: bool = True) -> List[HostKVPage]:
+    """Inverse of :func:`serialize_host_pages` (CPU tensors). Raises
+    ``integrity.KVIntegrityError`` on a truncated, unparseable or
+    digest-failing blob. Each page owns its bytes; ``copy=False``
+    returns read-only views over the blob instead (the blob stays alive
+    through them)."""
+    checked = _check_header(blob)
+    if isinstance(checked, str):
+        raise integrity.KVIntegrityError(checked)
+    meta, at = checked
+    if not meta:
+        return []
+    k_dtype = _WIRE_NAMES[meta["k_dtype"]]
+    k_shape = tuple(meta["k_shape"])
+    scaled = meta.get("scaled", False)
+    if scaled:
+        s_dtype = _WIRE_NAMES[meta["scale_dtype"]]
+        s_shape = tuple(meta["scale_shape"])
+    elem = {dt: torch.empty((), dtype=dt).element_size()
+            for dt in (k_dtype, s_dtype if scaled else k_dtype)}
+    need = meta["n"] * (2 * int(np.prod(k_shape)) * elem[k_dtype]
+                        + (2 * int(np.prod(s_shape)) * elem[s_dtype]
+                           if scaled else 0))
+    if at + need > len(blob):
+        raise integrity.KVIntegrityError(
+            f"KV blob payload truncated ({len(blob) - at} < {need} bytes)")
+    raw = np.frombuffer(blob, dtype=np.uint8)
+
+    def take(dtype, shape):
+        nonlocal at
+        n = int(np.prod(shape)) * elem[dtype]
+        arr = raw[at:at + n]
+        at += n
+        with warnings.catch_warnings():
+            # A view over immutable bytes: the caller only reads it.
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.from_numpy(arr.copy() if copy else arr)
+        return t.view(dtype).reshape(shape)
+
+    out: List[HostKVPage] = []
+    for _ in range(meta["n"]):
+        k = take(k_dtype, k_shape)
+        v = take(k_dtype, k_shape)
+        ks = vs = None
+        if scaled:
+            ks = take(s_dtype, s_shape)
+            vs = take(s_dtype, s_shape)
+        out.append(HostKVPage(k, v, ks, vs))
+    return out
+
+
+def verify_host_pages_blob(blob: bytes) -> Optional[str]:
+    """Structure and digest check without building pages (the router's
+    gate before forwarding a blob). None when sound, else the reason; a
+    blob without a ``crc32c`` passes the structure check only."""
+    if not blob:
+        return None
+    checked = _check_header(blob)
+    return checked if isinstance(checked, str) else None

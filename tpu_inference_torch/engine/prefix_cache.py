@@ -17,7 +17,8 @@ once written, so page-granular sharing with plain refcounts is safe.
   their KV, and a lookup that meets a host-tier digest hands the copy
   back for restore into a fresh device page (``promote``). The host tier
   has its own LRU and capacity. A digest lives in one tier at a time.
-  Fleet import (``import_host``) is ROADMAP 1.15.
+- Fleet import (``import_host``): another replica's drain export lands
+  in the host tier, so a resubmitted request's admission restores it.
 """
 
 from __future__ import annotations
@@ -254,6 +255,31 @@ class PrefixCache:
             if self.host_pool.readmit(entry.nbytes):
                 self._host[digest] = entry
 
+    def import_host(self, entries: Sequence[Tuple[bytes, HostKVPage]]
+                    ) -> int:
+        """Adopt migrated host page copies (another replica's drain
+        export) into the host tier, newest in LRU order. Digests resident
+        in either tier are skipped (the local copy is at least as fresh);
+        room is made by dropping the host tier's own oldest entries (the
+        migrated pages are about to be used); when the tier cannot hold
+        more the rest is dropped (a lost page costs recompute, never
+        correctness). Engine thread only. Returns the pages adopted."""
+        if self.host_pool is None or self.host_pool.capacity <= 0:
+            return 0
+        added = 0
+        for digest, entry in entries:
+            if digest in self._table or digest in self._host:
+                continue
+            while not self.host_pool.can_hold(1) and self._host:
+                _, old = self._host.popitem(last=False)
+                self.host_pool.note_evict(old.nbytes)
+            if not self.host_pool.can_hold(1):
+                break
+            self._host[digest] = entry
+            self.host_pool.note_import(entry.nbytes)
+            added += 1
+        return added
+
     # ------------------------------------------------------------- insert
 
     def insert(self, tokens: Sequence[int], pages: Sequence[int],
@@ -348,6 +374,7 @@ class PrefixCache:
                 "offloaded_pages": hp.offloaded_total,
                 "restored_pages": hp.restored_total,
                 "host_evictions": hp.evicted_total,
+                "imported_pages": hp.imported_total,
                 "swap_out_s_total": round(hp.swap_out_s_total, 6),
                 "swap_in_s_total": round(hp.swap_in_s_total, 6),
             })

@@ -105,6 +105,10 @@ class SchedulerStats:
             "preemptions": engine.preemptions_total,
             "recompute_resumes": engine.resumes_total,
             "swap_in_resumes": engine.swap_in_resumes,
+            # Drain-time KV migration: pages exported at drain and
+            # imported from a sibling replica's drain.
+            "migrate_out_pages": engine.migrate_out_pages,
+            "migrate_in_pages": engine.migrate_in_pages,
             "hybrid_prefill": ecfg.hybrid_prefill,
             "hybrid_steps": engine.hybrid_steps_total,
             "pool_pressure": round(engine.pool_pressure, 4),
@@ -246,6 +250,10 @@ class EngineScheduler:
 
     # -------------------------------------------------- engine loop
 
+    def kick(self) -> None:
+        """Wake an idle loop (a queued import waits for its next pass)."""
+        self._work.set()
+
     def start(self) -> "EngineScheduler":
         self._stop.clear()
         self._thread = threading.Thread(target=self.run, name="engine-loop",
@@ -274,6 +282,20 @@ class EngineScheduler:
             self._poll_hybrid_prefill()
         self._requeue_preempted()
         self._cancel_stragglers()
+
+    def freeze(self, timeout: float = 30.0) -> None:
+        """Stop the loop and leave every request where it is (a draining
+        worker exports them): the thread joins, queued calls settle and
+        deliver their tokens, preempted sequences go back to the queue.
+        Nothing is finished."""
+        self._stop.set()
+        self._work.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+        if self.engine.pipeline_pending:
+            self._deliver(self._drain_safely())
+            self._poll_hybrid_prefill()
+        self._requeue_preempted()
 
     def _cancel_stragglers(self) -> None:
         with self._lock:
@@ -683,6 +705,9 @@ class EngineScheduler:
             # Cross-thread page-pressure requests (/debug/chaos) apply
             # here: the allocator is engine-thread only.
             engine.apply_pending_page_pressure()
+            # Migrated KV lands in the host tier before admission, so a
+            # resubmitted request swaps it in.
+            engine.apply_pending_imports()
             self._admit()
             active = engine.active_sequences()
             if not active:

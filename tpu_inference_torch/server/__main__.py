@@ -34,6 +34,16 @@ and their Chrome export) and ``GET /debug/blackbox`` (the flight
 recorder's captures under ``--blackbox-dir``, newest
 ``--blackbox-retain`` kept). ``--slo-ttft-ms`` / ``--slo-tpot-ms`` set
 the targets the SLO breach counters count against.
+
+Replicas: ``--dp N`` serves N replicas, as threads of this process
+(``--fleet in-process``) or as supervised worker processes behind a
+router (``--fleet subprocess``: ``--worker-restart-*``,
+``--drain-timeout-s``, ``--no-fleet-migrate``, ``--rpc-deadline-*``,
+``--poison-max-workers`` and the ``--chaos-rpc-*`` transport faults).
+Replica i serves on ``cuda:{i % device_count}``, so on one card they all
+share it, and ``--num-pages``/``--max-batch-size`` must then be integers
+(``auto`` would size every replica from the whole card). P/D roles
+(``--role``, ``--roles``, ``--pd-ratio``) are ROADMAP 1.15b.
 """
 
 from __future__ import annotations
@@ -247,6 +257,88 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chaos-step-wedge-s", type=float, default=0.0,
                    help="engine fault injection: each dispatch sleeps "
                         "this long first (exercises the step watchdog)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel replicas, each with its own "
+                        "weights, KV pool and scheduler; replica i on "
+                        "cuda:{i %% device_count} (one card: all share "
+                        "it); requests route by prefix affinity")
+    p.add_argument("--fleet", default="in-process",
+                   choices=("in-process", "subprocess"),
+                   help="dp fleet backend: 'in-process' runs every "
+                        "replica as a thread of this server; "
+                        "'subprocess' runs a router plus one worker "
+                        "process per replica over a local framed RPC "
+                        "(worker faults isolated, restarts with backoff, "
+                        "drains migrate KV pages)")
+    p.add_argument("--worker-restart-max", type=int, default=3,
+                   help="subprocess fleet: restarts allowed per worker "
+                        "(doubling backoff) before it stays down and "
+                        "the fleet serves degraded on the survivors")
+    p.add_argument("--worker-restart-backoff-s", type=float, default=0.5,
+                   help="subprocess fleet: first restart backoff "
+                        "(doubles per consecutive failure, at most 30 s)")
+    p.add_argument("--drain-timeout-s", type=float, default=10.0,
+                   help="subprocess fleet: budget a SIGTERM'd worker "
+                        "gets to settle dispatches and export KV pages "
+                        "before exiting")
+    p.add_argument("--no-fleet-migrate", action="store_true",
+                   help="subprocess fleet: disable drain-time KV page "
+                        "migration (resubmissions re-prefill from "
+                        "scratch)")
+    p.add_argument("--role", default="mixed",
+                   help="worker phase role (P/D disaggregation, ROADMAP "
+                        "1.15b: only 'mixed' is served)")
+    p.add_argument("--roles", default=None,
+                   help="per-worker phase roles (ROADMAP 1.15b)")
+    p.add_argument("--pd-ratio", default=None,
+                   help="prefill:decode worker split (ROADMAP 1.15b)")
+    p.add_argument("--chaos-rpc-seed", type=int, default=0,
+                   help="transport fault injection: seed of the frame "
+                        "fault schedule (same seed => same faults at "
+                        "the same frame indices)")
+    p.add_argument("--chaos-rpc-corrupt-rate", type=float, default=0.0,
+                   help="transport fault injection: flip one byte in "
+                        "this fraction of RPC frames (CRC rejects them; "
+                        "reconnect + resync)")
+    p.add_argument("--chaos-rpc-drop-rate", type=float, default=0.0,
+                   help="transport fault injection: reset the "
+                        "connection instead of sending this fraction "
+                        "of frames")
+    p.add_argument("--chaos-rpc-delay-rate", type=float, default=0.0,
+                   help="transport fault injection: delay this "
+                        "fraction of frames by --chaos-rpc-delay-s")
+    p.add_argument("--chaos-rpc-delay-s", type=float, default=0.02,
+                   help="transport fault injection: per-delayed-frame "
+                        "sleep (seconds)")
+    p.add_argument("--chaos-rpc-truncate-rate", type=float, default=0.0,
+                   help="transport fault injection: torn write (a "
+                        "prefix of the frame, then a reset)")
+    p.add_argument("--chaos-rpc-wedge-after", type=int, default=0,
+                   help="transport fault injection: after this many "
+                        "matching frames the connection swallows all "
+                        "traffic until the deadline watchdog recycles "
+                        "it (0 = off; one-shot)")
+    p.add_argument("--chaos-rpc-wedge-replica", type=int, default=0,
+                   help="replica whose router connection arms the "
+                        "wedge (with --chaos-rpc-wedge-after)")
+    p.add_argument("--chaos-rpc-verbs", default="",
+                   help="comma-separated RPC verbs the transport chaos "
+                        "applies to ('' = every verb)")
+    p.add_argument("--chaos-rpc-direction", default="both",
+                   choices=("send", "recv", "both"),
+                   help="which direction transport chaos applies to: "
+                        "send = router->worker, recv = worker->router")
+    p.add_argument("--rpc-deadline-fast-s", type=float, default=10.0,
+                   help="deadline of control-plane RPCs (cancel, chaos, "
+                        "healthz, ...); three consecutive timeouts "
+                        "recycle the connection")
+    p.add_argument("--rpc-deadline-slow-s", type=float, default=60.0,
+                   help="deadline of RPCs that move KV bytes or block "
+                        "on admission (submit, import-kv, drain)")
+    p.add_argument("--poison-max-workers", type=int, default=3,
+                   help="finish a request as poison (terminal 500) once "
+                        "its attempts crashed or wedged this many "
+                        "distinct workers (0 disables)")
     return p
 
 
@@ -281,6 +373,11 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
     from tpu_inference_torch.engine import autosize
 
     spec_mode = resolve_spec_mode(args, p)
+    if args.dp > 1 and "auto" in (args.num_pages, args.max_batch_size):
+        # Each replica would size itself from the whole card it shares.
+        p.error(f"--num-pages/--max-batch-size auto with --dp {args.dp}: "
+                "replicas on one card would each size themselves from "
+                "the whole card; pass integers")
     try:
         max_batch_size, num_pages = autosize.resolve_sizing_args(args)
         decode_ladder = autosize.parse_decode_ladder(args.decode_ladder,
@@ -292,11 +389,14 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
               file=sys.stderr)
     host_cache_pages = args.host_cache_pages
     if host_cache_pages == "auto":
+        # Every replica builds its own host tier: the machine's budget
+        # is divided among them.
         host_cache_pages = autosize.auto_host_cache_pages(
             autosize.resolve_model_config(args.model, args.checkpoint),
-            kv_quant=args.kv_quant, page_size=args.page_size)
+            kv_quant=args.kv_quant,
+            page_size=args.page_size) // max(1, args.dp)
         print(f"[autosize] host KV tier: {host_cache_pages} pages (from "
-              "/proc/meminfo MemAvailable)", file=sys.stderr)
+              f"/proc/meminfo MemAvailable, dp={args.dp})", file=sys.stderr)
     return dict(
         page_size=args.page_size, num_pages=num_pages,
         max_pages_per_seq=args.max_pages_per_seq,
@@ -326,7 +426,8 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         chaos_step_failure_rate=args.chaos_step_failure_rate,
         chaos_step_wedge_s=args.chaos_step_wedge_s,
         step_ledger_depth=args.step_ledger_depth,
-        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms)
+        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+        role=args.role)
 
 
 def server_overrides(args) -> dict:
@@ -342,7 +443,28 @@ def server_overrides(args) -> dict:
             "blackbox_dir": args.blackbox_dir,
             "blackbox_retain": args.blackbox_retain,
             "chaos_failure_rate": args.chaos_failure_rate,
-            "chaos_delay_s": args.chaos_delay_s}
+            "chaos_delay_s": args.chaos_delay_s,
+            "fleet": args.fleet,
+            "worker_restart_max": args.worker_restart_max,
+            "worker_restart_backoff_s": args.worker_restart_backoff_s,
+            "drain_timeout_s": args.drain_timeout_s,
+            "fleet_migrate": not args.no_fleet_migrate,
+            "worker_roles": tuple(r.strip() for r in
+                                  (args.roles or "").split(",") if r),
+            "chaos_rpc_seed": args.chaos_rpc_seed,
+            "chaos_rpc_corrupt_rate": args.chaos_rpc_corrupt_rate,
+            "chaos_rpc_drop_rate": args.chaos_rpc_drop_rate,
+            "chaos_rpc_delay_rate": args.chaos_rpc_delay_rate,
+            "chaos_rpc_delay_s": args.chaos_rpc_delay_s,
+            "chaos_rpc_truncate_rate": args.chaos_rpc_truncate_rate,
+            "chaos_rpc_wedge_after": args.chaos_rpc_wedge_after,
+            "chaos_rpc_wedge_replica": args.chaos_rpc_wedge_replica,
+            "chaos_rpc_verbs": tuple(v for v in
+                                     args.chaos_rpc_verbs.split(",") if v),
+            "chaos_rpc_direction": args.chaos_rpc_direction,
+            "rpc_deadline_fast_s": args.rpc_deadline_fast_s,
+            "rpc_deadline_slow_s": args.rpc_deadline_slow_s,
+            "poison_max_workers": args.poison_max_workers}
 
 
 def boot_server(args, p: argparse.ArgumentParser):
@@ -359,6 +481,17 @@ def boot_server(args, p: argparse.ArgumentParser):
                 resolve_model_config(model, ckpt)
             except ValueError as e:
                 p.error(f"{flag}: {e}")
+    if args.pd_ratio is not None:
+        raise NotImplementedError(
+            f"--pd-ratio {args.pd_ratio!r} is not ported yet (ROADMAP "
+            "1.15b: P/D worker roles)")
+    if args.fleet == "subprocess" and args.draft_model:
+        p.error("--fleet subprocess does not support --draft-model "
+                "(workers boot their own weights; use --spec-mode ngram "
+                "or the in-process fleet)")
+    if args.fleet == "subprocess" and args.check_numerics:
+        p.error("--check-numerics needs the in-process fleet (the "
+                "workers load their own weights)")
     engine_args = resolve_engine_args(args, p)
 
     from tpu_inference_torch.server.http import build_server
@@ -368,9 +501,10 @@ def boot_server(args, p: argparse.ArgumentParser):
         checkpoint=args.checkpoint, warmup=not args.no_warmup,
         device=args.device, seed=args.seed, draft_model=args.draft_model,
         draft_checkpoint=args.draft_checkpoint, enable_debug=args.debug,
-        server_overrides=server_overrides(args), **engine_args)
+        server_overrides=server_overrides(args), dp=args.dp, **engine_args)
     if args.check_numerics:
-        server.engine.check_numerics()
+        for engine in server.group.engines:
+            engine.check_numerics()
         print("numerics check passed: params finite, forward finite",
               flush=True)
     return server, engine_args
@@ -388,7 +522,8 @@ def main(argv=None) -> None:
           f"batch={engine_args['max_batch_size']} "
           f"ladder={list(server.engine.ladder)}, "
           f"pages={engine_args['num_pages']}, "
-          f"step_ledger={server.engine.telemetry.step_ledger.depth})",
+          f"step_ledger={engine_args['step_ledger_depth']}, "
+          f"dp={args.dp} fleet={args.fleet})",
           flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())

@@ -1,4 +1,4 @@
-"""Ollama-protocol HTTP server over the port's engine.
+"""Ollama-protocol HTTP server over the port's engine replicas.
 
 Twin of ``tpu_inference/server/http.py`` on the standard library's
 threading HTTP server (one thread per connection; the engine runs on its
@@ -36,7 +36,10 @@ own scheduler thread). Wire contract, as the reference's:
 Fault injection: ``ServerConfig.chaos_delay_s`` / ``chaos_failure_rate``
 delay or 503 a generate, chat or embed request before it is parsed
 (``chaos_gate``). With ``enable_debug``: ``POST /debug/chaos`` arms the
-engine's faults at run time (EngineGroup.apply_chaos), ``GET
+engine's faults at run time (EngineGroup.apply_chaos; with ``--fleet
+subprocess`` also ``{"replica": i, "kill": "sigterm"|"sigkill"}``, a
+real drain or ``kill -9`` of that worker, and ``{"rpc": {...}}``, the
+transport chaos knobs), ``GET
 /debug/steps`` serves the step ledger's roofline report, ``POST
 /debug/profile`` runs torch.profiler (``{"seconds": N, "replica": i}``,
 or ``{"action": "start"|"stop"}``), writing traces only under
@@ -91,18 +94,79 @@ class HTTPError(Exception):
         self.headers = headers or {}
 
 
+# Server features of the process fleet this port does not serve yet.
+_UNPORTED_FLEET = "ROADMAP 1.15b (P/D roles, KV fabric, shm arena, elastic fleet)"
+
+
 def check_server_config(cfg: FrameworkConfig) -> None:
-    """Raise NotImplementedError for server-side features this slice
-    does not serve."""
-    if cfg.parallel.n_devices > 1:
+    """Raise for server configurations the port does not serve:
+    NotImplementedError naming the ROADMAP item, ValueError for a fleet
+    backend that does not exist. dp > 1 is served by both backends at
+    tp = sp = 1."""
+    from tpu_inference_torch.engine.engine import check_engine_config
+
+    check_engine_config(cfg.engine)
+    pcfg, scfg = cfg.parallel, cfg.server
+    if pcfg.tp * pcfg.sp > 1:
         raise NotImplementedError(
-            f"dp/tp/sp = {cfg.parallel.dp}/{cfg.parallel.tp}/"
-            f"{cfg.parallel.sp}: multi-GPU serving is not ported yet "
-            "(ROADMAP 1.16); the port serves one card")
-    if cfg.server.fleet != "in-process":
-        raise NotImplementedError(
-            f"fleet={cfg.server.fleet!r} is not ported yet (ROADMAP 1.15: "
-            "process fleet)")
+            f"dp/tp/sp = {pcfg.dp}/{pcfg.tp}/{pcfg.sp}: tensor and "
+            "sequence parallelism are not ported yet (ROADMAP 1.16); the "
+            "port serves dp replicas of tp = sp = 1")
+    if scfg.fleet not in ("in-process", "subprocess"):
+        raise ValueError(f"unknown fleet backend {scfg.fleet!r}; one of "
+                         "('in-process', 'subprocess')")
+    unported = {
+        "worker_roles": any(r != "mixed" for r in scfg.worker_roles),
+        "kv_plane": scfg.kv_plane != "relay",
+        "fabric_cache_pages": scfg.fabric_cache_pages > 0,
+        "autoscale": scfg.autoscale,
+        "class_queue_depth": (scfg.fleet == "subprocess"
+                              and scfg.class_queue_depth > 0),
+    }
+    for name, bad in unported.items():
+        if bad:
+            raise NotImplementedError(
+                f"ServerConfig.{name}={getattr(scfg, name)!r} is not "
+                f"ported yet ({_UNPORTED_FLEET})")
+
+
+def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,
+                       draft_checkpoint: Optional[str] = None):
+    """The dp replica fleet of ``cfg``: ``fleet="in-process"`` builds dp
+    engines in this process behind an EngineGroup, replica i on
+    ``replica_device(device, i)`` (``cuda:{i % device_count}``: on one
+    card every replica shares it) with the weights of
+    ``cfg.checkpoint_path`` or random ones from ``cfg.seed``;
+    ``"subprocess"`` returns a ProcessEngineGroup router that spawns one
+    worker process per replica at start() (each loads its own weights,
+    so a draft model is refused there, as in the reference)."""
+    from tpu_inference_torch.engine.engine import resolve_device
+    from tpu_inference_torch.models.weights import load_checkpoint
+    from tpu_inference_torch.server.replicas import replica_device
+
+    check_server_config(cfg)
+    if cfg.server.fleet == "subprocess":
+        if draft_cfg is not None:
+            raise ValueError(
+                "--fleet subprocess does not support draft-model "
+                "speculative decoding yet (the worker boots its own "
+                "params; use spec_mode='ngram' or the in-process fleet)")
+        from tpu_inference_torch.server.fleet import ProcessEngineGroup
+        return ProcessEngineGroup(cfg, device=device)
+    engines = []
+    for i in range(max(1, cfg.parallel.dp)):
+        dev = resolve_device(replica_device(device, i))
+
+        def load(mcfg, path, dev=dev):
+            return (load_checkpoint(mcfg, path, quant=cfg.engine.quant,
+                                    device=dev) if path else None)
+
+        engines.append(InferenceEngine(
+            cfg.model, cfg.engine,
+            params=load(cfg.model, cfg.checkpoint_path), seed=cfg.seed,
+            device=dev, draft_cfg=draft_cfg,
+            draft_params=load(draft_cfg, draft_checkpoint)))
+    return EngineGroup(engines, cfg.server)
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -121,12 +185,14 @@ class InferenceServer:
                  engine: Optional[InferenceEngine] = None,
                  load_duration_ns: Optional[int] = None,
                  device="cuda", draft_cfg=None,
-                 draft_checkpoint: Optional[str] = None):
-        """``engine``: a prebuilt engine (tests); otherwise one is built
-        from ``cfg`` on ``device`` with the weights of
-        ``cfg.checkpoint_path`` (streamed onto the card, quantized as
-        they land under ``cfg.engine.quant``) or random ones from
-        ``cfg.seed``; with ``draft_cfg``, a draft model from
+                 draft_checkpoint: Optional[str] = None, group=None):
+        """``engine``: a prebuilt engine, or ``group``: a prebuilt group
+        (tests); otherwise ``build_engine_group`` builds the dp replicas
+        of ``cfg`` on ``device`` (in this process, or as worker
+        processes with ``cfg.server.fleet="subprocess"``) with the
+        weights of ``cfg.checkpoint_path`` (streamed onto the card,
+        quantized as they land under ``cfg.engine.quant``) or random
+        ones from ``cfg.seed``; with ``draft_cfg``, a draft model from
         ``draft_checkpoint`` or random from ``cfg.seed + 1``.
         ``load_duration_ns`` feeds the Ollama ``load_duration`` field."""
         check_server_config(cfg)
@@ -138,22 +204,13 @@ class InferenceServer:
                 f"tokenizer vocab ({self.tokenizer.vocab_size}) exceeds "
                 f"model vocab ({cfg.model.vocab_size})")
         t0 = time.perf_counter()
-        if engine is None:
-            from tpu_inference_torch.engine.engine import resolve_device
-            from tpu_inference_torch.models.weights import load_checkpoint
-
-            dev = resolve_device(device)
-
-            def load(mcfg, path):
-                return (load_checkpoint(mcfg, path, quant=cfg.engine.quant,
-                                        device=dev) if path else None)
-
-            engine = InferenceEngine(
-                cfg.model, cfg.engine,
-                params=load(cfg.model, cfg.checkpoint_path), seed=cfg.seed,
-                device=dev, draft_cfg=draft_cfg,
-                draft_params=load(draft_cfg, draft_checkpoint))
-        self.group = EngineGroup([engine], cfg.server)
+        if group is not None:
+            self.group = group
+        elif engine is not None:
+            self.group = EngineGroup([engine], cfg.server)
+        else:
+            self.group = build_engine_group(cfg, device, draft_cfg,
+                                            draft_checkpoint)
         self.load_duration_ns = (load_duration_ns
                                  if load_duration_ns is not None else
                                  int((time.perf_counter() - t0) * 1e9))
@@ -167,7 +224,9 @@ class InferenceServer:
         self._profiler = None
 
     @property
-    def engine(self) -> InferenceEngine:
+    def engine(self):
+        """Replica 0's engine (in-process) or the model and engine facts
+        of worker 0's hello (process fleet, once started)."""
         return self.group.engine
 
     # ------------------------------------------------------- lifecycle
@@ -918,7 +977,7 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
                  draft_model: Optional[str] = None,
                  draft_checkpoint: Optional[str] = None,
                  enable_debug: bool = False,
-                 server_overrides: Optional[dict] = None,
+                 server_overrides: Optional[dict] = None, dp: int = 1,
                  **engine_overrides) -> InferenceServer:
     """Convenience constructor used by the CLI, tests and chip_smoke.py.
 
@@ -931,7 +990,8 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
     when it has one, else bytes). ``engine_overrides`` are EngineConfig
     fields (``quant``, ``kv_quant``, ``spec_mode``, ...),
     ``server_overrides`` ServerConfig fields (``step_watchdog_s``,
-    ``quarantine_after_failures``, ``default_class``, ...)."""
+    ``quarantine_after_failures``, ``fleet``, ...); ``dp`` replicas
+    (``fleet="subprocess"``: one worker process each)."""
     import os
 
     from tpu_inference_torch.engine.autosize import (
@@ -956,7 +1016,7 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
     cfg = FrameworkConfig(
         model=model_cfg,
         engine=EngineConfig(**engine_overrides),
-        parallel=ParallelConfig(),
+        parallel=ParallelConfig(dp=dp),
         server=ServerConfig(model_name=model, tokenizer=tokenizer,
                             warmup=warmup, enable_debug=enable_debug,
                             **(server_overrides or {})),

@@ -24,7 +24,12 @@ engine, scheduler and server call, with the reference's metric names:
 - Rolling SLO gauges: ``RollingWindow``, ``pooled_quantile``,
   ``SLOTracker``, ``pooled_slo``, ``register_fleet_slo``.
 - The crash flight recorder: ``FlightRecorder``, ``blackbox_index``
-  (GET /debug/blackbox), ``attach_flight_recorder``.
+  (GET /debug/blackbox), ``attach_flight_recorder`` and, for the process
+  fleet's router, ``attach_router_flight_recorder``.
+- The process fleet's registry transport: ``dump_registry``,
+  ``registry_from_dump``, ``fold_dump_into_carry`` and ``apply_carry``
+  (a worker's series stay monotone across its restarts), and
+  ``merge_phases`` (fleet phase histograms).
 
 ``TPU_INF_TELEMETRY=0`` turns collection off: every metric the engine
 updates becomes the shared no-op ``NULL_METRIC``, the ledger
@@ -35,6 +40,7 @@ recorder is bound, and the phase snapshot is empty.
 from __future__ import annotations
 
 import collections
+import copy
 import json
 import math
 import os
@@ -172,6 +178,13 @@ class Registry:
     def __init__(self):
         self._metrics: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], Any] = {}
 
+    def add(self, metric):
+        """Register a built metric, replacing any of the same name and
+        labels (registry_from_dump)."""
+        self._metrics[(metric.name,
+                       tuple(sorted(metric.labels.items())))] = metric
+        return metric
+
     def _get(self, cls, name, help, fn, labels, **kw):
         key = (name, tuple(sorted(labels.items())))
         m = self._metrics.get(key)
@@ -289,6 +302,132 @@ PHASE_HISTOGRAMS = {
     "ttft_s": "ttft_s",
     "e2e_s": "e2e_s",
 }
+
+
+def merge_phases(snaps: Sequence[Optional[Dict[str, Any]]]
+                 ) -> Dict[str, Any]:
+    """Element-wise merge of same-shaped ``phase_snapshot`` dicts (dp
+    replicas into one fleet histogram)."""
+    snaps = [s for s in snaps if s]
+    if not snaps:
+        return {}
+    base = snaps[0]
+    if len(snaps) == 1:
+        return dict(base)
+    cum = [0] * len(base["buckets"])
+    count, total = 0, 0.0
+    for s in snaps:
+        if len(s["buckets"]) != len(cum):
+            continue
+        count += s["count"]
+        total += s["sum"]
+        for i, (_, c) in enumerate(s["buckets"]):
+            cum[i] += c
+    return {"count": count, "sum": total,
+            "buckets": [[b[0], c] for b, c in zip(base["buckets"], cum)]}
+
+
+# ---------------------------------------------------------------------------
+# Registry transport (the process fleet): a worker's samples travel over
+# the RPC as a dump; the router rebuilds metrics from it under the
+# worker's stable replica="i" label. Counter and histogram series of dead
+# incarnations fold into a per-replica carry, so a restart never resets
+# the fleet's scrape (Prometheus reads a dip as a counter reset).
+# ---------------------------------------------------------------------------
+
+
+def dump_registry(registry: Registry) -> List[Dict[str, Any]]:
+    """A registry's current samples as JSON-able records (read-through
+    metrics evaluated here, so the dump stands alone)."""
+    out: List[Dict[str, Any]] = []
+    for m in registry.collect():
+        rec: Dict[str, Any] = {"name": m.name, "kind": m.kind,
+                               "help": m.help, "labels": dict(m.labels)}
+        if m.kind == "histogram":
+            rec["bounds"] = list(m.bounds)
+            rec["counts"] = list(m._counts)
+            rec["sum"] = m.sum
+        else:
+            rec["value"] = m.collect_value()
+        out.append(rec)
+    return out
+
+
+def registry_from_dump(samples: Sequence[Dict[str, Any]]) -> Registry:
+    """A renderable Registry rebuilt from :func:`dump_registry` records."""
+    r = Registry()
+    for rec in samples:
+        labels = rec.get("labels") or {}
+        if rec["kind"] == "histogram":
+            h = Histogram(rec["name"], rec.get("help", ""),
+                          buckets=rec.get("bounds") or SECONDS_BUCKETS,
+                          labels=labels)
+            counts = list(rec.get("counts") or [])
+            if len(counts) == len(h._counts):
+                h._counts = counts
+            h.sum = rec.get("sum", 0.0)
+            r.add(h)
+        else:
+            cls = Gauge if rec["kind"] == "gauge" else Counter
+            m = cls(rec["name"], rec.get("help", ""), labels=labels)
+            m.value = rec.get("value", 0)
+            r.add(m)
+    return r
+
+
+def _dump_key(rec: Dict[str, Any]) -> Tuple:
+    return (rec["name"], tuple(sorted((rec.get("labels") or {}).items())))
+
+
+def fold_dump_into_carry(carry: Dict[Tuple, Dict[str, Any]],
+                         dump: Sequence[Dict[str, Any]]) -> None:
+    """Add a dead incarnation's monotonic series (counters and
+    histograms; gauges die with the process) into ``carry``, in place."""
+    for rec in dump or ():
+        if rec["kind"] == "gauge":
+            continue
+        key = _dump_key(rec)
+        base = carry.get(key)
+        if base is None:
+            carry[key] = copy.deepcopy(rec)
+        elif rec["kind"] == "counter":
+            base["value"] = base.get("value", 0) + rec.get("value", 0)
+        elif (rec["kind"] == "histogram"
+              and base.get("bounds") == rec.get("bounds")):
+            base["counts"] = [a + b for a, b in zip(base["counts"],
+                                                    rec["counts"])]
+            base["sum"] = base.get("sum", 0.0) + rec.get("sum", 0.0)
+
+
+def apply_carry(carry: Dict[Tuple, Dict[str, Any]],
+                dump: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """The live dump plus the carried totals, without changing either.
+    Carried series the live incarnation has not minted again still
+    render, so no series vanishes across a restart."""
+    if not carry:
+        return list(dump or ())
+    out: List[Dict[str, Any]] = []
+    seen = set()
+    for rec in dump or ():
+        key = _dump_key(rec)
+        seen.add(key)
+        base = carry.get(key)
+        if base is None or rec["kind"] == "gauge":
+            out.append(rec)
+            continue
+        rec = copy.deepcopy(rec)
+        if rec["kind"] == "counter":
+            rec["value"] = rec.get("value", 0) + base.get("value", 0)
+        elif (rec["kind"] == "histogram"
+              and base.get("bounds") == rec.get("bounds")):
+            rec["counts"] = [a + b for a, b in zip(rec["counts"],
+                                                   base["counts"])]
+            rec["sum"] = rec.get("sum", 0.0) + base.get("sum", 0.0)
+        out.append(rec)
+    for key, rec in carry.items():
+        if key not in seen:
+            out.append(rec)
+    return out
 
 
 def emit_build_info(registry: Registry, *, backend: str = "",
@@ -871,11 +1010,11 @@ class SpanRecorder:
 
 
 # Every span name a recorder of the port emits (a subset of the
-# reference's vocabulary: the process fleet's handoff, migration and
-# elastic spans wait for ROADMAP 1.15).
+# reference's vocabulary: the P/D handoff and elastic-fleet spans wait
+# for ROADMAP 1.15b).
 SPAN_NAMES = (
     "request", "route", "queue_wait", "prefill", "prefill_chunk",
-    "decode", "kv_swap_in", "kv_swap_out",
+    "decode", "kv_swap_in", "kv_swap_out", "drain_export", "migrate",
 )
 
 
@@ -1357,6 +1496,22 @@ def attach_flight_recorder(tel: "EngineTelemetry", root_dir: str,
     return fr
 
 
+def attach_router_flight_recorder(
+        root_dir: str, *, retain: int = 8,
+        config: Optional[dict] = None,
+        stats_fn: Optional[Callable[[], dict]] = None,
+        spans_fn: Optional[Callable[[], list]] = None,
+        ) -> Optional[FlightRecorder]:
+    """The process fleet router's capture sink, replica -1 (its
+    ``replica--1/`` directory sorts apart from the workers' in the shared
+    root): poison quarantines and corrupt-KV rejections are router
+    verdicts. None when ``root_dir`` is empty."""
+    if not root_dir:
+        return None
+    return FlightRecorder(root_dir, -1, retain=retain, config=config,
+                          spans_fn=spans_fn, stats_fn=stats_fn)
+
+
 class EngineTelemetry:
     """Per-engine metric bundle.
 
@@ -1519,6 +1674,22 @@ class EngineTelemetry:
                   "Resume prefills that restored KV pages from the "
                   "cache tiers instead of recomputing them all",
                   fn=lambda: engine.swap_in_resumes)
+        # Drain-time KV migration to and from sibling replicas (zero in
+        # the in-process fleet; exported so both backends' shapes match).
+        r.counter("tpu_inf_kv_migrate_out_pages_total",
+                  "KV pages exported at drain for migration to a "
+                  "sibling replica",
+                  fn=lambda: engine.migrate_out_pages)
+        r.counter("tpu_inf_kv_migrate_out_bytes_total",
+                  "Bytes exported at drain for KV migration",
+                  fn=lambda: engine.migrate_out_bytes)
+        r.counter("tpu_inf_kv_migrate_in_pages_total",
+                  "Migrated KV pages adopted into this replica's host "
+                  "tier",
+                  fn=lambda: engine.migrate_in_pages)
+        r.counter("tpu_inf_kv_migrate_in_bytes_total",
+                  "Bytes adopted into the host tier by KV migration",
+                  fn=lambda: engine.migrate_in_bytes)
         r.gauge("tpu_inf_model_params", "Model parameter count",
                 fn=lambda: engine.n_params)
         r.gauge("tpu_inf_active_sequences", "Bound decode slots",
