@@ -21,7 +21,17 @@ failing loudly (any failure exits non-zero before the result line):
    tile's ragged rows and keys (split_edge_cases); then the decode
    kernel's rung identity: a lane's output row bit-identical at batch 8,
    16 and 32 and in reversed batch order (rung_identity_phase). Both
-   kernels are timed at GPT-2's shapes too (Hq = Hkv = 12, D 64).
+   kernels are timed at GPT-2's shapes too (Hq = Hkv = 12, D 64). The
+   prefill kernel's plan (kernels/prefill_attention.py prefill_plan)
+   picks its path from shapes: where it picks the long-query wgmma path
+   (bf16 chunks of 128 rows or more: 4 x 512 fresh, 512 at offset 1024,
+   2048 at offset 2048), the short-query mma.sync path is forced on the same
+   inputs, checked and timed beside it (mma_path_ms); threshold_cases
+   times both paths at 32 to 512 rows for every pool kind; the edge
+   sweep adds the plan's boundaries (plan_edge_cases: rows just under,
+   at and over the threshold and ragged, n_rep 1/4/8, head_dim 48 to
+   256, pages of 8 to 32, a window cutting a key tile, a prefix ending
+   mid-page, an inactive verify lane).
 4. engine: tiny-llama and tiny-mistral (float32) on the card, unquantized
    and with int8/int4 weights and int8/int4 KV pools: greedy tokens of
    the "kernel" backend identical to the "dense" backend, and through
@@ -97,7 +107,9 @@ failing loudly (any failure exits non-zero before the result line):
    request past them (clamped to the table's last row, as the
    reference's gather does); the Mixtral lane reads /debug/steps with
    the bf16 lane's gates. Each lane records TTFT, tok/s, the device's
-   busy share, peak memory and launches by kernel variant; the previous
+   busy share, peak memory and launches by kernel variant (and the
+   prefill kernel's by path: the llama lanes must launch the long-query
+   path in their pool kind); the previous
    server must have freed the card first. Then a checkpoint lane: a
    random full-width GPT-2 written as an HF directory under build/ and
    served through the CLI's ``--model auto --checkpoint DIR
@@ -330,7 +342,9 @@ def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
                  kv="none", inactive: int = 0, heads=LLAMA_HEADS):
     """One prefill-kernel case; the last ``inactive`` lanes are inactive
     as a speculative verify round stages them (q_offset 0, kv_len S, an
-    all-trash-page block table)."""
+    all-trash-page block table). Where the plan picks the wgmma path,
+    the short-query kernel (the mma path, forced) is checked and timed
+    beside it in the same call."""
     from tpu_inference_torch.kernels import prefill_attention as pfa
     (hq, hkv, d), pg = heads, 16
     b = len(kv_lens)
@@ -343,10 +357,20 @@ def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
     kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     q_off = torch.tensor(q_offsets, dtype=torch.int32, device="cuda")
     args = (q, k_pages, v_pages, bt, kv_len, q_off, ks, vs)
+    variant = ("f32" if dtype == torch.float32 else "bf16") if kv == "none" \
+        else kv
+    plan = pfa.prefill_plan(s, hq // hkv, d, variant, dtype)
     got = pfa.paged_prefill_attention(*args, sliding_window=window)
     want = pfa.paged_prefill_attention_plain(*args, sliding_window=window)
     torch.cuda.synchronize()
     err, rel = check_close(name, got, want, dtype)
+    short_path = {}
+    if plan["path"] == "wgmma":
+        mma = dict(path="mma", code=pfa.PATHS["mma"], tile_rows=64)
+        check_close(f"{name} (mma path)", pfa._launch(
+            mma, *args, sliding_window=window), want, dtype)
+        short_path = {"mma_path_ms": time_ms(lambda: pfa._launch(
+            mma, *args, sliding_window=window), flush=flush)}
     kg, vg = gathered(k_pages, v_pages, ks, vs, bt, dtype)
     q_pos = q_off[:, None] + torch.arange(s, device="cuda")[None, :]
     k_pos = torch.arange(mp * pg, device="cuda")[None, None, :]
@@ -383,7 +407,8 @@ def prefill_case(name, s, q_offsets, kv_lens, window, dtype, flush, gen,
         "library_ms": time_ms(lib, flush=flush),
         "library_max_abs_err": lib_err,
         "library": LIBRARY_NOTE, "bytes": nbytes, "flops": flops,
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "path": plan["path"],
+        **short_path,
     }
 
 
@@ -416,6 +441,8 @@ def kernel_phase() -> dict:
                          gen, kv),
             prefill_case(f"prefill chunk 512 at offset 1024{tag}", 512,
                          [1024], [1500], 0, bf16, flush, gen, kv),
+            prefill_case(f"prefill chunk 2048 at offset 2048{tag}", 2048,
+                         [2048], [4096], 0, bf16, flush, gen, kv),
         ]
     decode += [
         decode_case("decode bs8 mixed ctx f32", 8,
@@ -446,7 +473,48 @@ def kernel_phase() -> dict:
     ]
     del flush
     return {"decode": decode, "prefill": prefill, "gpt2": gpt2,
-            "verify": verify_cases(gen)}
+            "verify": verify_cases(gen), "threshold": threshold_cases(gen)}
+
+
+def threshold_cases(gen) -> list:
+    """Both bf16 tensor-core paths forced on the same inputs, for every
+    pool kind (Llama-3-8B heads, n_rep 4): one lane of S 8 to 128 at
+    offset 1024 (32 to 512 rows) and the verify round's B 8 / 32 lanes of
+    S 2 and 5 at offsets over 1..1500: the times that place
+    WGMMA_MIN_ROWS."""
+    import numpy as np
+
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    (hq, hkv, d), pg = LLAMA_HEADS, 16
+    shapes = [(1, s) for s in (8, 16, 32, 64, 128)] + list(VERIFY_SHAPES)
+    out = []
+    for kv in ("none", "int8", "int4"):
+        for b, s in shapes:
+            offs = ([1024] if b == 1 else np.random.default_rng(
+                SEED + 4 + b).integers(1, 1501, size=b).tolist())
+            lens = [o + s for o in offs]
+            mp = -(-max(lens) // pg)
+            k, v, ks, vs, bt = paged_pool(gen, b, mp, pg, hkv, d,
+                                          torch.bfloat16, kv)
+            q = torch.randn((b, s, hq, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            args = (q, k, v, bt,
+                    torch.tensor(lens, dtype=torch.int32, device="cuda"),
+                    torch.tensor(offs, dtype=torch.int32, device="cuda"),
+                    ks, vs)
+            want = pfa.paged_prefill_attention_plain(*args)
+            row = {"kv": kv, "B": b, "S": s, "rows": s * hq // hkv}
+            for path in ("mma", "wgmma"):
+                plan = dict(path=path, code=pfa.PATHS[path], tile_rows=0)
+                check_close(f"threshold {path} B{b} S{s} {kv}",
+                            pfa._launch(plan, *args, sliding_window=0),
+                            want, torch.bfloat16)
+                row[f"{path}_ms"] = time_ms(lambda: pfa._launch(
+                    plan, *args, sliding_window=0), flush=flush)
+            out.append(row)
+    del flush
+    return out
 
 
 # Speculative verify shapes (engine/speculative.py verify_round): S = γ+1
@@ -550,8 +618,55 @@ def edge_phase() -> tuple:
                                 *args, sliding_window=window), dtype))
                         checked += 1
     checked += split_edge_cases(gen, worst)
+    checked += plan_edge_cases(gen, worst)
     torch.cuda.synchronize()
     return checked, worst
+
+
+def plan_edge_cases(gen, worst: dict) -> int:
+    """The prefill plan's boundaries, for every pool kind and q dtype:
+    rows (S x n_rep) just under, at and just over one 128-row tile (a
+    bf16 pool's wgmma threshold) and a ragged count, at n_rep 1, 4 and 8, head_dim 48 to 256 with pages
+    of 8 to 32 tokens; a window cutting a 64-key tile on every other
+    shape; each call with a fresh lane, a lane whose cached prefix ends
+    mid-page and an inactive verify-style lane (q_offset 0, kv_len S,
+    the trash page only). Returns the number of shapes checked."""
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    checked, hkv = 0, 2
+    for kv in ("none", "int8", "int4"):
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{str(dtype).replace('torch.', '')}/{kv}"
+            for n_rep in (1, 4, 8):
+                edge = pfa.TILE_ROWS["wgmma"] // n_rep  # one full tile
+                for d, pg in ((48, 8), (64, 16), (128, 32), (256, 16)):
+                    if kv != "none" and d % 32:
+                        continue
+                    for i, s_len in enumerate((edge - 1, edge, edge + 1,
+                                               77)):
+                        window = 100 if i % 2 else 0
+                        offs = [0, 37, 0]
+                        kvl = [o + s_len for o in offs]
+                        mp = -(-max(kvl) // pg)
+                        k, v, ks, vs, bt = paged_pool(
+                            gen, 3, mp, pg, hkv, d, dtype, kv)
+                        bt[2] = 0
+                        q = torch.randn((3, s_len, hkv * n_rep, d),
+                                        generator=gen,
+                                        device="cuda").to(dtype)
+                        args = (q, k, v, bt,
+                                torch.tensor(kvl, dtype=torch.int32,
+                                             device="cuda"),
+                                torch.tensor(offs, dtype=torch.int32,
+                                             device="cuda"), ks, vs)
+                        worst[key] = _worse(worst[key], check_close(
+                            f"plan edge prefill r{n_rep} d{d} pg{pg} "
+                            f"S{s_len} w{window} {key}",
+                            pfa.paged_prefill_attention(
+                                *args, sliding_window=window),
+                            pfa.paged_prefill_attention_plain(
+                                *args, sliding_window=window), dtype))
+                        checked += 1
+    return checked
 
 
 def split_edge_cases(gen, worst: dict) -> int:
@@ -1384,12 +1499,17 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
                     "prefill_attention": pfa.launches}
         by_batch = {str(b): n for b, n in sorted(pa.launches_by_batch.items())}
         by_len = {str(n): c for n, c in sorted(pfa.launches_by_len.items())}
+        by_path = dict(sorted(pfa.launches_by_path.items()))
         for name, counts in by_variant.items():
             others = {k: n for k, n in counts.items() if k != variant and n}
             if counts[variant] <= 0 or others:
                 raise AssertionError(
                     f"{label}: {name} launched {counts}; the path must run "
                     f"its {variant} variant and no other")
+        if (model == "llama-3-8b"
+                and by_path.get(f"{variant}/wgmma", 0) <= 0):
+            raise AssertionError(f"{label}: no prefill launch took the "
+                                 f"long-query (wgmma) path: {by_path}")
         phases = engine_phases(server_stats(port))
         serve_peak = torch.cuda.max_memory_allocated()
         # Greedy determinism: the shortest prompt again, alone.
@@ -1435,6 +1555,7 @@ def main_path_phase(label: str, quant: str, kv_quant: str, variant: str,
         "launches_by_variant": by_variant,
         "decode_launches_by_batch": by_batch,
         "prefill_launches_by_len": by_len,
+        "prefill_launches_by_path": by_path,
         "launches_per_forward": n_layers,
         "done_reasons": [r["done_reason"] for r in results],
         "weight_bytes": weight_bytes, "kv_pool_bytes": kv_pool_bytes,
@@ -2006,7 +2127,8 @@ def _check_variant(label: str, variant: str, need_decode: bool = True
             "decode_by_batch": {str(b): n for b, n in
                                 sorted(pa.launches_by_batch.items())},
             "prefill_by_len": {str(s): n for s, n in
-                               sorted(pfa.launches_by_len.items())}}
+                               sorted(pfa.launches_by_len.items())},
+            "prefill_by_path": dict(sorted(pfa.launches_by_path.items()))}
 
 
 def _summarize(results: list, wall: float) -> dict:
@@ -2113,6 +2235,7 @@ def reference_config_phase(card: str) -> dict:
            "decode_pipeline_depth": snap["decode_pipeline_depth"],
            "decode_call_s": snap["decode_call_s"],
            "prefill_launches_by_len": launches["prefill_by_len"],
+           "prefill_launches_by_path": launches["prefill_by_path"],
            "engine_phases": engine_phases(snap), "profile": prof,
            "generated": [r["context"][r["prompt_tokens"]:]
                          for r in results + alone]}
@@ -2199,6 +2322,7 @@ def pressure_phase(card: str) -> dict:
             "launches_by_variant": launches["by_variant"],
             "decode_launches_by_batch": launches["decode_by_batch"],
             "prefill_launches_by_len": launches["prefill_by_len"],
+            "prefill_launches_by_path": launches["prefill_by_path"],
             "done_reasons": [r["done_reason"]
                              for r in results + first8 + again8],
             "preemptions": snap["preemptions"],
@@ -2212,9 +2336,10 @@ def pressure_phase(card: str) -> dict:
 
 def _verify_prefill_ms(trace_path: str) -> dict:
     """Device ms of the prefill kernel split by what launched it, from a
-    torch.profiler chrome trace: a verify round's launch has one 64-row
-    tile per (kv-head, lane) (grid.x 1: S x n_rep <= 64), a prompt
-    chunk's at least four (buckets of 64 tokens and up)."""
+    torch.profiler chrome trace: a verify round's launch has one row
+    tile per (kv-head, lane) (S x n_rep <= 64 rows), a prompt chunk's
+    more (buckets of 64 tokens and up; the mma kernel's row tiles are
+    grid.x, the wgmma and simt kernels' grid.y)."""
     with open(trace_path) as f:
         events = json.load(f).get("traceEvents", [])
     out = {"verify_ms": 0.0, "verify_launches": 0, "prompt_ms": 0.0,
@@ -2226,7 +2351,8 @@ def _verify_prefill_ms(trace_path: str) -> dict:
         grid = (ev.get("args") or {}).get("grid")
         if not grid:
             return {"error": "kernel events carry no grid"}
-        kind = "verify" if grid[0] == 1 else "prompt"
+        mma = "paged_prefill_kernel_mma" in str(ev["name"])
+        kind = "verify" if grid[0 if mma else 1] == 1 else "prompt"
         out[f"{kind}_ms"] += ev["dur"] / 1e3
         out[f"{kind}_launches"] += 1
     return out
@@ -2349,6 +2475,7 @@ def ngram_phase(card: str, plain: dict) -> dict:
             "launches_by_variant": launches["by_variant"],
             "decode_launches_by_batch": launches["decode_by_batch"],
             "prefill_launches_by_len": launches["prefill_by_len"],
+            "prefill_launches_by_path": launches["prefill_by_path"],
             "verify_rounds_by_width": {str(k): v // n_layers for k, v in
                                        sorted(by_len.items()) if k <= 17},
             "done_reasons": [r["done_reason"] for r in
@@ -2437,6 +2564,8 @@ def draft_phase(card: str) -> dict:
             "decode_launches_by_batch": {},
             "prefill_launches_by_len": {str(k): v for k, v in sorted(
                 pfa.launches_by_len.items())},
+            "prefill_launches_by_path": dict(sorted(
+                pfa.launches_by_path.items())),
             "prefill_calls": prefills,
             "done_reasons": [r["done_reason"] for r in results],
             "speculative": spec, "engine_phases": engine_phases(snap)}
@@ -2549,7 +2678,7 @@ def _gate_launches(reads: dict, label: str, variant: str) -> None:
 def _launch_totals(reads: dict) -> dict:
     """Launches summed over worker processes (each one's last read)."""
     by_variant = {"paged_attention": {}, "prefill_attention": {}}
-    by_batch, by_len = {}, {}
+    by_batch, by_len, by_path = {}, {}, {}
     for w in reads.values():
         for name, kind in (("paged_attention", "decode"),
                            ("prefill_attention", "prefill")):
@@ -2559,8 +2688,10 @@ def _launch_totals(reads: dict) -> dict:
             by_batch[b] = by_batch.get(b, 0) + n
         for q, n in w["kernels"]["prefill_by_len"].items():
             by_len[q] = by_len.get(q, 0) + n
+        for k, n in w["kernels"]["prefill_by_path"].items():
+            by_path[k] = by_path.get(k, 0) + n
     return {"by_variant": by_variant, "decode_by_batch": by_batch,
-            "prefill_by_len": by_len}
+            "prefill_by_len": by_len, "prefill_by_path": by_path}
 
 
 def _pids_gone(label: str, pids) -> None:
@@ -2762,6 +2893,7 @@ def fleet_tiny_phase(card: str) -> dict:
             "launches_by_variant": launches["by_variant"],
             "decode_launches_by_batch": launches["decode_by_batch"],
             "prefill_launches_by_len": launches["prefill_by_len"],
+            "prefill_launches_by_path": launches["prefill_by_path"],
             "workers_read": len(reads),
             "boot_walls_s": {h.replica: h.boot_walls for h in group.workers},
         })
@@ -2955,6 +3087,7 @@ def fleet_phase(card: str, dp1: dict) -> dict:
            "launches_by_variant": launches["by_variant"],
            "decode_launches_by_batch": launches["decode_by_batch"],
            "prefill_launches_by_len": launches["prefill_by_len"],
+           "prefill_launches_by_path": launches["prefill_by_path"],
            "workers_read": len(reads), "step_failures":
                snap["step_failures"],
            "free_memory_before_after_bytes": [free_before, free_after]}
@@ -3000,7 +3133,8 @@ def log_new_path(mp: dict, card: str) -> None:
             "speculative_32_concurrent", "plain_options_run", "options",
             "rung_calls_plain_options",
             "verify_rounds_by_width", "requests_differing_from_plain",
-            "prefill_launches_by_len", "prefill_calls")
+            "prefill_launches_by_len", "prefill_launches_by_path",
+            "prefill_calls")
     log(f"[{mp['label']}] " + json.dumps(
         {k: mp[k] for k in keys if k in mp}))
     for name, ph in mp["engine_phases"].items():
@@ -3024,7 +3158,8 @@ def log_family_path(mp: dict, card: str) -> None:
     log_main_path(mp, card)
     keys = ("max_memory_allocated", "boot_peak_bytes", "boot_s",
             "allocated_before_boot_bytes", "decode_launches_by_batch",
-            "prefill_launches_by_len", "int8_to_bf16_share_of_busy",
+            "prefill_launches_by_len", "prefill_launches_by_path",
+            "int8_to_bf16_share_of_busy",
             "past_the_table")
     log(f"[{mp['label']}] " + json.dumps(
         {k: mp[k] for k in keys if k in mp}))
@@ -3053,6 +3188,16 @@ def log_main_path(mp: dict, card: str) -> None:
         f"requests; weights {mp['weight_bytes'] / 1e9:.2f} GB (read bound "
         f"{mp['weight_read_bound_ms_per_step']:.2f} ms/step); launches "
         f"{json.dumps(mp['launches_by_variant'])}")
+
+
+def _path_totals(paths: list) -> dict:
+    """Prefill launches by pool kind and kernel path, summed over
+    ``paths`` (each main path's counts were set to 0 just before it)."""
+    out: dict = {}
+    for mp in paths:
+        for k, n in mp.get("prefill_launches_by_path", {}).items():
+            out[k] = out.get(k, 0) + n
+    return dict(sorted(out.items()))
 
 
 def main() -> int:
@@ -3097,7 +3242,14 @@ def main() -> int:
                 f"{c['max_abs_err']:.3g} ({c['err_over_scale']:.3g} of the "
                 f"largest output) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
                 f"library {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
-                f"({c['bound_by']})")
+                f"({c['bound_by']})"
+                + (f" path {c['path']}" if "path" in c else "")
+                + (f" (mma path {c['mma_path_ms']:.4f})"
+                   if "mma_path_ms" in c else ""))
+    for row in kernels["threshold"]:
+        log(f"kernel threshold {row['kv']} B {row['B']} x S {row['S']} "
+            f"({row['rows']} rows a lane): mma {row['mma_ms']:.4f} ms, "
+            f"wgmma {row['wgmma_ms']:.4f} ms")
     n_edge, edge_err = timed("edge", edge_phase)
     log(f"kernel edge cases: {n_edge} shapes within tolerance of their "
         f"plain versions (max abs err, and over the largest output: "
@@ -3183,6 +3335,9 @@ def main() -> int:
                     "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
                     "variant": head["variant"], "pool": variant,
                     "main_paths": [mp["label"] for mp in paths],
+                    **({"path": head["path"],
+                        "launches_by_path": _path_totals(paths)}
+                       if kind == "prefill" else {}),
                     **({"launches_at_this_batch": sum(
                         int(mp.get("decode_launches_by_batch", {}).get(
                             str(b), 0)) for mp in paths)}
@@ -3207,7 +3362,9 @@ def main() -> int:
                     "bound_by": head["bound_by"],
                     "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
                     "variant": head["variant"], "pool": variant,
-                    "main_paths": [mp["label"] for mp in paths]})
+                    "main_paths": [mp["label"] for mp in paths],
+                    "path": head["path"],
+                    "launches_by_path": _path_totals(paths)})
     gpt2_paths = [mp for mp in main_paths.values() if mp["model"] == "gpt2"]
     for head, name, src, replaces in zip(
             kernels["gpt2"], ("paged_attention", "prefill_attention"),
@@ -3225,7 +3382,10 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library": LIBRARY_NOTE, "variant": head["variant"],
-            "pool": "bf16", "main_paths": [mp["label"] for mp in gpt2_paths]})
+            "pool": "bf16", "main_paths": [mp["label"] for mp in gpt2_paths],
+            **({"path": head["path"],
+                "launches_by_path": _path_totals(gpt2_paths)}
+               if "path" in head else {})})
     report = {"card": card, "torch": torch.__version__,
               "kernels": entries, "kernel_cases": kernels,
               "main_paths": main_paths, "checkpoint": checkpoint,

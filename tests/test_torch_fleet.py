@@ -357,7 +357,7 @@ def test_fleet_basic_and_surfaces(fleet, oracle):
     for w in fleet.worker_stats():
         assert w["device"] == "cpu"
         assert set(w["kernels"]) == {"decode", "prefill", "decode_by_batch",
-                                     "prefill_by_len"}
+                                     "prefill_by_len", "prefill_by_path"}
         assert w["boot_walls_s"] and w["boot_walls_s"][0] > 0
     tr = fleet.trace_snapshot(fin.trace_id)
     assert tr is not None and tr["trace_id"] == fin.trace_id
@@ -681,6 +681,54 @@ def test_poison_request_quarantined(byz_fleet):
     assert any(c.get("trigger") == "poison_request"
                for r in idx.get("replicas", {}).values()
                for c in r) or "poison_request" in json.dumps(idx)
+    _wait_states(byz_fleet)
+
+
+def test_poison_gate_counts_a_slowly_reaped_worker(byz_fleet,
+                                                   monkeypatch):
+    """The failover's submit dies with its target, whose exit is reaped
+    slowly (the lost connection misses _exits_soon's grace and its redial
+    takes two seconds to fail): the death still counts toward the poison
+    gate, so the request ends "poison", not re-routed to a restarted
+    worker or "unavailable"."""
+    import signal
+
+    from tpu_inference_torch.server import fleet as tfleet
+
+    _wait_states(byz_fleet)
+    poison0 = byz_fleet.poison_requests
+    rpc = tfleet.WorkerClient.rpc
+    armed = {"on": False}
+
+    def dying_submit(self, verb, *a, **kw):
+        if verb == "submit" and armed["on"]:
+            armed["on"] = False
+            os.kill(self.proc.pid, signal.SIGKILL)
+            time.sleep(0.05)
+        return rpc(self, verb, *a, **kw)
+
+    reconnect = tfleet.ProcessEngineGroup._reconnect_worker
+
+    def slow_reconnect(self, h, old):
+        time.sleep(2.0)
+        return reconnect(self, h, old)
+
+    monkeypatch.setattr(tfleet.WorkerClient, "rpc", dying_submit)
+    monkeypatch.setattr(tfleet.ProcessEngineGroup, "_exits_soon",
+                        staticmethod(lambda proc, grace_s=0.25: False))
+    monkeypatch.setattr(tfleet.ProcessEngineGroup, "_reconnect_worker",
+                        slow_reconnect)
+    toks, done, box = _submit(byz_fleet, 7310, [8, 4, 8, 4], 200)
+    deadline = time.monotonic() + 60
+    while len(toks) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    with byz_fleet._lock:
+        first = byz_fleet._tracked[7310].worker.replica
+    armed["on"] = True
+    byz_fleet.apply_chaos({"replica": first, "kill": "kill9"})
+    assert _finish(done, box).finish_reason == "poison"
+    assert byz_fleet.poison_requests == poison0 + 1
+    monkeypatch.undo()
     _wait_states(byz_fleet)
 
 

@@ -358,6 +358,7 @@ class EngineScheduler:
         seq = pending.seq
         self.stats.prefills += 1
         self.stats.tokens_generated += 1
+        self.engine.telemetry.note_tokens(1)
         if not seq.resume_base:
             # A resume reuses pages this request published itself.
             self.stats.tokens_prefix_cached += seq.cached_tokens
@@ -773,8 +774,9 @@ class EngineScheduler:
                 # write: drain first, and deliver the drained tokens too.
                 for rid, toks in self._drain_safely().items():
                     new_tokens.setdefault(rid, []).extend(toks)
-            self.stats.tokens_generated += sum(
-                len(toks) for toks in new_tokens.values())
+            n_new = sum(len(toks) for toks in new_tokens.values())
+            self.stats.tokens_generated += n_new
+            engine.telemetry.note_tokens(n_new)
             in_use = (engine.engine_cfg.num_pages - 1
                       - engine.allocator.num_free)
             self.stats.peak_pages_in_use = max(self.stats.peak_pages_in_use,

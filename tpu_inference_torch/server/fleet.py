@@ -98,6 +98,11 @@ _WEDGE_TIMEOUTS = 3
 # "unavailable" (a redial, or most of a worker restart).
 _REROUTE_GRACE_S = 10.0
 
+# How long a submit whose connection died waits for the fleet's verdict
+# on the worker (down, or redialled): a lost connection's own handler
+# decides within _exits_soon's grace plus a redial's connect timeout.
+_VERDICT_S = 10.0
+
 
 class WorkerClient:
     """One live RPC connection to one worker incarnation. Requests are
@@ -1126,6 +1131,7 @@ class ProcessEngineGroup:
         gen_tokens = list(entry.tokens)
         with self._lock:
             entry.worker, entry.client = h, h.client
+            gen0 = entry.generation
         hbm, host = hit
         total_hit = hbm + host
         sl = entry.seq_local
@@ -1177,6 +1183,18 @@ class ProcessEngineGroup:
             telemetry.log_event(
                 "dispatch_refused", level="warning", replica=h.replica,
                 request_id=t.request_id, error=str(e) or type(e).__name__)
+            if (isinstance(e, WorkerGone) and client is not None
+                    and self._await_verdict(h, client)):
+                # The connection died under this submit, and the entry
+                # stayed on h meanwhile: a worker-down failover took it
+                # over (counting the death toward the poison gate), or a
+                # redial's resync re-sent it. Else h went down before its
+                # failover reached the entry: the death counts here.
+                with self._lock:
+                    if entry.worker is not h or entry.generation != gen0:
+                        return True
+                    if h.state not in (UP, DRAINING):
+                        entry.failed_workers.add(h.replica)
             return False
         except TimeoutError:
             # The worker wedged with this attempt: it counts toward the
@@ -1189,6 +1207,18 @@ class ProcessEngineGroup:
             except (WorkerGone, TimeoutError, RuntimeError):
                 pass
             return False
+
+    def _await_verdict(self, h: WorkerHandle, client: WorkerClient) -> bool:
+        """Wait (at most _VERDICT_S) until the fleet has ruled on a lost
+        connection of ``h``: the worker was taken down or the connection
+        was replaced. However slowly a killed worker is reaped, its
+        death is then seen before the caller re-routes the request."""
+        deadline = time.monotonic() + _VERDICT_S
+        while time.monotonic() < deadline and not self._stopping:
+            if h.client is not client or h.state != UP:
+                return True
+            time.sleep(0.02)
+        return False
 
     def _retry_or_fail(self, entry: _Tracked,
                        exclude: Optional[WorkerHandle] = None) -> None:

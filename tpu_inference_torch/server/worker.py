@@ -458,7 +458,9 @@ class EngineWorker:
                     sorted(paged_attention.launches_by_batch.items())},
                 "prefill_by_len": {
                     str(q): n for q, n in
-                    sorted(prefill_attention.launches_by_len.items())}},
+                    sorted(prefill_attention.launches_by_len.items())},
+                "prefill_by_path": dict(
+                    sorted(prefill_attention.launches_by_path.items()))},
             "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else 0),
         }

@@ -1779,9 +1779,10 @@ class EngineTelemetry:
         """Read-through metrics over SchedulerStats counters, and the MFU
         gauge: decoded tokens/s x 2 x params over the card's bf16 peak
         (engine/autosize.py; the CPU reports against the H100 SXM). The
-        rate is a dt-weighted EWMA (~30 s time constant) updated by
-        whoever collects (/metrics scrapes, stats snapshots), so a fast
-        poller cannot reset a slow scraper's window."""
+        rate is a dt-weighted EWMA (~30 s time constant) stepped at each
+        token event (``note_tokens``, from the scheduler) and decayed to
+        the moment of reading, so its value depends on neither who
+        collects nor how often."""
         if not self.enabled:
             return
         r = self.registry
@@ -1808,28 +1809,40 @@ class EngineTelemetry:
         engine = sched.engine
         peak = autosize.detect_peak_flops(engine.device)
         tau_s = 30.0
-        state = {"tokens": stats.tokens_generated,
-                 "t": time.perf_counter(), "rate": 0.0}
+        state = {"t": time.perf_counter(), "rate": 0.0}
         # The EWMA's wall-clock origin: /debug/steps replays the gauge's
         # smoothing over the ledger's timestamps from the same point.
         self._mfu_bind_unix = time.time()
 
-        def _mfu() -> float:
+        def _note(n: int) -> None:
+            # One EWMA step per token event at its own time: the
+            # arithmetic _ledger_mfu_ewma replays over the ledger's
+            # records, so the two agree however the scrapes fall.
             now = time.perf_counter()
-            dt = now - state["t"]
-            if dt >= 1e-3:
-                tok = stats.tokens_generated
-                inst = max(0, tok - state["tokens"]) / dt
-                alpha = 1.0 - math.exp(-dt / tau_s)
-                state["rate"] += alpha * (inst - state["rate"])
-                state["tokens"], state["t"] = tok, now
-            return state["rate"] * 2 * engine.n_params / peak
+            dt = max(1e-6, now - state["t"])
+            alpha = 1.0 - math.exp(-dt / tau_s)
+            state["rate"] += alpha * (n / dt - state["rate"])
+            state["t"] = now
+
+        def _mfu() -> float:
+            dt = time.perf_counter() - state["t"]
+            decay = math.exp(-dt / tau_s) if dt > 1e-3 else 1.0
+            return state["rate"] * decay * 2 * engine.n_params / peak
+
+        self._mfu_note = _note
 
         self._mfu_gauge = r.gauge(
             "tpu_inf_mfu_estimate",
             "Estimated model FLOPs utilization (EWMA decode tokens/s "
             "x 2 x params / card bf16 peak, ~30s time constant)",
             fn=_mfu)
+
+    def note_tokens(self, n: int) -> None:
+        """``n`` tokens were generated now: one step of the MFU gauge's
+        EWMA (a no-op with telemetry off or no scheduler bound)."""
+        note = getattr(self, "_mfu_note", None)
+        if note is not None and n > 0:
+            note(n)
 
     def mfu_estimate(self) -> Optional[float]:
         """The MFU gauge's value (None when telemetry is off or no
