@@ -141,6 +141,35 @@ failing loudly (any failure exits non-zero before the result line):
    the card, and the lanes' launches join the kernels line. The CRC-32C
    paths (the one in use, numpy, the card's) are timed on 64 MiB and
    must agree.
+8. P/D roles (a prefill worker hands each settled prefill, its KV pages
+   included, to a decode worker). (a) pd_identity_phase, after the draft
+   lane: llama-3-8b bf16 (bf16 pool, page 16) as engine A (mixed) and
+   engine B (decode) on the same weights; for prompts of 13 x 16 + 5,
+   64 and 1501 tokens, A decodes the prompt alone (the oracle), then
+   prefills it again and exports the live sequence
+   (export_sequence_kv_live), and B adopts it (adopt_sequence): B's
+   pages byte-equal to the export, its 16 greedy tokens after the
+   adoption equal A's at batch 1, no prefill-kernel launch on B, both
+   pools clean; then the same on tiny-llama over int8 and int4 KV pools
+   (their scale rows travel with the pages). (b) in fleet_tiny_phase, a
+   third fleet of one prefill and one decode worker on the same pinned
+   mix: the dp-1 outputs_sha256, one handoff and one adoption per
+   request and no recompute, no decode-kernel launch on the prefill
+   worker and no prefill-kernel launch on the decode worker; then kill
+   -9 of the decode worker while a handed-off stream decodes: the dp-1
+   tokens, the recompute counted in tpu_inf_pd_handoff_recomputes_total,
+   the worker back under its replica label and role. (c) pd_phase,
+   after the fleet lane: llama-3-8b bf16 through the CLI with ``--dp 2
+   --fleet subprocess --roles prefill,decode --num-pages 512``, 8
+   concurrent BurstGPT-length requests of 48 tokens: every stream
+   "length" with its tokens, 8 handoffs all adopted by the decode
+   worker and none recomputed, the prefill kernel on the prefill worker
+   only and the decode kernel on the decode worker only (their stats
+   RPC), both roles' tpu_inf_worker_role_info on /metrics, no worker
+   left and the card's memory back; recorded: TTFT, the first
+   inter-token gap per request, the handoff wall and bytes, tok/s
+   beside the fleet lane's mixed wave. Its launches join the kernels
+   line under bf16.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -149,6 +178,7 @@ variant), the card line, and as the last line {"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import os
@@ -844,8 +874,6 @@ def engine_modes(mcfg, ecfg, params, prompts: list) -> dict:
     """One tiny engine configuration through the scheduler in the
     baseline and in every ENGINE_MODES mode: greedy tokens identical,
     pool clean, and the mode's machinery demonstrably used."""
-    import dataclasses
-
     from tpu_inference_torch.engine.engine import InferenceEngine
     max_new = 24
     base = _sched_run(InferenceEngine(mcfg, ecfg, params=params,
@@ -904,8 +932,6 @@ FAMILY_CASES = tuple((preset, q, kv)
 
 
 def tiny_config(preset: str):
-    import dataclasses
-
     from tpu_inference_torch import config as cfgs
     if preset == "tiny_mixtral_e8":
         return dataclasses.replace(cfgs.tiny_mixtral(vocab_size=256),
@@ -919,8 +945,6 @@ def engine_phase(cases) -> list:
     case (the reference's own contract between its two backends,
     tests/test_kv_quant.py), and through the scheduler identical across
     ENGINE_MODES unless the model drops tokens."""
-    import dataclasses
-
     import numpy as np
     from tpu_inference_torch import config as cfgs
     from tpu_inference_torch.engine.engine import InferenceEngine
@@ -1004,8 +1028,6 @@ def spec_engine_phase() -> list:
     through the prefill kernel, and fall back to the plain call at least
     once; the draft equal to the target accepts (nearly) every proposal;
     the pool is clean after every run."""
-    import dataclasses
-
     import numpy as np
     from tpu_inference_torch import config as cfgs
     from tpu_inference_torch.engine.engine import InferenceEngine
@@ -1991,7 +2013,6 @@ def checkpoint_phase(card: str) -> dict:
         log(f"checkpoint lane: not run ({e!r}: safetensors is not "
             "importable here)")
         return {"label": "checkpoint", "run": False, "reason": repr(e)}
-    import dataclasses
     import gc
 
     from tpu_inference_torch import config as cfgs
@@ -2572,6 +2593,188 @@ def draft_phase(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# P/D: the live KV handoff's export and adoption, in one process.
+# --------------------------------------------------------------------------
+
+# Prompt lengths: 13 pages and 5 tokens (the export ends mid-page), one
+# page boundary, and BurstGPT's longest (capped) prompt.
+PD_LENGTHS = (13 * 16 + 5, 64, 1501)
+
+
+def _pd_export(engine, prompt: list, max_new: int) -> tuple:
+    """Prefill ``prompt`` through a scheduler with the handoff hook:
+    (first token, (digests, host pages, ctx_len), the export's seconds);
+    the sequence finishes "handoff" after its first token."""
+    from tpu_inference_torch.engine.engine import Sequence
+    from tpu_inference_torch.engine.scheduler import EngineScheduler
+    box, done = {}, threading.Event()
+
+    def hook(seq):
+        t0 = time.perf_counter()
+        box["export"] = engine.export_sequence_kv_live(seq)
+        box["export_s"] = time.perf_counter() - t0
+        return bool(box["export"][1])
+
+    sched = EngineScheduler(engine)
+    sched.on_prefill_handoff = hook
+    seq = Sequence(request_id=0, prompt_tokens=list(prompt),
+                   max_new_tokens=max_new)
+    seq.handoff_after_prefill = True
+    sched.submit(seq, lambda s, t: None, lambda s: done.set())
+    sched.start()
+    try:
+        if not done.wait(300):
+            raise AssertionError("the handoff prefill hung")
+    finally:
+        sched.stop(drain=True, timeout=30)
+    if seq.finish_reason != "handoff":
+        raise AssertionError(f"the prefill finished {seq.finish_reason!r}, "
+                             "not as a handoff")
+    return seq.generated[0], box["export"], box["export_s"]
+
+
+def _pd_adopt(engine, prompt: list, max_new: int, first: int,
+              pages: list, ctx_len: int) -> list:
+    """Resume ``prompt`` from its first token and an export's pages
+    through a scheduler (adoption at admission); the tokens after the
+    first."""
+    from tpu_inference_torch.engine.engine import Sequence
+    from tpu_inference_torch.engine.scheduler import EngineScheduler
+    seq = Sequence(request_id=1, prompt_tokens=list(prompt),
+                   max_new_tokens=max_new)
+    seq.generated, seq.resume_base = [first], 1
+    seq.adopt_kv = (pages, ctx_len)
+    toks, done = [], threading.Event()
+    sched = EngineScheduler(engine)
+    sched.submit(seq, lambda s, t: toks.append(t), lambda s: done.set())
+    sched.start()
+    try:
+        if not done.wait(300):
+            raise AssertionError("the adopted decode hung")
+    finally:
+        sched.stop(drain=True, timeout=30)
+    if (seq.finish_reason != "length" or not seq.adopted
+            or sched.stats.prefills):
+        raise AssertionError(f"adoption: finished {seq.finish_reason!r}, "
+                             f"adopted {seq.adopted}, "
+                             f"{sched.stats.prefills} prefills")
+    return toks
+
+
+def _pd_identity(label: str, mcfg, kv_quant: str, lengths, variant: str,
+                 params=None) -> dict:
+    """Engine A (mixed) and engine B (decode) on the same weights, the
+    prefix cache off so A's two prefills of a prompt are the same
+    computation, batch 1 (both decode at the one rung). For each prompt:
+    A decodes it alone (the oracle), prefills it again and exports the
+    live sequence; B adopts the export. Gates: B's adopted pages are
+    byte-equal to the export (scale rows included), B's tokens after the
+    adoption equal A's, B launched no prefill kernel and the decode
+    kernel in ``variant``, both pools clean after."""
+    import gc
+
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine import kv_cache as kvc
+    from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    max_new = 17          # the first token, then 16 after the adoption
+    kw = dict(page_size=16, num_pages=256, max_pages_per_seq=128,
+              max_batch_size=1, kv_quant=kv_quant, enable_prefix_cache=False)
+    a = InferenceEngine(mcfg, cfgs.EngineConfig(**kw), params=params,
+                        seed=SEED, device="cuda")
+    b = InferenceEngine(mcfg, cfgs.EngineConfig(**kw, role="decode"),
+                        params=a.params, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    out = {"label": label, "kv_quant": kv_quant, "prompts": []}
+    try:
+        for n in lengths:
+            prompt = rng.integers(0, min(mcfg.vocab_size, 32000),
+                                  size=n).tolist()
+            want = _sched_run(a, [prompt], max_new)[0]
+            first, (digests, pages, ctx_len), export_s = _pd_export(
+                a, prompt, max_new)
+            t0 = time.perf_counter()
+            blob = kvc.serialize_host_pages(pages)
+            serialize_s = time.perf_counter() - t0
+            if first != want[0] or ctx_len != n or len(pages) != -(-n // 16) \
+                    or len(digests) != n // 16:
+                raise AssertionError(
+                    f"{label}: export of {n} tokens: first token {first} "
+                    f"(oracle {want[0]}), ctx_len {ctx_len}, {len(pages)} "
+                    f"pages, {len(digests)} digests")
+            pa.reset_counts()
+            pfa.reset_counts()
+            # The adopted pages, read back off B's pool.
+            probe = Sequence(request_id=2, prompt_tokens=list(prompt),
+                             max_new_tokens=max_new)
+            probe.generated, probe.resume_base = [first], 1
+            t0 = time.perf_counter()
+            probe.adopt_kv = (kvc.deserialize_host_pages(blob, copy=False),
+                              ctx_len)
+            b.adopt_sequence(probe)
+            torch.cuda.synchronize()
+            adopt_s = time.perf_counter() - t0
+            back = kvc.offload_pages(b.kv, probe.pages)
+            torch.cuda.synchronize()
+            b.release(probe)
+            if kvc.serialize_host_pages(back) != blob:
+                raise AssertionError(f"{label}: {n} tokens: the adopted "
+                                     "pages differ from the export")
+            got = _pd_adopt(b, prompt, max_new, first,
+                            kvc.deserialize_host_pages(blob), ctx_len)
+            if [first] + got != want:
+                raise AssertionError(f"{label}: {n} tokens: tokens after "
+                                     f"the adoption {got} differ from the "
+                                     f"mixed engine's {want[1:]}")
+            if pfa.launches or pa.launches_by_variant[variant] <= 0:
+                raise AssertionError(
+                    f"{label}: the decode engine launched prefill "
+                    f"{dict(pfa.launches_by_variant)}, decode "
+                    f"{dict(pa.launches_by_variant)}")
+            # The handoff's work in one process: pool -> host pages ->
+            # blob (CRC-32C) -> checked pages -> the adopting pool.
+            out["prompts"].append({
+                "tokens": n, "pages": len(pages), "blob_bytes": len(blob),
+                "export_s": export_s, "serialize_s": serialize_s,
+                "adopt_s": adopt_s,
+                "handoff_s": export_s + serialize_s + adopt_s,
+                "decode_launches": pa.launches})
+        a.check_pool_clean()
+        b.check_pool_clean()
+    finally:
+        del a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pd_identity_phase(card: str) -> list:
+    """(a) of the P/D gates: the export/adopt identity at full width
+    (llama-3-8b, bf16 weights and pool, page 16, PD_LENGTHS), then on
+    tiny-llama over int8 and int4 KV pools (their scale rows travel
+    with the pages)."""
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.models.registry import build_model
+    _free_card("pd identity")
+    mcfg = cfgs.PRESETS["llama-3-8b"]()
+    params, _ = build_model(mcfg, seed=SEED, device="cuda")
+    out = [_pd_identity("pd identity llama-3-8b bf16", mcfg, "none",
+                        PD_LENGTHS, "bf16", params=params)]
+    del params
+    for kv in ("int8", "int4"):
+        out.append(_pd_identity(f"pd identity tiny-llama {kv} KV",
+                                tiny_config("tiny_llama"), kv,
+                                (13 * 16 + 5, 64, 901), kv))
+    log(f"[pd identity] on {card}: adopted pages byte-equal to the export, "
+        "tokens after the adoption equal the mixed engine's at batch 1, no "
+        "prefill launch on the decode engine, pools clean: "
+        + json.dumps(out))
+    return out
+
+
+# --------------------------------------------------------------------------
 # The process fleet (dp 2 on the one card): the in-process group, the
 # subprocess fleet and its faults.
 # --------------------------------------------------------------------------
@@ -2900,9 +3103,100 @@ def fleet_tiny_phase(card: str) -> dict:
     finally:
         group.stop(drain=False)
     _pids_gone(label, pids)
+    pd_cfg = cfg("subprocess")
+    pd_cfg.server = dataclasses.replace(pd_cfg.server,
+                                        worker_roles=("prefill", "decode"))
+    out["pd"] = _pd_fleet_tiny(label, pd_cfg, run_mix, sha_dp1,
+                               long_a, want_long[0], long_new)
     log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
-        f"/ dp-1; " + json.dumps({k: v for k, v in out.items()
-                                  if k not in ("label", "outputs_sha256")}))
+        f"/ P/D / dp-1; " + json.dumps({k: v for k, v in out.items()
+                                        if k not in ("label",
+                                                     "outputs_sha256")}))
+    return out
+
+
+def _role_info(text: str) -> set:
+    """(replica, role) of every tpu_inf_worker_role_info sample at 1."""
+    return set(re.findall(
+        r'^tpu_inf_worker_role_info\{replica="(\d+)",role="(\w+)"\} 1',
+        text, re.M))
+
+
+def _pd_fleet_tiny(label: str, cfg, run_mix, sha_dp1: str, long_a: list,
+                   want_long: list, long_new: int) -> dict:
+    """(b) of the P/D gates: the fleet_tiny mix through a subprocess
+    fleet of one prefill and one decode worker. Gates: the dp-1 sha;
+    one handoff and one adoption per request, no recompute; no
+    decode-kernel launch on the prefill worker and no prefill-kernel
+    launch on the decode worker. Then kill -9 of the decode worker while
+    a handed-off stream decodes: the dp-1 tokens, the recompute counted
+    in tpu_inf_pd_handoff_recomputes_total, the worker back under its
+    replica label and role."""
+    from tpu_inference_torch.server.http import build_engine_group
+    label = label + " P/D"
+    group = build_engine_group(cfg, device="cuda")
+    pids, reads = set(), {}
+    try:
+        group.start()
+        pids |= {h.pid for h in group.workers}
+        n0 = group.pd_handoffs
+        outs = run_mix(group, 500)
+        sha = _mix_sha(outs)
+        if sha != sha_dp1:
+            raise AssertionError(f"{label}: outputs_sha256 {sha} differs "
+                                 f"from the dp-1 engine's {sha_dp1}")
+        sup = group.stats_snapshot()["supervision"]
+        n = len(outs)
+        if (group.pd_handoffs - n0 != n or sup["pd_adoptions"] != n
+                or sup["pd_handoff_recomputes"] != 0):
+            raise AssertionError(f"{label}: {n} requests, handoffs "
+                                 f"{group.pd_handoffs - n0}, {sup}")
+        by_role = {w["replica"]: w["kernels"]
+                   for w in _worker_reads(group, reads, label)}
+        if (by_role[0]["decode"]["f32"] or by_role[1]["prefill"]["f32"]
+                or not by_role[0]["prefill"]["f32"]
+                or not by_role[1]["decode"]["f32"]):
+            raise AssertionError(f"{label}: launches by role {by_role}")
+        out = {"outputs_sha256": sha, "pd_handoffs": n,
+               "pd_adoptions": sup["pd_adoptions"],
+               "launches_by_role": {"prefill": by_role[0],
+                                    "decode": by_role[1]}}
+
+        # kill -9 of the decode worker under a handed-off stream.
+        rec0 = group._pd_recomputes_total()
+        a = _fleet_submit(group, 600, long_a, long_new)
+
+        def on_decode_worker():
+            with group._lock:
+                e = group._tracked.get(600)
+                return (e is not None and e.worker is group.workers[1]
+                        and len(e.tokens) >= 8)
+
+        _wait_fleet(group, label, on_decode_worker,
+                    "a handed-off stream mid-decode")
+        group.apply_chaos({"replica": 1, "kill": "sigkill"})
+        if _fleet_finish(label, a) != want_long:
+            raise AssertionError(f"{label}: tokens after kill -9 of the "
+                                 "decode worker differ")
+        _wait_fleet(group, label,
+                    lambda: group.workers[1].restarts >= 1
+                    and _healed(group), "the decode worker's restart")
+        pids |= {h.pid for h in group.workers}
+        text = group.prometheus_text()
+        m = re.search(r"^tpu_inf_pd_handoff_recomputes_total (\S+)$", text,
+                      re.M)
+        role = group.health_snapshot()["replicas"][1]["role"]
+        if (m is None or float(m.group(1)) <= rec0 or role != "decode"
+                or _role_info(text) != {("0", "prefill"), ("1", "decode")}):
+            raise AssertionError(f"{label}: after kill -9: recomputes "
+                                 f"{m and m.group(1)} (before {rec0}), "
+                                 f"role {role}, {_role_info(text)}")
+        out["kill9"] = {"recomputes": float(m.group(1)),
+                        "restarts": group.workers[1].restarts}
+        _pool_clean(label, group)
+    finally:
+        group.stop(drain=False)
+    _pids_gone(label, pids)
     return out
 
 
@@ -3102,6 +3396,138 @@ def fleet_phase(card: str, dp1: dict) -> dict:
     return out
 
 
+def pd_phase(card: str, fleet: dict) -> dict:
+    """(c) of the P/D gates: llama-3-8b (bf16, full width) through the
+    CLI with ``--dp 2 --fleet subprocess --roles prefill,decode``, one
+    wave of 8 concurrent BurstGPT-length requests of 48 tokens. Gates:
+    every stream "length" with its 48 tokens; one handoff per request,
+    each adopted by the decode worker, none recomputed; the prefill
+    kernel launched on the prefill worker only and the decode kernel on
+    the decode worker only (their stats RPC); /metrics names both roles;
+    no worker process left and the card's free memory back after.
+    Recorded beside them: TTFT, the first inter-token gap per request as
+    the router sees the tokens arrive (the handoff sits there, not in
+    TTFT), the handoff wall (export to the decode worker's accept) and
+    bytes, and tok/s beside the fleet lane's first (mixed dp-2) wave.
+    bf16 tokens are not compared across topologies (GEMM rows depend on
+    M): pd_identity_phase holds the adoption's identity."""
+    label = "pd llama-3-8b bf16 1p1d"
+    free_before = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    server, _ = _serve_cli([
+        "--model", "llama-3-8b", "--dp", "2", "--fleet", "subprocess",
+        "--roles", "prefill,decode", "--num-pages", "512",
+        "--max-pages-per-seq", "128", "--max-batch-size", "8",
+        "--no-warmup", "--seed", str(SEED)])
+    group = server.group
+    pids, reads = set(), {}
+    # Router-side arrival times of each stream's tokens, and the exact
+    # handoff walls the tpu_inf_pd_handoff_seconds histogram observes.
+    arrivals: dict = {}
+    on_token = group._on_token
+
+    def timed_token(h, client, obj):
+        arrivals.setdefault(obj["rid"], []).append(time.perf_counter())
+        on_token(h, client, obj)
+
+    class Recording:
+        def __init__(self, hist):
+            self.hist, self.values = hist, []
+
+        def observe(self, v):
+            self.values.append(v)
+            self.hist.observe(v)
+
+        def __getattr__(self, name):
+            return getattr(self.hist, name)
+
+    export_s: list = []
+    on_handoff = group._on_handoff
+
+    def timed_handoff(h, client, obj, blob):
+        export_s.append(float(obj.get("export_s") or 0.0))
+        on_handoff(h, client, obj, blob)
+
+    group._on_token = timed_token
+    group._on_handoff = timed_handoff
+    handoff_s = group._pd_handoff_s_hist = Recording(
+        group._pd_handoff_s_hist)
+    try:
+        port = server.start(port=0)
+        boot_s = time.perf_counter() - t0
+        pids |= {h.pid for h in group.workers}
+        max_tokens = 48
+        results, wall = run_requests(port, _burst_prompts(8), max_tokens)
+        if any(r["done_reason"] != "length" for r in results):
+            raise AssertionError(f"{label}: a request did not finish "
+                                 "'length'")
+        sup = group.stats_snapshot()["supervision"]
+        by_role = {w["replica"]: w
+                   for w in _worker_reads(group, reads, label)}
+        adoptions = by_role[1]["stats"]["pd_adoptions"]
+        if (group.pd_handoffs != 8 or adoptions != 8
+                or sup["pd_handoff_recomputes"] != 0):
+            raise AssertionError(f"{label}: handoffs {group.pd_handoffs}, "
+                                 f"adoptions {adoptions}, {sup}")
+        k0, k1 = by_role[0]["kernels"], by_role[1]["kernels"]
+        if (k0["prefill"]["bf16"] <= 0 or sum(k0["decode"].values())
+                or k1["decode"]["bf16"] <= 0 or sum(k1["prefill"].values())):
+            raise AssertionError(f"{label}: launches by role: prefill "
+                                 f"worker {k0}, decode worker {k1}")
+        text = _http(port, "GET", "/metrics")[1].decode()
+        if _role_info(text) != {("0", "prefill"), ("1", "decode")}:
+            raise AssertionError(f"{label}: /metrics role series "
+                                 f"{_role_info(text)}")
+        snap = server_stats(port)
+        launches = _launch_totals(reads)
+        handoff_bytes = group.rpc_blob_bytes["handoff"]
+        boot_walls = {h.replica: h.boot_walls for h in group.workers}
+    finally:
+        server.shutdown()
+        del server, group
+    _pids_gone(label, pids)
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free_before - 2**30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    free_after = torch.cuda.mem_get_info()[0]
+    if free_after < free_before - 2**30:
+        raise AssertionError(f"{label}: {(free_before - free_after) / 1e9:.2f}"
+                             " GB of card memory not given back")
+    gaps = sorted(t[1] - t[0] for t in arrivals.values() if len(t) > 1)
+    walls = sorted(handoff_s.values)
+    mixed = fleet["waves"][0]
+    out = {"label": label, "model": "llama-3-8b", "quant": "none",
+           "kv_quant": "none", "variant": "bf16", "dp": 2,
+           "fleet": "subprocess", "roles": ["prefill", "decode"],
+           "boot_s": boot_s, "boot_walls_s": boot_walls,
+           **_summarize(results, wall),
+           "first_gap_s": gaps, "first_gap_p50_s": gaps[len(gaps) // 2],
+           "first_gap_max_s": gaps[-1],
+           "handoff_s": walls, "handoff_p50_s": walls[len(walls) // 2],
+           "handoff_max_s": walls[-1],
+           # The prefill worker's share of each wall (export and
+           # serialization); the rest is the router's relay and the
+           # decode worker's accept.
+           "handoff_export_s": sorted(export_s),
+           "handoff_bytes_per_request": handoff_bytes / 8,
+           "pd_handoffs": 8, "pd_adoptions": adoptions,
+           "fleet_mixed_wave": {k: mixed[k] for k in (
+               "ttft_p50_s", "ttft_max_s", "aggregate_tok_s",
+               "decode_tok_s_per_request")},
+           "launches_by_variant": launches["by_variant"],
+           "decode_launches_by_batch": launches["decode_by_batch"],
+           "prefill_launches_by_len": launches["prefill_by_len"],
+           "prefill_launches_by_path": launches["prefill_by_path"],
+           "launches_by_role": {"prefill": k0, "decode": k1},
+           "step_failures": snap["step_failures"],
+           "done_reasons": [r["done_reason"] for r in results],
+           "free_memory_before_after_bytes": [free_before, free_after]}
+    log(f"[{label}] on {card}: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("label",)}))
+    return out
+
+
 def log_ledger(label: str, prof: dict) -> None:
     """The step ledger's verdicts over a profiled window."""
     led = prof.get("ledger")
@@ -3289,7 +3715,10 @@ def main() -> int:
     mp = timed("draft", draft_phase, card)
     log_new_path(mp, card)
     main_paths[mp["label"]] = mp
-    mp = timed("fleet", fleet_phase, card, main_paths["bf16"])
+    pd_identity = timed("pd_identity", pd_identity_phase, card)
+    fleet = timed("fleet", fleet_phase, card, main_paths["bf16"])
+    main_paths[fleet["label"]] = fleet
+    mp = timed("pd", pd_phase, card, fleet)
     main_paths[mp["label"]] = mp
     for name, phase in (("mixtral", mixtral_phase), ("gpt2", gpt2_phase)):
         mp = timed(name, phase, card)
@@ -3389,7 +3818,7 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "kernels": entries, "kernel_cases": kernels,
               "main_paths": main_paths, "checkpoint": checkpoint,
-              "phase_s": phase_s,
+              "pd_identity": pd_identity, "phase_s": phase_s,
               "engine_cases": engines, "spec_engine_cases": spec_engines,
               "chaos": chaos, "rung_identity": rung_identity,
               "gemm_rung_evidence": gemm_evidence,

@@ -104,15 +104,6 @@ def test_warmup_writes_only_the_trash_page():
     assert not eng.kv.k[:, 1:].any() and not eng.kv.v[:, 1:].any()
 
 
-@pytest.mark.parametrize("field,value,item", [
-    pytest.param("role", "prefill", "1.15b", id="role-prefill-1.15"),
-])
-def test_unported_features_raise(field, value, item):
-    ecfg = dataclasses.replace(tcfg.EngineConfig(**ENGINE), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
-        InferenceEngine(tcfg.tiny_llama(), ecfg, device="cpu")
-
-
 @pytest.mark.parametrize("field,value", [
     ("hybrid_prefill", True),
     ("step_token_budget", 24),

@@ -10,6 +10,7 @@ their replica labels and never fall across restarts; the HTTP layer
 serves dp=2 on both backends; the 1.15b features are refused.
 """
 
+import dataclasses
 import hashlib
 import http.client
 import json
@@ -245,8 +246,7 @@ def test_imports_applied_together_report_their_own_pages():
 def test_unported_fleet_features_raise_naming_1_15b(ckpt):
     from tpu_inference_torch.server.http import build_engine_group
 
-    for kw in (dict(worker_roles=("prefill", "decode")),
-               dict(kv_plane="shm"), dict(fabric_cache_pages=64),
+    for kw in (dict(kv_plane="shm"), dict(fabric_cache_pages=64),
                dict(autoscale=True), dict(class_queue_depth=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP 1.15b"):
             build_engine_group(_cfg(ckpt, **kw), device="cpu")
@@ -254,11 +254,15 @@ def test_unported_fleet_features_raise_naming_1_15b(ckpt):
     cfg.parallel = tcfg.ParallelConfig(dp=2, tp=2)
     with pytest.raises(NotImplementedError, match="ROADMAP 1.16"):
         build_engine_group(cfg, device="cpu")
-    for fleet_kind in ("in-process", "subprocess"):
-        cfg = _cfg(ckpt, fleet=fleet_kind)
-        cfg.engine = tcfg.EngineConfig(**ENGINE_KW, role="decode")
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.15b"):
-            build_engine_group(cfg, device="cpu")
+    # P/D roles are served by the process fleet only.
+    cfg = _cfg(ckpt, fleet="in-process")
+    cfg.engine = tcfg.EngineConfig(**ENGINE_KW, role="decode")
+    with pytest.raises(ValueError, match="need --fleet subprocess"):
+        build_engine_group(cfg, device="cpu")
+    cfg.server = dataclasses.replace(cfg.server, fleet="subprocess")
+    group = build_engine_group(cfg, device="cpu")
+    assert group.roles == ["decode", "decode"]
+    group.stop(drain=False)
     cfg = _cfg(ckpt)
     with pytest.raises(ValueError, match="draft-model"):
         build_engine_group(cfg, device="cpu",
@@ -267,7 +271,8 @@ def test_unported_fleet_features_raise_naming_1_15b(ckpt):
 
 def test_fleet_flags_match_reference(monkeypatch):
     """The fleet flags parse to the reference's defaults and values and
-    reach ServerConfig; P/D flags and auto sizing at dp > 1 refuse."""
+    reach ServerConfig; auto sizing at dp > 1 and a P/D split at dp 1
+    are usage errors."""
     from tests.test_torch_server import _reference_parser
     from tpu_inference_torch.server.__main__ import (boot_server,
                                                     build_parser,
@@ -306,7 +311,7 @@ def test_fleet_flags_match_reference(monkeypatch):
                  ["--dp", "2", "--max-batch-size", "auto"]):
         with pytest.raises(SystemExit):
             boot_server(p.parse_args(["--device", "cpu", *argv]), p)
-    with pytest.raises(NotImplementedError, match="1.15b"):
+    with pytest.raises(SystemExit):
         boot_server(p.parse_args(["--device", "cpu", "--pd-ratio", "1:1"]),
                     p)
 

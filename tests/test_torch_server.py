@@ -400,15 +400,6 @@ def test_metrics_expose_engine_breadth_series(weights):
         server.shutdown(timeout=TIMEOUT)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    pytest.param("role", "decode", "1.15b", id="role-decode-1.15")])
-def test_unported_knobs_raise_through_build_server(field, value, item):
-    from tpu_inference_torch.server.http import build_server
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item} "):
-        build_server("tiny-llama", warmup=False, device="cpu",
-                     **{field: value})
-
-
 @pytest.mark.parametrize("kw,check", [
     ({"spec_mode": "ngram", "num_speculative_tokens": 4},
      lambda e: e.spec_ngram and e.engine_cfg.num_speculative_tokens == 4),

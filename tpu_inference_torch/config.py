@@ -8,9 +8,8 @@ package: the dtype travels by name, and the reference's
 Hopper kernels).
 
 Fields the port does not serve yet are still accepted here, so a
-reference config parses; the engine and server raise
-``NotImplementedError`` naming the ROADMAP item when a non-default value
-asks for one of them.
+reference config parses; the server raises ``NotImplementedError``
+naming the ROADMAP item when a non-default value asks for one of them.
 """
 
 from __future__ import annotations
@@ -374,6 +373,10 @@ def validate_spec_config(spec_mode: str, num_speculative_tokens: int,
             "(longest suffix n-gram matched against the history)")
 
 
+# Worker phase roles (P/D disaggregation): "prefill" workers hand each
+# settled prefill off to a "decode" worker; "mixed" runs both phases.
+WORKER_ROLES = ("prefill", "decode", "mixed")
+
 # Request priority classes, best-first (the X-Priority header).
 PRIORITY_CLASSES = ("interactive", "batch", "background")
 
@@ -385,6 +388,27 @@ def class_rank(priority_class: str) -> int:
         return PRIORITY_CLASSES.index(priority_class)
     except ValueError:
         return 0
+
+
+def resolve_worker_roles(dp: int, worker_roles, default_role: str = "mixed"
+                         ) -> tuple:
+    """The one role rule of the fleet router and the CLI: ``worker_roles``
+    (one entry per dp replica, or () for ``default_role`` everywhere) as
+    a validated dp-length tuple. Raises ValueError on an unknown role or
+    a length mismatch; a one-sided split is served (the other phase runs
+    on the off-role workers)."""
+    roles = tuple(worker_roles or ())
+    if not roles:
+        roles = (default_role,) * max(1, dp)
+    if len(roles) != max(1, dp):
+        raise ValueError(
+            f"--roles needs exactly one role per dp replica: got "
+            f"{len(roles)} for dp={dp}")
+    for r in roles:
+        if r not in WORKER_ROLES:
+            raise ValueError(f"unknown worker role {r!r}: one of "
+                             f"{WORKER_ROLES}")
+    return roles
 
 
 @dataclasses.dataclass(frozen=True)

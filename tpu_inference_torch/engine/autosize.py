@@ -20,7 +20,8 @@ accelerator sizes. ``detect_peak_flops``/``detect_peak_hbm_bw`` read the
 card's published bf16 peak and memory rate (the MFU gauge's and the step
 ledger's denominators). ``decode_ladder_rungs``/``parse_decode_ladder`` give
 the decode batch ladder, ``auto_host_cache_pages`` sizes the host-RAM KV
-tier from ``/proc/meminfo``.
+tier from ``/proc/meminfo``, ``pd_worker_roles`` the prefill:decode worker
+split of ``--pd-ratio``.
 """
 
 from __future__ import annotations
@@ -275,6 +276,44 @@ def parse_decode_ladder(spec: str, top: int) -> tuple:
             f"--decode-ladder {spec!r}: expected 'auto', 'off', or "
             "comma-separated rungs like '8,16,32'")
     return validate_ladder(rungs, top)
+
+
+# Card-seconds of one decode token against one prefill token in the P/D
+# split: decode streams every weight per token, prefill amortizes the
+# stream over the prompt.
+PD_DECODE_COST_FACTOR = 4.0
+
+
+def pd_worker_roles(dp: int, spec: str,
+                    prompt_token_rate: Optional[float] = None,
+                    decode_token_rate: Optional[float] = None) -> tuple:
+    """The prefill:decode worker split of ``--pd-ratio``: a dp-length
+    tuple ``("prefill",)*P + ("decode",)*D``. ``spec`` is ``"P:D"``
+    (scaled to dp, each side at least one worker) or ``"auto"`` (each
+    phase's share of card-seconds from the offered prompt and decode
+    token rates, 512 and 128 tokens/s when not given, decode tokens
+    weighted PD_DECODE_COST_FACTOR). Raises ValueError."""
+    if dp < 2:
+        raise ValueError(
+            f"--pd-ratio needs dp >= 2 (got dp={dp}): the split puts "
+            "prefill and decode on different workers")
+    if spec == "auto":
+        p_rate = float(prompt_token_rate) if prompt_token_rate else 512.0
+        d_rate = float(decode_token_rate) if decode_token_rate else 128.0
+        share = p_rate / (p_rate + PD_DECODE_COST_FACTOR * d_rate)
+    else:
+        try:
+            p_part, d_part = (int(x) for x in spec.split(":"))
+        except ValueError:
+            raise ValueError(
+                f"--pd-ratio {spec!r}: expected 'auto' or 'P:D' "
+                "(e.g. '1:1', '1:3')")
+        if p_part < 1 or d_part < 1:
+            raise ValueError(
+                f"--pd-ratio {spec!r}: both sides must be >= 1")
+        share = p_part / (p_part + d_part)
+    n_prefill = max(1, min(dp - 1, round(dp * share)))
+    return ("prefill",) * n_prefill + ("decode",) * (dp - n_prefill)
 
 
 def int_or_auto(v: str):

@@ -70,15 +70,18 @@ PyTorch:
   copies a live sequence's full pages off the pool for migration, and
   ``request_import_host`` / ``apply_pending_imports`` adopt another
   replica's export into the host tier on the engine thread.
+- **P/D roles** (``EngineConfig.role``): a "prefill" engine warms only
+  the prefill shapes, a "decode" engine only the decode calls and verify
+  widths. ``export_sequence_kv_live`` copies every page of a live
+  sequence's first ``ctx_len`` tokens, the partial final page included;
+  ``adopt_sequence`` restores such an export into fresh pages and
+  resumes decode with nothing recomputed.
 
 Index ranges the reference gets for free from XLA's clamping gathers
 are kept in range explicitly: positions clamp at ``max_context - 1``
 before they pick a block-table column, embedding ids clamp into the
 table (inactive lanes carry stale ids), and the kernels bounds-check
 page ids.
-
-Features outside the port so far raise ``NotImplementedError`` naming
-their ROADMAP item (``_UNPORTED``).
 """
 
 from __future__ import annotations
@@ -93,8 +96,8 @@ import numpy as np
 import torch
 
 from tpu_inference_torch import telemetry
-from tpu_inference_torch.config import (EngineConfig, ModelConfig,
-                                        validate_spec_config)
+from tpu_inference_torch.config import (WORKER_ROLES, EngineConfig,
+                                        ModelConfig, validate_spec_config)
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine.autosize import validate_ladder
 from tpu_inference_torch.engine.kv_cache import PageAllocator
@@ -113,24 +116,6 @@ from tpu_inference_torch.models.common import (dense_causal_attention,
                                                make_dense_attn)
 from tpu_inference_torch.models.quant import QuantizedArray, quantize_params
 from tpu_inference_torch.models.registry import build_model, get_model_fns
-
-# EngineConfig fields the port does not serve: a value other than the
-# default raises NotImplementedError naming the ROADMAP item.
-_UNPORTED = {
-    "role": "1.15b (process fleet: P/D worker roles)",
-}
-
-
-def check_engine_config(engine_cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for any knob the port does not serve."""
-    default = EngineConfig()
-    for name, item in _UNPORTED.items():
-        value = getattr(engine_cfg, name)
-        if value != getattr(default, name):
-            raise NotImplementedError(
-                f"EngineConfig.{name}={value!r} is not ported yet (ROADMAP "
-                f"{item}); the port serves the default")
-
 
 class ImportDone(threading.Event):
     """Set once a queued migration import was applied; ``adopted`` is the
@@ -286,6 +271,13 @@ class Sequence:
     # Speculative rounds this sequence proposed in, positions accepted.
     spec_rounds: int = 0
     spec_accepted_toks: int = 0
+    # P/D handoff. Outbound: on a prefill-role worker the scheduler hands
+    # the settled prefill off instead of decoding it. Inbound: adopt_kv =
+    # (host pages, ctx_len) of a received handoff, restored at admission
+    # (adopt_sequence); adopted marks an attempt that ran no prefill.
+    handoff_after_prefill: bool = False
+    adopt_kv: Optional[tuple] = None
+    adopted: bool = False
 
     @property
     def last_token(self) -> int:
@@ -305,7 +297,9 @@ class InferenceEngine:
         its weights are ``draft_params`` or random from ``seed + 1``."""
         self.device = resolve_device(device)
         model_cfg.validate()
-        check_engine_config(engine_cfg)
+        if engine_cfg.role not in WORKER_ROLES:
+            raise ValueError(f"unknown engine role {engine_cfg.role!r}; "
+                             f"one of {WORKER_ROLES}")
         if engine_cfg.admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission mode "
                              f"{engine_cfg.admission!r}; "
@@ -393,6 +387,13 @@ class InferenceEngine:
         # Corrupt KV blobs this replica rejected at import (counted,
         # never adopted; the request recomputes).
         self.kv_integrity_rejections = 0
+        # P/D: the phase role (specializes warmup), live handoffs
+        # exported and adopted, and received handoffs that fell back to
+        # recompute-resume (a malformed blob, a pool shortfall).
+        self.role = engine_cfg.role
+        self.handoffs_out = 0
+        self.adoptions_in = 0
+        self.adopt_fallbacks = 0
         # Migration imports queued by another thread, applied by the
         # engine loop before admission: (entries, done event).
         self._pending_imports: List[tuple] = []
@@ -713,13 +714,18 @@ class InferenceEngine:
         and the one-step route) at every ladder rung, the n-gram verify
         round at every (rung, width) or the draft-model round at the top
         rung, and with hybrid steps the hybrid call at every reachable
-        bucket and rung. All writes land on the trash page. Returns
-        seconds spent."""
+        bucket and rung. All writes land on the trash page. A
+        prefill-role engine warms only the prefills, a decode-role engine
+        only the decode calls and verify rounds (the other phase still
+        runs if a degraded fleet routes it there). Returns seconds
+        spent."""
         t0 = time.perf_counter()
         if self.device.type == "cuda" and self.attn_backend == "kernel":
             from tpu_inference_torch.kernels import build_kernels
             build_kernels()
         ecfg = self.engine_cfg
+        warm_prefill = self.role != "decode"
+        warm_decode = self.role != "prefill"
 
         def chunk_arrays(p: int, bucket: int) -> dict:
             return {"tokens": np.zeros((p, bucket), np.int32),
@@ -729,28 +735,29 @@ class InferenceEngine:
                     **self._lane_arrays([], p)}
 
         buckets = [b for b in ecfg.prefill_buckets if b <= ecfg.max_context]
-        for p in self._prefill_batch_sizes:
+        for p in (self._prefill_batch_sizes if warm_prefill else ()):
             for bucket in buckets:
                 self._prefill_fn(chunk_arrays(p, bucket))
                 if self.spec_draft:
                     self._draft_prefill_fn(chunk_arrays(p, bucket))
         k = max(1, ecfg.decode_steps_per_call)
-        if self.spec_draft:
+        if warm_decode and self.spec_draft:
             # Every decode call of this mode is a spec round (top rung).
             st, cap, act, _, _ = self._spec_warm_arrays(
                 ecfg.max_batch_size, 1)
             self._spec_round_fn(st, cap, act)
-        else:
+        elif warm_decode:
             for b in self.ladder:
                 for steps in sorted({1, k}):
                     self._decode_multi_fn(self._decode_warm_arrays(b),
                                           steps)
-        if self.spec_ngram:
+        if self.spec_ngram and warm_decode:
             # Fallback rounds run the decode calls warmed above.
             for b in self.ladder:
                 for width in self._spec_widths:
                     self._verify_fn(*self._spec_warm_arrays(b, width))
-        if ecfg.hybrid_prefill and not self.spec_enabled:
+        if (ecfg.hybrid_prefill and not self.spec_enabled and warm_prefill
+                and warm_decode):
             cap = ecfg.bucket_for(min(ecfg.chunk_tokens_cap,
                                       ecfg.max_context))
             for bucket in (b for b in buckets if b <= cap):
@@ -1474,6 +1481,79 @@ class InferenceEngine:
         self.migrate_out_pages += len(host)
         self.migrate_out_bytes += sum(hp.nbytes for hp in host)
         return digests[:run], host
+
+    def export_sequence_kv_live(self, seq: Sequence
+                                ) -> Tuple[List[bytes], List[kvc.HostKVPage],
+                                           int]:
+        """P/D handoff export: (full-page chain digests, host page copies,
+        ctx_len) of a live sequence. Unlike the drain export, the pages
+        cover every page holding the first ctx_len tokens, the partial
+        final page included: the destination restores it verbatim (no
+        reader past ctx_len touches its trailing rows) and resumes decode
+        with nothing recomputed. The digests cover only the full pages.
+        ([], [], 0) when nothing is exportable (no KV, or a window
+        evicted a page): the caller then keeps decoding locally. Engine
+        thread; the copies have landed when this returns."""
+        if not seq.pages or seq.ctx_len <= 0:
+            return [], [], 0
+        ecfg = self.engine_cfg
+        n_pages = -(-seq.ctx_len // ecfg.page_size)
+        pages = seq.pages[:n_pages]
+        if len(pages) < n_pages or any(p == 0 for p in pages):
+            return [], [], 0
+        in_kv = self._tokens_in_kv(seq)[:seq.ctx_len]
+        digests = _chain_hashes(in_kv, ecfg.page_size)
+        host = self._offload_pages(pages)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.handoffs_out += 1
+        return digests[:seq.ctx_len // ecfg.page_size], host, seq.ctx_len
+
+    def adopt_sequence(self, seq: Sequence) -> int:
+        """P/D handoff adoption (engine thread, at admission): restore
+        ``seq.adopt_kv``'s pages, the partial final page included, into
+        fresh pages, bind a slot and resume decode. No prefill runs, so
+        nothing is recomputed and greedy decode continues exactly as on
+        the exporting engine (the same pool bytes, the same last token).
+        Raises on a malformed export or a pool shortfall; the scheduler
+        then recompute-resumes through the ordinary prefill. Returns the
+        slot."""
+        host_pages, ctx_len = seq.adopt_kv
+        ecfg = self.engine_cfg
+        expected = -(-ctx_len // ecfg.page_size)
+        if ctx_len <= 0 or len(host_pages) != expected:
+            raise ValueError(
+                f"handoff blob has {len(host_pages)} pages for "
+                f"ctx_len={ctx_len} (need {expected})")
+        slot = self.free_slots()[0]
+        seq.admit_idx = self._admit_counter
+        self._admit_counter += 1
+        fresh = self._allocate_reclaiming(len(host_pages))
+        try:
+            self._restore_batch(fresh, host_pages,
+                                trace_id=seq.trace_id or str(seq.request_id))
+        except BaseException:
+            self.allocator.free(fresh)
+            raise
+        seq.pages = fresh
+        seq.pages_version += 1
+        seq.ctx_len = ctx_len
+        seq.slot = slot
+        seq.adopt_kv = None
+        # The whole resume stream arrived as settled KV or recorded
+        # tokens: report it as cached (the router's reused-vs-recomputed
+        # accounting).
+        seq.cached_tokens = min(ctx_len + seq.resume_base,
+                                ecfg.max_context - 1)
+        seq.host_restored_pages += len(host_pages)
+        now = time.perf_counter()
+        seq.prefill_start = seq.prefill_start or now
+        seq.first_token_time = now
+        seq.adopted = True
+        self.adoptions_in += 1
+        self.swap_in_resumes += 1
+        self.slots[slot] = seq
+        return slot
 
     def request_import_host(self, entries) -> "ImportDone":
         """Queue migrated (digest, HostKVPage) entries for adoption into

@@ -30,9 +30,15 @@ Twin of ``tpu_inference/engine/scheduler.py`` at the default path:
   capture and feeds the health machine. Page-pressure requests from
   other threads apply at the top of each loop iteration, and the flight
   recorder's heartbeat refreshes there.
+- P/D handoff: on a prefill-role worker ``on_prefill_handoff`` takes
+  each settled prefill (finish reason "handoff"); a request that
+  arrives with a handoff's pages (``seq.adopt_kv``) is admitted alone
+  through ``engine.adopt_sequence``, with no prefill, and falls back to
+  a recompute-resume when the adoption fails.
 - Request observability at finish: the phase histograms, the
   ``queue_wait``/``prefill``/``decode`` spans (the engine records the
-  ``prefill_chunk`` and ``kv_swap_in`` children), the rolling SLO
+  ``prefill_chunk`` and ``kv_swap_in`` children; an adoption records
+  ``handoff_adopt`` in place of ``prefill``), the rolling SLO
   windows, and one timeline in ``recent`` (GET /debug/requests).
 """
 
@@ -60,6 +66,8 @@ class SchedulerStats:
 
     steps: int = 0
     prefills: int = 0
+    # Settled prefills handed off to a decode worker (P/D).
+    pd_handoffs: int = 0
     tokens_generated: int = 0
     tokens_prefix_cached: int = 0
     requests_finished: int = 0
@@ -109,6 +117,13 @@ class SchedulerStats:
             # imported from a sibling replica's drain.
             "migrate_out_pages": engine.migrate_out_pages,
             "migrate_in_pages": engine.migrate_in_pages,
+            # P/D: this worker's role, prefills handed off, handoffs
+            # adopted here and received ones that fell back to a
+            # recompute-resume.
+            "role": engine.role,
+            "pd_handoffs": self.pd_handoffs,
+            "pd_adoptions": engine.adoptions_in,
+            "pd_adopt_fallbacks": engine.adopt_fallbacks,
             "hybrid_prefill": ecfg.hybrid_prefill,
             "hybrid_steps": engine.hybrid_steps_total,
             "pool_pressure": round(engine.pool_pressure, 4),
@@ -203,6 +218,12 @@ class EngineScheduler:
         self.step_inflight_since: Optional[float] = None
         self.on_step_ok: Optional[Callable[[], None]] = None
         self.on_step_error: Optional[Callable[[BaseException], None]] = None
+        # P/D hook (a prefill-role worker sets it): called on the engine
+        # thread when a sequence flagged handoff_after_prefill settles its
+        # prefill, its first token delivered. True when the handoff left:
+        # the sequence then finishes here with reason "handoff" and
+        # resumes on a decode worker; False keeps it decoding here.
+        self.on_prefill_handoff: Optional[Callable[[Sequence], bool]] = None
 
     # -------------------------------------------------- submission API
 
@@ -366,6 +387,12 @@ class EngineScheduler:
                 self.engine.telemetry.queue_wait_s.observe(
                     max(0.0, seq.prefill_start - seq.enqueue_time))
         pending.on_token(seq, seq.generated[-1])
+        if (not seq.done and seq.handoff_after_prefill
+                and self.on_prefill_handoff is not None
+                and self.on_prefill_handoff(seq)):
+            self.stats.pd_handoffs += 1
+            seq.done, seq.finish_reason = True, "handoff"
+            seq.finish_time = time.perf_counter()
         if seq.done:
             self._finish(seq)
 
@@ -412,6 +439,7 @@ class EngineScheduler:
                     self._step_incremental_prefill()
         batch: List[_Pending] = []
         start_chunked: Optional[_Pending] = None
+        start_adopt: Optional[_Pending] = None
         reserved = 0
         engine = self.engine
         with self._lock:
@@ -435,6 +463,16 @@ class EngineScheduler:
                         and engine._free_plus_evictable()
                         < reserved + need + headroom):
                     break
+                if pending.seq.adopt_kv is not None:
+                    # A P/D handoff: restored alone below, with no
+                    # prefill (before _needs_chunking, which would read
+                    # prompt + generated as a prompt to chunk).
+                    if batch:
+                        break
+                    self._waiting.popleft()
+                    self._callbacks[pending.seq.request_id] = pending
+                    start_adopt = pending
+                    break
                 if self._needs_chunking(pending.seq):
                     if self._prefilling is not None or batch:
                         break
@@ -454,7 +492,9 @@ class EngineScheduler:
         if engine.host_pool is not None:
             with self._lock:
                 head = self._waiting[0] if self._waiting else None
-            if head is not None and not head.seq.done:
+            # A handoff's KV comes with its blob, not from the host tier.
+            if (head is not None and not head.seq.done
+                    and head.seq.adopt_kv is None):
                 try:
                     engine.prefetch_host_hits(head.seq)
                 except Exception as exc:  # noqa: BLE001 — keep loop alive
@@ -463,6 +503,9 @@ class EngineScheduler:
                         error=repr(exc),
                         request_ids=[head.seq.trace_id
                                      or str(head.seq.request_id)])
+        if start_adopt is not None:
+            self._adopt(start_adopt)
+            return
         if start_chunked is not None:
             try:
                 engine.prefill_begin(start_chunked.seq)
@@ -487,6 +530,40 @@ class EngineScheduler:
         self._note_ok()
         for pending in batch:
             self._prefill_done(pending)
+
+    def _adopt(self, pending: _Pending) -> None:
+        """Restore a P/D handoff's pages and resume decode (no token is
+        delivered: the client has every token in seq.generated). A
+        malformed export or a pool shortfall is logged and counted, and
+        the request goes back to the head of the queue without its KV,
+        to recompute-resume through the ordinary prefill."""
+        seq = pending.seq
+        t0 = time.perf_counter()
+        self.step_inflight_since = time.monotonic()
+        try:
+            self.engine.adopt_sequence(seq)
+        except Exception as exc:  # noqa: BLE001 — keep the loop alive
+            telemetry.log_event(
+                "step_error", level="error", phase="handoff_adopt",
+                error=repr(exc),
+                request_ids=[seq.trace_id or str(seq.request_id)])
+            self.engine.adopt_fallbacks += 1
+            seq.adopt_kv = None
+            with self._lock:
+                self._callbacks.pop(seq.request_id, None)
+                self._waiting.appendleft(pending)
+            return
+        finally:
+            self.step_inflight_since = None
+        self._note_ok()
+        # Stands in for the prefill span; it ends at first_token_time
+        # (the adoption instant), where the decode span begins.
+        self.engine.telemetry.recorder.add(
+            "handoff_adopt", seq.trace_id or str(seq.request_id), t0,
+            seq.first_token_time or time.perf_counter(),
+            ctx_len=seq.ctx_len, pages=len(seq.pages))
+        if seq.done:                  # cancelled while queued
+            self._finish(seq)
 
     def _drain_safely(self) -> Dict[int, List[int]]:
         """drain_pipeline under the loop's keep-alive contract: a device
@@ -596,20 +673,22 @@ class EngineScheduler:
 
         Spans: queue_wait covers enqueue -> prefill start (admission
         included); prefill covers prefill start -> first token (its
-        prefill_chunk children were recorded by the engine); decode
-        covers first token -> finish, and is skipped on a "handoff"
-        finish (no decode ran here). Sealing moves the trace into the
-        recorder's recent ring, where /debug/trace reads it."""
+        prefill_chunk children were recorded by the engine; an adopted
+        sequence's handoff_adopt span stands in for it); decode covers
+        first token -> finish, and is skipped on a "handoff" finish (no
+        decode ran here). Sealing moves the trace into the recorder's
+        recent ring, where /debug/trace reads it."""
         tel = self.engine.telemetry
         rec = tel.recorder
         tid = seq.trace_id or str(seq.request_id)
         if rec.enabled and seq.enqueue_time:
             rec.add("queue_wait", tid, enq, max(enq, start),
                     admission=self.engine.admission)
-            rec.add("prefill", tid, start, max(start, first),
-                    cached_tokens=seq.cached_tokens,
-                    host_restored_pages=seq.host_restored_pages,
-                    attempt=seq.attempt)
+            if not seq.adopted:
+                rec.add("prefill", tid, start, max(start, first),
+                        cached_tokens=seq.cached_tokens,
+                        host_restored_pages=seq.host_restored_pages,
+                        attempt=seq.attempt)
             if seq.finish_reason != "handoff":
                 attrs = {"output_tokens": len(seq.generated),
                          "reason": seq.finish_reason,
@@ -622,7 +701,9 @@ class EngineScheduler:
         # TTFT counts only on a fresh first attempt (attempt 0, no
         # resume, a first token, no error): a resume's local gap is not
         # what the client waited. TPOT only where decode steps ran here:
-        # the first token is `first`, so decoded - 1 gaps follow it.
+        # the first token is `first`, so decoded - 1 gaps follow it (on
+        # an adopted sequence `first` is the adoption instant, and every
+        # decoded token follows it).
         slo = tel.slo
         if slo is None or not seq.enqueue_time:
             return
@@ -630,7 +711,8 @@ class EngineScheduler:
                 if not seq.resume_base and seq.attempt == 0
                 and seq.first_token_time
                 and seq.finish_reason != "error" else None)
-        gaps = len(seq.generated) - seq.resume_base - 1
+        decoded = len(seq.generated) - seq.resume_base
+        gaps = decoded if seq.adopted else decoded - 1
         tpot = (max(0.0, fin - first) / gaps
                 if gaps > 0 and seq.finish_reason != "handoff"
                 else None)

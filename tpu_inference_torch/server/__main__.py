@@ -43,7 +43,11 @@ router (``--fleet subprocess``: ``--worker-restart-*``,
 Replica i serves on ``cuda:{i % device_count}``, so on one card they all
 share it, and ``--num-pages``/``--max-batch-size`` must then be integers
 (``auto`` would size every replica from the whole card). P/D roles
-(``--role``, ``--roles``, ``--pd-ratio``) are ROADMAP 1.15b.
+need ``--fleet subprocess``: ``--roles prefill,decode`` (one per
+replica) over ``--pd-ratio P:D|auto`` (sized by
+``autosize.pd_worker_roles``, with ``--pd-prompt-rate`` and
+``--pd-decode-rate``) over a uniform ``--role``;
+``--pd-prefill-nice`` lowers the prefill workers' CPU priority.
 """
 
 from __future__ import annotations
@@ -286,12 +290,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "migration (resubmissions re-prefill from "
                         "scratch)")
     p.add_argument("--role", default="mixed",
-                   help="worker phase role (P/D disaggregation, ROADMAP "
-                        "1.15b: only 'mixed' is served)")
+                   choices=("prefill", "decode", "mixed"),
+                   help="uniform worker phase role: 'prefill' workers "
+                        "prefill prompts and hand each settled prefill "
+                        "(KV pages and stream state) to a decode worker, "
+                        "nothing recomputed; 'decode' workers adopt "
+                        "handoffs and decode; 'mixed' (default) runs "
+                        "both. Needs --fleet subprocess when not 'mixed'")
     p.add_argument("--roles", default=None,
-                   help="per-worker phase roles (ROADMAP 1.15b)")
+                   help="per-worker phase roles, comma-separated, one per "
+                        "dp replica (e.g. 'prefill,decode,decode'); "
+                        "overrides --role; needs --fleet subprocess")
     p.add_argument("--pd-ratio", default=None,
-                   help="prefill:decode worker split (ROADMAP 1.15b)")
+                   help="the prefill:decode worker split over dp: 'P:D' "
+                        "(e.g. '1:3') or 'auto' (by each phase's share of "
+                        "card-seconds, engine/autosize.py "
+                        "pd_worker_roles); overrides --role, exclusive "
+                        "with --roles; needs --fleet subprocess and "
+                        "dp >= 2")
+    p.add_argument("--pd-prompt-rate", type=float, default=None,
+                   help="with --pd-ratio auto: prompt tokens/s offered to "
+                        "the fleet (default: 512-token prompts)")
+    p.add_argument("--pd-decode-rate", type=float, default=None,
+                   help="with --pd-ratio auto: decode tokens/s (default: "
+                        "128-token replies)")
+    p.add_argument("--pd-prefill-nice", type=int, default=0,
+                   help="os.nice() increment of the prefill-role worker "
+                        "processes (a shared host: decode cadence stays "
+                        "flat under prefill bursts; 0 = off)")
     p.add_argument("--chaos-rpc-seed", type=int, default=0,
                    help="transport fault injection: seed of the frame "
                         "fault schedule (same seed => same faults at "
@@ -426,8 +452,29 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         chaos_step_failure_rate=args.chaos_step_failure_rate,
         chaos_step_wedge_s=args.chaos_step_wedge_s,
         step_ledger_depth=args.step_ledger_depth,
-        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
-        role=args.role)
+        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms)
+
+
+def worker_roles_from_args(args) -> tuple:
+    """The per-worker roles of parsed ``args``: ``--roles`` over
+    ``--pd-ratio`` over ``--role`` (() when every worker is mixed).
+    Raises ValueError with a flag-spelling message."""
+    from tpu_inference_torch.config import resolve_worker_roles
+
+    if args.roles and args.pd_ratio:
+        raise ValueError("--roles and --pd-ratio both name the worker "
+                         "split; pick one")
+    if args.roles:
+        return resolve_worker_roles(
+            args.dp, tuple(r.strip() for r in args.roles.split(",")))
+    if args.pd_ratio:
+        from tpu_inference_torch.engine.autosize import pd_worker_roles
+        return pd_worker_roles(args.dp, args.pd_ratio,
+                               prompt_token_rate=args.pd_prompt_rate,
+                               decode_token_rate=args.pd_decode_rate)
+    if args.role != "mixed":
+        return resolve_worker_roles(args.dp, (), default_role=args.role)
+    return ()
 
 
 def server_overrides(args) -> dict:
@@ -449,8 +496,8 @@ def server_overrides(args) -> dict:
             "worker_restart_backoff_s": args.worker_restart_backoff_s,
             "drain_timeout_s": args.drain_timeout_s,
             "fleet_migrate": not args.no_fleet_migrate,
-            "worker_roles": tuple(r.strip() for r in
-                                  (args.roles or "").split(",") if r),
+            "worker_roles": worker_roles_from_args(args),
+            "pd_prefill_nice": args.pd_prefill_nice,
             "chaos_rpc_seed": args.chaos_rpc_seed,
             "chaos_rpc_corrupt_rate": args.chaos_rpc_corrupt_rate,
             "chaos_rpc_drop_rate": args.chaos_rpc_drop_rate,
@@ -481,10 +528,18 @@ def boot_server(args, p: argparse.ArgumentParser):
                 resolve_model_config(model, ckpt)
             except ValueError as e:
                 p.error(f"{flag}: {e}")
-    if args.pd_ratio is not None:
-        raise NotImplementedError(
-            f"--pd-ratio {args.pd_ratio!r} is not ported yet (ROADMAP "
-            "1.15b: P/D worker roles)")
+    # The roles resolve before any model loads: a bad split is a usage
+    # error in milliseconds.
+    try:
+        worker_roles = worker_roles_from_args(args)
+    except ValueError as e:
+        p.error(str(e))
+    if any(r != "mixed" for r in worker_roles):
+        if args.fleet != "subprocess":
+            p.error("--role/--roles/--pd-ratio need --fleet subprocess "
+                    "(the live KV handoff moves pages between worker "
+                    "processes)")
+        print(f"[pd] worker roles: {list(worker_roles)}", file=sys.stderr)
     if args.fleet == "subprocess" and args.draft_model:
         p.error("--fleet subprocess does not support --draft-model "
                 "(workers boot their own weights; use --spec-mode ngram "

@@ -1,8 +1,8 @@
 """Process fleet router: ``EngineGroup`` semantics over worker processes.
 
-Twin of ``tpu_inference/server/fleet.py`` on the relay plane (the P/D
-roles and handoff, the KV fabric, the shared-memory arena and the
-elastic fleet are ROADMAP 1.15b). ``ProcessEngineGroup`` serves the same
+Twin of ``tpu_inference/server/fleet.py`` on the relay plane (the KV
+fabric, the shared-memory arena and the elastic fleet are ROADMAP
+1.15b). ``ProcessEngineGroup`` serves the same
 facade as the in-process ``EngineGroup`` (submit/cancel; health, stats,
 metrics, steps, recent, trace and blackbox snapshots; prefix-affinity
 routing; failover; admission control) behind ``--fleet subprocess``, but
@@ -36,6 +36,19 @@ Failure handling:
   record as a recompute-resume on a survivor, token-identical under
   greedy, and the client's stream continues where it stopped.
 
+P/D roles (``ServerConfig.worker_roles``, one per replica, resolved by
+``config.resolve_worker_roles``): new prompts go to prefill-capable
+workers, handoffs and resumes to decode-capable ones (``_phase_pool``;
+a fleet missing a phase serves on the other workers). A prefill worker
+settles a prompt, streams its first token and sends the live sequence
+as a ``handoff`` event with its KV blob; the router checks the blob's
+digest and resubmits the request with it to the least-loaded decode
+worker (``decode_route_score``), which adopts the pages and decodes on
+with nothing recomputed. Every failure degrades to a counted
+recompute-resume: a corrupt blob, no decode worker, or a stale blob
+(the router drops it once the adopter streams past the export, so a
+decode worker's death resumes from the token record).
+
 Routing is the in-process group's three-temperature prefix affinity
 (``replicas.prefill_route_score``): the router hashes each prompt once
 and probes every candidate's cache tiers through the side-effect-free
@@ -65,7 +78,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import (FrameworkConfig,
-                                        framework_config_to_dict)
+                                        framework_config_to_dict,
+                                        resolve_worker_roles)
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine.engine import Sequence
 from tpu_inference_torch.server.replicas import (_RETRYABLE, FleetSaturated,
@@ -73,6 +87,7 @@ from tpu_inference_torch.server.replicas import (_RETRYABLE, FleetSaturated,
                                                  _clone_request,
                                                  aggregate_replica_stats,
                                                  cold_route_key,
+                                                 decode_route_score,
                                                  prefill_route_score,
                                                  replica_device,
                                                  routing_digests)
@@ -315,7 +330,8 @@ class _Tracked:
 
     __slots__ = ("template", "on_token", "on_finish", "worker", "client",
                  "generation", "attempts", "tokens", "seq_local",
-                 "resume_stream_len", "t_submit", "failed_workers")
+                 "resume_stream_len", "t_submit", "failed_workers",
+                 "handoff_blob", "handoff_meta")
 
     def __init__(self, template: Sequence, on_token, on_finish):
         self.template = template
@@ -334,6 +350,11 @@ class _Tracked:
         self.t_submit = time.perf_counter()
         # Replicas whose worker crashed or wedged under this request.
         self.failed_workers: set = set()
+        # A P/D handoff's KV blob and its {"ctx_len", "n_generated"}: the
+        # blob is dropped once the adopter streams past the export; the
+        # meta stays, so a later failover counts as a handoff recompute.
+        self.handoff_blob: Optional[bytes] = None
+        self.handoff_meta: Optional[dict] = None
 
 
 class _EngineInfo:
@@ -363,6 +384,17 @@ class ProcessEngineGroup:
         self.engine_cfg = cfg.engine
         self.dp = max(1, cfg.parallel.dp)
         self.device = str(device)
+        # Phase roles, one per replica; pd_enabled turns on the
+        # phase-aware routing (an all-mixed fleet routes as before).
+        self.roles = list(resolve_worker_roles(
+            self.dp, cfg.server.worker_roles,
+            default_role=cfg.engine.role))
+        self.pd_enabled = any(r != "mixed" for r in self.roles)
+        if self.pd_enabled and len(set(self.roles)) == 1:
+            telemetry.log_event(
+                "pd_roles_one_sided", level="warning", roles=self.roles,
+                note="a P/D split needs both phases; this fleet serves "
+                     "the other phase on the same workers")
         self.workers = [WorkerHandle(i) for i in range(self.dp)]
         self._sock_dir = tempfile.mkdtemp(prefix="torchinf-fleet-")
         self._started = False
@@ -392,8 +424,13 @@ class ProcessEngineGroup:
         self.frame_errors = 0
         self.kv_rejections = 0
         self.poison_requests = 0
+        # P/D handoffs routed, and those that fell back to a recompute
+        # on the router's side (stale blob, corrupt blob, no adopter).
+        self.pd_handoffs = 0
+        self.pd_handoff_recomputes = 0
         # KV payload bytes relayed through the router, by verb.
-        self.rpc_blob_bytes: Dict[str, int] = {"import-kv": 0, "migrate": 0}
+        self.rpc_blob_bytes: Dict[str, int] = {
+            "import-kv": 0, "migrate": 0, "handoff": 0, "submit": 0}
         self._deadlines = {"fast": cfg.server.rpc_deadline_fast_s,
                            "slow": cfg.server.rpc_deadline_slow_s}
         # Transport chaos: config knobs, retuned by /debug/chaos. One
@@ -479,6 +516,19 @@ class ProcessEngineGroup:
                   "Tokens served from cache tiers (incl. migrated "
                   "pages) during fleet resubmission resumes",
                   fn=lambda: self.resume_reused_tokens)
+        r.counter("tpu_inf_pd_handoffs_total",
+                  "Prefill->decode live KV handoffs routed",
+                  fn=lambda: self.pd_handoffs)
+        r.counter("tpu_inf_pd_handoff_recomputes_total",
+                  "Handoffs that fell back to recompute-resume (stale "
+                  "export, no adopter, or a worker-side adoption "
+                  "failure) instead of a clean adoption",
+                  fn=self._pd_recomputes_total)
+        self._pd_handoff_s_hist = r.histogram(
+            "tpu_inf_pd_handoff_seconds",
+            "Prefill->decode handoff wall: worker-side KV export + "
+            "router-side routing/dispatch until the decode worker "
+            "accepted the resume")
         r.counter("tpu_inf_worker_reconnects_total",
                   "Connection-level failovers: the socket died or a "
                   "frame was invalid while the worker process stayed "
@@ -519,6 +569,9 @@ class ProcessEngineGroup:
             routing=self.server_cfg.routing)
         for h in self.workers:
             rep = str(h.replica)
+            r.gauge("tpu_inf_worker_role_info",
+                    "Worker phase role (constant 1; the role is the label)",
+                    fn=lambda: 1.0, replica=rep, role=self.roles[h.replica])
             r.gauge("tpu_inf_replica_routable",
                     "1 when the worker accepts traffic",
                     fn=lambda hh=h: float(hh.routable), replica=rep)
@@ -537,6 +590,14 @@ class ProcessEngineGroup:
 
     def _device_type(self) -> str:
         return self.device.split(":")[0]
+
+    def _pd_recomputes_total(self) -> int:
+        """Every handoff that did not adopt cleanly: the router's
+        fallbacks plus the workers' failed adoptions (their cached
+        stats)."""
+        return self.pd_handoff_recomputes + sum(
+            (h.last_stats or {}).get("pd_adopt_fallbacks", 0)
+            for h in self.workers)
 
     def _kv_rejections_total(self) -> int:
         return self.kv_rejections + sum(
@@ -603,6 +664,11 @@ class ProcessEngineGroup:
             # The worker builds on exactly this device.
             "device": str(replica_device(self.device, replica)),
             "warmup": self.cfg.server.warmup,
+            # The one field that differs between replicas: this worker's
+            # phase role, and the prefill tier's nice increment.
+            "role": self.roles[replica],
+            "nice": (self.server_cfg.pd_prefill_nice
+                     if self.roles[replica] == "prefill" else 0),
         }
 
     def _spawn(self, h: WorkerHandle) -> None:
@@ -1009,7 +1075,7 @@ class ProcessEngineGroup:
         """Scoring fallback for a worker that cannot answer a peek in
         time: no warmth, the router's load estimate, no pressure."""
         return {"hbm": 0, "host": 0, "load": self._fleet_load(h),
-                "pressure": False}
+                "pressure": False, "occupancy": 0.0}
 
     def _peek(self, h: WorkerHandle, digests: List[bytes],
               timeout: float = 10.0) -> dict:
@@ -1039,6 +1105,24 @@ class ProcessEngineGroup:
         return [f.result() if f.done() else self._cold_peek(h)
                 for h, f in zip(cands, futs)]
 
+    def _phase_pool(self, phase: Optional[str]) -> List[WorkerHandle]:
+        """Routable workers for one phase: new prompts ("prefill") avoid
+        decode-role workers, handoffs and resumes ("decode") avoid
+        prefill-role ones. An empty phase pool falls back to every
+        routable worker, so a degraded fleet still serves."""
+        routable = self._routable()
+        if not self.pd_enabled or phase is None:
+            return routable
+        exclude = "decode" if phase == "prefill" else "prefill"
+        return ([h for h in routable
+                 if self.roles[h.replica] != exclude] or routable)
+
+    @staticmethod
+    def _entry_phase(entry: _Tracked) -> str:
+        """A resubmission's phase: a stream with tokens is decode work; a
+        retry before any token re-enters as a prompt."""
+        return "decode" if entry.tokens else "prefill"
+
     def _rotate(self, ties: list):
         if len(ties) == 1:
             return ties[0]
@@ -1047,16 +1131,32 @@ class ProcessEngineGroup:
         return ties[idx]
 
     def _pick(self, cands: List[WorkerHandle],
-              seq: Optional[Sequence] = None
+              seq: Optional[Sequence] = None,
+              phase: Optional[str] = None
               ) -> Tuple[WorkerHandle, Tuple[int, int], int]:
         """Choose a worker: (handle, (hbm, host) peeked pages, load at
-        decision time), by the in-process group's formulas."""
+        decision time), by the in-process group's formulas; under a P/D
+        split a "decode" pick scores occupancy and load
+        (``decode_route_score``)."""
         cfg = self.server_cfg
         digests: List[bytes] = []
         prompt_pages = 0
         if seq is not None and cfg.routing == "prefix_affinity":
             digests, prompt_pages = self._digests_for(seq)
         peeks = self._peek_many(cands, digests)
+        if phase == "decode" and self.pd_enabled:
+            scored = []
+            for h, p in zip(cands, peeks):
+                score = decode_route_score(
+                    cfg, hbm=p["hbm"], host=p["host"], load=p["load"],
+                    occupancy=float(p.get("occupancy") or 0.0),
+                    pressured=p["pressure"])
+                scored.append(((score, p["pressure"], p["load"]),
+                               h, (p["hbm"], p["host"]), p["load"]))
+            best = min(key for key, _, _, _ in scored)
+            return self._rotate([(h, hit, load)
+                                 for key, h, hit, load in scored
+                                 if key == best])
         if digests and any(p["hbm"] + p["host"] for p in peeks):
             scored = []
             for h, p in zip(cands, peeks):
@@ -1083,7 +1183,9 @@ class ProcessEngineGroup:
         if not seq.trace_id:
             import uuid
             seq.trace_id = uuid.uuid4().hex[:16]
-        pool = self._routable()
+        # New prompts are prefill work (one snapshot of the routable
+        # set, so the pick below never sees an empty pool).
+        pool = self._phase_pool("prefill")
         if not pool:
             with self._lock:
                 self.requests_unavailable += 1
@@ -1154,6 +1256,22 @@ class ProcessEngineGroup:
             entry.resume_stream_len = min(
                 len(t.prompt_tokens) + len(gen_tokens),
                 self.engine_cfg.max_context - 1)
+        meta, blob = entry.handoff_meta, b""
+        payload_handoff = None
+        if meta is not None:
+            if (entry.handoff_blob
+                    and len(gen_tokens) == meta["n_generated"]):
+                # A live handoff: the worker adopts the exported pages
+                # and decodes on with nothing recomputed.
+                payload_handoff = {"ctx_len": meta["ctx_len"]}
+                blob = entry.handoff_blob
+            else:
+                # Decode went past the export (the blob was dropped at
+                # the adopter's first token), or it was never usable:
+                # recompute-resume from the token record.
+                entry.handoff_blob = entry.handoff_meta = None
+                with self._lock:
+                    self.pd_handoff_recomputes += 1
         payload = {
             "request_id": t.request_id,
             "route_hit_pages": total_hit,
@@ -1170,6 +1288,8 @@ class ProcessEngineGroup:
             "attempt": entry.attempts,
             "generated": gen_tokens,
         }
+        if payload_handoff is not None:
+            payload["handoff"] = payload_handoff
         # One token per dispatch attempt: a duplicate submit frame (a
         # retry after a lost ack) replays the recorded ack.
         idem = f"s{t.request_id}.{entry.attempts}.{entry.generation}"
@@ -1177,7 +1297,10 @@ class ProcessEngineGroup:
         try:
             if client is None:
                 raise WorkerGone("worker not connected")
-            client.rpc("submit", seq=payload, idem=idem)
+            if blob:
+                with self._lock:
+                    self.rpc_blob_bytes["submit"] += len(blob)
+            client.rpc("submit", seq=payload, blob=blob, idem=idem)
             return True
         except (WorkerGone, RuntimeError) as e:
             telemetry.log_event(
@@ -1236,10 +1359,12 @@ class ProcessEngineGroup:
         while not self._stopping:
             if self._quarantine_if_poison(entry):
                 return
-            pool = ([h for h in self._routable() if h is not last]
+            phase = self._entry_phase(entry)
+            pool = ([h for h in self._phase_pool(phase) if h is not last]
+                    or [h for h in self._routable() if h is not last]
                     or self._routable())
             if pool:
-                h, hit, _ = self._pick(pool, entry.template)
+                h, hit, _ = self._pick(pool, entry.template, phase=phase)
                 if self._dispatch(entry, h, hit):
                     return
                 with self._lock:
@@ -1294,6 +1419,12 @@ class ProcessEngineGroup:
             self._on_token(h, client, obj)
         elif ev == "finish":
             self._on_finish(h, client, obj)
+        elif ev == "handoff":
+            self._on_handoff(h, client, obj, blob)
+        elif ev == "spans":
+            # A prefill worker's spans, sealed after its handoff left.
+            self._recorder.ingest(obj.get("trace") or "",
+                                  obj.get("spans") or ())
         elif ev == "migrate":
             self._on_migrate(h, client, obj, blob)
         elif ev == "drained":
@@ -1323,6 +1454,12 @@ class ProcessEngineGroup:
             else:
                 bad = None
                 entry.tokens.append(tok)
+                meta = entry.handoff_meta
+                if (entry.handoff_blob is not None and meta is not None
+                        and len(entry.tokens) > meta["n_generated"]):
+                    # The adopter streamed past the export: adopting the
+                    # blob again would fork the stream. Drop it now.
+                    entry.handoff_blob = None
                 sl = entry.seq_local
                 sl.generated.append(tok)
                 if sl.first_token_time == 0.0:
@@ -1363,7 +1500,8 @@ class ProcessEngineGroup:
                          and not entry.tokens
                          and entry.attempts
                          < self.server_cfg.failover_max_retries)
-            pool = ([w for w in self._routable() if w is not h]
+            # A retry before any token replays the prompt: prefill work.
+            pool = ([w for w in self._phase_pool("prefill") if w is not h]
                     or self._routable()) if retryable else []
             if pool:
                 entry.attempts += 1
@@ -1383,10 +1521,10 @@ class ProcessEngineGroup:
                 self.resume_recomputed_tokens += (
                     entry.resume_stream_len - reused)
         if pool:
-            hh, hit, _ = self._pick(pool, entry.template)
-            if self._dispatch(entry, hh, hit):
-                return
-            self._retry_or_fail(entry, exclude=hh)
+            # On a thread of its own: the pick may land on h, whose reply
+            # only this reader can deliver.
+            threading.Thread(target=self._redispatch, args=(entry, pool),
+                             name="fleet-retry", daemon=True).start()
             return
         self._finish_trace(entry, reason)
         sl = entry.seq_local
@@ -1403,6 +1541,12 @@ class ProcessEngineGroup:
                 sl.enqueue_time,
                 sl.first_token_time - float(obj["prefill_s"]))
         entry.on_finish(sl)
+
+    def _redispatch(self, entry: _Tracked, pool: List[WorkerHandle]
+                    ) -> None:
+        h, hit, _ = self._pick(pool, entry.template)
+        if not self._dispatch(entry, h, hit):
+            self._retry_or_fail(entry, exclude=h)
 
     def _checked_blob(self, blob: bytes, path: str, rid: int) -> bytes:
         """Gate a KV blob on its digest before it is imported: a corrupt
@@ -1421,6 +1565,79 @@ class ProcessEngineGroup:
         if self._flight is not None:
             self._flight.capture("kv_corruption", min_interval_s=0.0)
         return b""
+
+    def _on_handoff(self, h, client, obj, blob) -> None:
+        """A prefill worker settled a prompt and exported the live
+        sequence (its pages, the partial final page included): claim the
+        request here, on the connection's reader thread, then route it on
+        a thread of its own (``_handoff_resume``): with no decode worker
+        routable the destination may be this same worker, whose reply
+        only this reader can deliver."""
+        rid = obj["rid"]
+        t0 = time.perf_counter()
+        with self._lock:
+            entry = self._entry_for(rid, h, client)
+            if entry is None:
+                return
+            entry.generation += 1
+            # Detach under the lock: a racing worker-down failover must
+            # not resubmit it as well.
+            entry.worker = entry.client = None
+            entry.attempts += 1
+            self.pd_handoffs += 1
+            if blob:
+                self.rpc_blob_bytes["handoff"] += len(blob)
+        threading.Thread(target=self._handoff_resume,
+                         args=(h, entry, obj, blob, t0),
+                         name="fleet-handoff", daemon=True).start()
+
+    def _handoff_resume(self, h: WorkerHandle, entry: _Tracked, obj: dict,
+                        blob: bytes, t0: float) -> None:
+        """Check the handoff blob's digest and resume the request on the
+        least-loaded decode worker as an adoption; every failure falls
+        back to the recompute-resume machinery."""
+        rid = entry.template.request_id
+        n_gen = int(obj.get("n_generated", 0))
+        entry.handoff_meta = {"ctx_len": int(obj.get("ctx_len", 0)),
+                              "n_generated": n_gen}
+        entry.handoff_blob = self._checked_blob(blob, "handoff", rid) or None
+        if n_gen != len(entry.tokens):
+            # Out of step with the export (events are in order on a
+            # connection, so this should not happen): recompute.
+            telemetry.log_event(
+                "handoff_token_mismatch", level="warning",
+                request_id=entry.template.trace_id or str(rid),
+                worker_generated=n_gen, router_streamed=len(entry.tokens))
+            entry.handoff_blob = None
+        pool = ([w for w in self._phase_pool("decode") if w is not h]
+                or [w for w in self._routable() if w is not h]
+                or self._routable())
+        if not pool:
+            self._retry_or_fail(entry)     # already claimed
+            return
+        if len(pool) == 1:
+            # One candidate: a peek could not change the answer.
+            dest, hit = pool[0], (0, 0)
+        else:
+            dest, hit, _ = self._pick(pool, entry.template, phase="decode")
+        telemetry.log_event(
+            "request_handoff", level="info",
+            request_id=entry.template.trace_id or str(rid),
+            source=h.replica, dest=dest.replica,
+            ctx_len=entry.handoff_meta["ctx_len"],
+            streamed=len(entry.tokens))
+        if self._dispatch(entry, dest, hit):
+            self._pd_handoff_s_hist.observe(
+                float(obj.get("export_s") or 0.0)
+                + time.perf_counter() - t0)
+            # Routing and dispatch until the decode worker accepted the
+            # resume (the worker's handoff_export span precedes it).
+            self._recorder.add(
+                "handoff", entry.template.trace_id or str(rid), t0,
+                time.perf_counter(), source=h.replica, dest=dest.replica,
+                export_s=obj.get("export_s"), streamed=len(entry.tokens))
+        else:
+            self._retry_or_fail(entry, exclude=dest)
 
     def _on_migrate(self, h, client, obj, blob) -> None:
         """A draining worker exported one in-flight request: claim it
@@ -1462,13 +1679,16 @@ class ProcessEngineGroup:
                 worker_generated=n_gen, router_streamed=len(entry.tokens))
         digests = [bytes.fromhex(d) for d in obj.get("digests") or ()]
         blob = self._checked_blob(blob, "migrate", rid)
-        others = [w for w in self._routable() if w is not h]
+        others = ([w for w in self._phase_pool(self._entry_phase(entry))
+                   if w is not h]
+                  or [w for w in self._routable() if w is not h])
         if not others:
             # No destination: the grace-window retry re-picks (the
             # pages are lost; the resume recomputes).
             self._retry_or_fail(entry)
             return
-        dest, hit, _ = self._pick(others, entry.template)
+        dest, hit, _ = self._pick(others, entry.template,
+                                  phase=self._entry_phase(entry))
         if (blob and digests and self.server_cfg.fleet_migrate
                 and dest.client is not None):
             try:
@@ -1531,7 +1751,9 @@ class ProcessEngineGroup:
         for entry in victims:
             if self._quarantine_if_poison(entry):
                 continue
-            others = [w for w in self._routable() if w is not h]
+            phase = self._entry_phase(entry)
+            others = ([w for w in self._phase_pool(phase) if w is not h]
+                      or [w for w in self._routable() if w is not h])
             if not others:
                 rid = entry.template.request_id
                 with self._lock:
@@ -1542,7 +1764,7 @@ class ProcessEngineGroup:
                 ghost.finish_time = time.perf_counter()
                 entry.on_finish(ghost)
                 continue
-            dest, hit, _ = self._pick(others, entry.template)
+            dest, hit, _ = self._pick(others, entry.template, phase=phase)
             telemetry.log_event(
                 "request_failover", level="warning",
                 request_id=(entry.template.trace_id
@@ -1659,6 +1881,16 @@ class ProcessEngineGroup:
                 "states": [h.state for h in self.workers],
                 "fleet": "subprocess",
                 "worker_restarts": sum(h.restarts for h in self.workers),
+                # P/D: the roles, handoffs routed, those that
+                # recomputed, adoptions (the workers' cached stats) and
+                # the handoff wall.
+                "roles": list(self.roles),
+                "pd_handoffs": self.pd_handoffs,
+                "pd_handoff_recomputes": self._pd_recomputes_total(),
+                "pd_adoptions": sum(d.get("pd_adoptions", 0)
+                                    for d in stats),
+                "phases": {"pd_handoff_s":
+                           self._pd_handoff_s_hist.phase_snapshot()},
                 "migrations": self.migrations,
                 "migrated_pages": self.migrated_pages,
                 "migrated_bytes": self.migrated_bytes,
@@ -1686,6 +1918,7 @@ class ProcessEngineGroup:
             d = {
                 "state": "healthy" if h.state == UP else h.state,
                 "worker_state": h.state,
+                "role": self.roles[h.replica],
                 "pid": h.pid,
                 "uptime_s": (round(time.time() - h.started_unix, 3)
                              if h.started_unix and h.state == UP
@@ -1697,7 +1930,8 @@ class ProcessEngineGroup:
             for k in ("device", "pool_pressure", "under_pressure",
                       "preemptions", "load", "draining", "host_cache",
                       "swap_in_resumes", "prefill_backlog",
-                      "ladder_occupancy", "slo",
+                      "ladder_occupancy", "pd_handoffs", "pd_adoptions",
+                      "pd_adopt_fallbacks", "slo",
                       "kv_integrity_rejections"):
                 if k in hz:
                     d[k] = hz[k]

@@ -95,17 +95,14 @@ class HTTPError(Exception):
 
 
 # Server features of the process fleet this port does not serve yet.
-_UNPORTED_FLEET = "ROADMAP 1.15b (P/D roles, KV fabric, shm arena, elastic fleet)"
+_UNPORTED_FLEET = "ROADMAP 1.15b (KV fabric, shm arena, elastic fleet)"
 
 
 def check_server_config(cfg: FrameworkConfig) -> None:
     """Raise for server configurations the port does not serve:
     NotImplementedError naming the ROADMAP item, ValueError for a fleet
-    backend that does not exist. dp > 1 is served by both backends at
-    tp = sp = 1."""
-    from tpu_inference_torch.engine.engine import check_engine_config
-
-    check_engine_config(cfg.engine)
+    backend that does not exist or P/D roles outside the process fleet.
+    dp > 1 is served by both backends at tp = sp = 1."""
     pcfg, scfg = cfg.parallel, cfg.server
     if pcfg.tp * pcfg.sp > 1:
         raise NotImplementedError(
@@ -115,8 +112,15 @@ def check_server_config(cfg: FrameworkConfig) -> None:
     if scfg.fleet not in ("in-process", "subprocess"):
         raise ValueError(f"unknown fleet backend {scfg.fleet!r}; one of "
                          "('in-process', 'subprocess')")
+    if scfg.fleet == "in-process" and (
+            any(r != "mixed" for r in scfg.worker_roles)
+            or cfg.engine.role != "mixed"):
+        raise ValueError(
+            "P/D worker roles (--role/--roles/--pd-ratio) need "
+            "--fleet subprocess: the live KV handoff moves pages "
+            "between worker PROCESSES (README 'P/D disaggregation'); "
+            "the in-process fleet serves every replica mixed")
     unported = {
-        "worker_roles": any(r != "mixed" for r in scfg.worker_roles),
         "kv_plane": scfg.kv_plane != "relay",
         "fabric_cache_pages": scfg.fabric_cache_pages > 0,
         "autoscale": scfg.autoscale,

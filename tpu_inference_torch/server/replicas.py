@@ -209,6 +209,22 @@ def prefill_route_score(cfg: ServerConfig, *, prompt_pages: int,
     return score
 
 
+def decode_route_score(cfg: ServerConfig, *, hbm: float, host: float,
+                       load: float, occupancy: float,
+                       pressured: bool) -> float:
+    """Cost of a decode destination (a P/D handoff or a resume): load
+    plus lane occupancy (``route_occupancy_pages`` for a full ladder)
+    minus the warmth discounts, a pressured candidate shifted behind
+    the rest."""
+    score = (cfg.route_load_pages * load
+             + cfg.route_occupancy_pages * occupancy
+             - cfg.route_hit_weight * hbm
+             - cfg.route_host_hit_weight * host)
+    if pressured:
+        score += cfg.route_occupancy_pages + 1
+    return score
+
+
 def cold_route_key(pressured: bool, load: float) -> Tuple[bool, float]:
     """The cold key: unpressured first, then least loaded (ties rotate)."""
     return (bool(pressured), load)

@@ -1,6 +1,6 @@
 """Engine-worker process: one replica's engine and scheduler per process.
 
-Twin of ``tpu_inference/server/worker.py`` (the P/D handoff, the KV
+Twin of ``tpu_inference/server/worker.py`` on the relay plane (the KV
 fabric and the shared-memory arena are ROADMAP 1.15b). The worker owns
 one dp replica, its weights, KV pool, prefix cache and host tier and
 its continuous-batching scheduler thread, on the one device the router
@@ -8,7 +8,8 @@ names, and serves the framed JSON RPC of ``server/transport.py`` on a
 local unix socket:
 
     request = {"id": n, "verb": ..., ...}        -> {"id": n, "ok": ...}
-    event   = {"ev": "token" | "finish" | "migrate" | "drained", ...}
+    event   = {"ev": "token" | "finish" | "handoff" | "spans" | "migrate"
+               | "drained", ...}
 
 Verbs: ``hello`` (worker and model facts), ``submit`` / ``cancel`` (a
 request's tokens and its terminal record stream back as events on the
@@ -21,6 +22,17 @@ live in this process), ``metrics``, ``healthz``, ``recent``, ``steps``,
 ``trace``, ``chaos``, ``embed``, ``profile``, ``drain``, ``import-kv``
 (adopt a sibling's drain export into the host tier), ``shutdown`` and
 ``debug`` (the pool invariants).
+
+P/D roles: the router names each worker's phase role in its boot
+envelope ("prefill", "decode" or "mixed"). A prefill worker prefills,
+streams the first token and hands the live sequence off: one
+``handoff`` event carrying every KV page of its first ``ctx_len``
+tokens, the partial final page included, in the migration wire format
+(``engine.export_sequence_kv_live``), then a ``spans`` event with its
+sealed spans. A ``submit`` carrying ``handoff`` and that blob is
+adopted (``engine.adopt_sequence``): decode resumes with nothing
+recomputed. A corrupt blob is rejected and counted; it and every other
+failed adoption fall back to a recompute-resume.
 
 Graceful drain (SIGTERM or the drain RPC): the worker stops admitting,
 settles its in-flight calls, exports each live sequence's full KV pages
@@ -41,6 +53,7 @@ library and the frame codec, so the router imports it cheaply.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -134,6 +147,8 @@ class EngineWorker:
         self.replica = replica
         self.socket_path = socket_path
         self.device = device
+        # Phase role: a "prefill" worker hands each settled prefill off.
+        self.role = cfg.engine.role
         self.do_warmup = warmup
         self.warmup_s = 0.0
         self.started_unix = time.time()
@@ -196,6 +211,8 @@ class EngineWorker:
                                       seed=cfg.seed, device=dev)
         self.sched = EngineScheduler(self.engine)
         self.engine.telemetry.recorder.replica = self.replica
+        if self.role == "prefill":
+            self.sched.on_prefill_handoff = self._emit_handoff
         if self.engine.telemetry.enabled:
             # Config-pure labels: identical across restarts, so the
             # router's carry never sees a label change.
@@ -321,11 +338,49 @@ class EngineWorker:
 
     # ------------------------------------------------------------ verbs
 
+    def _emit_handoff(self, seq) -> bool:
+        """The prefill role's scheduler hook (engine thread): export the
+        live sequence and send it to the submitting router connection
+        as a ``handoff`` event; the router resumes it on a decode
+        worker. False (the sequence decodes here) when the connection is
+        gone, the worker drains, or nothing is exportable."""
+        from tpu_inference_torch import telemetry
+        from tpu_inference_torch.engine import kv_cache as kvc
+        conn = self._req_conn.get(seq.request_id)
+        if conn is None or not conn.alive or self.draining:
+            return False
+        t0 = time.perf_counter()
+        try:
+            digests, pages, ctx_len = \
+                self.engine.export_sequence_kv_live(seq)
+        except Exception as e:  # noqa: BLE001 — decode here instead
+            telemetry.log_event("handoff_export_failed", level="warning",
+                                request_id=seq.trace_id
+                                or str(seq.request_id), error=str(e))
+            return False
+        if not pages:
+            return False
+        blob = kvc.serialize_host_pages(pages)
+        # The export span ends before the frame leaves: the send is the
+        # handoff window's (the router's handoff span).
+        self.engine.telemetry.recorder.add(
+            "handoff_export", seq.trace_id or str(seq.request_id), t0,
+            time.perf_counter(), pages=len(pages), bytes=len(blob),
+            ctx_len=ctx_len, plane="relay")
+        self._req_conn.pop(seq.request_id, None)
+        conn.send({"ev": "handoff", "rid": seq.request_id,
+                   "n_generated": len(seq.generated), "ctx_len": ctx_len,
+                   "export_s": round(time.perf_counter() - t0, 6),
+                   "digests": [d.hex() for d in digests]},
+                  blob, verb="handoff")
+        return True
+
     def _verb_hello(self, conn, obj, blob) -> dict:
         e = self.engine
         return {
             "pid": os.getpid(),
             "replica": self.replica,
+            "role": self.role,
             "device": str(e.device),
             "uptime_s": round(time.time() - self.started_unix, 3),
             "warmup_s": round(self.warmup_s, 3),
@@ -371,6 +426,33 @@ class EngineWorker:
             # import make it a swap-in-resume) and decode continues.
             seq.generated = list(generated)
             seq.resume_base = len(generated)
+        handoff = s.get("handoff")
+        if handoff and generated:
+            # A P/D handoff: admission adopts the blob's pages (the
+            # partial final page included) and nothing is recomputed.
+            # A missing, corrupt or malformed blob recompute-resumes.
+            from tpu_inference_torch.engine import kv_cache as kvc
+            pages = []
+            try:
+                # Views over the blob: the adoption copies them to the
+                # pool once.
+                pages = (kvc.deserialize_host_pages(blob, copy=False)
+                         if blob else [])
+            except KVIntegrityError:
+                self.engine.kv_integrity_rejections += 1
+            except Exception as e:  # noqa: BLE001 — recompute-resume
+                from tpu_inference_torch import telemetry
+                telemetry.log_event("handoff_blob_unreadable",
+                                    level="warning", request_id=seq.trace_id
+                                    or str(seq.request_id), error=repr(e))
+            if pages:
+                seq.adopt_kv = (pages, int(handoff.get("ctx_len", 0)))
+            else:
+                self.engine.adopt_fallbacks += 1
+        if self.role == "prefill" and seq.adopt_kv is None:
+            # Every prefill settled here is handed off (an adoption runs
+            # no prefill, so one that lands here decodes here).
+            seq.handoff_after_prefill = True
         rid = seq.request_id
 
         # A resubmitted rid must never leave two live attempts: cancel
@@ -402,6 +484,14 @@ class EngineWorker:
             self._req_conn.pop(rid, None)
             tid = sq.trace_id or str(rid)
             spans = self.engine.telemetry.recorder.export_recent(tid)
+            if sq.finish_reason == "handoff":
+                # The handoff event continues the stream: a finish frame
+                # would end it. The spans, sealed after the handoff
+                # frame left, go on their own event.
+                if spans:
+                    conn.send({"ev": "spans", "rid": rid, "trace": tid,
+                               "spans": spans}, verb="spans")
+                return
             fin = sq.finish_time or time.perf_counter()
             first = sq.first_token_time or fin
             start = sq.prefill_start or first
@@ -436,7 +526,15 @@ class EngineWorker:
         if pc is not None and digests:
             hbm, host = pc.peek_digests_tiered(digests)
         return {"hbm": hbm, "host": host, "load": self.sched.load,
-                "pressure": bool(self.engine.under_pressure)}
+                "pressure": bool(self.engine.under_pressure),
+                # P/D routing inputs.
+                "role": self.role, "backlog": len(self.sched._waiting),
+                "occupancy": self._ladder_occupancy()}
+
+    def _ladder_occupancy(self) -> float:
+        e = self.engine
+        return round(sum(s is not None for s in e.slots)
+                     / max(e.ladder[-1], 1), 4)
 
     def _verb_stats(self, conn, obj, blob) -> dict:
         """The scheduler's stats snapshot, plus what only this process
@@ -485,10 +583,14 @@ class EngineWorker:
             "under_pressure": e.under_pressure,
             "preemptions": e.preemptions_total,
             "swap_in_resumes": e.swap_in_resumes,
+            # P/D: where a handoff stall shows (the prefill side's
+            # backlog, the decode side's occupancy) and the churn.
+            "role": self.role,
             "prefill_backlog": len(self.sched._waiting),
-            "ladder_occupancy": round(
-                sum(s is not None for s in e.slots)
-                / max(e.ladder[-1], 1), 4),
+            "ladder_occupancy": self._ladder_occupancy(),
+            "pd_handoffs": self.sched.stats.pd_handoffs,
+            "pd_adoptions": e.adoptions_in,
+            "pd_adopt_fallbacks": e.adopt_fallbacks,
             # Corrupt KV blobs rejected at import (never adopted).
             "kv_integrity_rejections": e.kv_integrity_rejections,
         }
@@ -715,6 +817,20 @@ def main() -> None:
     from tpu_inference_torch.config import framework_config_from_dict
 
     cfg = framework_config_from_dict(envelope["config"])
+    role = envelope.get("role")
+    if role:
+        # This worker's entry of the router's resolved roles.
+        cfg.engine = dataclasses.replace(cfg.engine, role=role)
+    nice = int(envelope.get("nice") or 0)
+    if nice and hasattr(os, "nice"):
+        # The prefill tier's priority on a shared host (decode cadence
+        # stays flat under prefill bursts); a refused increment serves
+        # at the current priority.
+        try:
+            os.nice(nice)
+        except OSError as e:
+            print(f"[worker {args.replica}] os.nice({nice}) refused: "
+                  f"{e}; serving at current priority", file=sys.stderr)
     worker = EngineWorker(cfg, replica=args.replica,
                           socket_path=args.socket,
                           device=envelope["device"],

@@ -908,9 +908,14 @@ class SpanRecorder:
 
     def _span(self, name: str, trace_id: str, t0: float, t1: float,
               parent: str, attrs: Dict[str, Any]) -> dict:
+        # The duration is the difference of the rounded endpoints, so
+        # ts + dur lands on the rounded end (within a float ulp) and a
+        # span that ends where the next begins never appears to overlap
+        # it by a rounding step.
+        ts = round(self.to_unix(t0), 6)
+        end = round(self.to_unix(max(t0, t1)), 6)
         span = {"name": name, "trace": trace_id, "parent": parent,
-                "ts": round(self.to_unix(t0), 6),
-                "dur": round(max(0.0, t1 - t0), 6),
+                "ts": ts, "dur": round(end - ts, 6),
                 "replica": self.replica}
         if attrs:
             span["attrs"] = attrs
@@ -1010,11 +1015,12 @@ class SpanRecorder:
 
 
 # Every span name a recorder of the port emits (a subset of the
-# reference's vocabulary: the P/D handoff and elastic-fleet spans wait
-# for ROADMAP 1.15b).
+# reference's vocabulary: the elastic-fleet spans wait for ROADMAP
+# 1.15b part 2).
 SPAN_NAMES = (
     "request", "route", "queue_wait", "prefill", "prefill_chunk",
-    "decode", "kv_swap_in", "kv_swap_out", "drain_export", "migrate",
+    "decode", "handoff", "handoff_adopt", "handoff_export",
+    "drain_export", "migrate", "kv_swap_in", "kv_swap_out",
 )
 
 
