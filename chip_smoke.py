@@ -70,7 +70,10 @@ failing loudly (any failure exits non-zero before the result line):
    kernels must launch the path's variant and no other. Two speculative
    lanes follow: n-gram speculation on the reference's chip flags
    (ngram_phase, int8 + int8 KV: verify rounds through the prefill
-   kernel at S 2 and 5, the decode kernel only in fallback rounds) and
+   kernel at S 2 and 5, the decode kernel only in fallback rounds; it
+   and the reference-config lane serve the model at full width cut to
+   CUT_LAYERS of its 32 layers, to keep the script inside its time
+   limit) and
    llama-3-8b in bf16 as its own draft (draft_phase: acceptance above
    0.5, no decode-kernel launch in the dense rounds).
    The prefill kernel is also checked and timed at the verify round's
@@ -170,6 +173,25 @@ failing loudly (any failure exits non-zero before the result line):
    inter-token gap per request, the handoff wall and bytes, tok/s
    beside the fleet lane's mixed wave. Its launches join the kernels
    line under bf16.
+9. The elastic fleet (the autoscaler, rolling upgrades, per-class
+   admission lanes). (a) in fleet_tiny_phase, one tiny-llama worker at
+   admission cap 1 with class lanes (its dispatches held 0.05 s each
+   by the chaos wedge): a batch stream mid-decode, a batch arrival parked,
+   an interactive arrival preempting the batch stream, all three with
+   the dp-1 engine's tokens; then a rollout under traffic (the pinned
+   mix through the lanes: the dp-1 sha, nothing failed) and the mix
+   again on the successor (the same sha). (b) elastic_phase, after the
+   pd lane: llama-3-8b bf16 through the CLI with ``--dp 2 --fleet
+   subprocess --autoscale --autoscale-min 2 --autoscale-max 3``, class
+   lanes, short windows and a TTFT target of a quarter of the fleet
+   lane's TTFT p50 in this run: a class wave (batch parked and
+   preempted, no interactive request shed), a scale-up to 3 whose
+   worker launches both kernels in bf16, a scale-down to 2 once idle,
+   then POST /debug/rollout under a wave (both workers replaced,
+   nothing failed, a second POST 409) and a last wave on the
+   successors; every stream "length", no worker left, the card's memory
+   back. Each retiring worker's launches are read before its process
+   exits, and the lane's launches join the kernels line under bf16.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -178,6 +200,7 @@ variant), the card line, and as the last line {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -1259,7 +1282,8 @@ def _chaos_run(blackbox_dir: str) -> dict:
 
 
 def _stream_request(port: int, prompt: str, max_tokens: int,
-                    options: dict | None = None) -> dict:
+                    options: dict | None = None,
+                    headers: dict | None = None) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     body = {"model": "llama-3-8b", "prompt": prompt, "temperature": 0.0,
             "max_tokens": max_tokens, "stream": True}
@@ -1268,7 +1292,7 @@ def _stream_request(port: int, prompt: str, max_tokens: int,
     try:
         t0 = time.perf_counter()
         conn.request("POST", "/api/generate", json.dumps(body),
-                     {"Content-Type": "application/json"})
+                     {"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         t_headers = time.perf_counter()   # headers wait for the 1st token
         if resp.status != 200:
@@ -1301,18 +1325,19 @@ def _stream_request(port: int, prompt: str, max_tokens: int,
 
 
 def run_requests(port: int, prompts: list, max_tokens: int,
-                 stagger_s: float = 0.0, options: dict | None = None
-                 ) -> tuple:
+                 stagger_s: float = 0.0, options: dict | None = None,
+                 headers: dict | None = None) -> tuple:
     """All prompts as concurrent streamed requests; (results, wall s).
     ``stagger_s`` between thread starts makes the server see them in
-    order; ``options`` are the requests' Ollama options."""
+    order; ``options`` are the requests' Ollama options, ``headers``
+    their extra HTTP headers."""
     results: list = [None] * len(prompts)
     errors: list = []
 
     def worker(i: int) -> None:
         try:
             results[i] = _stream_request(port, prompts[i], max_tokens,
-                                         options)
+                                         options, headers)
         except Exception as e:   # noqa: BLE001 — re-raised below
             errors.append(e)
 
@@ -2164,9 +2189,31 @@ def _summarize(results: list, wall: float) -> dict:
             "prompt_tokens": [r["prompt_tokens"] for r in results]}
 
 
+# The reference-config and n-gram lanes serve llama-3-8b at full width
+# cut to this many of its 32 layers (their host-bound walls scale with
+# the layers; the script must stay well inside its time limit).
+CUT_LAYERS = 16
+
+
+@contextlib.contextmanager
+def _depth_cut(model: str, n_layers: int):
+    """Serve preset ``model`` at full width but only its first
+    ``n_layers`` layers while the block runs (the CLI resolves presets
+    at boot)."""
+    from tpu_inference_torch import config as cfgs
+    full = cfgs.PRESETS[model]
+    cfgs.PRESETS[model] = lambda: dataclasses.replace(full(),
+                                                      n_layers=n_layers)
+    try:
+        yield
+    finally:
+        cfgs.PRESETS[model] = full
+
+
 def reference_config_phase(card: str) -> dict:
     """The reference's chip configuration (its benchmarks' serving flags)
-    on the port: llama-3-8b at full width, int8 weights + int8 KV, batch
+    on the port: llama-3-8b at full width (main() cuts its depth to
+    CUT_LAYERS layers), int8 weights + int8 KV, batch
     and pool sized from the card, decode ladder auto, pipeline depth 2,
     hybrid prefill, host tier auto. 32 concurrent BurstGPT-length
     requests (48 greedy tokens each), then 4 alone so the ladder steps
@@ -2192,7 +2239,8 @@ def reference_config_phase(card: str) -> dict:
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     eng = server.engine
-    sizing = {"max_batch_size": ea["max_batch_size"],
+    sizing = {"layers": eng.model_cfg.n_layers,
+              "max_batch_size": ea["max_batch_size"],
               "num_pages": ea["num_pages"],
               "decode_ladder": list(eng.ladder),
               "host_cache_pages": ea["host_cache_pages"],
@@ -2235,7 +2283,7 @@ def reference_config_phase(card: str) -> dict:
         torch.cuda.empty_cache()
     out = {"label": label, "model": "llama-3-8b", "quant": "int8",
            "kv_quant": "int8", "variant": "int8", "boot_s": boot_s,
-           "sizing": sizing, "max_memory_allocated": peak_mem,
+           "layers": sizing["layers"], "sizing": sizing, "max_memory_allocated": peak_mem,
            **_summarize(results, wall),
            "alone": _summarize(alone, alone_wall),
            "launches": {"paged_attention": sum(launches["by_variant"][
@@ -2389,8 +2437,10 @@ LOOP_OPTIONS = {"repeat_penalty": 0.2, "repeat_last_n": 64}
 
 
 def ngram_phase(card: str, plain: dict) -> dict:
-    """n-gram speculation at full width: the reference chip configuration
-    (CLI flags as reference_config_phase, hybrid prefill included, which
+    """n-gram speculation at full width (main() cuts its depth to
+    CUT_LAYERS layers, as the reference lane's): the reference chip
+    configuration (CLI flags as reference_config_phase, hybrid prefill
+    included, which
     is inert under speculation) plus ``--spec-mode ngram
     --num-speculative-tokens 4``. Traffic: the plain run's 32 echo
     prompts with its options (their tokens are compared with the plain
@@ -2486,7 +2536,7 @@ def ngram_phase(card: str, plain: dict) -> dict:
               if a != b]
     return {"label": label, "model": "llama-3-8b", "quant": "int8",
             "kv_quant": "int8", "variant": "int8", "boot_s": boot_s,
-            "max_memory_allocated": peak_mem,
+            "layers": n_layers, "max_memory_allocated": peak_mem,
             "options": LOOP_OPTIONS, **_summarize(results, wall),
             "plain_options_run": _summarize(same, same_wall),
             "alone": _summarize(alone, alone_wall),
@@ -2807,11 +2857,12 @@ def _no_series_fell(label: str, before: dict, after: dict) -> int:
     return len(before)
 
 
-def _fleet_submit(group, rid: int, prompt: list, max_new: int) -> tuple:
+def _fleet_submit(group, rid: int, prompt: list, max_new: int,
+                  cls: str = "interactive") -> tuple:
     from tpu_inference_torch.engine.engine import Sequence
     toks, done, box = [], threading.Event(), {}
     group.submit(Sequence(request_id=rid, prompt_tokens=list(prompt),
-                          max_new_tokens=max_new),
+                          max_new_tokens=max_new, priority_class=cls),
                  lambda s, t: toks.append(t),
                  lambda s: (box.update(seq=s), done.set()))
     return toks, done, box
@@ -2897,6 +2948,63 @@ def _launch_totals(reads: dict) -> dict:
             "prefill_by_len": by_len, "prefill_by_path": by_path}
 
 
+def _read_before_retire(group, reads: dict) -> list:
+    """Route every retirement (a scale-down's, a rollout's) through a
+    wrapper of the group's drain that reads the worker's stats RPC into
+    ``reads`` first, and then until the worker stops answering: its
+    kernels' counts leave with its process, and its drain settles the
+    calls in flight. Each retirement appends a record with its drain
+    wall (the drain RPC to the worker retired); _settle_retirements
+    fills in what each one migrated."""
+    from tpu_inference_torch.server.fleet import WorkerGone
+    retirements: list = []
+    drain = group.drain_worker
+    gone = ("retired", "dead", "restarting", "quarantined")
+
+    def follow(h, pid, rec):
+        while h.state not in gone:
+            try:
+                reads[pid] = group.worker_stat(h)
+            except (WorkerGone, TimeoutError, RuntimeError):
+                break
+            time.sleep(0.05)
+        deadline = time.monotonic() + group.server_cfg.drain_timeout_s + 30
+        while h.state not in gone and time.monotonic() < deadline:
+            time.sleep(0.02)
+        rec.update(state=h.state, drain_s=time.perf_counter() - rec["t0"])
+
+    def wrapped(replica, migrate=None):
+        h = group.workers[replica]
+        pid = h.pid
+        reads[pid] = group.worker_stat(h)
+        rec = {"replica": replica, "pid": pid, "t0": time.perf_counter(),
+               "migrations0": group.migrations,
+               "bytes0": group.migrated_bytes}
+        retirements.append(rec)
+        drain(replica, migrate)
+        threading.Thread(target=follow, args=(h, pid, rec),
+                         name="smoke-retire-read", daemon=True).start()
+
+    group.drain_worker = wrapped
+    return retirements
+
+
+def _settle_retirements(group, retirements: list) -> list:
+    """Each retirement's migrations and migrated bytes: the router's
+    counters from its drain to the next one's (the last: to now; the
+    imports land on threads after the exit). Call once the fleet is
+    quiet; nothing else may migrate meanwhile."""
+    ends = [(r["migrations0"], r["bytes0"]) for r in retirements[1:]]
+    ends.append((group.migrations, group.migrated_bytes))
+    out = []
+    for r, (m1, b1) in zip(retirements, ends):
+        out.append({"replica": r["replica"], "pid": r["pid"],
+                    "state": r.get("state"), "drain_s": r.get("drain_s"),
+                    "migrations": m1 - r["migrations0"],
+                    "migrated_bytes": b1 - r["bytes0"]})
+    return out
+
+
 def _pids_gone(label: str, pids) -> None:
     deadline = time.monotonic() + 30
     alive = set(pids)
@@ -2912,8 +3020,23 @@ def _pids_gone(label: str, pids) -> None:
                              "outlived the fleet")
 
 
+def _card_memory_back(label: str, free_before: int) -> int:
+    """The card's free memory once a fleet's workers are gone: back to
+    within 1 GiB of ``free_before`` (waiting up to 60 s), or the lane
+    fails. Returns the free bytes."""
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free_before - 2**30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    free_after = torch.cuda.mem_get_info()[0]
+    if free_after < free_before - 2**30:
+        raise AssertionError(f"{label}: {(free_before - free_after) / 1e9:.2f}"
+                             " GB of card memory not given back")
+    return free_after
+
+
 def _pool_clean(label: str, group) -> None:
-    for h in group.workers:
+    for h in group._live_workers():
         snap = h.client.rpc("debug", clear=True)
         bad = (snap["pipeline_pending"] or snap["preempted_uncollected"]
                or snap["slots_bound"] or snap["refs_held"]
@@ -2951,7 +3074,8 @@ def fleet_tiny_phase(card: str) -> dict:
     stats refresh, pages migrated and a swap-in-resume), and a seeded
     corrupt/delay transport-chaos run (the same sha, frame errors > 0,
     no restart). Every worker's pool invariants clean after; both
-    kernels launched in every worker, on the card."""
+    kernels launched in every worker, on the card. Then the P/D pair
+    (_pd_fleet_tiny) and the elastic gates (_elastic_fleet_tiny)."""
     import numpy as np
     from tpu_inference_torch import config as cfgs
     from tpu_inference_torch.engine.engine import InferenceEngine
@@ -3108,8 +3232,11 @@ def fleet_tiny_phase(card: str) -> dict:
                                         worker_roles=("prefill", "decode"))
     out["pd"] = _pd_fleet_tiny(label, pd_cfg, run_mix, sha_dp1,
                                long_a, want_long[0], long_new)
+    out["elastic"] = _elastic_fleet_tiny(
+        label, cfg("subprocess"), mix, want_mix, mix_new, long_a,
+        want_long[0], long_new, sha_dp1)
     log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
-        f"/ P/D / dp-1; " + json.dumps({k: v for k, v in out.items()
+        f"/ P/D / elastic / dp-1; " + json.dumps({k: v for k, v in out.items()
                                         if k not in ("label",
                                                      "outputs_sha256")}))
     return out
@@ -3194,6 +3321,92 @@ def _pd_fleet_tiny(label: str, cfg, run_mix, sha_dp1: str, long_a: list,
         out["kill9"] = {"recomputes": float(m.group(1)),
                         "restarts": group.workers[1].restarts}
         _pool_clean(label, group)
+    finally:
+        group.stop(drain=False)
+    _pids_gone(label, pids)
+    return out
+
+
+def _elastic_fleet_tiny(label: str, cfg, mix: list, want_mix: list,
+                        mix_new: int, long_a: list, want_long: list,
+                        long_new: int, sha_dp1: str) -> dict:
+    """The elastic gates where tokens hold (float32): one worker at
+    admission cap 1 with class lanes. A batch stream mid-decode, a batch
+    arrival that parks, an interactive arrival that preempts the running
+    batch stream: all three give the dp-1 engine's tokens, the preempted
+    one resumed from the router's token record. Then a rollout under
+    traffic: the pinned mix as batch requests through the lanes while
+    the pass replaces the worker (the old worker's dispatches held 0.05
+    s each by the chaos wedge, so requests are in flight at its drain):
+    the dp-1 sha, nothing failed; a last mix on the successor, the same
+    sha.
+    Launches read before the retirement; both workers launched both
+    kernels; the successor's pool clean."""
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.server.http import build_engine_group
+    label = label + " elastic"
+    cfg.parallel = cfgs.ParallelConfig(dp=1)
+    cfg.server = dataclasses.replace(cfg.server, admission_queue_depth=1,
+                                     class_queue_depth=8)
+    group = build_engine_group(cfg, device="cuda")
+    pids, reads = set(), {}
+    retirements = _read_before_retire(group, reads)
+    try:
+        group.start()
+        pids |= {h.pid for h in group.workers}
+        # Every dispatch of this worker 0.05 s longer: the batch stream
+        # is still running when the others arrive, and requests are in
+        # flight when the rollout drains it (its successor boots without).
+        group.apply_chaos({"step_wedge_s": 0.05})
+        a = _fleet_submit(group, 800, long_a, long_new, cls="batch")
+        _wait_fleet(group, label, lambda: len(a[0]) >= 8,
+                    "a batch stream mid-decode")
+        b = _fleet_submit(group, 801, mix[0], mix_new, cls="batch")
+        deferred = group.supervision_counters()["class_deferred"]["batch"]
+        c = _fleet_submit(group, 802, mix[1], mix_new)
+        outs = [_fleet_finish(label, x) for x in (a, b, c)]
+        sup = group.supervision_counters()
+        preempted = sup["class_preemptions"].get("batch", 0)
+        if outs != [want_long, want_mix[0], want_mix[1]]:
+            raise AssertionError(f"{label}: class-wave tokens differ from "
+                                 "the dp-1 engine's")
+        if deferred < 1 or preempted < 1 or sup["requests_shed"]:
+            raise AssertionError(f"{label}: deferred {deferred}, preempted "
+                                 f"{preempted}, shed {sup['requests_shed']}")
+        out = {"class_wave": {"deferred_batch": deferred,
+                              "preempted_batch": preempted,
+                              "tokens": "equal to the dp-1 engine's"}}
+
+        box: dict = {}
+        th = threading.Thread(target=lambda: box.update(res=group.rollout()))
+        pend = [_fleet_submit(group, 900 + i, p, mix_new, cls="batch")
+                for i, p in enumerate(mix)]
+        th.start()
+        outs = [_fleet_finish(label, x) for x in pend]
+        th.join(timeout=600)
+        res = box.get("res")
+        if th.is_alive() or res is None:
+            raise AssertionError(f"{label}: the rollout did not finish")
+        pids |= {h.pid for h in group.workers if h.pid}
+        if (_mix_sha(outs) != sha_dp1 or res["failed"]
+                or [r["old_state"] for r in res["replaced"]] != ["retired"]):
+            raise AssertionError(f"{label}: rollout under traffic: sha "
+                                 f"{_mix_sha(outs)} (dp-1 {sha_dp1}), {res}")
+        sha_after = _mix_sha([_fleet_finish(label, x) for x in [
+            _fleet_submit(group, 1000 + i, p, mix_new, cls="batch")
+            for i, p in enumerate(mix)]])
+        if sha_after != sha_dp1:
+            raise AssertionError(f"{label}: the successor's sha differs")
+        _worker_reads(group, reads, label)
+        _gate_launches(reads, label, "f32")
+        _pool_clean(label, group)
+        out.update({"outputs_sha256": sha_after, "rollout": res,
+                    "retirements": _settle_retirements(group, retirements),
+                    "migrations": group.migrations,
+                    "boot_walls_s": {h.replica: h.boot_walls
+                                     for h in group.workers},
+                    "launches_by_variant":
+                        _launch_totals(reads)["by_variant"]})
     finally:
         group.stop(drain=False)
     _pids_gone(label, pids)
@@ -3354,14 +3567,7 @@ def fleet_phase(card: str, dp1: dict) -> dict:
         server.shutdown()
         del server, group
     _pids_gone(label, pids)
-    deadline = time.monotonic() + 60
-    while (torch.cuda.mem_get_info()[0] < free_before - 2**30
-           and time.monotonic() < deadline):
-        time.sleep(0.5)
-    free_after = torch.cuda.mem_get_info()[0]
-    if free_after < free_before - 2**30:
-        raise AssertionError(f"{label}: {(free_before - free_after) / 1e9:.2f}"
-                             " GB of card memory not given back")
+    free_after = _card_memory_back(label, free_before)
     ttfts = sorted(r["ttft_s"] for r in all_results)
     out = {"label": label, "model": "llama-3-8b", "quant": "none",
            "kv_quant": "none", "variant": "bf16", "dp": 2,
@@ -3486,14 +3692,7 @@ def pd_phase(card: str, fleet: dict) -> dict:
         server.shutdown()
         del server, group
     _pids_gone(label, pids)
-    deadline = time.monotonic() + 60
-    while (torch.cuda.mem_get_info()[0] < free_before - 2**30
-           and time.monotonic() < deadline):
-        time.sleep(0.5)
-    free_after = torch.cuda.mem_get_info()[0]
-    if free_after < free_before - 2**30:
-        raise AssertionError(f"{label}: {(free_before - free_after) / 1e9:.2f}"
-                             " GB of card memory not given back")
+    free_after = _card_memory_back(label, free_before)
     gaps = sorted(t[1] - t[0] for t in arrivals.values() if len(t) > 1)
     walls = sorted(handoff_s.values)
     mixed = fleet["waves"][0]
@@ -3522,6 +3721,298 @@ def pd_phase(card: str, fleet: dict) -> dict:
            "launches_by_role": {"prefill": k0, "decode": k1},
            "step_failures": snap["step_failures"],
            "done_reasons": [r["done_reason"] for r in results],
+           "free_memory_before_after_bytes": [free_before, free_after]}
+    log(f"[{label}] on {card}: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("label",)}))
+    return out
+
+
+ELASTIC_CAP, ELASTIC_DEPTH = 4, 8
+ROLLOUT_TOKENS = 512
+
+
+def _class_ttfts(results: list) -> dict:
+    ttfts = sorted(r["ttft_s"] for r in results)
+    return {"requests": len(ttfts), "ttft_p50_s": ttfts[len(ttfts) // 2],
+            "ttft_max_s": ttfts[-1]}
+
+
+def elastic_phase(card: str, fleet: dict) -> dict:
+    """The elastic fleet on the card: llama-3-8b (bf16, full width)
+    through the CLI with ``--dp 2 --fleet subprocess --autoscale
+    --autoscale-min 2 --autoscale-max 3``, class lanes (admission cap
+    ELASTIC_CAP a worker, lanes ELASTIC_DEPTH deep) and a TTFT target of
+    a quarter of the fleet lane's TTFT p50 in this run (the same model,
+    dp and fleet on this card: every wave breaches it). Stages, in order:
+    (1) a class wave: 12 ``X-Priority: batch`` streams past the cap, then
+    2 interactive ones; gates: tpu_inf_class_deferred{class="batch"}
+    seen above 0 on /metrics, tpu_inf_class_preempted_total{class=
+    "batch"} >= 1, tpu_inf_class_shed_total{class="interactive"} 0.
+    (2) the scale-up (in the class wave or in waves after it, up to
+    three): tpu_inf_fleet_scale_ups_total 1 and tpu_inf_replicas 3, the
+    new worker up; a follow-up wave reaches it, and its stats RPC shows
+    decode and prefill launches in bf16 and no other variant. (3) the
+    scale-down once idle: tpu_inf_fleet_scale_downs_total 1,
+    tpu_inf_replicas 2, the retired worker's process gone. (4) with 2
+    replicas, POST /debug/rollout while a wave is in flight: both
+    workers replaced, nothing failed, a second POST 409,
+    tpu_inf_fleet_rollouts_total 1; the successors serve a last wave and
+    launch both kernels (the rollout's wave streams ROLLOUT_TOKENS
+    tokens, the others 48). Every stream "length" with its tokens, no
+    stream gap or frame error (tpu_inf_worker_reconnects_total 0), no
+    worker process left and the card's memory back after. Each worker's
+    launches are read before it retires. bf16 tokens are not compared
+    (GEMM rows depend on M). Recorded: boot walls, each retirement's
+    drain wall and migrated bytes, the rollout's wall, TTFT by class,
+    the card's peak memory with three workers."""
+    label = "elastic llama-3-8b bf16 dp2"
+    free_before = torch.cuda.mem_get_info()[0]
+    total = torch.cuda.mem_get_info()[1]
+    slo_ms = max(1, int(250 * fleet["ttft_p50_s"]))
+    t0 = time.perf_counter()
+    server, _ = _serve_cli([
+        "--model", "llama-3-8b", "--dp", "2", "--fleet", "subprocess",
+        "--num-pages", "512", "--max-pages-per-seq", "128",
+        "--max-batch-size", "8", "--debug", "--no-warmup",
+        "--seed", str(SEED), "--autoscale", "--autoscale-min", "2",
+        "--autoscale-max", "3", "--autoscale-breach-window-s", "1",
+        "--autoscale-cooldown-s", "3", "--autoscale-idle-window-s", "2",
+        "--slo-ttft-ms", str(slo_ms),
+        "--admission-queue-depth", str(ELASTIC_CAP),
+        "--class-queue-depth", str(ELASTIC_DEPTH)])
+    group = server.group
+    pids, reads = set(), {}
+    retirements = _read_before_retire(group, reads)
+    watch = {"deferred_batch_max": 0.0, "peak_used_3_workers": 0,
+             "stop": False}
+    max_tokens = 48
+    # Prompts: the class wave 0-13, up to three waves for the scale-up
+    # 14-37, its follow-up 38-45, the rollout's wave 46-53, the last
+    # 54-61.
+    prompts = _burst_prompts(62)
+    batch_h = {"X-Priority": "batch"}
+    inter_h = {"X-Priority": "interactive"}
+
+    def metric(text: str, name: str, labels: str = "") -> float:
+        m = re.search(rf"^{name}{re.escape(labels)} (\S+)$", text, re.M)
+        if m is None:
+            raise AssertionError(f"{label}: {name}{labels} not on /metrics")
+        return float(m.group(1))
+
+    def poll(port: int) -> None:
+        # /metrics' batch lane, the card's memory with three workers, and
+        # every worker pid (a booting one's too).
+        while not watch["stop"]:
+            text = _http(port, "GET", "/metrics")[1].decode()
+            watch["deferred_batch_max"] = max(
+                watch["deferred_batch_max"],
+                metric(text, "tpu_inf_class_deferred", '{class="batch"}'))
+            if sum(h.state == "up" for h in group.workers) >= 3:
+                watch["peak_used_3_workers"] = max(
+                    watch["peak_used_3_workers"],
+                    total - torch.cuda.mem_get_info()[0])
+            pids.update(h.pid for h in group.workers if h.pid)
+            time.sleep(0.25)
+
+    def quiet() -> bool:
+        return not any(h.state in ("booting", "restarting", "draining")
+                       for h in group.workers)
+
+    def live_up(n: int) -> bool:
+        live = group._live_workers()
+        return len(live) == n and all(h.state == "up" for h in live)
+
+    poller = None
+    try:
+        port = server.start(port=0)
+        boot_s = time.perf_counter() - t0
+        pids |= {h.pid for h in group.workers}
+        poller = threading.Thread(target=poll, args=(port,), daemon=True)
+        poller.start()
+
+        # (1) The class wave.
+        box: dict = {}
+
+        def batch_wave():
+            box["batch"], box["batch_wall"] = run_requests(
+                port, prompts[:12], max_tokens, stagger_s=0.05,
+                headers=batch_h)
+
+        th = threading.Thread(target=batch_wave)
+        th.start()
+        _wait_fleet(group, label, lambda: any(group._deferred.values()),
+                    "a batch request parked", 120.0)
+        inter, inter_wall = run_requests(port, prompts[12:14], max_tokens,
+                                         headers=inter_h)
+        th.join(timeout=900)
+        if th.is_alive() or "batch" not in box:
+            raise AssertionError(f"{label}: the batch wave did not finish")
+        text = _http(port, "GET", "/metrics")[1].decode()
+        class_wave = {
+            "deferred_batch_max_seen": watch["deferred_batch_max"],
+            "preempted_batch": metric(text, "tpu_inf_class_preempted_total",
+                                      '{class="batch"}'),
+            "shed": {c: metric(text, "tpu_inf_class_shed_total",
+                               f'{{class="{c}"}}')
+                     for c in ("interactive", "batch", "background")},
+            "batch": _class_ttfts(box["batch"]),
+            "interactive": _class_ttfts(inter),
+            "scale_ups_during": group.scale_ups}
+        if (class_wave["deferred_batch_max_seen"] <= 0
+                or class_wave["preempted_batch"] < 1
+                or class_wave["shed"]["interactive"] != 0):
+            raise AssertionError(f"{label}: class wave {class_wave}")
+
+        # (2) The scale-up, then a wave that reaches the new worker.
+        waves = 0
+        while len(group.workers) < 3 and waves < 3:
+            run_requests(port, prompts[14 + 8 * waves:22 + 8 * waves],
+                         max_tokens)
+            waves += 1
+        _wait_fleet(group, label, lambda: group.scale_ups >= 1
+                    and live_up(3), "the scale-up worker up", 300.0)
+        text = _http(port, "GET", "/metrics")[1].decode()
+        if (metric(text, "tpu_inf_fleet_scale_ups_total") != 1
+                or metric(text, "tpu_inf_replicas") != 3):
+            raise AssertionError(f"{label}: after the scale-up: "
+                                 f"{group.supervision_counters()}")
+        new = group.workers[2]
+        follow, follow_wall = run_requests(port, prompts[38:46],
+                                           max_tokens)
+        by_rep = {w["replica"]: w
+                  for w in _worker_reads(group, reads, label)}
+        k_new = by_rep[new.replica]["kernels"]
+        if (k_new["decode"]["bf16"] <= 0 or k_new["prefill"]["bf16"] <= 0
+                or sum(k_new["decode"].values()) != k_new["decode"]["bf16"]
+                or sum(k_new["prefill"].values())
+                != k_new["prefill"]["bf16"]):
+            raise AssertionError(f"{label}: the scale-up worker's launches "
+                                 f"{k_new}")
+        scale_up = {"replica": new.replica, "boot_walls_s": new.boot_walls,
+                    "class_wave_triggered": class_wave["scale_ups_during"]
+                    > 0, "extra_waves": waves,
+                    "follow_up": _summarize(follow, follow_wall),
+                    "new_worker_kernels": k_new,
+                    "peak_used_3_workers_bytes":
+                        watch["peak_used_3_workers"]}
+
+        # (3) The scale-down once idle.
+        t_idle = time.perf_counter()
+        _wait_fleet(group, label, lambda: group.scale_downs >= 1
+                    and live_up(2) and quiet(), "the scale-down", 120.0)
+        gone = [h for h in group.workers if h.state == "retired"]
+        text = _http(port, "GET", "/metrics")[1].decode()
+        if (len(gone) != 1 or gone[0].proc.poll() is None
+                or metric(text, "tpu_inf_fleet_scale_downs_total") != 1
+                or metric(text, "tpu_inf_replicas") != 2):
+            raise AssertionError(f"{label}: after the scale-down: "
+                                 f"{[h.state for h in group.workers]}")
+        _pids_gone(label, [gone[0].pid])
+        scale_down = {"replica": gone[0].replica,
+                      "after_idle_s": time.perf_counter() - t_idle}
+
+        # (4) The rollout, with 2 replicas (the autoscaler waits while
+        # it runs, so at most three workers share the card), and a wave
+        # sent as it starts: the wave runs on the old workers while the
+        # first successor boots and is long enough to span both boots,
+        # so each drain finds streams mid-decode and migrates their KV.
+        olds = [h.replica for h in group._live_workers()]
+        roll: dict = {}
+        rt = threading.Thread(target=lambda: roll.update(
+            reply=_http(port, "POST", "/debug/rollout", {})))
+        rt.start()
+        _wait_fleet(group, label, group._rollout_lock.locked,
+                    "the rollout under way", 30.0)
+        wave: dict = {}
+
+        def rollout_wave():
+            wave["results"], wave["wall"] = run_requests(
+                port, prompts[46:54], ROLLOUT_TOKENS)
+
+        th = threading.Thread(target=rollout_wave)
+        th.start()
+        status = _http(port, "POST", "/debug/rollout", {})[0]
+        if status != 409:
+            raise AssertionError(f"{label}: a second rollout got {status}")
+        rt.join(timeout=900)
+        th.join(timeout=900)
+        if rt.is_alive() or th.is_alive() or "results" not in wave:
+            raise AssertionError(f"{label}: the rollout or its wave did "
+                                 "not finish")
+        status, raw, _ = roll["reply"]
+        res = json.loads(raw)
+        if (status != 200 or res["failed"]
+                or sorted(r["old"] for r in res["replaced"]) != sorted(olds)
+                or any(r["old_state"] != "retired" for r in res["replaced"])):
+            raise AssertionError(f"{label}: rollout {status} {res}")
+        text = _http(port, "GET", "/metrics")[1].decode()
+        if metric(text, "tpu_inf_fleet_rollouts_total") != 1:
+            raise AssertionError(f"{label}: rollouts_total")
+        succ = [r["new"] for r in res["replaced"]]
+        last, last_wall = run_requests(port, prompts[54:62], max_tokens)
+        by_rep = {w["replica"]: w
+                  for w in _worker_reads(group, reads, label)}
+        for r in succ:
+            k = by_rep[r]["kernels"]
+            if k["decode"]["bf16"] <= 0 or k["prefill"]["bf16"] <= 0:
+                raise AssertionError(f"{label}: successor {r} launches {k}")
+        rollout = {"status": status, "result": res, "second_post": 409,
+                   "successor_boot_walls_s": {
+                       r: group.workers[r].boot_walls for r in succ},
+                   "wave": _summarize(wave["results"], wave["wall"]),
+                   "last_wave": _summarize(last, last_wall)}
+
+        _wait_fleet(group, label, quiet, "a quiet fleet", 120.0)
+        settled = _settle_retirements(group, retirements)
+        _worker_reads(group, reads, label)
+        for w in reads.values():
+            for kind in ("decode", "prefill"):
+                if sum(w["kernels"][kind].values()) != \
+                        w["kernels"][kind]["bf16"]:
+                    raise AssertionError(f"{label}: worker {w['replica']} "
+                                         f"{kind} launches {w['kernels']}")
+        sup = group.supervision_counters()
+        if sup["worker_reconnects"] or sup["frame_errors"]:
+            raise AssertionError(f"{label}: a stream gap or frame error: "
+                                 f"{sup}")
+        snap = server_stats(port)
+        launches = _launch_totals(reads)
+        boot_walls = {h.replica: h.boot_walls for h in group.workers}
+        states = [h.state for h in group.workers]
+    finally:
+        watch["stop"] = True
+        if poller is not None:
+            poller.join(timeout=10)
+        pids.update(h.pid for h in group.workers if h.pid)
+        server.shutdown()
+        del server, group
+    _pids_gone(label, pids)
+    free_after = _card_memory_back(label, free_before)
+    every = (box["batch"] + inter + follow + wave["results"] + last)
+    out = {"label": label, "model": "llama-3-8b", "quant": "none",
+           "kv_quant": "none", "variant": "bf16", "dp": 2,
+           "fleet": "subprocess", "slo_ttft_ms": slo_ms,
+           "admission_cap": ELASTIC_CAP, "class_depth": ELASTIC_DEPTH,
+           "boot_s": boot_s, "boot_walls_s": boot_walls, "states": states,
+           "class_wave": class_wave, "scale_up": scale_up,
+           "scale_down": scale_down, "rollout": rollout,
+           "retirements": settled,
+           "supervision": {k: sup[k] for k in (
+               "scale_ups", "scale_downs", "rollouts", "class_preemptions",
+               "class_shed", "migrations", "migrated_bytes", "failovers",
+               "worker_restarts")},
+           "requests": len(every),
+           "done_reasons": sorted({r["done_reason"] for r in every}),
+           "worker_peak_memory_bytes": {str(w["pid"]):
+                                        w["max_memory_allocated"]
+                                        for w in reads.values()},
+           "peak_used_3_workers_bytes": watch["peak_used_3_workers"],
+           "launches_by_variant": launches["by_variant"],
+           "decode_launches_by_batch": launches["decode_by_batch"],
+           "prefill_launches_by_len": launches["prefill_by_len"],
+           "prefill_launches_by_path": launches["prefill_by_path"],
+           "workers_read": len(reads), "step_failures":
+               snap["step_failures"],
            "free_memory_before_after_bytes": [free_before, free_after]}
     log(f"[{label}] on {card}: " + json.dumps(
         {k: v for k, v in out.items() if k not in ("label",)}))
@@ -3703,13 +4194,17 @@ def main() -> int:
                    after=observability_phase if label == "bf16" else None)
         log_main_path(mp, card)
         main_paths[label] = mp
-    for name, phase in (("reference", reference_config_phase),
-                        ("pressure", pressure_phase)):
-        mp = timed(name, phase, card)
+    for name, phase, layers in (
+            ("reference", reference_config_phase, CUT_LAYERS),
+            ("pressure", pressure_phase, None)):
+        with (_depth_cut("llama-3-8b", layers) if layers
+              else contextlib.nullcontext()):
+            mp = timed(name, phase, card)
         log_new_path(mp, card)
         main_paths[mp["label"]] = mp
-    mp = timed("ngram", ngram_phase, card,
-               main_paths["reference chip config"])
+    with _depth_cut("llama-3-8b", CUT_LAYERS):
+        mp = timed("ngram", ngram_phase, card,
+                   main_paths["reference chip config"])
     log_new_path(mp, card)
     main_paths[mp["label"]] = mp
     mp = timed("draft", draft_phase, card)
@@ -3719,6 +4214,8 @@ def main() -> int:
     fleet = timed("fleet", fleet_phase, card, main_paths["bf16"])
     main_paths[fleet["label"]] = fleet
     mp = timed("pd", pd_phase, card, fleet)
+    main_paths[mp["label"]] = mp
+    mp = timed("elastic", elastic_phase, card, fleet)
     main_paths[mp["label"]] = mp
     for name, phase in (("mixtral", mixtral_phase), ("gpt2", gpt2_phase)):
         mp = timed(name, phase, card)

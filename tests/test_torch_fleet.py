@@ -246,8 +246,7 @@ def test_imports_applied_together_report_their_own_pages():
 def test_unported_fleet_features_raise_naming_1_15b(ckpt):
     from tpu_inference_torch.server.http import build_engine_group
 
-    for kw in (dict(kv_plane="shm"), dict(fabric_cache_pages=64),
-               dict(autoscale=True), dict(class_queue_depth=4)):
+    for kw in (dict(kv_plane="shm"), dict(fabric_cache_pages=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP 1.15b"):
             build_engine_group(_cfg(ckpt, **kw), device="cpu")
     cfg = _cfg(ckpt)

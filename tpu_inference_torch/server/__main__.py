@@ -239,7 +239,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--default-class", default="interactive",
                    choices=("interactive", "batch", "background"),
                    help="priority class for requests without an "
-                        "X-Priority header")
+                        "X-Priority header: interactive lanes preempt "
+                        "batch/background ones at the admission "
+                        "watermark instead of shedding 429")
+    p.add_argument("--class-queue-depth", type=int, default=0,
+                   help="per-class deferral queue depth: over the "
+                        "admission cap, batch/background requests park "
+                        "here (drained as load drops) instead of "
+                        "shedding; 0 = legacy single global cap")
     p.add_argument("--debug", action="store_true",
                    help="expose the unauthenticated /debug/* endpoints "
                         "(request timelines, span traces, step ledger, "
@@ -289,6 +296,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="subprocess fleet: disable drain-time KV page "
                         "migration (resubmissions re-prefill from "
                         "scratch)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="subprocess fleet: SLO-driven autoscaler: spawn "
+                        "a worker when pooled p95 TTFT/TPOT breaches "
+                        "--slo-ttft-ms/--slo-tpot-ms for a sustained "
+                        "window, drain-and-migrate the coldest replica "
+                        "away when occupancy stays under the low "
+                        "watermark")
+    p.add_argument("--autoscale-min", type=int, default=1,
+                   help="autoscaler floor on live replicas")
+    p.add_argument("--autoscale-max", type=int, default=0,
+                   help="autoscaler ceiling on live replicas "
+                        "(0 = dp + 2)")
+    p.add_argument("--autoscale-breach-window-s", type=float, default=3.0,
+                   help="seconds of continuous p95-over-target before a "
+                        "scale-up")
+    p.add_argument("--autoscale-cooldown-s", type=float, default=10.0,
+                   help="minimum seconds between scale decisions "
+                        "(anti-flap hysteresis)")
+    p.add_argument("--autoscale-low-watermark", type=float, default=0.25,
+                   help="scale down when pooled ladder occupancy stays "
+                        "under this (0..1) for the idle window")
+    p.add_argument("--autoscale-idle-window-s", type=float, default=5.0,
+                   help="seconds of continuous low occupancy before a "
+                        "scale-down")
     p.add_argument("--role", default="mixed",
                    choices=("prefill", "decode", "mixed"),
                    help="uniform worker phase role: 'prefill' workers "
@@ -496,6 +527,14 @@ def server_overrides(args) -> dict:
             "worker_restart_backoff_s": args.worker_restart_backoff_s,
             "drain_timeout_s": args.drain_timeout_s,
             "fleet_migrate": not args.no_fleet_migrate,
+            "autoscale": args.autoscale,
+            "autoscale_min_replicas": args.autoscale_min,
+            "autoscale_max_replicas": args.autoscale_max,
+            "autoscale_breach_window_s": args.autoscale_breach_window_s,
+            "autoscale_cooldown_s": args.autoscale_cooldown_s,
+            "autoscale_low_watermark": args.autoscale_low_watermark,
+            "autoscale_idle_window_s": args.autoscale_idle_window_s,
+            "class_queue_depth": args.class_queue_depth,
             "worker_roles": worker_roles_from_args(args),
             "pd_prefill_nice": args.pd_prefill_nice,
             "chaos_rpc_seed": args.chaos_rpc_seed,
@@ -544,6 +583,12 @@ def boot_server(args, p: argparse.ArgumentParser):
         p.error("--fleet subprocess does not support --draft-model "
                 "(workers boot their own weights; use --spec-mode ngram "
                 "or the in-process fleet)")
+    if args.autoscale and args.fleet != "subprocess":
+        p.error("--autoscale needs --fleet subprocess (scaling spawns "
+                "and drains worker processes)")
+    if args.autoscale and not (args.slo_ttft_ms or args.slo_tpot_ms):
+        p.error("--autoscale needs an SLO target to scale on: set "
+                "--slo-ttft-ms and/or --slo-tpot-ms")
     if args.fleet == "subprocess" and args.check_numerics:
         p.error("--check-numerics needs the in-process fleet (the "
                 "workers load their own weights)")

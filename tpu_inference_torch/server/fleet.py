@@ -1,8 +1,8 @@
 """Process fleet router: ``EngineGroup`` semantics over worker processes.
 
 Twin of ``tpu_inference/server/fleet.py`` on the relay plane (the KV
-fabric, the shared-memory arena and the elastic fleet are ROADMAP
-1.15b). ``ProcessEngineGroup`` serves the same
+fabric and the shared-memory arena are ROADMAP 1.15b).
+``ProcessEngineGroup`` serves the same
 facade as the in-process ``EngineGroup`` (submit/cancel; health, stats,
 metrics, steps, recent, trace and blackbox snapshots; prefix-affinity
 routing; failover; admission control) behind ``--fleet subprocess``, but
@@ -49,6 +49,22 @@ recompute-resume: a corrupt blob, no decode worker, or a stale blob
 (the router drops it once the adopter streams past the export, so a
 decode worker's death resumes from the token record).
 
+Elastic fleet: with ``ServerConfig.autoscale`` the monitor scales the
+worker count on the router-observed TTFT (submit to first streamed
+token, lane park time included) or the workers' pooled TPOT: a breach
+sustained for ``autoscale_breach_window_s`` spawns a worker at a fresh
+replica index, a lull under ``autoscale_low_watermark`` occupancy for
+``autoscale_idle_window_s`` drains the coldest one away (its KV
+migrates, its exit lands RETIRED, not respawned); one cooldown serves
+both directions and nothing acts while a worker boots, restarts or
+drains. ``rollout()`` (POST /debug/rollout) replaces every worker one
+at a time: the successor boots first, then the predecessor drains and
+retires. With ``class_queue_depth`` > 0, a request over the admission
+cap parks in its class lane (batch, background) instead of a 429, and
+an interactive one preempts the newest lowest-class running request,
+which goes back to the front of its lane and resumes from the router's
+token record.
+
 Routing is the in-process group's three-temperature prefix affinity
 (``replicas.prefill_route_score``): the router hashes each prompt once
 and probes every candidate's cache tiers through the side-effect-free
@@ -72,12 +88,13 @@ import sys
 import tempfile
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as _futures_wait
 from typing import Callable, Dict, List, Optional, Tuple
 
 from tpu_inference_torch import telemetry
-from tpu_inference_torch.config import (FrameworkConfig,
+from tpu_inference_torch.config import (FrameworkConfig, class_rank,
                                         framework_config_to_dict,
                                         resolve_worker_roles)
 from tpu_inference_torch.engine import kv_cache as kvc
@@ -284,6 +301,9 @@ DEAD = "dead"                   # router teardown
 # Restart budget spent: routed around and visible in /healthz and the
 # tpu_inf_worker_quarantined gauge.
 QUARANTINED = "quarantined"
+# Intentional exit (a scale-down or a rollout's retirement): never
+# respawned, outside the fleet's health arithmetic.
+RETIRED = "retired"
 
 
 class WorkerHandle:
@@ -318,6 +338,9 @@ class WorkerHandle:
         # SLO breach totals of dead incarnations (the fleet counter
         # never decreases across a restart).
         self.slo_breach_carry = {"ttft": 0, "tpot": 0}
+        # Set before an intentional drain (scale-down, rollout): the
+        # death handler retires this worker instead of respawning it.
+        self.retiring = False
 
     @property
     def routable(self) -> bool:
@@ -455,6 +478,27 @@ class ProcessEngineGroup:
                               "host_hit_pages": 0,
                               "fabric_hit_pages": 0}
                              for _ in range(self.dp)]
+        # Elastic fleet: scale and rollout actuations, the per-class
+        # admission outcomes, and the bounded lanes where batch and
+        # background requests park at the admission cap (guarded by
+        # _lock; the monitor's pump dispatches them as capacity frees).
+        self.scale_ups = 0
+        self.scale_downs = 0
+        self.rollouts = 0
+        self.class_preemptions: Dict[str, int] = {}
+        self.class_shed: Dict[str, int] = {}
+        self._deferred: Dict[str, deque] = {"batch": deque(),
+                                            "background": deque()}
+        self._breach_since = 0.0      # monotonic start of the breach
+        self._idle_since = 0.0        # monotonic start of the lull
+        self._last_scale_t = 0.0      # monotonic time of the last act
+        self._rollout_lock = threading.Lock()
+        # Router-observed TTFT samples (perf_counter at the first token,
+        # submit to first token in s), pruned to a time horizon at each
+        # autoscale tick: the scale-up sensor. Unlike the workers'
+        # engine-side rings it sees lane park time, and it ages out, so a
+        # finished burst releases the breach. Guarded by _lock.
+        self._ttft_obs: deque = deque(maxlen=2048)
         self._fleet_registry = telemetry.Registry()
         self._build_registry()
 
@@ -560,6 +604,15 @@ class ProcessEngineGroup:
                           + (((h.last_stats or {}).get("slo") or {})
                              .get(f"{k}_breaches", 0))
                           for h in self.workers))
+        # Elastic fleet: scale events, rollouts, the class lanes.
+        telemetry.register_fleet_elastic(
+            r,
+            scale_ups=lambda: self.scale_ups,
+            scale_downs=lambda: self.scale_downs,
+            rollouts=lambda: self.rollouts,
+            class_preempted=lambda c: self.class_preemptions.get(c, 0),
+            class_deferred=lambda c: len(self._deferred.get(c) or ()),
+            class_shed=lambda c: self.class_shed.get(c, 0))
         telemetry.emit_build_info(
             r, backend=self._device_type(), fleet="subprocess",
             kv_quant=self.engine_cfg.kv_quant,
@@ -568,25 +621,32 @@ class ProcessEngineGroup:
                        else "off"),
             routing=self.server_cfg.routing)
         for h in self.workers:
-            rep = str(h.replica)
-            r.gauge("tpu_inf_worker_role_info",
-                    "Worker phase role (constant 1; the role is the label)",
-                    fn=lambda: 1.0, replica=rep, role=self.roles[h.replica])
-            r.gauge("tpu_inf_replica_routable",
-                    "1 when the worker accepts traffic",
-                    fn=lambda hh=h: float(hh.routable), replica=rep)
-            r.gauge("tpu_inf_worker_up",
-                    "1 while the worker process is serving",
-                    fn=lambda hh=h: float(hh.state == UP), replica=rep)
-            r.counter("tpu_inf_worker_restarts_total",
-                      "Worker process respawns (stable replica label "
-                      "across incarnations)",
-                      fn=lambda hh=h: hh.restarts, replica=rep)
-            r.gauge("tpu_inf_worker_quarantined",
-                    "1 while the crash-loop breaker holds this replica "
-                    "quarantined (restart budget spent; routed around)",
-                    fn=lambda hh=h: float(hh.state == QUARANTINED),
-                    replica=rep)
+            self._register_worker_gauges(h)
+
+    def _register_worker_gauges(self, h: WorkerHandle) -> None:
+        """Per-worker series under the stable replica label: for every
+        boot-time worker, and for each one a scale-up or a rollout adds
+        at a fresh replica index."""
+        r = self._fleet_registry
+        rep = str(h.replica)
+        r.gauge("tpu_inf_worker_role_info",
+                "Worker phase role (constant 1; the role is the label)",
+                fn=lambda: 1.0, replica=rep, role=self.roles[h.replica])
+        r.gauge("tpu_inf_replica_routable",
+                "1 when the worker accepts traffic",
+                fn=lambda hh=h: float(hh.routable), replica=rep)
+        r.gauge("tpu_inf_worker_up",
+                "1 while the worker process is serving",
+                fn=lambda hh=h: float(hh.state == UP), replica=rep)
+        r.counter("tpu_inf_worker_restarts_total",
+                  "Worker process respawns (stable replica label "
+                  "across incarnations)",
+                  fn=lambda hh=h: hh.restarts, replica=rep)
+        r.gauge("tpu_inf_worker_quarantined",
+                "1 while the crash-loop breaker holds this replica "
+                "quarantined (restart budget spent; routed around)",
+                fn=lambda hh=h: float(hh.state == QUARANTINED),
+                replica=rep)
 
     def _device_type(self) -> str:
         return self.device.split(":")[0]
@@ -637,8 +697,10 @@ class ProcessEngineGroup:
         return ChaosTransport(pol)
 
     def _live_workers(self) -> List[WorkerHandle]:
+        """Workers that count toward the fleet's size: not retired on
+        purpose, not quarantined, not torn down."""
         return [h for h in self.workers
-                if h.state not in (DEAD, QUARANTINED)]
+                if h.state not in (RETIRED, DEAD, QUARANTINED)]
 
     def _pooled_slo_quantile(self, which: str, q: float) -> float:
         windows = [(((h.last_stats or {}).get("slo") or {})
@@ -688,7 +750,15 @@ class ProcessEngineGroup:
             [sys.executable, "-m", "tpu_inference_torch.server.worker",
              "--socket", h.socket_path, "--replica", str(h.replica)],
             stdin=subprocess.PIPE, env=env)
+        # Visible to stop() while it boots (a scale-up or a rollout's
+        # successor): a fleet stopped mid-boot stops this process too,
+        # where it would otherwise serve on, unrouted, after its hello.
+        # stop() sets _stopping before it walks the workers, so a spawn
+        # that reads it clear here is walked.
+        h.proc, h.pid = proc, proc.pid
         try:
+            if self._stopping:
+                raise WorkerGone("the fleet is stopping")
             proc.stdin.write(json.dumps(self._envelope(h.replica)).encode())
             proc.stdin.close()
             client = self._connect(h, proc, connect_timeout=1800.0)
@@ -700,7 +770,7 @@ class ProcessEngineGroup:
             except (OSError, subprocess.TimeoutExpired):
                 pass
             raise
-        h.proc, h.client = proc, client
+        h.client = client
         h.pid = hello.get("pid")
         h.info = hello
         h.started_unix = time.time()
@@ -799,10 +869,13 @@ class ProcessEngineGroup:
             if h.client is not None:
                 h.client.close()
             h.state = DEAD
-        # Every request still tracked gets its terminal callback.
+        # Every request still tracked gets its terminal callback (the
+        # parked ones too: they are tracked; the lanes just drop them).
         with self._lock:
             leftovers = list(self._tracked.values())
             self._tracked.clear()
+            for q in self._deferred.values():
+                q.clear()
         for entry in leftovers:
             self._finish_trace(entry, "shutdown")
             ghost = entry.seq_local
@@ -816,9 +889,10 @@ class ProcessEngineGroup:
     # ------------------------------------------------------ supervision
 
     def _watch(self) -> None:
-        """Monitor thread: process liveness, restart backoff, and the
+        """Monitor thread: process liveness, restart backoff, the
         once-a-second stats/metrics cache (which bounds what a kill -9's
-        carry loses)."""
+        carry loses) and the autoscaler after it, and the class lanes'
+        pump on every tick."""
         last_scrape = 0.0
         while not self._monitor_stop.wait(0.2):
             now = time.monotonic()
@@ -842,6 +916,9 @@ class ProcessEngineGroup:
             if now - last_scrape >= 1.0:
                 last_scrape = now
                 self._refresh_caches()
+                if self.server_cfg.autoscale:
+                    self._autoscale_tick(now)
+            self._pump_deferred()
 
     def _refresh_caches(self) -> None:
         for h in self.workers:
@@ -1007,8 +1084,9 @@ class ProcessEngineGroup:
             # state flip picks one actor.
             if h.state not in (UP, DRAINING):
                 return
-            h.state = RESTARTING
-        h.consecutive_failures += 1
+            h.state = RETIRED if h.retiring else RESTARTING
+        if h.state != RETIRED:
+            h.consecutive_failures += 1
         if h.proc is not None and h.proc.poll() is None:
             try:
                 h.proc.kill()
@@ -1034,10 +1112,17 @@ class ProcessEngineGroup:
                 h.last_stats = {**h.last_stats,
                                 "slo": {**slo, "ttft_breaches": 0,
                                         "tpot_breaches": 0}}
-        telemetry.log_event("worker_down", level="warning",
-                            replica=h.replica, reason=reason)
-        self._harvest_blackbox(h, reason)
-        self._schedule_restart(h)
+        if h.state == RETIRED:
+            # Intentional exit: the drain already migrated its requests
+            # (the failover below is a safety net), nothing respawns.
+            h.retiring = False
+            telemetry.log_event("worker_retired", replica=h.replica,
+                                reason=reason)
+        else:
+            telemetry.log_event("worker_down", level="warning",
+                                replica=h.replica, reason=reason)
+            self._harvest_blackbox(h, reason)
+            self._schedule_restart(h)
         self._failover_worker(h)
 
     def _harvest_blackbox(self, h: WorkerHandle, reason: str) -> None:
@@ -1203,14 +1288,25 @@ class ProcessEngineGroup:
             # before shedding.
             h2, _, load2 = self._pick(pool)
             if load2 >= cap:
-                with self._lock:
-                    self.requests_shed += 1
-                self._recorder.seal(seq.trace_id)
-                raise FleetSaturated(
-                    f"admission queue cap reached ({load2} >= {cap} on "
-                    "the least-loaded worker)",
-                    self.server_cfg.retry_after_s)
-            h, hit = h2, self._peek_hit(h2, seq)
+                # Class lanes: over the cap a batch or background request
+                # parks in its lane instead of a 429, and an interactive
+                # one preempts the newest lowest-class running request
+                # (which resumes from the token record) and takes its
+                # slot. Only when neither works does the shed fire.
+                cls = seq.priority_class or "interactive"
+                if self.server_cfg.class_queue_depth > 0:
+                    if class_rank(cls) > 0:
+                        if self._defer(seq, on_token, on_finish, cls):
+                            return
+                        self._shed(seq, cls, load2, cap)
+                    vw = self._preempt_for_interactive()
+                    if vw is None:
+                        self._shed(seq, cls, load2, cap)
+                    h, hit = vw, (0, 0)
+                else:
+                    self._shed(seq, cls, load2, cap)
+            else:
+                h, hit = h2, self._peek_hit(h2, seq)
         entry = _Tracked(_clone_request(seq), on_token, on_finish)
         entry.seq_local.trace_id = seq.trace_id
         entry.seq_local.enqueue_time = time.perf_counter()
@@ -1224,6 +1320,115 @@ class ProcessEngineGroup:
             return (0, 0)
         p = self._peek(h, self._digests_for(seq)[0])
         return (p["hbm"], p["host"])
+
+    def _shed(self, seq: Sequence, cls: str, load: int, cap: int) -> None:
+        """The terminal 429, counted globally and by class. Clients pin
+        the message: it is the single-cap shed's, letter for letter."""
+        with self._lock:
+            self.requests_shed += 1
+            self.class_shed[cls] = self.class_shed.get(cls, 0) + 1
+        # A shed is terminal: seal its route span.
+        self._recorder.seal(seq.trace_id)
+        raise FleetSaturated(
+            f"admission queue cap reached ({load} >= {cap} on "
+            "the least-loaded worker)",
+            self.server_cfg.retry_after_s)
+
+    def _defer(self, seq: Sequence, on_token: Callable,
+               on_finish: Callable, cls: str) -> bool:
+        """Park a batch or background request in its class lane. False
+        when the lane is full (then the caller sheds: the lanes are
+        bounded, so a flood cannot grow the router's memory)."""
+        entry = _Tracked(_clone_request(seq), on_token, on_finish)
+        entry.seq_local.trace_id = seq.trace_id
+        entry.seq_local.enqueue_time = time.perf_counter()
+        with self._lock:
+            q = self._deferred[cls]
+            if len(q) >= self.server_cfg.class_queue_depth:
+                return False
+            self._tracked[seq.request_id] = entry
+            q.append(entry)
+        telemetry.log_event("request_deferred", request_id=seq.request_id,
+                            trace_id=seq.trace_id, priority_class=cls)
+        return True
+
+    def _preempt_for_interactive(self) -> Optional[WorkerHandle]:
+        """Evict the newest lowest-class running request to the front of
+        its lane (its re-dispatch replays the streamed tokens, identical
+        under greedy) and return the worker whose slot it freed."""
+        with self._lock:
+            victims = [e for e in self._tracked.values()
+                       if e.worker is not None
+                       and class_rank(e.template.priority_class) > 0]
+            if not victims:
+                return None
+            victim = max(victims, key=lambda e: (
+                class_rank(e.template.priority_class), e.t_submit))
+            vw, vc = victim.worker, victim.client
+            # Detached under the lock: its worker's late events no longer
+            # match, and no failover path claims it.
+            victim.generation += 1
+            victim.worker = victim.client = None
+            victim.attempts += 1
+            vcls = victim.template.priority_class
+            self.class_preemptions[vcls] = (
+                self.class_preemptions.get(vcls, 0) + 1)
+            # Front of its lane: it resumes before never-started work of
+            # its class.
+            self._deferred[vcls].appendleft(victim)
+        rid = victim.template.request_id
+
+        def _rpc_cancel(client=vc):
+            try:
+                client.rpc("cancel", timeout=10.0, rid=rid)
+            except (WorkerGone, TimeoutError, RuntimeError):
+                pass
+
+        if vc is not None:
+            threading.Thread(target=_rpc_cancel, daemon=True,
+                             name="fleet-preempt-cancel").start()
+        telemetry.log_event("class_preempted", request_id=rid,
+                            trace_id=victim.template.trace_id,
+                            priority_class=vcls, replica=vw.replica)
+        return vw
+
+    def _pump_deferred(self) -> None:
+        """Re-admit parked requests as capacity frees, batch before
+        background. The monitor is the lanes' one consumer, and an entry
+        leaves its lane under the lock before its dispatch, so no other
+        path (a handoff, a retried finish, a failover) can hold it: they
+        claim only entries bound to a worker, and a parked one is not."""
+        if not any(self._deferred.values()):
+            return
+        cap = self.server_cfg.admission_queue_depth
+        while True:
+            with self._lock:
+                entry = None
+                for cls in ("batch", "background"):
+                    q = self._deferred[cls]
+                    # Drop heads cancelled while parked.
+                    while q and q[0].template.request_id \
+                            not in self._tracked:
+                        q.popleft()
+                    if q:
+                        entry = q[0]
+                        break
+                if entry is None:
+                    return
+            pool = self._phase_pool(self._entry_phase(entry))
+            if not pool:
+                return
+            h, hit, load = self._pick(pool, entry.template)
+            if cap > 0 and load >= cap:
+                return
+            with self._lock:
+                q = self._deferred[cls]
+                if (not q or q[0] is not entry
+                        or entry.template.request_id not in self._tracked):
+                    continue
+                q.popleft()
+            if not self._dispatch(entry, h, hit):
+                self._retry_or_fail(entry, exclude=h)
 
     def _dispatch(self, entry: _Tracked, h: WorkerHandle,
                   hit: Tuple[int, int]) -> bool:
@@ -1464,6 +1669,11 @@ class ProcessEngineGroup:
                 sl.generated.append(tok)
                 if sl.first_token_time == 0.0:
                     sl.first_token_time = time.perf_counter()
+                    # The autoscaler's sensor: submit to first streamed
+                    # token, lane park time included.
+                    self._ttft_obs.append(
+                        (sl.first_token_time,
+                         sl.first_token_time - entry.t_submit))
         if bad is not None:
             telemetry.log_event(
                 "stream_gap", level="error", replica=h.replica,
@@ -1844,6 +2054,237 @@ class ProcessEngineGroup:
         kw = {} if migrate is None else {"migrate": migrate}
         h.client.rpc("drain", **kw)
 
+    # --------------------------------------------------- elastic fleet
+
+    def _add_worker(self, role: str) -> WorkerHandle:
+        """A new replica slot (handle, role, routing stats, gauges), not
+        booted. The index-keyed lists grow before the worker list, so no
+        reader ever sees a replica index out of their range."""
+        with self._lock:
+            h = WorkerHandle(len(self.workers))
+            self.roles.append(role)
+            self._route_stats.append({"hits": 0, "cold": 0,
+                                      "hit_pages": 0,
+                                      "host_hit_pages": 0,
+                                      "fabric_hit_pages": 0})
+            self.workers.append(h)
+        self._register_worker_gauges(h)
+        return h
+
+    def _autoscale_tick(self, now: float) -> None:
+        """One step of the control loop (the monitor, once a second):
+        scale up on a sustained TTFT or TPOT breach, down on a sustained
+        lull. The two windows are the hysteresis, one cooldown serves
+        both directions, and nothing acts while a worker boots, restarts
+        or drains, or while a rollout runs: so a kill -9's respawn and a
+        scale-up never spawn twice."""
+        scfg = self.server_cfg
+        if self._stopping or self._rollout_lock.locked():
+            return
+        if any(h.state in (BOOTING, RESTARTING, DRAINING)
+               for h in self.workers):
+            self._breach_since = 0.0
+            return
+        live = self._live_workers()
+        n = len(live)
+        max_n = scfg.autoscale_max_replicas or (self.dp + 2)
+        min_n = max(1, scfg.autoscale_min_replicas)
+        cooled = (now - self._last_scale_t) >= scfg.autoscale_cooldown_s
+        breached = False
+        ecfg = self.engine_cfg
+        if ecfg.slo_ttft_ms:
+            # The router-observed TTFT over a rolling horizon: it sees
+            # lane park time, and its samples age out, so a finished
+            # burst releases the breach.
+            horizon = max(5.0 * scfg.autoscale_breach_window_s,
+                          2.0 * scfg.autoscale_cooldown_s)
+            cut = time.perf_counter() - horizon   # the samples' clock
+            with self._lock:
+                while self._ttft_obs and self._ttft_obs[0][0] < cut:
+                    self._ttft_obs.popleft()
+                xs = sorted(v for _, v in self._ttft_obs)
+            if xs:
+                p95 = xs[min(len(xs) - 1, int(0.95 * len(xs)))]
+                breached = p95 > ecfg.slo_ttft_ms / 1000.0
+        if not breached and ecfg.slo_tpot_ms and self._tracked:
+            # TPOT from the workers' pooled rings, only with work in
+            # flight (a count-based ring never ages out by itself).
+            p95 = self._pooled_slo_quantile("tpot", 0.95)
+            if p95 == p95 and p95 > ecfg.slo_tpot_ms / 1000.0:
+                breached = True
+        if breached:
+            self._idle_since = 0.0
+            if not self._breach_since:
+                self._breach_since = now
+            elif (now - self._breach_since >= scfg.autoscale_breach_window_s
+                    and cooled and n < max_n):
+                self._scale_up("slo_breach")
+            return
+        self._breach_since = 0.0
+        occs = [float((h.last_health or {}).get("ladder_occupancy") or 0.0)
+                for h in live if h.state == UP]
+        pooled_occ = (sum(occs) / len(occs)) if occs else 1.0
+        backlog = any(self._deferred.values())
+        if backlog or pooled_occ >= scfg.autoscale_low_watermark:
+            self._idle_since = 0.0
+            return
+        if not self._idle_since:
+            self._idle_since = now
+        elif (now - self._idle_since >= scfg.autoscale_idle_window_s
+                and cooled and n > min_n and n > 1):
+            self._scale_down("idle")
+
+    def _scale_up(self, reason: str) -> None:
+        t0 = time.perf_counter()
+        role = self.server_cfg.autoscale_role or (
+            "decode" if self.pd_enabled else "mixed")
+        h = self._add_worker(role)
+        telemetry.log_event("fleet_scale_up", replica=h.replica,
+                            role=role, reason=reason)
+        try:
+            self._spawn(h)
+        except (WorkerGone, TimeoutError, RuntimeError, OSError) as e:
+            # A failed boot goes to the supervisor (backoff respawn, then
+            # quarantine) like any other.
+            h.consecutive_failures += 1
+            telemetry.log_event("worker_respawn_failed", level="error",
+                                replica=h.replica, error=str(e))
+            self._schedule_restart(h)
+        with self._lock:
+            self.scale_ups += 1
+        self._last_scale_t = time.monotonic()
+        self._breach_since = 0.0
+        tid = f"scale-up-{self.scale_ups}"
+        self._recorder.add("scale_up", tid, t0, time.perf_counter(),
+                           parent="", replica=h.replica, role=role,
+                           reason=reason)
+        self._recorder.seal(tid)
+
+    def _scale_down(self, reason: str) -> None:
+        t0 = time.perf_counter()
+        h = self._retire_candidate()
+        if h is None:
+            return
+        h.retiring = True
+        try:
+            # The drain exports the live KV as migrate events, the router
+            # lands them on survivors, and the exit after it retires the
+            # worker (retiring is set) instead of respawning it.
+            self.drain_worker(h.replica)
+        except (WorkerGone, TimeoutError, RuntimeError, ValueError) as e:
+            h.retiring = False
+            telemetry.log_event("fleet_scale_down_failed", level="warning",
+                                replica=h.replica, error=str(e))
+            return
+        with self._lock:
+            self.scale_downs += 1
+        self._last_scale_t = time.monotonic()
+        self._idle_since = 0.0
+        telemetry.log_event("fleet_scale_down", replica=h.replica,
+                            reason=reason)
+        tid = f"scale-down-{self.scale_downs}"
+        self._recorder.add("scale_down", tid, t0, time.perf_counter(),
+                           parent="", replica=h.replica, reason=reason)
+        self._recorder.seal(tid)
+
+    def _retire_candidate(self) -> Optional[WorkerHandle]:
+        """The coldest UP worker that can leave without emptying a P/D
+        phase: fewest requests in flight, then lowest occupancy; ties
+        retire the newest index."""
+        cands = [h for h in self.workers
+                 if h.state == UP and not h.retiring]
+        if len(cands) <= 1:
+            return None
+        if self.pd_enabled:
+            def _ok_without(w):
+                rest = [self.roles[h.replica] for h in cands if h is not w]
+                return (any(r in ("prefill", "mixed") for r in rest)
+                        and any(r in ("decode", "mixed") for r in rest))
+            cands = [h for h in cands if _ok_without(h)]
+            if not cands:
+                return None
+        return min(cands, key=lambda h: (
+            self._fleet_load(h),
+            float((h.last_health or {}).get("ladder_occupancy") or 0.0),
+            -h.replica))
+
+    def rollout(self) -> dict:
+        """A rolling upgrade (POST /debug/rollout): each worker replaced
+        in turn under live traffic. The successor boots first, then the
+        predecessor drains (its requests migrate) and its exit retires
+        it. A successor that fails to boot stops the pass with its
+        predecessor still serving; a predecessor whose drain fails is
+        skipped. One rollout at a time."""
+        self._ensure_started()
+        if self._stopping:
+            raise ValueError("fleet is stopping")
+        if not self._rollout_lock.acquire(blocking=False):
+            raise ValueError("a rollout is already in progress")
+        t0 = time.perf_counter()
+        replaced, failed = [], []
+        try:
+            targets = [h for h in self.workers
+                       if h.state == UP and not h.retiring]
+            telemetry.log_event("fleet_rollout_start",
+                                targets=[h.replica for h in targets])
+            for old in targets:
+                if old.state != UP:
+                    continue    # died meanwhile: the supervisor owns it
+                succ = self._add_worker(self.roles[old.replica])
+                try:
+                    self._spawn(succ)
+                except (WorkerGone, TimeoutError, RuntimeError,
+                        OSError) as e:
+                    # Never retire a predecessor without a live
+                    # successor: stop here, keep serving.
+                    succ.state = DEAD
+                    failed.append({"replica": old.replica,
+                                   "successor": succ.replica,
+                                   "error": str(e)})
+                    telemetry.log_event("fleet_rollout_spawn_failed",
+                                        level="error",
+                                        replica=succ.replica, error=str(e))
+                    break
+                old.retiring = True
+                try:
+                    self.drain_worker(old.replica)
+                except (WorkerGone, TimeoutError, RuntimeError,
+                        ValueError) as e:
+                    # The predecessor died or restarted under the pass:
+                    # the supervisor owns it and its requests failed
+                    # over. The successor stays; go on.
+                    old.retiring = False
+                    telemetry.log_event("fleet_rollout_drain_failed",
+                                        level="warning",
+                                        replica=old.replica, error=str(e))
+                    replaced.append({"old": old.replica,
+                                     "new": succ.replica,
+                                     "old_state": old.state})
+                    continue
+                deadline = (time.monotonic()
+                            + self.server_cfg.drain_timeout_s + 30.0)
+                while (time.monotonic() < deadline
+                       and old.state not in (RETIRED, DEAD)
+                       and old.retiring):
+                    time.sleep(0.05)
+                replaced.append({"old": old.replica, "new": succ.replica,
+                                 "old_state": old.state})
+        finally:
+            with self._lock:
+                self.rollouts += 1
+            tid = f"rollout-{self.rollouts}"
+            self._recorder.add("rollout", tid, t0, time.perf_counter(),
+                               parent="", replaced=len(replaced),
+                               failed=len(failed))
+            self._recorder.seal(tid)
+            self._rollout_lock.release()
+        wall = time.perf_counter() - t0
+        telemetry.log_event("fleet_rollout_done", replaced=len(replaced),
+                            failed=len(failed), wall_s=round(wall, 3))
+        return {"replaced": replaced, "failed": failed,
+                "live": len(self._live_workers()),
+                "wall_s": round(wall, 3)}
+
     # ---------------------------------------------------- observability
 
     def embed_many(self, batch):
@@ -1899,6 +2340,14 @@ class ProcessEngineGroup:
                 "resume_reused_tokens": self.resume_reused_tokens,
                 "swap_in_resumes": sum(d.get("swap_in_resumes", 0)
                                        for d in stats),
+                # Elastic fleet.
+                "scale_ups": self.scale_ups,
+                "scale_downs": self.scale_downs,
+                "rollouts": self.rollouts,
+                "class_preemptions": dict(self.class_preemptions),
+                "class_shed": dict(self.class_shed),
+                "class_deferred": {c: len(q)
+                                   for c, q in self._deferred.items()},
                 "worker_reconnects": self.reconnects,
                 "rpc_timeouts": self.rpc_timeouts,
                 "frame_errors": self.frame_errors,
@@ -1936,10 +2385,13 @@ class ProcessEngineGroup:
                 if k in hz:
                     d[k] = hz[k]
             replicas.append(d)
-        routable = sum(1 for h in self.workers if h.routable)
+        # A retired worker left on purpose: it does not make the fleet
+        # degraded (a quarantined one does).
+        live = [h for h in self.workers if h.state != RETIRED]
+        routable = sum(1 for h in live if h.routable)
         if routable == 0:
             status = "unavailable"
-        elif routable == len(self.workers):
+        elif routable == len(live):
             status = "ok"
         else:
             status = "degraded"
@@ -1975,20 +2427,19 @@ class ProcessEngineGroup:
         return aggregate_replica_stats(per, self.supervision_counters())
 
     def worker_stats(self) -> List[dict]:
-        """Each live worker's ``stats`` reply: its scheduler stats, its
-        device, its kernels' launch counts and its peak memory (what
-        only the worker process can see)."""
-        out = []
-        for h in self.workers:
-            if h.state != UP or h.client is None:
-                continue
-            r = h.client.rpc("stats", timeout=30.0)
-            out.append({"replica": h.replica, "pid": h.pid,
-                        "restarts": h.restarts,
-                        "boot_walls_s": list(h.boot_walls),
-                        **{k: v for k, v in r.items()
-                           if k not in ("id", "ok")}})
-        return out
+        """Each live worker's ``stats`` reply (``worker_stat``)."""
+        return [self.worker_stat(h) for h in self.workers
+                if h.state == UP and h.client is not None]
+
+    @staticmethod
+    def worker_stat(h: WorkerHandle) -> dict:
+        """One worker's ``stats`` reply: its scheduler stats, its device,
+        its kernels' launch counts and its peak memory (what only the
+        worker process can see)."""
+        r = h.client.rpc("stats", timeout=30.0)
+        return {"replica": h.replica, "pid": h.pid, "restarts": h.restarts,
+                "boot_walls_s": list(h.boot_walls),
+                **{k: v for k, v in r.items() if k not in ("id", "ok")}}
 
     def steps_snapshot(self) -> dict:
         """Step-ledger attribution (GET /debug/steps): live per-worker

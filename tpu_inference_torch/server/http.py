@@ -39,7 +39,9 @@ delay or 503 a generate, chat or embed request before it is parsed
 engine's faults at run time (EngineGroup.apply_chaos; with ``--fleet
 subprocess`` also ``{"replica": i, "kill": "sigterm"|"sigkill"}``, a
 real drain or ``kill -9`` of that worker, and ``{"rpc": {...}}``, the
-transport chaos knobs), ``GET
+transport chaos knobs), ``POST /debug/rollout`` replaces every worker
+of the process fleet in turn (400 on the in-process fleet, 409 while a
+rollout runs), ``GET
 /debug/steps`` serves the step ledger's roofline report, ``POST
 /debug/profile`` runs torch.profiler (``{"seconds": N, "replica": i}``,
 or ``{"action": "start"|"stop"}``), writing traces only under
@@ -95,7 +97,7 @@ class HTTPError(Exception):
 
 
 # Server features of the process fleet this port does not serve yet.
-_UNPORTED_FLEET = "ROADMAP 1.15b (KV fabric, shm arena, elastic fleet)"
+_UNPORTED_FLEET = "ROADMAP 1.15b (KV fabric, shm arena)"
 
 
 def check_server_config(cfg: FrameworkConfig) -> None:
@@ -123,9 +125,6 @@ def check_server_config(cfg: FrameworkConfig) -> None:
     unported = {
         "kv_plane": scfg.kv_plane != "relay",
         "fabric_cache_pages": scfg.fabric_cache_pages > 0,
-        "autoscale": scfg.autoscale,
-        "class_queue_depth": (scfg.fleet == "subprocess"
-                              and scfg.class_queue_depth > 0),
     }
     for name, bad in unported.items():
         if bad:
@@ -735,6 +734,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._chaos(self._parse_json(raw))
             elif app.cfg.server.enable_debug and path == "/debug/profile":
                 self._send_json(200, self._profile(self._parse_json(raw)))
+            elif app.cfg.server.enable_debug and path == "/debug/rollout":
+                self._rollout()
             elif path == "/api/show":
                 self._send_json(200, app.show())
             elif path in ("/api/generate", "/api/chat", "/api/embeddings",
@@ -759,6 +760,19 @@ class _Handler(BaseHTTPRequestHandler):
             result = self.app.group.apply_chaos(body)
         except (IndexError, TypeError, ValueError, KeyError) as e:
             raise HTTPError(400, f"invalid chaos spec: {e}")
+        self._send_json(200, result)
+
+    def _rollout(self) -> None:
+        """POST /debug/rollout: a rolling upgrade of the process fleet,
+        on this request's own thread (the in-process group has no
+        worker processes to roll)."""
+        roll = getattr(self.app.group, "rollout", None)
+        if roll is None:
+            raise HTTPError(400, "rolling upgrades need --fleet subprocess")
+        try:
+            result = roll()
+        except ValueError as e:
+            raise HTTPError(409, str(e))
         self._send_json(200, result)
 
     def _profile(self, body: dict) -> dict:

@@ -1014,13 +1014,13 @@ class SpanRecorder:
         return list(self._maintenance)[-n:]
 
 
-# Every span name a recorder of the port emits (a subset of the
-# reference's vocabulary: the elastic-fleet spans wait for ROADMAP
-# 1.15b part 2).
+# Every span name a recorder of the port emits (the reference's
+# vocabulary).
 SPAN_NAMES = (
     "request", "route", "queue_wait", "prefill", "prefill_chunk",
     "decode", "handoff", "handoff_adopt", "handoff_export",
-    "drain_export", "migrate", "kv_swap_in", "kv_swap_out",
+    "drain_export", "migrate", "kv_swap_in", "kv_swap_out", "rollout",
+    "scale_up", "scale_down",
 )
 
 
@@ -1277,6 +1277,49 @@ def register_fleet_slo(registry: Registry,
                          "Fleet SLO target breaches (monotone across "
                          "worker restarts)",
                          fn=lambda k=kind: breaches_fn(k), slo=kind)
+
+
+def register_fleet_elastic(registry: Registry,
+                           scale_ups: Callable[[], int],
+                           scale_downs: Callable[[], int],
+                           rollouts: Callable[[], int],
+                           class_preempted: Callable[[str], int],
+                           class_deferred: Callable[[str], int],
+                           class_shed: Callable[[str], int]) -> None:
+    """The elastic fleet's series: autoscaler and rollout actuations and
+    the per-class admission outcomes. All router state, so they survive
+    worker restarts without a carry. Interactive requests never defer
+    and are never preempted (they preempt), so those two series exist
+    for the lower classes only."""
+    from tpu_inference_torch.config import PRIORITY_CLASSES
+
+    registry.counter("tpu_inf_fleet_scale_ups_total",
+                     "Autoscaler scale-up actuations (worker spawned on "
+                     "a sustained pooled-SLO breach)", fn=scale_ups)
+    registry.counter("tpu_inf_fleet_scale_downs_total",
+                     "Autoscaler scale-down actuations (coldest replica "
+                     "drain-and-migrated away on a sustained lull)",
+                     fn=scale_downs)
+    registry.counter("tpu_inf_fleet_rollouts_total",
+                     "Completed rolling-upgrade passes (POST "
+                     "/debug/rollout)", fn=rollouts)
+    for cls in PRIORITY_CLASSES:
+        registry.counter("tpu_inf_class_shed_total",
+                         "Requests shed with 429 after every class "
+                         "escape (defer/preempt) failed",
+                         fn=lambda c=cls: class_shed(c), **{"class": cls})
+        if cls == PRIORITY_CLASSES[0]:
+            continue
+        registry.counter("tpu_inf_class_preempted_total",
+                         "Running requests of this class preempted back "
+                         "to their lane by an interactive arrival",
+                         fn=lambda c=cls: class_preempted(c),
+                         **{"class": cls})
+        registry.gauge("tpu_inf_class_deferred",
+                       "Requests currently parked in this class's "
+                       "deferred admission lane",
+                       fn=lambda c=cls: float(class_deferred(c)),
+                       **{"class": cls})
 
 
 # ---------------------------------------------------------------------------
