@@ -70,10 +70,11 @@ failing loudly (any failure exits non-zero before the result line):
    kernels must launch the path's variant and no other. Two speculative
    lanes follow: n-gram speculation on the reference's chip flags
    (ngram_phase, int8 + int8 KV: verify rounds through the prefill
-   kernel at S 2 and 5, the decode kernel only in fallback rounds; it
-   and the reference-config lane serve the model at full width cut to
-   CUT_LAYERS of its 32 layers, to keep the script inside its time
-   limit) and
+   kernel at S 2 and 5, the decode kernel only in fallback rounds; it,
+   the reference-config lane, the pressure lane and the two quantized
+   main paths serve the model at full width cut to CUT_LAYERS of its 32
+   layers, to keep the script inside its time limit, as do the fleet,
+   pd and elastic lanes below) and
    llama-3-8b in bf16 as its own draft (draft_phase: acceptance above
    0.5, no decode-kernel launch in the dense rounds).
    The prefill kernel is also checked and timed at the verify round's
@@ -104,8 +105,9 @@ failing loudly (any failure exits non-zero before the result line):
    lane records the step ledger's verdicts over its profiled window
    beside the profiler's busy share.
 6. the other families, each on the main path's six requests: Mixtral-
-   8x7B at full width with int8 weights over an int8 pool (46.7B
-   parameters: bf16 does not fit the card), and GPT-2 at full width in
+   8x7B at full width, cut to CUT_LAYERS of its 32 layers, with int8
+   weights over an int8 pool (the whole model's 46.7B parameters do not
+   fit the card in bf16), and GPT-2 at full width in
    bf16, whose prompts stay inside its 1024 learned positions, then one
    request past them (clamped to the table's last row, as the
    reference's gather does); the Mixtral lane reads /debug/steps with
@@ -131,8 +133,9 @@ failing loudly (any failure exits non-zero before the result line):
    swap-in-resume after the next stats refresh) and a seeded corrupt
    and delay transport-chaos run (the same sha, frame errors, no
    restart); every worker's pool clean. fleet_phase, after the draft
-   lane, serves llama-3-8b (bf16, full width) through the CLI with
-   ``--dp 2 --fleet subprocess --num-pages 512``: two waves of 8
+   lane, serves llama-3-8b (bf16, full width, CUT_LAYERS deep) through
+   the CLI with ``--dp 2 --fleet subprocess --num-pages 512``: two waves
+   of 8
    concurrent BurstGPT-length requests, SIGTERM to one worker mid-
    decode in the first and, once healed, kill -9 to the other in the
    second; every stream "length" with its 48 tokens, pages migrated
@@ -192,6 +195,29 @@ failing loudly (any failure exits non-zero before the result line):
    successors; every stream "length", no worker left, the card's memory
    back. Each retiring worker's launches are read before its process
    exits, and the lane's launches join the kernels line under bf16.
+10. The fleet KV fabric (a prefix prefilled on one replica warms every
+   replica through the router's pool). (a) in pd_identity_phase: engine
+   A (llama-3-8b bf16, full width, batch 1) serves a 1024-token prefix
+   and a suffix, its publish hook feeding a FabricPool; engine B, on the
+   same weights, adopts the pool's 64 prefix pages through
+   request_import_host and prefills a second prompt with the same
+   prefix: B's prefix pages byte-equal to A's, the prefill kernel at
+   q_offset 1024 with S the suffix's 128, B's first-step logits within
+   check_close of A's cold prefill, no pool rejection, both pools clean;
+   then tiny-llama over int8 and int4 KV pools, tokens gated equal.
+   (b) in fleet_tiny_phase, both backends: a seed request publishes, the
+   seed replica pressured, the same prompt served by the other replica
+   pulls the prefix (tokens the dp-1 engine's); in the subprocess fleet
+   kill -9 of the seed worker: its respawn adopts the pool's hot set
+   before it is UP and its first request with the prefix is host-warm
+   with no pull. (c) fabric_phase, after the elastic lane: llama-3-8b
+   bf16 at dp 2 with a 256-page pool, a 1024-token shared system prompt
+   and BurstGPT-length user suffixes: a seed request, a wave of 8 routed
+   around the pressured seed worker (a dispatch pulling 64 pages), kill
+   -9 of the seed worker, its warm-booted respawn serving a host-warm
+   request; no failed pull or warm boot, no rejection or frame error,
+   both kernels in every worker, no series falls, no worker left. Its
+   launches join the kernels line under bf16.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -1964,9 +1990,10 @@ def _family_prompts(sizes) -> list:
 
 
 def mixtral_phase(card: str) -> dict:
-    """Mixtral-8x7B at full width (32 layers, d_model 4096, 32/8 heads, 8
-    experts top-2, d_ff 14336, vocab 32000) with int8 weights over an
-    int8 pool, batch 8: 46.7B parameters do not fit the card in bf16.
+    """Mixtral-8x7B at full width (d_model 4096, 32/8 heads, 8 experts
+    top-2, d_ff 14336, vocab 32000; main() cuts its 32 layers to
+    CUT_LAYERS) with int8 weights over an int8 pool, batch 8: the full
+    46.7B parameters do not fit the card in bf16.
     The six requests of the llama lanes; expert capacity at the default
     factor 2.0, so tokens may drop as the reference drops them."""
     label = "mixtral-8x7b int8 + int8 KV"
@@ -2189,10 +2216,11 @@ def _summarize(results: list, wall: float) -> dict:
             "prompt_tokens": [r["prompt_tokens"] for r in results]}
 
 
-# The reference-config and n-gram lanes serve llama-3-8b at full width
-# cut to this many of its 32 layers (their host-bound walls scale with
-# the layers; the script must stay well inside its time limit).
-CUT_LAYERS = 16
+# Every llama-3-8b lane but the bf16 main path, the draft lane and the
+# fabric lane, and the Mixtral lane, serve their model at full width cut
+# to this many of its 32 layers (their host-bound walls scale with the
+# layers; the script must stay well inside its time limit).
+CUT_LAYERS = 8
 
 
 @contextlib.contextmanager
@@ -2812,16 +2840,215 @@ def pd_identity_phase(card: str) -> list:
     params, _ = build_model(mcfg, seed=SEED, device="cuda")
     out = [_pd_identity("pd identity llama-3-8b bf16", mcfg, "none",
                         PD_LENGTHS, "bf16", params=params)]
+    fabric = [_fabric_identity("fabric identity llama-3-8b bf16", mcfg,
+                               "none", "bf16", params=params)]
     del params
     for kv in ("int8", "int4"):
         out.append(_pd_identity(f"pd identity tiny-llama {kv} KV",
                                 tiny_config("tiny_llama"), kv,
                                 (13 * 16 + 5, 64, 901), kv))
+        fabric.append(_fabric_identity(
+            f"fabric identity tiny-llama {kv} KV", tiny_config("tiny_llama"),
+            kv, kv, gate_tokens=True))
     log(f"[pd identity] on {card}: adopted pages byte-equal to the export, "
         "tokens after the adoption equal the mixed engine's at batch 1, no "
         "prefill launch on the decode engine, pools clean: "
         + json.dumps(out))
+    log(f"[fabric identity] on {card}: B's prefix pages from the pool "
+        "byte-equal to A's, B's prefill at q_offset "
+        f"{FABRIC_PREFIX} with S {FABRIC_SUFFIX}, first-step logits within "
+        "tolerance of A's cold prefill, tokens gated on float32, no pool "
+        "rejection, pools clean: " + json.dumps(fabric))
+    return out + fabric
+
+
+# --------------------------------------------------------------------------
+# The KV fabric: pages published by one engine, adopted by another.
+# --------------------------------------------------------------------------
+
+# The shared prefix (64 pages of 16) and the suffix of the served prompt
+# (one prefill bucket: the suffix prefills as one chunk of S 128).
+FABRIC_PREFIX, FABRIC_SUFFIX = 1024, 128
+
+
+class _LogitSpy:
+    """A model module whose ``unembed`` also keeps each call's logits
+    (float32, on the host); everything else is the module's."""
+
+    def __init__(self, mod, out: list):
+        self._mod, self._out = mod, out
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+    def unembed(self, *args, **kw):
+        x = self._mod.unembed(*args, **kw)
+        self._out.append(x.float().cpu())
+        return x
+
+
+@contextlib.contextmanager
+def _prefill_spy(calls: list):
+    """Record (S, q_offset of lane 0) of every prefill-kernel call made
+    while the block runs (the engine imports the wrapper at each
+    forward, so the module attribute is the one it calls)."""
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    orig = pfa.paged_prefill_attention
+
+    def spy(q, k_pages, v_pages, block_tables, kv_len, q_offset, *a, **kw):
+        calls.append((int(q.shape[1]), int(q_offset[0])))
+        return orig(q, k_pages, v_pages, block_tables, kv_len, q_offset,
+                    *a, **kw)
+
+    pfa.paged_prefill_attention = spy
+    try:
+        yield
+    finally:
+        pfa.paged_prefill_attention = orig
+
+
+def _first_step(engine, prompt: list) -> tuple:
+    """Prefill ``prompt`` on ``engine`` alone (engine API, no scheduler):
+    (the first-step logits [V], the first token, the sequence's cached
+    tokens and host-restored pages, the prefill kernel's (S, q_offset)
+    calls, the wall); the sequence is released after."""
+    from tpu_inference_torch.engine.engine import Sequence
+    logits, calls = [], []
+    seq = Sequence(request_id=90, prompt_tokens=list(prompt),
+                   max_new_tokens=8)
+    mod, engine.mod = engine.mod, _LogitSpy(engine.mod, logits)
+    try:
+        t0 = time.perf_counter()
+        with _prefill_spy(calls):
+            engine.prefill(seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.mod = mod
+    out = (logits[-1][0], seq.generated[0], seq.cached_tokens,
+           seq.host_restored_pages, calls, wall)
+    engine.release(seq)
     return out
+
+
+def _fabric_identity(label: str, mcfg, kv_quant: str, variant: str,
+                     params=None, gate_tokens: bool = False) -> dict:
+    """Engine A publishes into a port FabricPool through its publish
+    hook; engine B, on the same weights, adopts the pool's pages through
+    request_import_host and serves a second prompt with the same prefix.
+    A serves prefix + 96 tokens; B then serves prefix + FABRIC_SUFFIX.
+    Gates: the pool matches the whole 64-page prefix; B's prefill
+    restores the 64 pages from its host tier and launches the prefill
+    kernel at q_offset FABRIC_PREFIX with S FABRIC_SUFFIX (no longer
+    call); B's device pages for the prefix byte-equal to A's (scale rows
+    included); B's first-step logits within check_close of A's cold
+    prefill of the same prompt; pool kv_rejections 0; both pools clean.
+    The greedy tokens of both are recorded, and gated equal when
+    ``gate_tokens`` (float32: they do not depend on the batch)."""
+    import gc
+
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine import kv_cache as kvc
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.engine.prefix_cache import _chain_hashes
+    from tpu_inference_torch.server.kv_fabric import FabricPool
+    n_prefix = FABRIC_PREFIX // 16
+    kw = dict(page_size=16, num_pages=256, max_pages_per_seq=128,
+              max_batch_size=1, kv_quant=kv_quant, host_cache_pages=128)
+    a = InferenceEngine(mcfg, cfgs.EngineConfig(**kw), params=params,
+                        seed=SEED, device="cuda")
+    b = InferenceEngine(mcfg, cfgs.EngineConfig(**kw), params=a.params,
+                        device="cuda")
+    pool = FabricPool(256)
+    a.fabric_publish = pool.put_pages
+    rng = np.random.default_rng(SEED + 11)
+    # The tokens of the prompts stay below 32000 (the smallest vocab).
+    vocab = min(mcfg.vocab_size, 32000)
+    prefix = rng.integers(0, vocab, size=FABRIC_PREFIX).tolist()
+    p1 = prefix + rng.integers(0, vocab, size=96).tolist()
+    p2 = prefix + rng.integers(0, vocab, size=FABRIC_SUFFIX).tolist()
+    out = {"label": label, "kv_quant": kv_quant}
+    try:
+        _sched_run(a, [p1], 8)
+        digests = _chain_hashes(p2, 16)[:n_prefix]
+        if pool.match_depth(digests) != n_prefix:
+            raise AssertionError(f"{label}: the pool holds "
+                                 f"{pool.match_depth(digests)} of the "
+                                 f"{n_prefix} prefix pages")
+        t0 = time.perf_counter()
+        entries = pool.get_pages(digests)
+        get_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b.request_import_host(entries)
+        b.apply_pending_imports()
+        import_s = time.perf_counter() - t0
+        before = pfa_launches()
+        logits_b, first_b, cached, restored, calls, warm_s = _first_step(
+            b, p2)
+        if (cached != FABRIC_PREFIX or restored != n_prefix
+                or (FABRIC_SUFFIX, FABRIC_PREFIX) not in calls
+                or any(s > FABRIC_SUFFIX for s, _ in calls)):
+            raise AssertionError(
+                f"{label}: B cached {cached} tokens, restored {restored} "
+                f"pages, prefill calls (S, q_offset) {sorted(set(calls))}")
+        paths = {k: n - before[1].get(k, 0)
+                 for k, n in pfa_launches()[1].items()
+                 if n > before[1].get(k, 0)}
+        # B's device pages for the prefix, read back off its pool, against
+        # the pool's blobs of A's pages (copied off A's pool at publish).
+        published = dict(pool.hot_set(pool.used))
+        pages_b = kvc.offload_pages(b.kv, [b.prefix_cache._table[d]
+                                           for d in digests])
+        torch.cuda.synchronize()
+        differ = [i for i, (d, y) in enumerate(zip(digests, pages_b))
+                  if kvc.serialize_host_pages([y]) != published[d]]
+        if differ:
+            raise AssertionError(f"{label}: B's prefix pages {differ[:8]} "
+                                 "differ from A's")
+        # A's cache was cleared by _sched_run's pool check: a cold prefill.
+        logits_a, first_a, cached_a, _, _, cold_s = _first_step(a, p2)
+        if cached_a:
+            raise AssertionError(f"{label}: A's reference prefill was not "
+                                 f"cold ({cached_a} cached tokens)")
+        dtype = mcfg.dtype
+        err, scale = check_close(f"{label} first-step logits", logits_b,
+                                 logits_a, dtype)
+        want = _sched_run(a, [p2], 8)[0]
+        got = _sched_run(b, [p2], 8)[0]
+        if gate_tokens and (got != want or first_b != first_a):
+            raise AssertionError(f"{label}: B's tokens {got} differ from "
+                                 f"A's {want}")
+        if pool.kv_rejections:
+            raise AssertionError(f"{label}: {pool.kv_rejections} pool "
+                                 "rejections")
+        a.check_pool_clean()
+        b.check_pool_clean()
+        out.update({
+            "prefix_pages": n_prefix, "pool_pages": pool.used,
+            "pool_bytes": pool.bytes_used,
+            "published_pages": a.fabric_published_pages,
+            "publish_s": a.fabric_publish_s,
+            "publish_s_per_page": a.fabric_publish_s
+            / max(1, a.fabric_published_pages),
+            "get_pages_s": get_s, "import_s": import_s,
+            "fabric_warm_prefill_s": warm_s, "cold_prefill_s": cold_s,
+            "prefill_calls": sorted(set(calls)),
+            "prefill_launches_by_path": paths,
+            "logits_max_abs_err": err, "logits_err_over_scale": scale,
+            "first_token": [first_a, first_b],
+            "tokens_equal": got == want, "tokens_gated": gate_tokens})
+    finally:
+        del a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pfa_launches() -> tuple:
+    """The prefill kernel's launches and launches by path, now."""
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    return pfa.launches, dict(pfa.launches_by_path)
 
 
 # --------------------------------------------------------------------------
@@ -3106,6 +3333,9 @@ def fleet_tiny_phase(card: str) -> dict:
     want_mix = _sched_run(dp1, mix, mix_new)
     want_mix = [want_mix[i] for i in range(len(mix))]
     want_long = _sched_run(dp1, [long_a, long_b], long_new)
+    # The fabric part's prompt: 8 full pages and a straggler.
+    fab_prompt = rng.integers(0, 256, size=65).tolist()
+    want_fab = _sched_run(dp1, [fab_prompt], mix_new)[0]
     del dp1
 
     def run_mix(group, base: int) -> list:
@@ -3235,6 +3465,8 @@ def fleet_tiny_phase(card: str) -> dict:
     out["elastic"] = _elastic_fleet_tiny(
         label, cfg("subprocess"), mix, want_mix, mix_new, long_a,
         want_long[0], long_new, sha_dp1)
+    out["fabric"] = _fabric_fleet_tiny(label, cfg, fab_prompt, want_fab,
+                                       mix_new)
     log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
         f"/ P/D / elastic / dp-1; " + json.dumps({k: v for k, v in out.items()
                                         if k not in ("label",
@@ -3413,6 +3645,143 @@ def _elastic_fleet_tiny(label: str, cfg, mix: list, want_mix: list,
     return out
 
 
+def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
+                       max_new: int) -> dict:
+    """The KV fabric where tokens hold (float32), in both backends: the
+    warm-once flow (a seed request publishes its prefix; with the seed
+    replica pressured, the same prompt routes to the other replica and
+    its dispatch pulls the prefix from the pool), tokens the dp-1
+    engine's. Then, in the subprocess fleet, kill -9 of the seed worker:
+    its respawn adopts the pool's hot set before it is UP, and with the
+    sibling pressured its first request with the prefix is host-warm
+    (every prefix page) with no fabric pull, tokens the dp-1 engine's.
+    Both kernels in every worker; the pools clean."""
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.server.http import build_engine_group
+    label = label + " fabric"
+    n_pages = (len(prompt) - 1) // FLEET_TINY_ENGINE["page_size"]
+
+    def fabric_cfg(fleet: str):
+        c = cfg(fleet)
+        # Page pressure (every free page held) must put the seed replica
+        # under the watermark while its own cached pages stay.
+        c.engine = cfgs.EngineConfig(**FLEET_TINY_ENGINE,
+                                     preempt_watermark_pages=40)
+        c.server = dataclasses.replace(c.server, fabric_cache_pages=64)
+        return c
+
+    def flow(group, base, pressure, unpressure, is_pressured) -> dict:
+        pend = _fleet_submit(group, base, prompt, max_new)
+        if _fleet_finish(label, pend) != want:
+            raise AssertionError(f"{label}: the seed request's tokens "
+                                 "differ from the dp-1 engine's")
+        seed = pend[2]["seq"].routed_replica
+        _wait_fleet(group, label, lambda: group.fabric.used >= n_pages,
+                    "the fabric publish", 60.0)
+        pressure(seed)
+        _wait_fleet(group, label, lambda: is_pressured(seed),
+                    "the seed replica under pressure", 60.0)
+        try:
+            pend = _fleet_submit(group, base + 1, prompt, max_new)
+            toks = _fleet_finish(label, pend)
+        finally:
+            unpressure(seed)
+        fin = pend[2]["seq"]
+        if (fin.routed_replica != 1 - seed
+                or fin.route_fabric_hit_pages != n_pages or toks != want):
+            raise AssertionError(
+                f"{label}: the warm-once turn routed to "
+                f"{fin.routed_replica} (seed {seed}), pulled "
+                f"{fin.route_fabric_hit_pages} pages, tokens equal "
+                f"{toks == want}")
+        snap = group.health_snapshot()["fabric"]
+        if snap["kv_rejections"] or snap["pages_used"] < n_pages:
+            raise AssertionError(f"{label}: fabric {snap}")
+        return {"seed_replica": seed,
+                "route_fabric_hit_pages": fin.route_fabric_hit_pages,
+                "fabric": snap}
+
+    out = {}
+    group = build_engine_group(fabric_cfg("in-process"),
+                               device="cuda").start()
+    try:
+        out["in_process"] = flow(
+            group, 1100,
+            lambda i: group.engines[i].request_page_pressure(256),
+            lambda i: group.engines[i].request_page_pressure(0),
+            lambda i: group.engines[i].under_pressure)
+    finally:
+        group.stop(drain=False)
+        del group
+    group = build_engine_group(fabric_cfg("subprocess"), device="cuda")
+    pids, reads, boots = set(), {}, []
+    try:
+        group.start()
+        pids |= {h.pid for h in group.workers}
+
+        def pressured(i):
+            return bool(group.health_snapshot()["replicas"][i]
+                        .get("under_pressure"))
+
+        def page_pressure(i, n):
+            group.apply_chaos({"replica": i, "page_pressure": n})
+
+        res = flow(group, 1200, lambda i: page_pressure(i, 256),
+                   lambda i: page_pressure(i, 0), pressured)
+        out["subprocess"] = res
+        seed = res["seed_replica"]
+        _worker_reads(group, reads, label)
+        warmboot = group._fabric_warmboot
+
+        def spy(h, client):
+            boots.append({"replica": h.replica, "state": h.state,
+                          "incarnation": h.incarnation})
+            return warmboot(h, client)
+
+        group._fabric_warmboot = spy
+        victim = group.workers[seed]
+        inc = victim.incarnation
+        group.apply_chaos({"replica": seed, "kill": "sigkill"})
+        _wait_fleet(group, label, lambda: victim.incarnation > inc
+                    and _healed(group), "the respawn after kill -9")
+        group._fabric_warmboot = warmboot
+        pids |= {h.pid for h in group.workers}
+        wb = victim.warmboots[-1] if victim.warmboots else {}
+        if (not boots or boots[-1]["state"] == "up"
+                or wb.get("incarnation") != victim.incarnation
+                or wb.get("adopted", 0) < n_pages):
+            raise AssertionError(f"{label}: the respawn's warm boot "
+                                 f"{boots} {wb}")
+        page_pressure(1 - seed, 256)
+        try:
+            _wait_fleet(group, label, lambda: pressured(1 - seed),
+                        "the sibling under pressure", 60.0)
+            pend = _fleet_submit(group, 1300, prompt, max_new)
+            toks = _fleet_finish(label, pend)
+        finally:
+            page_pressure(1 - seed, 0)
+        fin = pend[2]["seq"]
+        if (fin.routed_replica != seed or toks != want
+                or fin.route_host_hit_pages < n_pages
+                or fin.route_fabric_hit_pages):
+            raise AssertionError(
+                f"{label}: the respawn's first request routed to "
+                f"{fin.routed_replica}, host-warm "
+                f"{fin.route_host_hit_pages}, pulled "
+                f"{fin.route_fabric_hit_pages}, tokens equal {toks == want}")
+        _worker_reads(group, reads, label)
+        _gate_launches(reads, label, "f32")
+        _pool_clean(label, group)
+        out["warm_boot"] = {"replica": seed, "record": wb,
+                            "host_hit_pages": fin.route_host_hit_pages,
+                            "tokens": "equal to the dp-1 engine's"}
+        out["launches_by_variant"] = _launch_totals(reads)["by_variant"]
+    finally:
+        group.stop(drain=False)
+    _pids_gone(label, pids)
+    return out
+
+
 def _crc_mb_s() -> dict:
     """CRC-32C of the port's integrity module on this machine, 64 MiB of
     seeded bytes: each path's MB/s (the one crc32c resolves to, numpy,
@@ -3440,9 +3809,9 @@ def _crc_mb_s() -> dict:
 
 
 def fleet_phase(card: str, dp1: dict) -> dict:
-    """llama-3-8b (bf16, full width) at dp 2 through the CLI's
-    ``--dp 2 --fleet subprocess --num-pages 512``: two workers of 16 GB
-    weights share the card. Two waves of 8 concurrent BurstGPT-length
+    """llama-3-8b (bf16, full width; main() cuts its depth to CUT_LAYERS)
+    at dp 2 through the CLI's ``--dp 2 --fleet subprocess --num-pages
+    512``: two workers share the card. Two waves of 8 concurrent BurstGPT-length
     requests (48 tokens): SIGTERM to one worker mid-decode in the first,
     and once healed, kill -9 to the other in the second. Gates: every
     stream "length" with its 48 tokens (the router's stream indices are
@@ -3603,8 +3972,8 @@ def fleet_phase(card: str, dp1: dict) -> dict:
 
 
 def pd_phase(card: str, fleet: dict) -> dict:
-    """(c) of the P/D gates: llama-3-8b (bf16, full width) through the
-    CLI with ``--dp 2 --fleet subprocess --roles prefill,decode``, one
+    """(c) of the P/D gates: llama-3-8b (bf16, full width; main() cuts
+    its depth to CUT_LAYERS) through the CLI with ``--dp 2 --fleet subprocess --roles prefill,decode``, one
     wave of 8 concurrent BurstGPT-length requests of 48 tokens. Gates:
     every stream "length" with its 48 tokens; one handoff per request,
     each adopted by the decode worker, none recomputed; the prefill
@@ -3738,8 +4107,9 @@ def _class_ttfts(results: list) -> dict:
 
 
 def elastic_phase(card: str, fleet: dict) -> dict:
-    """The elastic fleet on the card: llama-3-8b (bf16, full width)
-    through the CLI with ``--dp 2 --fleet subprocess --autoscale
+    """The elastic fleet on the card: llama-3-8b (bf16, full width;
+    main() cuts its depth to CUT_LAYERS, as the fleet lane's) through the
+    CLI with ``--dp 2 --fleet subprocess --autoscale
     --autoscale-min 2 --autoscale-max 3``, class lanes (admission cap
     ELASTIC_CAP a worker, lanes ELASTIC_DEPTH deep) and a TTFT target of
     a quarter of the fleet lane's TTFT p50 in this run (the same model,
@@ -4019,6 +4389,248 @@ def elastic_phase(card: str, fleet: dict) -> dict:
     return out
 
 
+# The fabric lane's warm boot pushes the whole pool: the pool keeps its
+# pages in LRU order and the 8 users' suffix pages are published after
+# the shared prefix, so a 64-page hot set (the reference's default) would
+# hold suffix pages (the lane logs how many prefix pages it would hold).
+FABRIC_WARMBOOT_PAGES = 256
+
+
+def _fabric_prompts(n: int) -> tuple:
+    """The shared system prompt (FABRIC_PREFIX - 1 random letters: with
+    the byte tokenizer's BOS, FABRIC_PREFIX tokens, 64 pages of 16) and
+    ``n`` users' prompts: the system prompt and a suffix of a BurstGPT
+    request's length (_burst_prompts, capped at 512 bytes)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+    system = rng.choice(letters, FABRIC_PREFIX - 1).tobytes().decode()
+    return system, [system + u[:512] for u in _burst_prompts(n)]
+
+
+def _rss_bytes() -> dict:
+    """This process's resident set now and at its peak (/proc)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in ("VmRSS", "VmHWM"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def fabric_phase(card: str) -> dict:
+    """The fleet KV fabric on the card: llama-3-8b (bf16, full width, all
+    32 layers) through the CLI with ``--dp 2 --fleet subprocess
+    --num-pages 512 --max-pages-per-seq 128 --max-batch-size 8
+    --host-cache-pages 2048 --fabric-cache-pages 256`` (the pool holds
+    512 MiB in the router) and ``--fabric-warmboot-pages``
+    FABRIC_WARMBOOT_PAGES; ``--preempt-watermark-pages 128`` so that page
+    pressure (every free page held) puts a worker holding one request's
+    cached pages under the watermark. Traffic: a 1024-token shared system
+    prompt and users each adding a BurstGPT-length suffix (capped at
+    512), 48 tokens out. Stages: one seed request; the prefix's 64 pages
+    in the pool; page pressure on the seed worker; 8 concurrent requests
+    (routed around it: the other worker's dispatches pull the prefix);
+    the pressure lifted and the seed worker killed with kill -9; once
+    respawned (its warm boot before it is UP), the other worker's cache
+    cleared and pressured, and one more request. Gates: every stream
+    "length" with its 48 tokens; the wave on the other worker, one of
+    its dispatches with route_fabric_hit_pages 64; no fabric_pull_failed
+    or fabric_warmboot_failed event, no pool rejection, no frame error;
+    the respawn's warm boot adopting the prefix, and its request
+    host-warm (>= 64 pages) with no fabric pull; both kernels (bf16
+    only) in every worker; no /metrics counter falls across the restart;
+    no worker left after and the card's memory back. Recorded: the seed
+    request's TTFT (a cold prefill) and the fabric-warm ones, each
+    pull's wall and bytes, the publish wall per page on the engine
+    thread, the warm boot's wall and pages, the tpu_inf_fabric_* and
+    tpu_inf_route_fabric_* series at the end, the router's RSS, the
+    prefill launches by path on the fabric-warm worker."""
+    from tpu_inference_torch import telemetry as tel
+    from tpu_inference_torch.engine.prefix_cache import _chain_hashes
+    label = "fabric llama-3-8b bf16 dp2"
+    free_before = torch.cuda.mem_get_info()[0]
+    n_prefix = FABRIC_PREFIX // 16
+    system, prompts = _fabric_prompts(10)
+    max_tokens = 48
+    events: list = []
+    log_event = tel.log_event
+
+    def spy_log(event, *args, **kw):
+        events.append(event)
+        return log_event(event, *args, **kw)
+
+    rss0 = _rss_bytes()
+    t0 = time.perf_counter()
+    server, _ = _serve_cli([
+        "--model", "llama-3-8b", "--dp", "2", "--fleet", "subprocess",
+        "--num-pages", "512", "--max-pages-per-seq", "128",
+        "--max-batch-size", "8", "--host-cache-pages", "2048",
+        "--fabric-cache-pages", "256",
+        "--fabric-warmboot-pages", str(FABRIC_WARMBOOT_PAGES),
+        "--preempt-watermark-pages", "128", "--no-warmup",
+        "--seed", str(SEED)])
+    group = server.group
+    pids, reads = set(), {}
+    tel.log_event = spy_log
+    try:
+        port = server.start(port=0)
+        boot_s = time.perf_counter() - t0
+        pids |= {h.pid for h in group.workers}
+        prefix = _chain_hashes(server.tokenizer.encode(system), 16)[:n_prefix]
+
+        def timeline(request_id: str) -> dict:
+            for t in group.recent_snapshot(64):
+                if t.get("trace_id") == request_id:
+                    return t
+            raise AssertionError(f"{label}: no timeline for {request_id}")
+
+        def pressured(i: int) -> bool:
+            return bool(group.health_snapshot()["replicas"][i]
+                        .get("under_pressure"))
+
+        def page_pressure(i: int, n: int) -> None:
+            group.apply_chaos({"replica": i, "page_pressure": n})
+
+        seed_r = _stream_request(port, prompts[0], max_tokens)
+        seed = timeline(seed_r["request_id"])["routed_replica"]
+        other = 1 - seed
+        _wait_fleet(group, label,
+                    lambda: group.fabric.match_depth(prefix) == n_prefix,
+                    "the prefix in the pool", 60.0)
+        page_pressure(seed, 512)
+        _wait_fleet(group, label, lambda: pressured(seed),
+                    "the seed worker under pressure", 60.0)
+        pulls0 = len(group.fabric_pulls)
+        try:
+            wave, wave_wall = run_requests(port, prompts[1:9], max_tokens)
+        finally:
+            page_pressure(seed, 0)
+        wave_tl = [timeline(r["request_id"]) for r in wave]
+        pulls = list(group.fabric_pulls)[pulls0:]
+        if any(t["routed_replica"] != other for t in wave_tl):
+            raise AssertionError(
+                f"{label}: the wave did not route around the pressured "
+                f"worker {seed}: {[t['routed_replica'] for t in wave_tl]}")
+        warm = [(r["ttft_s"], t["route_fabric_hit_pages"])
+                for r, t in zip(wave, wave_tl)]
+        if not any(n == n_prefix for _, n in warm):
+            raise AssertionError(f"{label}: no dispatch pulled the "
+                                 f"{n_prefix}-page prefix: {warm}")
+        # The seed worker's counts leave with its process.
+        _worker_reads(group, reads, label)
+        group._refresh_caches()
+        before = _monotone_series(group.prometheus_text())
+        pool_order = [d for d, _ in group.fabric.hot_set(
+            FABRIC_WARMBOOT_PAGES)]
+        prefix_in_mru64 = len(set(pool_order[:64]) & set(prefix))
+        victim = group.workers[seed]
+        inc = victim.incarnation
+        t_kill = time.perf_counter()
+        group.apply_chaos({"replica": seed, "kill": "sigkill"})
+        _wait_fleet(group, label, lambda: victim.incarnation > inc
+                    and _healed(group), "the respawn after kill -9", 300.0)
+        respawn_s = time.perf_counter() - t_kill
+        pids |= {h.pid for h in group.workers}
+        wb = victim.warmboots[-1] if victim.warmboots else {}
+        if (wb.get("incarnation") != victim.incarnation
+                or wb.get("adopted", 0) < n_prefix):
+            raise AssertionError(f"{label}: the respawn's warm boot {wb}")
+        group._refresh_caches()
+        n_series = _no_series_fell(label, before,
+                                   _monotone_series(group.prometheus_text()))
+        # The other worker, idle: its cached pages dropped, so page
+        # pressure puts it under the watermark.
+        group.workers[other].client.rpc("debug", clear=True)
+        page_pressure(other, 512)
+        try:
+            _wait_fleet(group, label, lambda: pressured(other),
+                        "the other worker under pressure", 60.0)
+            last = _stream_request(port, prompts[9], max_tokens)
+        finally:
+            page_pressure(other, 0)
+        last_tl = timeline(last["request_id"])
+        if (last_tl["routed_replica"] != seed
+                or last_tl["route_host_hit_pages"] < n_prefix
+                or last_tl["route_fabric_hit_pages"]):
+            raise AssertionError(
+                f"{label}: the respawn's request: routed to "
+                f"{last_tl['routed_replica']}, host-warm "
+                f"{last_tl['route_host_hit_pages']}, pulled "
+                f"{last_tl['route_fabric_hit_pages']}")
+        failed = [e for e in events
+                  if e in ("fabric_pull_failed", "fabric_warmboot_failed")]
+        if failed or group.fabric.kv_rejections or group.frame_errors:
+            raise AssertionError(
+                f"{label}: events {failed}, pool rejections "
+                f"{group.fabric.kv_rejections}, frame errors "
+                f"{group.frame_errors}")
+        final = _worker_reads(group, reads, label)
+        _gate_launches(reads, label, "bf16")
+        text = group.prometheus_text()
+        series = {}
+        for line in text.splitlines():
+            m = _SAMPLE_LINE.match(line)
+            if m and m.group(1).startswith(("tpu_inf_fabric_",
+                                            "tpu_inf_route_fabric_")):
+                series[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+        launches = _launch_totals(reads)
+        publish = {str(w["replica"]) + "/" + str(w["pid"]): w["fabric"]
+                   for w in reads.values()}
+        warm_worker = [w for w in final if w["replica"] == other]
+        snap = server_stats(port)
+        rss = _rss_bytes()
+        fabric_snap = group.fabric.snapshot()
+        boot_walls = {h.replica: h.boot_walls for h in group.workers}
+    finally:
+        tel.log_event = log_event
+        server.shutdown()
+        del server, group
+    _pids_gone(label, pids)
+    free_after = _card_memory_back(label, free_before)
+    results = [seed_r] + wave + [last]
+    pages = sum(v["published_pages"] for v in publish.values())
+    publish_s = sum(v["publish_s"] for v in publish.values())
+    ttfts = sorted(r["ttft_s"] for r in results)
+    out = {"label": label, "model": "llama-3-8b", "quant": "none",
+           "kv_quant": "none", "variant": "bf16", "dp": 2,
+           "fleet": "subprocess", "boot_s": boot_s,
+           "boot_walls_s": boot_walls, "seed_replica": seed,
+           "seed_ttft_s": seed_r["ttft_s"],
+           "seed_prompt_tokens": seed_r["prompt_tokens"],
+           "wave": {**_summarize(wave, wave_wall),
+                    "ttft_and_pulled_pages": warm,
+                    "first_fabric_warm_ttft_s": min(
+                        t for t, n in warm if n == n_prefix)},
+           "pulls": pulls, "respawn_s": respawn_s, "warm_boot": wb,
+           "prefix_pages_in_mru_64": prefix_in_mru64,
+           "last": {"ttft_s": last["ttft_s"],
+                    "route_host_hit_pages": last_tl["route_host_hit_pages"],
+                    "route_fabric_hit_pages":
+                        last_tl["route_fabric_hit_pages"]},
+           "publish": publish,
+           "publish_s_per_page": publish_s / max(1, pages),
+           "fabric": fabric_snap, "series": series,
+           "series_checked": n_series,
+           "router_rss_bytes": {"before_boot": rss0, "end": rss},
+           "fabric_warm_worker_prefill_by_path": (
+               warm_worker[0]["kernels"]["prefill_by_path"]
+               if warm_worker else None),
+           "requests": len(results),
+           "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+           "launches_by_variant": launches["by_variant"],
+           "decode_launches_by_batch": launches["decode_by_batch"],
+           "prefill_launches_by_len": launches["prefill_by_len"],
+           "prefill_launches_by_path": launches["prefill_by_path"],
+           "workers_read": len(reads),
+           "step_failures": snap["step_failures"],
+           "free_memory_before_after_bytes": [free_before, free_after]}
+    log(f"[{label}] on {card}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "label"}))
+    return out
+
+
 def log_ledger(label: str, prof: dict) -> None:
     """The step ledger's verdicts over a profiled window."""
     led = prof.get("ledger")
@@ -4189,16 +4801,18 @@ def main() -> int:
     mp = timed("fleet_tiny", fleet_tiny_phase, card)
     main_paths[mp["label"]] = mp
     for label, quant, kv_quant, variant in MAIN_PATHS:
-        mp = timed("main", main_path_phase, label, quant, kv_quant, variant,
-                   variant != "int4",
-                   after=observability_phase if label == "bf16" else None)
+        # The quantized paths run CUT_LAYERS of llama-3-8b's layers.
+        with (_depth_cut("llama-3-8b", CUT_LAYERS) if variant != "bf16"
+              else contextlib.nullcontext()):
+            mp = timed("main", main_path_phase, label, quant, kv_quant,
+                       variant, variant != "int4",
+                       after=(observability_phase if label == "bf16"
+                              else None))
         log_main_path(mp, card)
         main_paths[label] = mp
-    for name, phase, layers in (
-            ("reference", reference_config_phase, CUT_LAYERS),
-            ("pressure", pressure_phase, None)):
-        with (_depth_cut("llama-3-8b", layers) if layers
-              else contextlib.nullcontext()):
+    for name, phase in (("reference", reference_config_phase),
+                        ("pressure", pressure_phase)):
+        with _depth_cut("llama-3-8b", CUT_LAYERS):
             mp = timed(name, phase, card)
         log_new_path(mp, card)
         main_paths[mp["label"]] = mp
@@ -4211,14 +4825,24 @@ def main() -> int:
     log_new_path(mp, card)
     main_paths[mp["label"]] = mp
     pd_identity = timed("pd_identity", pd_identity_phase, card)
-    fleet = timed("fleet", fleet_phase, card, main_paths["bf16"])
-    main_paths[fleet["label"]] = fleet
-    mp = timed("pd", pd_phase, card, fleet)
+    # The fleet, pd and elastic lanes run CUT_LAYERS of llama-3-8b's
+    # layers (the elastic lane's TTFT target is a quarter of the fleet
+    # lane's p50, so both are cut alike); the fabric lane runs all 32.
+    with _depth_cut("llama-3-8b", CUT_LAYERS):
+        fleet = timed("fleet", fleet_phase, card, main_paths["bf16"])
+        main_paths[fleet["label"]] = fleet
+        mp = timed("pd", pd_phase, card, fleet)
+        main_paths[mp["label"]] = mp
+        mp = timed("elastic", elastic_phase, card, fleet)
+        main_paths[mp["label"]] = mp
+    mp = timed("fabric", fabric_phase, card)
     main_paths[mp["label"]] = mp
-    mp = timed("elastic", elastic_phase, card, fleet)
-    main_paths[mp["label"]] = mp
-    for name, phase in (("mixtral", mixtral_phase), ("gpt2", gpt2_phase)):
-        mp = timed(name, phase, card)
+    # Mixtral runs CUT_LAYERS of its 32 layers.
+    for name, phase, cut in (("mixtral", mixtral_phase, "mixtral-8x7b"),
+                             ("gpt2", gpt2_phase, None)):
+        with (_depth_cut(cut, CUT_LAYERS) if cut
+              else contextlib.nullcontext()):
+            mp = timed(name, phase, card)
         log_family_path(mp, card)
         main_paths[mp["label"]] = mp
     checkpoint = timed("checkpoint", checkpoint_phase, card)

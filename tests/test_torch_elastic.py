@@ -316,8 +316,8 @@ def test_retire_candidate_prefers_cold_and_respects_pd(ckpt, occ, roles,
 
 def test_supervision_keys_match_reference(ckpt):
     """The process routers' supervision view and /healthz have the
-    reference's keys, the elastic ones included (the KV fabric's wait
-    for ROADMAP 1.15b), and the same zeroed elastic values at boot."""
+    reference's keys, the elastic and KV-fabric ones included, and the
+    same zeroed elastic and fabric values at boot."""
     from tpu_inference.server.fleet import ProcessEngineGroup as JGroup
     from tpu_inference_torch.server.fleet import ProcessEngineGroup
 
@@ -325,13 +325,14 @@ def test_supervision_keys_match_reference(ckpt):
     port = ProcessEngineGroup(_cfg(ckpt, class_queue_depth=4), device="cpu")
     try:
         sr, sp = ref.supervision_counters(), port.supervision_counters()
-        fabric = {"route_fabric_hits", "fabric_puts", "fabric_hits"}
-        assert set(sp) == set(sr) - fabric
+        assert set(sp) == set(sr)
         for k in ("scale_ups", "scale_downs", "rollouts",
-                  "class_preemptions", "class_shed", "class_deferred"):
+                  "class_preemptions", "class_shed", "class_deferred",
+                  "route_fabric_hits", "fabric_puts", "fabric_hits"):
             assert sp[k] == sr[k], k
-        assert set(port.health_snapshot()) == \
-            set(ref.health_snapshot()) - {"fabric"}
+        hp, hr = port.health_snapshot(), ref.health_snapshot()
+        assert set(hp) == set(hr)
+        assert hp["fabric"] == hr["fabric"]
     finally:
         ref.stop(drain=False)
         port.stop(drain=False)

@@ -192,11 +192,11 @@ def test_elastic_series_match_reference():
 
 def test_elastic_knobs_build_and_the_rest_names_1_15b(ckpt):
     """Autoscale and class lanes build a router on the process fleet;
-    the refusal that stays names only the KV fabric and the shm arena."""
+    the refusal that stays names only the shm arena."""
     from tpu_inference_torch.server.http import build_engine_group
 
     with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP 1\.15b \(KV fabric, shm arena\)\)$"):
+                       match=r"\(ROADMAP 1\.15b \(shm arena\)\)$"):
         build_engine_group(_cfg(ckpt, kv_plane="shm"), device="cpu")
     group = build_engine_group(_cfg(ckpt, autoscale=True,
                                     class_queue_depth=4), device="cpu")

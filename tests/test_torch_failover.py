@@ -132,14 +132,19 @@ def test_aggregate_replica_stats_equals_reference():
 
 def test_routing_score_equals_reference():
     from tpu_inference.server import kv_fabric
-    for kw in (dict(prompt_pages=4, hbm=2, host=1, load=3, pressured=False),
-               dict(prompt_pages=9, hbm=0, host=5, load=0, pressured=True)):
+    for kw in (dict(prompt_pages=4, hbm=2, host=1, fabric=1, load=3,
+                    pressured=False),
+               dict(prompt_pages=9, hbm=0, host=5, fabric=3, load=0,
+                    pressured=True)):
         for hw in (1.0, 8.0):
             got = trep.prefill_route_score(
                 tcfg.ServerConfig(route_hit_weight=hw), **kw)
             want = kv_fabric.prefill_route_score(
-                jcfg.ServerConfig(route_hit_weight=hw), fabric=0, **kw)
+                jcfg.ServerConfig(route_hit_weight=hw), **kw)
             assert got == want
+            assert got != trep.prefill_route_score(
+                tcfg.ServerConfig(route_hit_weight=hw),
+                **{**kw, "fabric": 0})
     assert trep.cold_route_key(True, 2) == kv_fabric.cold_route_key(True, 2)
 
 
@@ -365,14 +370,14 @@ def test_admission_cap_sheds_at_dp2():
 
 
 def test_route_stat_and_supervision_shapes_match_reference():
-    """Per-replica route stats have the reference's keys; every
-    supervision key the port reports is the reference's (its KV-fabric
-    keys wait for ROADMAP 1.15b)."""
+    """Per-replica route stats have the reference's keys; the port's
+    supervision keys are the reference's, the KV-fabric ones included,
+    and the /healthz fabric block is the reference's."""
     port, ref = _group("port"), _group("ref")
     hp, hr = port.health_snapshot(), ref.health_snapshot()
     assert [set(r["routing"]) for r in hp["replicas"]] == \
         [set(r["routing"]) for r in hr["replicas"]]
-    fabric = {"route_fabric_hits", "fabric_puts", "fabric_hits"}
-    assert set(hp["supervision"]) == set(hr["supervision"]) - fabric
+    assert set(hp["supervision"]) == set(hr["supervision"])
+    assert hp["fabric"] == hr["fabric"]
     for rp, rr in zip(hp["replicas"], hr["replicas"]):
         assert set(rp) - {"device"} <= set(rr), set(rp) - set(rr)

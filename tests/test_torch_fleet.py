@@ -7,7 +7,8 @@ oracle's through ``kill -9`` failover, SIGTERM drain with KV migration,
 transport corruption and a wedged connection; the in-process and the
 subprocess backends give the same ``outputs_sha256``; the metrics keep
 their replica labels and never fall across restarts; the HTTP layer
-serves dp=2 on both backends; the 1.15b features are refused.
+serves dp=2 on both backends; the shm arena (ROADMAP 1.15b part 4) is
+refused.
 """
 
 import dataclasses
@@ -246,9 +247,18 @@ def test_imports_applied_together_report_their_own_pages():
 def test_unported_fleet_features_raise_naming_1_15b(ckpt):
     from tpu_inference_torch.server.http import build_engine_group
 
-    for kw in (dict(kv_plane="shm"), dict(fabric_cache_pages=64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.15b"):
-            build_engine_group(_cfg(ckpt, **kw), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"\(ROADMAP 1\.15b \(shm arena\)\)$"):
+        build_engine_group(_cfg(ckpt, kv_plane="shm"), device="cpu")
+    # The KV fabric is served on both backends: each router holds a pool.
+    for fleet in ("subprocess", "in-process"):
+        group = build_engine_group(
+            _cfg(ckpt, fleet=fleet, fabric_cache_pages=64), device="cpu")
+        try:
+            assert group.fabric.capacity == 64
+            assert group.health_snapshot()["fabric"]["capacity_pages"] == 64
+        finally:
+            group.stop(drain=False)
     cfg = _cfg(ckpt)
     cfg.parallel = tcfg.ParallelConfig(dp=2, tp=2)
     with pytest.raises(NotImplementedError, match="ROADMAP 1.16"):

@@ -86,6 +86,7 @@ page ids.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import random as _chaos_random
 import threading
@@ -247,8 +248,9 @@ class Sequence:
     priority_class: str = "interactive"
     # Routing: the replica this attempt was dispatched to (-1 when
     # submitted to a scheduler directly) and the prefix-cache pages the
-    # router counted on, of them host-tier ones, and pages pulled from a
-    # fleet KV fabric (always 0: the port has none).
+    # router counted on, of them host-tier ones, and the pages the
+    # router pulled from the fleet KV fabric into this replica's host
+    # tier before dispatch (the fourth temperature).
     routed_replica: int = -1
     route_hit_pages: int = 0
     route_host_hit_pages: int = 0
@@ -394,6 +396,19 @@ class InferenceEngine:
         self.handoffs_out = 0
         self.adoptions_in = 0
         self.adopt_fallbacks = 0
+        # Fleet KV fabric publish: when armed (the worker's boot or the
+        # in-process group sets ``fabric_publish`` to a callable taking
+        # [(digest, HostKVPage)]), a release also ships the settled
+        # prefix run to the router's pool. ``_fabric_published`` is a
+        # bounded dedup set, so steady traffic over one system prompt
+        # serializes it once; ``fabric_publish_s`` is the engine thread's
+        # wall in the hook.
+        self.fabric_publish = None
+        self.fabric_publish_min_pages = 1
+        self._fabric_published: "collections.OrderedDict[bytes, None]" = \
+            collections.OrderedDict()
+        self.fabric_published_pages = 0
+        self.fabric_publish_s = 0.0
         # Migration imports queued by another thread, applied by the
         # engine loop before admission: (entries, done event).
         self._pending_imports: List[tuple] = []
@@ -1596,6 +1611,46 @@ class InferenceEngine:
         digests = None if seq.resume_base else seq.prefix_digests
         self.prefix_cache.insert(in_kv[:seq.ctx_len], seq.pages,
                                  digests=digests)
+        self._publish_to_fabric(seq, digests)
+
+    def _publish_to_fabric(self, seq: Sequence, digests) -> None:
+        """Ship the settled prefix run to the fleet fabric pool: the
+        contiguous full-page prompt prefix, keyed by its chain digests,
+        copied to host layout and handed to the armed publish callable.
+        Bounded below by ``fabric_publish_min_pages`` and deduped against
+        ``_fabric_published``. Best effort: a failure publishes
+        nothing."""
+        if self.fabric_publish is None or not digests:
+            return
+        full = len(self._tokens_in_kv(seq, drop_last=True)[:seq.ctx_len]) \
+            // self.engine_cfg.page_size
+        k = min(len(digests), full, len(seq.pages))
+        while k > 0 and not all(seq.pages[i] for i in range(k)):
+            k -= 1
+        if k < max(1, self.fabric_publish_min_pages):
+            return
+        fresh = [i for i in range(k)
+                 if digests[i] not in self._fabric_published]
+        if not fresh:
+            return
+        t0 = time.perf_counter()
+        try:
+            host_pages = kvc.offload_pages(
+                self.kv, [seq.pages[i] for i in fresh])
+            if self.device.type == "cuda":
+                # The copies land before the callable serializes them.
+                torch.cuda.current_stream(self.device).synchronize()
+            self.fabric_publish(
+                [(digests[i], p) for i, p in zip(fresh, host_pages)])
+        except Exception:
+            return                        # publish is best-effort
+        finally:
+            self.fabric_publish_s += time.perf_counter() - t0
+        for i in fresh:
+            self._fabric_published[digests[i]] = None
+        while len(self._fabric_published) > 4096:
+            self._fabric_published.popitem(last=False)
+        self.fabric_published_pages += len(fresh)
 
     def release(self, seq: Sequence) -> None:
         """Free a finished sequence's pages and slot, publishing its full

@@ -180,6 +180,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "and swap back in on reuse; 0 = off, 'auto' "
                         "(default) = half the available RAM "
                         "(/proc/meminfo MemAvailable) less 2 GiB")
+    p.add_argument("--fabric-cache-pages", type=int, default=0,
+                   help="fleet KV fabric: router-side shared pool "
+                        "capacity in pages (README 'KV fabric'); "
+                        "settled prefix pages published by any replica "
+                        "warm prefills on EVERY replica, and autoscaled "
+                        "workers boot warm from the pool; 0 = off")
+    p.add_argument("--fabric-publish-min-pages", type=int, default=1,
+                   help="fleet KV fabric: publish a prefix to the pool "
+                        "only once at least this many settled pages are "
+                        "available (filters short one-off prompts)")
+    p.add_argument("--fabric-warmboot-pages", type=int, default=64,
+                   help="fleet KV fabric: push up to this many MRU pool "
+                        "pages into a newly spawned worker BEFORE it "
+                        "becomes routable (warm boot for autoscale "
+                        "scale-ups, restarts, and rollouts); 0 = off")
+    p.add_argument("--route-fabric-hit-weight", type=float, default=0.25,
+                   help="prefix-affinity: pages of prefill work one "
+                        "fabric-pool hit page is worth (fourth "
+                        "temperature: HBM-warm > host-warm > "
+                        "fabric-warm > cold — a fabric page saves the "
+                        "compute but pays deserialize + host->device "
+                        "swap-in; 0 ignores fabric warmth)")
     p.add_argument("--admission", default="reserve",
                    choices=("reserve", "optimistic"),
                    help="'reserve' charges each request prompt + max_new "
@@ -523,6 +545,10 @@ def server_overrides(args) -> dict:
             "chaos_failure_rate": args.chaos_failure_rate,
             "chaos_delay_s": args.chaos_delay_s,
             "fleet": args.fleet,
+            "fabric_cache_pages": args.fabric_cache_pages,
+            "fabric_publish_min_pages": args.fabric_publish_min_pages,
+            "fabric_warmboot_pages": args.fabric_warmboot_pages,
+            "route_fabric_hit_weight": args.route_fabric_hit_weight,
             "worker_restart_max": args.worker_restart_max,
             "worker_restart_backoff_s": args.worker_restart_backoff_s,
             "drain_timeout_s": args.drain_timeout_s,

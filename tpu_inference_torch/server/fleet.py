@@ -1,7 +1,7 @@
 """Process fleet router: ``EngineGroup`` semantics over worker processes.
 
-Twin of ``tpu_inference/server/fleet.py`` on the relay plane (the KV
-fabric and the shared-memory arena are ROADMAP 1.15b).
+Twin of ``tpu_inference/server/fleet.py`` on the relay plane (the
+shared-memory arena is ROADMAP 1.15b part 4).
 ``ProcessEngineGroup`` serves the same
 facade as the in-process ``EngineGroup`` (submit/cancel; health, stats,
 metrics, steps, recent, trace and blackbox snapshots; prefix-affinity
@@ -65,11 +65,23 @@ an interactive one preempts the newest lowest-class running request,
 which goes back to the front of its lane and resumes from the router's
 token record.
 
-Routing is the in-process group's three-temperature prefix affinity
-(``replicas.prefill_route_score``): the router hashes each prompt once
+Routing is the in-process group's four-temperature prefix affinity
+(``kv_fabric.prefill_route_score``): the router hashes each prompt once
 and probes every candidate's cache tiers through the side-effect-free
-``peek`` RPC. Tokens stream through the router one event frame each,
+``peek`` RPC; the fourth tier, the KV fabric, it reads from its own
+pool. Tokens stream through the router one event frame each,
 unbuffered.
+
+KV fabric (``fabric_cache_pages`` > 0): the router holds a
+``kv_fabric.FabricPool`` of serialized prefix pages. Workers publish
+settled prefix runs as ``fabric_put`` events; a dispatch first ships the
+pages the pool holds beyond the chosen worker's warm depth into its host
+tier over ``import-kv`` (a live handoff skips it), and a failed pull
+lets the dispatch go on cold. Every worker incarnation (first boot,
+respawn, scale-up, rollout successor) gets the pool's MRU hot set
+(``fabric_warmboot_pages``) before it becomes routable. A handoff or a
+drain export that finds no destination is parked in the pool (salvage),
+so the retry's dispatch pulls it back.
 
 Before spawning workers for a card with the kernel backend, the router
 builds the kernels once (``kernels.KERNEL_SOURCES``), so workers never
@@ -99,13 +111,12 @@ from tpu_inference_torch.config import (FrameworkConfig, class_rank,
                                         resolve_worker_roles)
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine.engine import Sequence
+from tpu_inference_torch.integrity import KVIntegrityError
+from tpu_inference_torch.server import kv_fabric
 from tpu_inference_torch.server.replicas import (_RETRYABLE, FleetSaturated,
                                                  FleetUnavailable,
                                                  _clone_request,
                                                  aggregate_replica_stats,
-                                                 cold_route_key,
-                                                 decode_route_score,
-                                                 prefill_route_score,
                                                  replica_device,
                                                  routing_digests)
 from tpu_inference_torch.server.transport import (ChaosPolicy,
@@ -324,8 +335,11 @@ class WorkerHandle:
         self.started_unix = 0.0
         self.pid: Optional[int] = None
         self.info: dict = {}
-        # Boot wall of each incarnation (spawn to hello), seconds.
+        # Boot wall of each incarnation (spawn to hello), seconds, and
+        # each fabric warm boot (incarnation, pages offered and adopted,
+        # bytes, wall).
         self.boot_walls: List[float] = []
+        self.warmboots: List[dict] = []
         self.last_stats: dict = {}
         self.last_metrics: list = []
         self.last_health: dict = {}
@@ -436,6 +450,7 @@ class ProcessEngineGroup:
         self.requests_unavailable = 0
         self.route_prefix_hits = 0
         self.route_cold = 0
+        self.route_fabric_hits = 0      # dispatches that pulled fabric pages
         self.migrations = 0             # drain exports received
         self.migrated_pages = 0
         self.migrated_bytes = 0
@@ -453,7 +468,13 @@ class ProcessEngineGroup:
         self.pd_handoff_recomputes = 0
         # KV payload bytes relayed through the router, by verb.
         self.rpc_blob_bytes: Dict[str, int] = {
-            "import-kv": 0, "migrate": 0, "handoff": 0, "submit": 0}
+            "submit": 0, "import-kv": 0, "handoff": 0, "migrate": 0,
+            "fabric_put": 0}
+        # The fleet KV fabric: the router's pool of serialized prefix
+        # pages, fed by the workers' fabric_put events.
+        self.fabric = kv_fabric.FabricPool(cfg.server.fabric_cache_pages)
+        # The latest pulls (replica, pages, bytes, wall), for the logs.
+        self.fabric_pulls: deque = deque(maxlen=256)
         self._deadlines = {"fast": cfg.server.rpc_deadline_fast_s,
                            "slow": cfg.server.rpc_deadline_slow_s}
         # Transport chaos: config knobs, retuned by /debug/chaos. One
@@ -537,6 +558,15 @@ class ProcessEngineGroup:
             "tpu_inf_route_hit_pages",
             "Peeked prefix-cache hit pages per warm-routed dispatch",
             buckets=telemetry.COUNT_BUCKETS)
+        r.counter("tpu_inf_route_fabric_hits_total",
+                  "Dispatches that pulled fabric pages into the routed "
+                  "replica's host tier (fourth-temperature warmth)",
+                  fn=lambda: self.route_fabric_hits)
+        self._route_fabric_hit_pages_hist = r.histogram(
+            "tpu_inf_route_fabric_hit_pages",
+            "Fabric pages pulled per fabric-warm dispatch",
+            buckets=telemetry.COUNT_BUCKETS)
+        telemetry.register_fabric(r, self.fabric)
         for verb in self.rpc_blob_bytes:
             r.counter("tpu_inf_rpc_blob_bytes_total",
                       "KV payload bytes relayed through the router's "
@@ -660,7 +690,7 @@ class ProcessEngineGroup:
             for h in self.workers)
 
     def _kv_rejections_total(self) -> int:
-        return self.kv_rejections + sum(
+        return self.kv_rejections + self.fabric.kv_rejections + sum(
             (h.last_health or {}).get("kv_integrity_rejections", 0)
             for h in self.workers)
 
@@ -731,6 +761,9 @@ class ProcessEngineGroup:
             "role": self.roles[replica],
             "nice": (self.server_cfg.pd_prefill_nice
                      if self.roles[replica] == "prefill" else 0),
+            # The fabric pool's watermark at boot (publish back-pressure;
+            # the stats calls keep it fresh).
+            "fabric_free": self.fabric.free_pages,
         }
 
     def _spawn(self, h: WorkerHandle) -> None:
@@ -775,6 +808,10 @@ class ProcessEngineGroup:
         h.info = hello
         h.started_unix = time.time()
         h.boot_walls.append(time.perf_counter() - t0)
+        # Warm boot: the fabric's hot set lands in the fresh worker's host
+        # tier before the UP flip makes it routable (a no-op while the
+        # pool is empty).
+        self._fabric_warmboot(h, client)
         h.state = UP
         h.consecutive_failures = 0
         self.warmup_total_s += hello.get("warmup_s", 0.0)
@@ -783,6 +820,43 @@ class ProcessEngineGroup:
         telemetry.log_event(
             "worker_up", level="info", replica=h.replica,
             pid=h.pid, incarnation=h.incarnation, device=hello.get("device"))
+
+    def _fabric_warmboot(self, h: WorkerHandle,
+                         client: WorkerClient) -> int:
+        """Push the fabric pool's MRU hot set (``fabric_warmboot_pages``
+        of it) into a just-booted worker's host tier over import-kv.
+        Each blob is re-verified first: a corrupt entry is dropped and
+        counted, never shipped. Best effort: a failure leaves the worker
+        cold but serving. Returns the pages adopted."""
+        t0 = time.perf_counter()
+        pairs = []
+        for d, b in self.fabric.hot_set(self.server_cfg.fabric_warmboot_pages):
+            try:
+                pairs.append((d, kvc.deserialize_host_pages(b)[0]))
+            except KVIntegrityError:
+                self.fabric.reject(d)
+        if not pairs:
+            return 0
+        try:
+            blob = kvc.serialize_host_pages([p for _, p in pairs])
+            with self._lock:
+                self.rpc_blob_bytes["import-kv"] += len(blob)
+            r = client.rpc("import-kv", blob=blob,
+                           digests=[d.hex() for d, _ in pairs],
+                           idem=f"wb{h.replica}.{h.incarnation}")
+        except (WorkerGone, TimeoutError, RuntimeError) as e:
+            telemetry.log_event("fabric_warmboot_failed", level="warning",
+                                replica=h.replica, error=str(e))
+            return 0
+        adopted = int(r.get("adopted", 0))
+        h.warmboots.append({"incarnation": h.incarnation,
+                            "offered": len(pairs), "adopted": adopted,
+                            "bytes": len(blob),
+                            "wall_s": round(time.perf_counter() - t0, 6)})
+        telemetry.log_event("fabric_warmboot", level="info",
+                            replica=h.replica, offered=len(pairs),
+                            adopted=adopted)
+        return adopted
 
     def _connect(self, h: WorkerHandle, proc: subprocess.Popen,
                  connect_timeout: float) -> WorkerClient:
@@ -926,7 +1000,9 @@ class ProcessEngineGroup:
                 continue
             try:
                 h.last_metrics = h.client.rpc("metrics")["samples"]
-                h.last_stats = h.client.rpc("stats")["stats"]
+                # The tick carries the pool's watermark out.
+                h.last_stats = h.client.rpc(
+                    "stats", fabric_free=self.fabric.free_pages)["stats"]
                 h.last_health = h.client.rpc("healthz")
                 h.last_steps = h.client.rpc("steps")["steps"]
             except (WorkerGone, TimeoutError, RuntimeError):
@@ -1043,7 +1119,7 @@ class ProcessEngineGroup:
                     pass
             if self._quarantine_if_poison(entry):
                 continue
-            if h.routable and self._dispatch(entry, h, (0, 0)):
+            if h.routable and self._dispatch(entry, h, (0, 0, 0)):
                 continue
             self._retry_or_fail(entry, exclude=h)
 
@@ -1218,47 +1294,48 @@ class ProcessEngineGroup:
     def _pick(self, cands: List[WorkerHandle],
               seq: Optional[Sequence] = None,
               phase: Optional[str] = None
-              ) -> Tuple[WorkerHandle, Tuple[int, int], int]:
-        """Choose a worker: (handle, (hbm, host) peeked pages, load at
-        decision time), by the in-process group's formulas; under a P/D
-        split a "decode" pick scores occupancy and load
-        (``decode_route_score``)."""
+              ) -> Tuple[WorkerHandle, Tuple[int, int, int], int]:
+        """Choose a worker: (handle, (hbm, host, fabric_extra) peeked
+        pages, load at decision time), by the formulas the in-process
+        group uses (``kv_fabric``); the fabric depth comes from the
+        router's own pool, no extra RPC. Under a P/D split a "decode"
+        pick scores occupancy and load (``decode_route_score``)."""
         cfg = self.server_cfg
         digests: List[bytes] = []
         prompt_pages = 0
         if seq is not None and cfg.routing == "prefix_affinity":
             digests, prompt_pages = self._digests_for(seq)
+        fdepth = self.fabric.match_depth(digests)
         peeks = self._peek_many(cands, digests)
-        if phase == "decode" and self.pd_enabled:
+        decode = phase == "decode" and self.pd_enabled
+        if decode or (digests and (fdepth > 0 or any(
+                p["hbm"] + p["host"] for p in peeks))):
             scored = []
             for h, p in zip(cands, peeks):
-                score = decode_route_score(
-                    cfg, hbm=p["hbm"], host=p["host"], load=p["load"],
-                    occupancy=float(p.get("occupancy") or 0.0),
-                    pressured=p["pressure"])
+                fx = kv_fabric.fabric_extra_pages(
+                    fdepth, p["hbm"] + p["host"], prompt_pages)
+                if decode:
+                    score = kv_fabric.decode_route_score(
+                        cfg, hbm=p["hbm"], host=p["host"], fabric=fx,
+                        load=p["load"],
+                        occupancy=float(p.get("occupancy") or 0.0),
+                        pressured=p["pressure"])
+                else:
+                    score = kv_fabric.prefill_route_score(
+                        cfg, prompt_pages=prompt_pages, hbm=p["hbm"],
+                        host=p["host"], fabric=fx, load=p["load"],
+                        pressured=p["pressure"])
                 scored.append(((score, p["pressure"], p["load"]),
-                               h, (p["hbm"], p["host"]), p["load"]))
+                               h, (p["hbm"], p["host"], fx), p["load"]))
             best = min(key for key, _, _, _ in scored)
             return self._rotate([(h, hit, load)
                                  for key, h, hit, load in scored
                                  if key == best])
-        if digests and any(p["hbm"] + p["host"] for p in peeks):
-            scored = []
-            for h, p in zip(cands, peeks):
-                score = prefill_route_score(
-                    cfg, prompt_pages=prompt_pages, hbm=p["hbm"],
-                    host=p["host"], load=p["load"],
-                    pressured=p["pressure"])
-                scored.append(((score, p["pressure"], p["load"]),
-                               h, (p["hbm"], p["host"]), p["load"]))
-            best = min(key for key, _, _, _ in scored)
-            return self._rotate([(h, hit, load)
-                                 for key, h, hit, load in scored
-                                 if key == best])
-        keyed = [(cold_route_key(p["pressure"], p["load"]), h, p["load"])
+        keyed = [(kv_fabric.cold_route_key(p["pressure"], p["load"]), h,
+                  p["load"])
                  for h, p in zip(cands, peeks)]
         best = min(key for key, _, _ in keyed)
-        return self._rotate([(h, (0, 0), load)
+        return self._rotate([(h, (0, 0, 0), load)
                              for key, h, load in keyed if key == best])
 
     # ------------------------------------------------------- submission
@@ -1281,7 +1358,7 @@ class ProcessEngineGroup:
         self._recorder.add(
             "route", seq.trace_id, t_route, time.perf_counter(),
             dest=h.replica, hbm_hit=hit[0], host_hit=hit[1],
-            fabric_hit=0, load=load)
+            fabric_hit=hit[2], load=load)
         cap = self.server_cfg.admission_queue_depth
         if cap > 0 and load >= cap:
             # Affinity saturated a warm worker: least-loaded fallback
@@ -1302,7 +1379,7 @@ class ProcessEngineGroup:
                     vw = self._preempt_for_interactive()
                     if vw is None:
                         self._shed(seq, cls, load2, cap)
-                    h, hit = vw, (0, 0)
+                    h, hit = vw, (0, 0, 0)
                 else:
                     self._shed(seq, cls, load2, cap)
             else:
@@ -1315,11 +1392,51 @@ class ProcessEngineGroup:
         if not self._dispatch(entry, h, hit):
             self._retry_or_fail(entry, exclude=h)
 
-    def _peek_hit(self, h: WorkerHandle, seq: Sequence) -> Tuple[int, int]:
+    def _peek_hit(self, h: WorkerHandle,
+                  seq: Sequence) -> Tuple[int, int, int]:
         if self.server_cfg.routing != "prefix_affinity":
-            return (0, 0)
-        p = self._peek(h, self._digests_for(seq)[0])
-        return (p["hbm"], p["host"])
+            return (0, 0, 0)
+        digests, prompt_pages = self._digests_for(seq)
+        p = self._peek(h, digests)
+        fx = kv_fabric.fabric_extra_pages(
+            self.fabric.match_depth(digests), p["hbm"] + p["host"],
+            prompt_pages)
+        return (p["hbm"], p["host"], fx)
+
+    def _fabric_pull(self, h: WorkerHandle, t: Sequence, warm: int,
+                     fabric_extra: int, entry: _Tracked) -> int:
+        """Ship the fabric run beyond ``warm`` pages into worker ``h``'s
+        host tier (import-kv), before its submit: the verb replies once
+        the engine loop applied the import, so the request's prefill
+        sees the pages. get_pages verifies every blob (a corrupt or
+        since-evicted entry shortens the run), and the worker verifies
+        the one import blob again. Returns the pages applied; 0 on a
+        transport failure, and the dispatch goes on cold."""
+        if h.client is None:
+            return 0
+        t0 = time.perf_counter()
+        digests = self._digests_for(t)[0]
+        entries = self.fabric.get_pages(digests[warm:warm + fabric_extra])
+        if not entries:
+            return 0
+        try:
+            blob = kvc.serialize_host_pages([p for _, p in entries])
+            with self._lock:
+                self.rpc_blob_bytes["import-kv"] += len(blob)
+            r = h.client.rpc(
+                "import-kv", blob=blob,
+                digests=[d.hex() for d, _ in entries],
+                idem=f"f{t.request_id}.{entry.attempts}.{entry.generation}")
+            if not r.get("applied"):
+                return 0
+        except (WorkerGone, TimeoutError, RuntimeError) as e:
+            telemetry.log_event("fabric_pull_failed", level="warning",
+                                replica=h.replica, error=str(e))
+            return 0
+        self.fabric_pulls.append({"replica": h.replica,
+                                  "pages": len(entries), "bytes": len(blob),
+                                  "wall_s": time.perf_counter() - t0})
+        return len(entries)
 
     def _shed(self, seq: Sequence, cls: str, load: int, cap: int) -> None:
         """The terminal 429, counted globally and by class. Clients pin
@@ -1431,7 +1548,7 @@ class ProcessEngineGroup:
                 self._retry_or_fail(entry, exclude=h)
 
     def _dispatch(self, entry: _Tracked, h: WorkerHandle,
-                  hit: Tuple[int, int]) -> bool:
+                  hit: Tuple[int, int, int]) -> bool:
         """Submit one attempt to one worker. False when the worker
         refused (dead or draining), so the caller re-routes."""
         t = entry.template
@@ -1439,12 +1556,22 @@ class ProcessEngineGroup:
         with self._lock:
             entry.worker, entry.client = h, h.client
             gen0 = entry.generation
-        hbm, host = hit
-        total_hit = hbm + host
+        hbm, host, fabric_extra = hit
+        meta, handoff_blob = entry.handoff_meta, entry.handoff_blob
+        live_handoff = (meta is not None and bool(handoff_blob)
+                        and len(gen_tokens) == meta["n_generated"])
+        # The fabric pull, before the submit. A live handoff skips it:
+        # the attempt carries the whole KV already.
+        fabric_pulled = 0
+        if fabric_extra > 0 and not live_handoff:
+            fabric_pulled = self._fabric_pull(h, t, hbm + host,
+                                              fabric_extra, entry)
+        total_hit = hbm + host + fabric_pulled
         sl = entry.seq_local
         sl.routed_replica = h.replica
         sl.route_hit_pages = total_hit
         sl.route_host_hit_pages = host
+        sl.route_fabric_hit_pages = fabric_pulled
         sl.attempt = entry.attempts
         stats = self._route_stats[h.replica]
         if total_hit > 0:
@@ -1456,20 +1583,23 @@ class ProcessEngineGroup:
         else:
             self.route_cold += 1
             stats["cold"] += 1
+        if fabric_pulled > 0:
+            self.route_fabric_hits += 1
+            stats["fabric_hit_pages"] += fabric_pulled
+            self._route_fabric_hit_pages_hist.observe(fabric_pulled)
         if gen_tokens:
             self.resume_resubmits += 1
             entry.resume_stream_len = min(
                 len(t.prompt_tokens) + len(gen_tokens),
                 self.engine_cfg.max_context - 1)
-        meta, blob = entry.handoff_meta, b""
+        blob = b""
         payload_handoff = None
         if meta is not None:
-            if (entry.handoff_blob
-                    and len(gen_tokens) == meta["n_generated"]):
+            if live_handoff:
                 # A live handoff: the worker adopts the exported pages
                 # and decodes on with nothing recomputed.
                 payload_handoff = {"ctx_len": meta["ctx_len"]}
-                blob = entry.handoff_blob
+                blob = handoff_blob
             else:
                 # Decode went past the export (the blob was dropped at
                 # the adopter's first token), or it was never usable:
@@ -1481,6 +1611,7 @@ class ProcessEngineGroup:
             "request_id": t.request_id,
             "route_hit_pages": total_hit,
             "route_host_hit_pages": host,
+            "route_fabric_hit_pages": fabric_pulled,
             "prompt_tokens": list(t.prompt_tokens),
             "max_new_tokens": t.max_new_tokens,
             "temperature": t.temperature, "top_p": t.top_p,
@@ -1632,8 +1763,53 @@ class ProcessEngineGroup:
                                   obj.get("spans") or ())
         elif ev == "migrate":
             self._on_migrate(h, client, obj, blob)
+        elif ev == "fabric_put":
+            self._on_fabric_put(h, obj, blob)
         elif ev == "drained":
             self._on_drained(h, client, obj)
+
+    def _on_fabric_put(self, h: WorkerHandle, obj: dict,
+                       blob: bytes) -> None:
+        """Pool a worker's published prefix pages. The frame carries each
+        page's blob length, so the reader slices without deserializing;
+        every pull verifies its blob, so a corrupt publish can take a
+        slot but is never adopted. A frame whose lengths disagree with
+        its blob is dropped whole."""
+        digests = obj.get("digests") or ()
+        lens = obj.get("lens") or ()
+        if len(digests) != len(lens) or sum(lens) != len(blob):
+            with self._lock:
+                self.frame_errors += 1
+            telemetry.log_event(
+                "fabric_put_malformed", level="warning",
+                replica=h.replica, digests=len(digests),
+                lens=len(lens), blob_bytes=len(blob))
+            return
+        with self._lock:
+            self.rpc_blob_bytes["fabric_put"] += len(blob)
+        off = 0
+        for d, n in zip(digests, lens):
+            self.fabric.put_blob(bytes.fromhex(d), blob[off:off + n])
+            off += n
+
+    def _fabric_salvage(self, digests: List[bytes], blob: bytes,
+                        rid: int, path: str) -> int:
+        """A handoff or a drain export whose destination is gone: park
+        its full prefix pages in the fabric pool under their chain
+        digests, so the retry's dispatch pulls them back instead of
+        prefilling the whole stream again. Pages past the digest chain
+        (a partial last page) recompute. Returns the pages parked."""
+        if self.fabric.capacity <= 0 or not blob or not digests:
+            return 0
+        try:
+            pages = kvc.deserialize_host_pages(blob)
+        except KVIntegrityError:        # checked upstream; best effort
+            return 0
+        n = self.fabric.put_pages(list(zip(digests, pages)))
+        if n:
+            telemetry.log_event("fabric_salvage", level="info", path=path,
+                                request_id=rid, pages=n)
+        return n
 
     def _entry_for(self, rid: int, h: WorkerHandle,
                    client: WorkerClient) -> Optional[_Tracked]:
@@ -1810,7 +1986,8 @@ class ProcessEngineGroup:
         n_gen = int(obj.get("n_generated", 0))
         entry.handoff_meta = {"ctx_len": int(obj.get("ctx_len", 0)),
                               "n_generated": n_gen}
-        entry.handoff_blob = self._checked_blob(blob, "handoff", rid) or None
+        checked = self._checked_blob(blob, "handoff", rid)
+        entry.handoff_blob = checked or None
         if n_gen != len(entry.tokens):
             # Out of step with the export (events are in order on a
             # connection, so this should not happen): recompute.
@@ -1823,11 +2000,15 @@ class ProcessEngineGroup:
                 or [w for w in self._routable() if w is not h]
                 or self._routable())
         if not pool:
+            # No destination: park the settled prefix in the fabric pool,
+            # so the grace-window retry's dispatch pulls it back.
+            self._fabric_salvage(self._digests_for(entry.template)[0],
+                                 checked, rid, "handoff")
             self._retry_or_fail(entry)     # already claimed
             return
         if len(pool) == 1:
             # One candidate: a peek could not change the answer.
-            dest, hit = pool[0], (0, 0)
+            dest, hit = pool[0], (0, 0, 0)
         else:
             dest, hit, _ = self._pick(pool, entry.template, phase="decode")
         telemetry.log_event(
@@ -1893,8 +2074,10 @@ class ProcessEngineGroup:
                    if w is not h]
                   or [w for w in self._routable() if w is not h])
         if not others:
-            # No destination: the grace-window retry re-picks (the
-            # pages are lost; the resume recomputes).
+            # No destination: park the exported pages in the fabric pool
+            # (under the digests the export carried), so the
+            # grace-window retry's dispatch pulls them back.
+            self._fabric_salvage(digests, blob, rid, "migrate")
             self._retry_or_fail(entry)
             return
         dest, hit, _ = self._pick(others, entry.template,
@@ -2315,6 +2498,9 @@ class ProcessEngineGroup:
                 "kv_integrity_rejections": self._kv_rejections_total(),
                 "route_prefix_hits": self.route_prefix_hits,
                 "route_cold": self.route_cold,
+                "route_fabric_hits": self.route_fabric_hits,
+                "fabric_puts": self.fabric.puts,
+                "fabric_hits": self.fabric.hits,
                 "preemptions": sum(d.get("preemptions", 0)
                                    for d in stats),
                 "recompute_resumes": sum(d.get("recompute_resumes", 0)
@@ -2381,7 +2567,8 @@ class ProcessEngineGroup:
                       "swap_in_resumes", "prefill_backlog",
                       "ladder_occupancy", "pd_handoffs", "pd_adoptions",
                       "pd_adopt_fallbacks", "slo",
-                      "kv_integrity_rejections"):
+                      "kv_integrity_rejections",
+                      "fabric_published_pages"):
                 if k in hz:
                     d[k] = hz[k]
             replicas.append(d)
@@ -2401,6 +2588,7 @@ class ProcessEngineGroup:
             "routing": self.server_cfg.routing,
             "replicas": replicas,
             "slo": self._fleet_slo(),
+            "fabric": self.fabric.snapshot(),
             "supervision": self.supervision_counters(),
         }
 

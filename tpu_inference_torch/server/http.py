@@ -97,7 +97,7 @@ class HTTPError(Exception):
 
 
 # Server features of the process fleet this port does not serve yet.
-_UNPORTED_FLEET = "ROADMAP 1.15b (KV fabric, shm arena)"
+_UNPORTED_FLEET = "ROADMAP 1.15b (shm arena)"
 
 
 def check_server_config(cfg: FrameworkConfig) -> None:
@@ -122,15 +122,10 @@ def check_server_config(cfg: FrameworkConfig) -> None:
             "--fleet subprocess: the live KV handoff moves pages "
             "between worker PROCESSES (README 'P/D disaggregation'); "
             "the in-process fleet serves every replica mixed")
-    unported = {
-        "kv_plane": scfg.kv_plane != "relay",
-        "fabric_cache_pages": scfg.fabric_cache_pages > 0,
-    }
-    for name, bad in unported.items():
-        if bad:
-            raise NotImplementedError(
-                f"ServerConfig.{name}={getattr(scfg, name)!r} is not "
-                f"ported yet ({_UNPORTED_FLEET})")
+    if scfg.kv_plane != "relay":
+        raise NotImplementedError(
+            f"ServerConfig.kv_plane={scfg.kv_plane!r} is not ported yet "
+            f"({_UNPORTED_FLEET})")
 
 
 def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,

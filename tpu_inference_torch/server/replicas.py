@@ -21,8 +21,11 @@ prompt's pages minus its prefix-cache hits (a host-tier page at
 request, with a pressure penalty that puts every pool under preemption
 pressure behind the rest. When no replica holds any of the prompt (or
 routing="least_loaded") the key is (pressure, load). Ties rotate. The
-reference's fourth temperature, the fleet KV fabric, is ROADMAP 1.15b:
-its term is absent here.
+fourth temperature is the fleet KV fabric (``server/kv_fabric.py``):
+pages the router's pool holds beyond a candidate's own warm depth score
+at ``route_fabric_hit_weight``, and the routed replica pulls them into
+its host tier before the request's prefill. Each engine with a prefix
+cache publishes its settled prefix pages into the pool directly.
 
 Supervision: each replica has a health state machine, healthy ->
 degraded (one failed step) -> quarantined (``quarantine_after_failures``
@@ -59,6 +62,9 @@ from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
 from tpu_inference_torch.engine.prefix_cache import _chain_hashes
 from tpu_inference_torch.engine.scheduler import EngineScheduler
+from tpu_inference_torch.server import kv_fabric
+from tpu_inference_torch.server.kv_fabric import (cold_route_key,
+                                                  prefill_route_score)
 
 
 class AdmissionError(RuntimeError):
@@ -189,47 +195,6 @@ def replica_device(device, replica: int) -> torch.device:
 _RETRYABLE = ("error",)
 
 
-# --- The routing formulas both backends share (the reference's
-# kv_fabric helpers with the fabric term left out).
-
-
-def prefill_route_score(cfg: ServerConfig, *, prompt_pages: int,
-                        hbm: float, host: float, load: float,
-                        pressured: bool) -> float:
-    """Expected prefill cost in pages, load-blended: prompt pages minus
-    the warmth discounts (HBM at ``route_hit_weight``, host at
-    ``route_host_hit_weight``) plus queue depth; a pressured candidate is
-    shifted behind every unpressured one."""
-    score = (prompt_pages
-             - cfg.route_hit_weight * hbm
-             - cfg.route_host_hit_weight * host
-             + cfg.route_load_pages * load)
-    if pressured:
-        score += prompt_pages + 1
-    return score
-
-
-def decode_route_score(cfg: ServerConfig, *, hbm: float, host: float,
-                       load: float, occupancy: float,
-                       pressured: bool) -> float:
-    """Cost of a decode destination (a P/D handoff or a resume): load
-    plus lane occupancy (``route_occupancy_pages`` for a full ladder)
-    minus the warmth discounts, a pressured candidate shifted behind
-    the rest."""
-    score = (cfg.route_load_pages * load
-             + cfg.route_occupancy_pages * occupancy
-             - cfg.route_hit_weight * hbm
-             - cfg.route_host_hit_weight * host)
-    if pressured:
-        score += cfg.route_occupancy_pages + 1
-    return score
-
-
-def cold_route_key(pressured: bool, load: float) -> Tuple[bool, float]:
-    """The cold key: unpressured first, then least loaded (ties rotate)."""
-    return (bool(pressured), load)
-
-
 def routing_digests(seq: Sequence, page_size: int, max_context: int
                     ) -> Tuple[List[bytes], int]:
     """THE truncation rule for routing-time prefix digests, shared by
@@ -294,10 +259,20 @@ class EngineGroup:
         self._rr = 0                    # rotating tie-break cursor
         self.route_prefix_hits = 0
         self.route_cold = 0
+        self.route_fabric_hits = 0      # dispatches that pulled fabric pages
         self._route_stats = [{"hits": 0, "cold": 0, "hit_pages": 0,
                               "host_hit_pages": 0,
                               "fabric_hit_pages": 0}
                              for _ in engines]
+        # The fleet KV fabric: in-process, each engine publishes into the
+        # pool by a direct call; a pull lands in the routed engine's host
+        # tier through request_import_host before the dispatch.
+        self.fabric = kv_fabric.FabricPool(self.server_cfg.fabric_cache_pages)
+        for e in engines:
+            if self.fabric.capacity > 0 and e.prefix_cache is not None:
+                e.fabric_publish = self.fabric.put_pages
+                e.fabric_publish_min_pages = \
+                    self.server_cfg.fabric_publish_min_pages
         self._watch_stop = threading.Event()
         self._watch_thread: Optional[threading.Thread] = None
         # The router's spans (request root, route); the engines' phase
@@ -333,7 +308,8 @@ class EngineGroup:
                   "KV blobs rejected on a failed end-to-end digest "
                   "check (recompute fallback, never adopted silently)",
                   fn=lambda: sum(e.kv_integrity_rejections
-                                 for e in self.engines))
+                                 for e in self.engines)
+                  + self.fabric.kv_rejections)
         r.counter("tpu_inf_route_prefix_hits_total",
                   "Dispatches routed with a non-zero prefix-cache peek "
                   "(the request landed on a warm replica)",
@@ -346,6 +322,15 @@ class EngineGroup:
             "tpu_inf_route_hit_pages",
             "Peeked prefix-cache hit pages per warm-routed dispatch",
             buckets=telemetry.COUNT_BUCKETS)
+        r.counter("tpu_inf_route_fabric_hits_total",
+                  "Dispatches that pulled fabric pages into the routed "
+                  "replica's host tier (fourth-temperature warmth)",
+                  fn=lambda: self.route_fabric_hits)
+        self._route_fabric_hit_pages_hist = r.histogram(
+            "tpu_inf_route_fabric_hit_pages",
+            "Fabric pages pulled per fabric-warm dispatch",
+            buckets=telemetry.COUNT_BUCKETS)
+        telemetry.register_fabric(r, self.fabric)
         for i, health in enumerate(self.health):
             r.gauge("tpu_inf_replica_routable",
                     "1 when the replica accepts traffic (not quarantined)",
@@ -485,24 +470,29 @@ class EngineGroup:
               seq: Optional[Sequence] = None
               ) -> Tuple[EngineScheduler, Tuple[int, int, int]]:
         """Choose a replica for one request: (scheduler, (hbm, host,
-        fabric) hit pages peeked on it; fabric is always 0 here)."""
+        fabric_extra) hit pages peeked on it). The fabric term counts the
+        pages the pool holds beyond the candidate's own warm depth, from
+        the router's own index."""
         cfg = self.server_cfg
         if seq is not None and cfg.routing == "prefix_affinity":
             digests, prompt_pages = self._digests_for(seq)
+            fdepth = self.fabric.match_depth(digests)
             hits = []
             for sched in cands:
                 pc = sched.engine.prefix_cache
                 hits.append(pc.peek_digests_tiered(digests)
                             if pc is not None else (0, 0))
-            if any(h + w for h, w in hits):
+            if any(h + w for h, w in hits) or fdepth > 0:
                 scored = []
                 for sched, (hbm, host) in zip(cands, hits):
+                    fx = kv_fabric.fabric_extra_pages(
+                        fdepth, hbm + host, prompt_pages)
                     pressured = sched.engine.under_pressure
                     score = prefill_route_score(
                         cfg, prompt_pages=prompt_pages, hbm=hbm, host=host,
-                        load=sched.load, pressured=pressured)
+                        fabric=fx, load=sched.load, pressured=pressured)
                     scored.append(((score, pressured, sched.load),
-                                   sched, (hbm, host, 0)))
+                                   sched, (hbm, host, fx)))
                 best = min(key for key, _, _ in scored)
                 return self._rotate([(s, h) for key, s, h in scored
                                      if key == best])
@@ -519,8 +509,11 @@ class EngineGroup:
         pc = sched.engine.prefix_cache
         if self.server_cfg.routing != "prefix_affinity" or pc is None:
             return (0, 0, 0)
-        hbm, host = pc.peek_digests_tiered(self._digests_for(seq)[0])
-        return (hbm, host, 0)
+        digests, prompt_pages = self._digests_for(seq)
+        hbm, host = pc.peek_digests_tiered(digests)
+        fx = kv_fabric.fabric_extra_pages(
+            self.fabric.match_depth(digests), hbm + host, prompt_pages)
+        return (hbm, host, fx)
 
     def _retry_after(self) -> float:
         return self.server_cfg.retry_after_s
@@ -587,11 +580,24 @@ class EngineGroup:
         entry.sched = sched
         seq.attempt = entry.attempts
         idx = self.schedulers.index(sched)
-        hbm_hit, host_hit, _ = hit_pages
+        hbm_hit, host_hit, fabric_extra = hit_pages
+        # The fabric pull: the pages the pool holds beyond this replica's
+        # warm depth land in its host tier before the dispatch (the
+        # engine loop applies pending imports ahead of admission). A
+        # corrupt or since-evicted entry just shortens the run.
+        fabric_pulled = 0
+        if fabric_extra > 0:
+            warm = hbm_hit + host_hit
+            entries = self.fabric.get_pages(
+                self._digests_for(seq)[0][warm:warm + fabric_extra])
+            if entries:
+                sched.engine.request_import_host(entries)
+                sched.kick()
+                fabric_pulled = len(entries)
         seq.routed_replica = idx
-        seq.route_hit_pages = hbm_hit + host_hit
+        seq.route_hit_pages = hbm_hit + host_hit + fabric_pulled
         seq.route_host_hit_pages = host_hit
-        seq.route_fabric_hit_pages = 0
+        seq.route_fabric_hit_pages = fabric_pulled
         stats = self._route_stats[idx]
         if seq.route_hit_pages > 0:
             self.route_prefix_hits += 1
@@ -602,6 +608,10 @@ class EngineGroup:
         else:
             self.route_cold += 1
             stats["cold"] += 1
+        if fabric_pulled > 0:
+            self.route_fabric_hits += 1
+            stats["fabric_hit_pages"] += fabric_pulled
+            self._route_fabric_hit_pages_hist.observe(fabric_pulled)
 
         def tok(s: Sequence, t: int) -> None:
             if entry.generation != gen:     # stale attempt (failed over)
@@ -786,6 +796,7 @@ class EngineGroup:
             "routing": self.server_cfg.routing,
             "replicas": replicas,
             "slo": self._fleet_slo(),
+            "fabric": self.fabric.snapshot(),
             "supervision": self.supervision_counters(),
         }
 
@@ -799,9 +810,13 @@ class EngineGroup:
                 "requests_unavailable": self.requests_unavailable,
                 "poison_requests": self.poison_requests,
                 "kv_integrity_rejections": sum(
-                    e.kv_integrity_rejections for e in self.engines),
+                    e.kv_integrity_rejections for e in self.engines)
+                + self.fabric.kv_rejections,
                 "route_prefix_hits": self.route_prefix_hits,
                 "route_cold": self.route_cold,
+                "route_fabric_hits": self.route_fabric_hits,
+                "fabric_puts": self.fabric.puts,
+                "fabric_hits": self.fabric.hits,
                 "preemptions": sum(e.preemptions_total
                                    for e in self.engines),
                 "recompute_resumes": sum(e.resumes_total

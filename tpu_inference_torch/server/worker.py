@@ -1,7 +1,7 @@
 """Engine-worker process: one replica's engine and scheduler per process.
 
-Twin of ``tpu_inference/server/worker.py`` on the relay plane (the KV
-fabric and the shared-memory arena are ROADMAP 1.15b). The worker owns
+Twin of ``tpu_inference/server/worker.py`` on the relay plane (the
+shared-memory arena is ROADMAP 1.15b part 4). The worker owns
 one dp replica, its weights, KV pool, prefix cache and host tier and
 its continuous-batching scheduler thread, on the one device the router
 names, and serves the framed JSON RPC of ``server/transport.py`` on a
@@ -9,7 +9,7 @@ local unix socket:
 
     request = {"id": n, "verb": ..., ...}        -> {"id": n, "ok": ...}
     event   = {"ev": "token" | "finish" | "handoff" | "spans" | "migrate"
-               | "drained", ...}
+               | "fabric_put" | "drained", ...}
 
 Verbs: ``hello`` (worker and model facts), ``submit`` / ``cancel`` (a
 request's tokens and its terminal record stream back as events on the
@@ -22,6 +22,13 @@ live in this process), ``metrics``, ``healthz``, ``recent``, ``steps``,
 ``trace``, ``chaos``, ``embed``, ``profile``, ``drain``, ``import-kv``
 (adopt a sibling's drain export into the host tier), ``shutdown`` and
 ``debug`` (the pool invariants).
+
+KV fabric: with ``fabric_cache_pages`` > 0 the engine's publish hook
+sends each settled prefix run to the router as one ``fabric_put`` event
+(the pages serialized one by one, their lengths in ``lens``), unless
+the router's pool watermark (``fabric_free``, in the boot envelope and
+on every ``stats`` call) says it would not fit: then the publish is
+skipped and counted (``tpu_inf_fabric_publish_skipped_total``).
 
 P/D roles: the router names each worker's phase role in its boot
 envelope ("prefill", "decode" or "mixed"). A prefill worker prefills,
@@ -167,6 +174,11 @@ class EngineWorker:
         # Idempotency replay cache: token -> the recorded reply.
         self._idem: "OrderedDict[str, dict]" = OrderedDict()
         self._idem_lock = threading.Lock()
+        # The fabric pool's free-page watermark (publish back-pressure):
+        # from the boot envelope, refreshed on every stats call. None
+        # publishes freely.
+        self._fabric_free = None
+        self.fabric_publish_skipped = 0
 
     def _build_chaos_rpc(self, over: Dict[str, Any] = None):
         """The worker's side of transport chaos (config knobs, then the
@@ -213,6 +225,17 @@ class EngineWorker:
         self.engine.telemetry.recorder.replica = self.replica
         if self.role == "prefill":
             self.sched.on_prefill_handoff = self._emit_handoff
+        # The fabric's publish hook: settled prefix pages go to the
+        # router's pool as fabric_put events.
+        if (cfg.server.fabric_cache_pages > 0
+                and self.engine.prefix_cache is not None):
+            self.engine.fabric_publish = self._publish_fabric
+            self.engine.fabric_publish_min_pages = \
+                cfg.server.fabric_publish_min_pages
+        self.engine.telemetry.registry.counter(
+            "tpu_inf_fabric_publish_skipped_total",
+            "fabric publishes skipped by the pool-watermark gate",
+            fn=lambda: self.fabric_publish_skipped)
         if self.engine.telemetry.enabled:
             # Config-pure labels: identical across restarts, so the
             # router's carry never sees a label change.
@@ -280,6 +303,26 @@ class EngineWorker:
             conns = list(self._conns)
         for c in conns:
             c.send(obj, blob, verb)
+
+    def _publish_fabric(self, pairs) -> None:
+        """Send settled prefix pages to the router's fabric pool (engine
+        thread, from the engine's publish hook), each page serialized on
+        its own so the pool's entries evict and verify independently. A
+        publish larger than the pool's advertised free pages would evict
+        on arrival: it is skipped and counted instead."""
+        from tpu_inference_torch.engine import kv_cache as kvc
+        free = self._fabric_free
+        if free is not None:
+            if len(pairs) > free:
+                self.fabric_publish_skipped += len(pairs)
+                return
+            self._fabric_free = free - len(pairs)
+        blobs = [kvc.serialize_host_pages([p]) for _, p in pairs]
+        self._broadcast({"ev": "fabric_put",
+                         "digests": [d.hex() for d, _ in pairs],
+                         "lens": [len(b) for b in blobs],
+                         "replica": self.replica},
+                        b"".join(blobs), verb="fabric_put")
 
     # --------------------------------------------------------- dispatch
 
@@ -419,6 +462,7 @@ class EngineWorker:
         seq.routed_replica = self.replica
         seq.route_hit_pages = int(s.get("route_hit_pages", 0))
         seq.route_host_hit_pages = int(s.get("route_host_hit_pages", 0))
+        seq.route_fabric_hit_pages = int(s.get("route_fabric_hit_pages", 0))
         generated = s.get("generated") or []
         if generated:
             # Recompute-resume from the router's token record: prefill
@@ -538,12 +582,16 @@ class EngineWorker:
 
     def _verb_stats(self, conn, obj, blob) -> dict:
         """The scheduler's stats snapshot, plus what only this process
-        can see: its kernels' launch counts and the device's peak
-        allocated memory."""
+        can see: its kernels' launch counts, the device's peak allocated
+        memory and the fabric publish hook's totals. The router's call
+        carries the fabric pool's free-page watermark."""
         import torch
 
         from tpu_inference_torch.kernels import (paged_attention,
                                                  prefill_attention)
+        ff = obj.get("fabric_free")
+        if ff is not None:
+            self._fabric_free = int(ff)
         dev = self.engine.device
         return {
             "stats": self.sched.stats.snapshot(self.engine),
@@ -561,6 +609,9 @@ class EngineWorker:
                     sorted(prefill_attention.launches_by_path.items()))},
             "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else 0),
+            "fabric": {"published_pages": self.engine.fabric_published_pages,
+                       "publish_s": round(self.engine.fabric_publish_s, 6),
+                       "publish_skipped": self.fabric_publish_skipped},
         }
 
     def _verb_steps(self, conn, obj, blob) -> dict:
@@ -593,6 +644,8 @@ class EngineWorker:
             "pd_adopt_fallbacks": e.adopt_fallbacks,
             # Corrupt KV blobs rejected at import (never adopted).
             "kv_integrity_rejections": e.kv_integrity_rejections,
+            # Settled prefix pages this worker published to the fabric.
+            "fabric_published_pages": e.fabric_published_pages,
         }
         if e.telemetry.slo is not None:
             out["slo"] = e.telemetry.slo.snapshot(include_window=False)
@@ -835,6 +888,10 @@ def main() -> None:
                           socket_path=args.socket,
                           device=envelope["device"],
                           warmup=bool(envelope.get("warmup", True)))
+    # The fabric pool's free pages at boot (publish back-pressure).
+    ff = envelope.get("fabric_free")
+    if ff is not None:
+        worker._fabric_free = int(ff)
 
     def _sigterm(signum, frame):
         # Signal context: the drain thread does the blocking work.

@@ -1322,6 +1322,33 @@ def register_fleet_elastic(registry: Registry,
                        **{"class": cls})
 
 
+def register_fabric(registry: Registry, pool) -> None:
+    """The fleet KV fabric's series, one registration for both fleet
+    backends. ``pool`` is a ``server.kv_fabric.FabricPool``; every
+    series reads its counters, router state that survives worker
+    restarts without a carry."""
+    registry.counter("tpu_inf_fabric_hits_total",
+                     "Fabric pool pages served to a replica's host tier "
+                     "(crc-verified before adoption)",
+                     fn=lambda: pool.hits)
+    registry.counter("tpu_inf_fabric_misses_total",
+                     "Fabric lookups that ended short of the requested "
+                     "chain (absent or corrupt entry)",
+                     fn=lambda: pool.misses)
+    registry.counter("tpu_inf_fabric_puts_total",
+                     "Pages published into the fabric pool (supersedes "
+                     "included)", fn=lambda: pool.puts)
+    registry.counter("tpu_inf_fabric_evictions_total",
+                     "Fabric pool LRU capacity evictions",
+                     fn=lambda: pool.evictions)
+    registry.gauge("tpu_inf_fabric_pages_used",
+                   "Serialized KV pages resident in the fabric pool",
+                   fn=lambda: float(pool.used))
+    registry.gauge("tpu_inf_fabric_bytes_used",
+                   "Bytes of serialized KV resident in the fabric pool",
+                   fn=lambda: float(pool.bytes_used))
+
+
 # ---------------------------------------------------------------------------
 # Crash flight recorder: a bounded per-replica blackbox directory of JSON
 # captures (the last step records, recent spans, the resolved config and
