@@ -212,12 +212,39 @@ failing loudly (any failure exits non-zero before the result line):
    before it is UP and its first request with the prefix is host-warm
    with no pull. (c) fabric_phase, after the elastic lane: llama-3-8b
    bf16 at dp 2 with a 256-page pool, a 1024-token shared system prompt
-   and BurstGPT-length user suffixes: a seed request, a wave of 8 routed
-   around the pressured seed worker (a dispatch pulling 64 pages), kill
+   and BurstGPT-length user suffixes: a seed request, one request alone
+   and then a wave of 8 routed around the pressured seed worker (each
+   with a dispatch pulling 64 pages; the other worker's caches dropped
+   in between), kill
    -9 of the seed worker, its warm-booted respawn serving a host-warm
    request; no failed pull or warm boot, no rejection or frame error,
-   both kernels in every worker, no series falls, no worker left. Its
-   launches join the kernels line under bf16.
+   both kernels in every worker, no series falls, no worker left. This
+   relay arm runs CUT_LAYERS deep. Its launches join the kernels line
+   under bf16.
+   The shared-memory KV plane (``--kv-plane shm``: every KV payload in
+   a /dev/shm arena, descriptors on the sockets). (a) in
+   fleet_tiny_phase, the P/D pair and the subprocess fabric part again
+   on the shm plane: the same sha and tokens, every handoff, publish,
+   pull and warm-boot page by descriptor (_shm_gates: the router's arena
+   up, every worker attached with no failed allocation, no relayed
+   byte, slabs written and read). (b) the fabric lane's shm arm, after
+   the relay arm, at all 32 layers with ``--shm-arena-bytes``
+   SHM_ARENA_BYTES (4 GiB, 1 GiB a region; /dev/shm's free space is
+   logged and checked first): the same seed, wave, kill -9 and
+   warm-booted respawn, then one more request and SIGTERM to its worker
+   mid-decode (_shm_drain). Gates beside the relay arm's: _shm_gates for
+   the handoff, fabric_put, migrate and import-kv verbs; the warm boot
+   read from the arena (its descriptor pages cover the prefix, nothing
+   relayed); tpu_inf_shm_reclaims_total up after the kill -9; the drain
+   migrating one request by descriptor inside drain_timeout_s; no
+   shm_arena_unavailable event; no segment left under /dev/shm. Its
+   launches join the kernels line under bf16. Recorded in both arms:
+   each pull's wall and bytes and its parts (the worker's slab reads,
+   deserialize and wait for the engine loop; the router's pool read and
+   serialize on the relay), alone and 8 at once, the warm boot's wall
+   and bytes, the
+   router's RSS; in the shm arm the drain's walls and bytes. The fleet
+   lane's CRC-32C line times 2 MiB pages one by one and from 8 threads.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -2217,8 +2244,8 @@ def _summarize(results: list, wall: float) -> dict:
 
 
 # Every llama-3-8b lane but the bf16 main path, the draft lane and the
-# fabric lane, and the Mixtral lane, serve their model at full width cut
-# to this many of its 32 layers (their host-bound walls scale with the
+# fabric lane's shm arm, and the Mixtral lane, serve their model at full
+# width cut to this many of its 32 layers (their host-bound walls scale with the
 # layers; the script must stay well inside its time limit).
 CUT_LAYERS = 8
 
@@ -3462,15 +3489,22 @@ def fleet_tiny_phase(card: str) -> dict:
                                         worker_roles=("prefill", "decode"))
     out["pd"] = _pd_fleet_tiny(label, pd_cfg, run_mix, sha_dp1,
                                long_a, want_long[0], long_new)
+    # The same P/D pair on the shm plane: the same sha.
+    pd_cfg.server = dataclasses.replace(pd_cfg.server, kv_plane="shm",
+                                        shm_arena_bytes=TINY_ARENA_BYTES)
+    out["pd_shm"] = _pd_fleet_tiny(label, pd_cfg, run_mix, sha_dp1,
+                                   long_a, want_long[0], long_new)
     out["elastic"] = _elastic_fleet_tiny(
         label, cfg("subprocess"), mix, want_mix, mix_new, long_a,
         want_long[0], long_new, sha_dp1)
     out["fabric"] = _fabric_fleet_tiny(label, cfg, fab_prompt, want_fab,
                                        mix_new)
+    out["fabric_shm"] = _fabric_fleet_tiny(label, cfg, fab_prompt, want_fab,
+                                           mix_new, plane="shm")
     log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
-        f"/ P/D / elastic / dp-1; " + json.dumps({k: v for k, v in out.items()
-                                        if k not in ("label",
-                                                     "outputs_sha256")}))
+        f"/ P/D (relay and shm) / elastic / dp-1; " + json.dumps({
+            k: v for k, v in out.items()
+            if k not in ("label", "outputs_sha256")}))
     return out
 
 
@@ -3481,18 +3515,24 @@ def _role_info(text: str) -> set:
         text, re.M))
 
 
+# The tiny fleets' arena on the shm plane (a tiny-llama page is a few KB).
+TINY_ARENA_BYTES = 64 * 2**20
+
+
 def _pd_fleet_tiny(label: str, cfg, run_mix, sha_dp1: str, long_a: list,
                    want_long: list, long_new: int) -> dict:
     """(b) of the P/D gates: the fleet_tiny mix through a subprocess
     fleet of one prefill and one decode worker. Gates: the dp-1 sha;
     one handoff and one adoption per request, no recompute; no
     decode-kernel launch on the prefill worker and no prefill-kernel
-    launch on the decode worker. Then kill -9 of the decode worker while
-    a handed-off stream decodes: the dp-1 tokens, the recompute counted
-    in tpu_inf_pd_handoff_recomputes_total, the worker back under its
-    replica label and role."""
+    launch on the decode worker; on the shm plane (``cfg.server.
+    kv_plane``) every handoff by descriptor (_shm_gates). Then kill -9
+    of the decode worker while a handed-off stream decodes: the dp-1
+    tokens, the recompute counted in tpu_inf_pd_handoff_recomputes_total,
+    the worker back under its replica label and role."""
     from tpu_inference_torch.server.http import build_engine_group
-    label = label + " P/D"
+    shm = cfg.server.kv_plane == "shm"
+    label = label + " P/D" + (" shm" if shm else "")
     group = build_engine_group(cfg, device="cuda")
     pids, reads = set(), {}
     try:
@@ -3520,6 +3560,9 @@ def _pd_fleet_tiny(label: str, cfg, run_mix, sha_dp1: str, long_a: list,
                "pd_adoptions": sup["pd_adoptions"],
                "launches_by_role": {"prefill": by_role[0],
                                     "decode": by_role[1]}}
+        if shm:
+            out["shm"] = _shm_gates(label, group, reads,
+                                    ("handoff", "submit", "import-kv"))
 
         # kill -9 of the decode worker under a handed-off stream.
         rec0 = group._pd_recomputes_total()
@@ -3646,7 +3689,7 @@ def _elastic_fleet_tiny(label: str, cfg, mix: list, want_mix: list,
 
 
 def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
-                       max_new: int) -> dict:
+                       max_new: int, plane: str = "relay") -> dict:
     """The KV fabric where tokens hold (float32), in both backends: the
     warm-once flow (a seed request publishes its prefix; with the seed
     replica pressured, the same prompt routes to the other replica and
@@ -3655,10 +3698,15 @@ def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
     its respawn adopts the pool's hot set before it is UP, and with the
     sibling pressured its first request with the prefix is host-warm
     (every prefix page) with no fabric pull, tokens the dp-1 engine's.
-    Both kernels in every worker; the pools clean."""
+    Both kernels in every worker; the pools clean. ``plane`` "shm" runs
+    the subprocess fleet alone (the in-process fleet moves no KV between
+    processes), on the shm plane: every publish, pull and warm-boot page
+    by descriptor (_shm_gates), the respawn's warm boot read from the
+    arena."""
     from tpu_inference_torch import config as cfgs
     from tpu_inference_torch.server.http import build_engine_group
-    label = label + " fabric"
+    shm = plane == "shm"
+    label = label + " fabric" + (" shm" if shm else "")
     n_pages = (len(prompt) - 1) // FLEET_TINY_ENGINE["page_size"]
 
     def fabric_cfg(fleet: str):
@@ -3667,7 +3715,9 @@ def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
         # under the watermark while its own cached pages stay.
         c.engine = cfgs.EngineConfig(**FLEET_TINY_ENGINE,
                                      preempt_watermark_pages=40)
-        c.server = dataclasses.replace(c.server, fabric_cache_pages=64)
+        c.server = dataclasses.replace(c.server, fabric_cache_pages=64,
+                                       kv_plane=plane,
+                                       shm_arena_bytes=TINY_ARENA_BYTES)
         return c
 
     def flow(group, base, pressure, unpressure, is_pressured) -> dict:
@@ -3702,17 +3752,18 @@ def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
                 "fabric": snap}
 
     out = {}
-    group = build_engine_group(fabric_cfg("in-process"),
-                               device="cuda").start()
-    try:
-        out["in_process"] = flow(
-            group, 1100,
-            lambda i: group.engines[i].request_page_pressure(256),
-            lambda i: group.engines[i].request_page_pressure(0),
-            lambda i: group.engines[i].under_pressure)
-    finally:
-        group.stop(drain=False)
-        del group
+    if not shm:
+        group = build_engine_group(fabric_cfg("in-process"),
+                                   device="cuda").start()
+        try:
+            out["in_process"] = flow(
+                group, 1100,
+                lambda i: group.engines[i].request_page_pressure(256),
+                lambda i: group.engines[i].request_page_pressure(0),
+                lambda i: group.engines[i].under_pressure)
+        finally:
+            group.stop(drain=False)
+            del group
     group = build_engine_group(fabric_cfg("subprocess"), device="cuda")
     pids, reads, boots = set(), {}, []
     try:
@@ -3771,6 +3822,12 @@ def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
                 f"{fin.route_fabric_hit_pages}, tokens equal {toks == want}")
         _worker_reads(group, reads, label)
         _gate_launches(reads, label, "f32")
+        if shm:
+            if wb.get("desc_pages", 0) < n_pages or wb["relay_bytes"]:
+                raise AssertionError(f"{label}: the respawn's warm boot "
+                                     f"{wb} was not read from the arena")
+            out["shm"] = _shm_gates(label, group, reads,
+                                    ("fabric_put", "import-kv"))
         _pool_clean(label, group)
         out["warm_boot"] = {"replica": seed, "record": wb,
                             "host_hit_pages": fin.route_host_hit_pages,
@@ -3785,7 +3842,10 @@ def _fabric_fleet_tiny(label: str, cfg, prompt: list, want: list,
 def _crc_mb_s() -> dict:
     """CRC-32C of the port's integrity module on this machine, 64 MiB of
     seeded bytes: each path's MB/s (the one crc32c resolves to, numpy,
-    and the card's block path), every path's value equal."""
+    and the card's block path), every path's value equal; and each
+    path's MB/s over the same bytes as 32 calls of 2 MiB (a llama-3-8b
+    page, checksummed one by one on the shm plane and by the pool), and
+    the path in use over them from 8 threads at once."""
     import numpy as np
     from tpu_inference_torch import integrity
     data = np.random.default_rng(SEED).integers(
@@ -3803,7 +3863,31 @@ def _crc_mb_s() -> dict:
         t = time.perf_counter()
         values.add(fn(data))
         out[f"{name}_mb_s"] = len(data) / 1e6 / (time.perf_counter() - t)
-    if len(values) != 1:
+        t = time.perf_counter()
+        pages = [fn(data[at:at + (2 << 20)])
+                 for at in range(0, len(data), 2 << 20)]
+        out[f"{name}_2mib_pages_mb_s"] = (len(data) / 1e6
+                                          / (time.perf_counter() - t))
+        values.add(tuple(pages))
+    # The path in use, 8 threads at once on 2 MiB pages (a wave's 8
+    # concurrent pulls each checksum their pages this way).
+    got = [None] * 8
+    step = len(data) // 8
+
+    def run(k):
+        got[k] = [integrity.crc32c(data[at:at + (2 << 20)])
+                  for at in range(k * step, (k + 1) * step, 2 << 20)]
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(8)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    out["crc32c_2mib_pages_8_threads_mb_s"] = (len(data) / 1e6
+                                               / (time.perf_counter() - t))
+    values.add(tuple(c for g in got for c in g))
+    if len(values) != 2:
         raise AssertionError(f"CRC-32C paths disagree: {values}")
     return out
 
@@ -4419,43 +4503,129 @@ def _rss_bytes() -> dict:
     return out
 
 
-def fabric_phase(card: str) -> dict:
-    """The fleet KV fabric on the card: llama-3-8b (bf16, full width, all
-    32 layers) through the CLI with ``--dp 2 --fleet subprocess
-    --num-pages 512 --max-pages-per-seq 128 --max-batch-size 8
-    --host-cache-pages 2048 --fabric-cache-pages 256`` (the pool holds
-    512 MiB in the router) and ``--fabric-warmboot-pages``
-    FABRIC_WARMBOOT_PAGES; ``--preempt-watermark-pages 128`` so that page
-    pressure (every free page held) puts a worker holding one request's
-    cached pages under the watermark. Traffic: a 1024-token shared system
-    prompt and users each adding a BurstGPT-length suffix (capped at
-    512), 48 tokens out. Stages: one seed request; the prefix's 64 pages
-    in the pool; page pressure on the seed worker; 8 concurrent requests
-    (routed around it: the other worker's dispatches pull the prefix);
-    the pressure lifted and the seed worker killed with kill -9; once
-    respawned (its warm boot before it is UP), the other worker's cache
-    cleared and pressured, and one more request. Gates: every stream
-    "length" with its 48 tokens; the wave on the other worker, one of
-    its dispatches with route_fabric_hit_pages 64; no fabric_pull_failed
-    or fabric_warmboot_failed event, no pool rejection, no frame error;
-    the respawn's warm boot adopting the prefix, and its request
-    host-warm (>= 64 pages) with no fabric pull; both kernels (bf16
-    only) in every worker; no /metrics counter falls across the restart;
-    no worker left after and the card's memory back. Recorded: the seed
+# The shm arm's arena: 1 GiB for each of its max(4, 2 dp) = 4 regions,
+# room for a worker's share of the 512 MiB pool plus a drain export.
+SHM_ARENA_BYTES = 4 * 2**30
+_SHM_DIR = "/dev/shm"
+
+
+def _shm_segments() -> set:
+    """The shared-memory segments under /dev/shm now."""
+    return {n for n in os.listdir(_SHM_DIR) if n.startswith("psm_")}
+
+
+def _series_sum(text: str, name: str) -> float:
+    """A counter summed over its labels (every worker's replica)."""
+    total = 0.0
+    for line in text.splitlines():
+        m = _SAMPLE_LINE.match(line)
+        if m and m.group(1) == name:
+            total += float(m.group(3))
+    return total
+
+
+def _shm_gates(label: str, group, reads: dict, verbs) -> dict:
+    """The shm plane in use and nothing relayed: the router's arena up,
+    every worker read attached to its region with no failed allocation,
+    no KV byte through the router for ``verbs``, and slabs both written
+    and read (tpu_inf_kv_plane_shm_{puts,gets}_total). Returns the
+    plane's numbers."""
+    group._refresh_caches()
+    text = group.prometheus_text()
+    out = {"rpc_blob_bytes": dict(group.rpc_blob_bytes),
+           "puts": _series_sum(text, "tpu_inf_kv_plane_shm_puts_total"),
+           "gets": _series_sum(text, "tpu_inf_kv_plane_shm_gets_total"),
+           "reclaims": group.shm_reclaims,
+           "slabs_tracked": group._arena_dir.slabs_tracked
+           if group._arena_dir is not None else None,
+           "workers": {str(w["replica"]) + "/" + str(w["pid"]): w["arena"]
+                       for w in reads.values()}}
+    bad = [k for k, a in out["workers"].items()
+           if a is None or a["alloc_failures"]]
+    relayed = {v: group.rpc_blob_bytes[v] for v in verbs
+               if group.rpc_blob_bytes[v]}
+    if (group.arena is None or bad or relayed or out["puts"] <= 0
+            or out["gets"] <= 0):
+        raise AssertionError(
+            f"{label}: the shm plane was not in use throughout: arena "
+            f"{group.arena is not None}, workers unattached or full {bad}, "
+            f"relayed {relayed}, {out}")
+    return out
+
+
+def fabric_phase(card: str, plane: str = "relay") -> dict:
+    """The fleet KV fabric on the card: llama-3-8b (bf16, full width;
+    main() cuts the relay arm to CUT_LAYERS, the shm arm runs all 32
+    layers) through the CLI with ``--dp 2 --fleet subprocess --num-pages
+    512 --max-pages-per-seq 128 --max-batch-size 8 --host-cache-pages
+    2048 --fabric-cache-pages 256`` (the pool holds 512 MiB at full
+    width) and ``--fabric-warmboot-pages`` FABRIC_WARMBOOT_PAGES;
+    ``--preempt-watermark-pages 128`` so that page pressure (every free
+    page held) puts a worker holding one request's cached pages under
+    the watermark. ``plane`` "shm" adds ``--kv-plane shm
+    --shm-arena-bytes`` SHM_ARENA_BYTES. Traffic: a 1024-token shared
+    system prompt and users each adding a BurstGPT-length suffix (capped
+    at 512), 48 tokens out. Stages: one seed request; the prefix's 64
+    pages in the pool; page pressure on the seed worker; one request
+    alone (routed around it: its dispatch pulls the prefix, the pull
+    timed alone), then the other worker's caches dropped; 8 concurrent
+    requests (the other worker's dispatches pull the prefix again); the
+    pressure lifted and the seed worker killed with kill
+    -9; once respawned (its warm boot before it is UP), the other
+    worker's cache cleared and pressured, and one more request. The shm
+    arm then sends one more request and SIGTERMs the worker serving it
+    mid-decode (the drain migrates it). Gates: every stream "length"
+    with its 48 tokens; the wave on the other worker, one of its
+    dispatches with route_fabric_hit_pages 64; no fabric_pull_failed or
+    fabric_warmboot_failed event, no pool rejection, no frame error; the
+    respawn's warm boot adopting the prefix, and its request host-warm
+    (>= 64 pages) with no fabric pull; both kernels (bf16 only) in every
+    worker; no /metrics counter falls across the restart; no worker left
+    after and the card's memory back. On the shm arm also: the arena
+    fits /dev/shm (its free space logged); the router's arena up and
+    every worker attached (_shm_gates) with no relayed handoff,
+    fabric_put, migrate or import-kv byte and slabs written and read;
+    the warm boot read from the arena (its descriptor pages cover the
+    prefix, nothing relayed); tpu_inf_shm_reclaims_total > 0 after the
+    kill -9; the drain migrating by descriptor; no shm_arena_unavailable
+    event; no segment left under /dev/shm after. Recorded: the seed
     request's TTFT (a cold prefill) and the fabric-warm ones, each
-    pull's wall and bytes, the publish wall per page on the engine
-    thread, the warm boot's wall and pages, the tpu_inf_fabric_* and
-    tpu_inf_route_fabric_* series at the end, the router's RSS, the
+    pull's wall and bytes and its parts (the worker's slab reads,
+    deserialize and wait for the engine loop; on the relay plane the
+    router's pool read and serialize), alone and 8 at once, the publish
+    wall per page on the engine
+    thread, the warm boot's wall and pages, the drain's walls and bytes
+    (shm), the tpu_inf_fabric_*, tpu_inf_route_fabric_*, tpu_inf_shm_*
+    and tpu_inf_kv_plane_shm_* series at the end, the router's RSS, the
     prefill launches by path on the fabric-warm worker."""
+    from tpu_inference_torch import config as cfgs
     from tpu_inference_torch import telemetry as tel
     from tpu_inference_torch.engine.prefix_cache import _chain_hashes
-    label = "fabric llama-3-8b bf16 dp2"
+    shm = plane == "shm"
+    n_layers = cfgs.PRESETS["llama-3-8b"]().n_layers
+    label = ("fabric shm llama-3-8b bf16 dp2" if shm
+             else "fabric llama-3-8b bf16 dp2")
     free_before = torch.cuda.mem_get_info()[0]
     n_prefix = FABRIC_PREFIX // 16
-    system, prompts = _fabric_prompts(10)
+    system, prompts = _fabric_prompts(11)
     max_tokens = 48
     events: list = []
     log_event = tel.log_event
+    flags = []
+    dev_shm = None
+    if shm:
+        import shutil
+        du = shutil.disk_usage(_SHM_DIR)
+        dev_shm = {"total": du.total, "free": du.free,
+                   "arena": SHM_ARENA_BYTES}
+        log(f"[{label}] {_SHM_DIR}: {json.dumps(dev_shm)}")
+        if du.free < SHM_ARENA_BYTES:
+            raise AssertionError(
+                f"{label}: the {SHM_ARENA_BYTES} B arena does not fit "
+                f"{_SHM_DIR} ({du.free} B free of {du.total})")
+        flags = ["--kv-plane", "shm",
+                 "--shm-arena-bytes", str(SHM_ARENA_BYTES)]
+        segments0 = _shm_segments()
 
     def spy_log(event, *args, **kw):
         events.append(event)
@@ -4463,21 +4633,28 @@ def fabric_phase(card: str) -> dict:
 
     rss0 = _rss_bytes()
     t0 = time.perf_counter()
-    server, _ = _serve_cli([
-        "--model", "llama-3-8b", "--dp", "2", "--fleet", "subprocess",
-        "--num-pages", "512", "--max-pages-per-seq", "128",
-        "--max-batch-size", "8", "--host-cache-pages", "2048",
-        "--fabric-cache-pages", "256",
-        "--fabric-warmboot-pages", str(FABRIC_WARMBOOT_PAGES),
-        "--preempt-watermark-pages", "128", "--no-warmup",
-        "--seed", str(SEED)])
+    tel.log_event = spy_log
+    try:
+        server, _ = _serve_cli([
+            "--model", "llama-3-8b", "--dp", "2", "--fleet", "subprocess",
+            "--num-pages", "512", "--max-pages-per-seq", "128",
+            "--max-batch-size", "8", "--host-cache-pages", "2048",
+            "--fabric-cache-pages", "256",
+            "--fabric-warmboot-pages", str(FABRIC_WARMBOOT_PAGES),
+            "--preempt-watermark-pages", "128", "--no-warmup",
+            "--seed", str(SEED)] + flags)
+    except BaseException:
+        tel.log_event = log_event
+        raise
     group = server.group
     pids, reads = set(), {}
-    tel.log_event = spy_log
+    drain = shm_out = None
     try:
         port = server.start(port=0)
         boot_s = time.perf_counter() - t0
         pids |= {h.pid for h in group.workers}
+        if shm and group.arena is None:
+            raise AssertionError(f"{label}: no arena (events {events})")
         prefix = _chain_hashes(server.tokenizer.encode(system), 16)[:n_prefix]
 
         def timeline(request_id: str) -> dict:
@@ -4502,8 +4679,24 @@ def fabric_phase(card: str) -> dict:
         page_pressure(seed, 512)
         _wait_fleet(group, label, lambda: pressured(seed),
                     "the seed worker under pressure", 60.0)
+        # One pull alone (a user suffix no other prompt has), then the
+        # other worker's caches dropped so the wave pulls again.
         pulls0 = len(group.fabric_pulls)
         try:
+            lone_r = _stream_request(
+                port, system + prompts[1][len(system):][::-1], max_tokens)
+            lone_tl = timeline(lone_r["request_id"])
+            lone_pulls = list(group.fabric_pulls)[pulls0:]
+            if (lone_tl["routed_replica"] != other
+                    or lone_tl["route_fabric_hit_pages"] != n_prefix
+                    or len(lone_pulls) != 1):
+                raise AssertionError(
+                    f"{label}: the lone request: routed to "
+                    f"{lone_tl['routed_replica']}, pulled "
+                    f"{lone_tl['route_fabric_hit_pages']} pages in "
+                    f"{lone_pulls}")
+            group.workers[other].client.rpc("debug", clear=True)
+            pulls0 = len(group.fabric_pulls)
             wave, wave_wall = run_requests(port, prompts[1:9], max_tokens)
         finally:
             page_pressure(seed, 0)
@@ -4522,11 +4715,13 @@ def fabric_phase(card: str) -> dict:
         _worker_reads(group, reads, label)
         group._refresh_caches()
         before = _monotone_series(group.prometheus_text())
-        pool_order = [d for d, _ in group.fabric.hot_set(
-            FABRIC_WARMBOOT_PAGES)]
+        hot_set = (group.fabric.hot_set_descs if shm
+                   else group.fabric.hot_set)
+        pool_order = [d for d, _ in hot_set(FABRIC_WARMBOOT_PAGES)]
         prefix_in_mru64 = len(set(pool_order[:64]) & set(prefix))
         victim = group.workers[seed]
         inc = victim.incarnation
+        reclaims0 = group.shm_reclaims
         t_kill = time.perf_counter()
         group.apply_chaos({"replica": seed, "kill": "sigkill"})
         _wait_fleet(group, label, lambda: victim.incarnation > inc
@@ -4537,6 +4732,12 @@ def fabric_phase(card: str) -> dict:
         if (wb.get("incarnation") != victim.incarnation
                 or wb.get("adopted", 0) < n_prefix):
             raise AssertionError(f"{label}: the respawn's warm boot {wb}")
+        if shm and (wb.get("desc_pages", 0) < n_prefix or wb["relay_bytes"]
+                    or group.shm_reclaims <= reclaims0):
+            raise AssertionError(
+                f"{label}: the respawn's warm boot {wb} was not read from "
+                f"the arena, or no slab was reclaimed ("
+                f"{group.shm_reclaims - reclaims0})")
         group._refresh_caches()
         n_series = _no_series_fell(label, before,
                                    _monotone_series(group.prometheus_text()))
@@ -4559,8 +4760,16 @@ def fabric_phase(card: str) -> dict:
                 f"{last_tl['routed_replica']}, host-warm "
                 f"{last_tl['route_host_hit_pages']}, pulled "
                 f"{last_tl['route_fabric_hit_pages']}")
+        results = [seed_r, lone_r] + wave + [last]
+        if shm:
+            drained = _shm_drain(label, group, port, prompts[10],
+                                 max_tokens, reads)
+            results.append(drained.pop("result"))
+            drain = drained
+            pids |= {h.pid for h in group.workers}
         failed = [e for e in events
-                  if e in ("fabric_pull_failed", "fabric_warmboot_failed")]
+                  if e in ("fabric_pull_failed", "fabric_warmboot_failed",
+                           "shm_arena_unavailable")]
         if failed or group.fabric.kv_rejections or group.frame_errors:
             raise AssertionError(
                 f"{label}: events {failed}, pool rejections "
@@ -4568,12 +4777,17 @@ def fabric_phase(card: str) -> dict:
                 f"{group.frame_errors}")
         final = _worker_reads(group, reads, label)
         _gate_launches(reads, label, "bf16")
+        if shm:
+            shm_out = _shm_gates(label, group, reads, (
+                "handoff", "fabric_put", "migrate", "import-kv"))
         text = group.prometheus_text()
         series = {}
         for line in text.splitlines():
             m = _SAMPLE_LINE.match(line)
-            if m and m.group(1).startswith(("tpu_inf_fabric_",
-                                            "tpu_inf_route_fabric_")):
+            if m and m.group(1).startswith((
+                    "tpu_inf_fabric_", "tpu_inf_route_fabric_",
+                    "tpu_inf_shm_", "tpu_inf_kv_plane_shm_",
+                    "tpu_inf_rpc_blob_bytes_total")):
                 series[m.group(1) + (m.group(2) or "")] = float(m.group(3))
         launches = _launch_totals(reads)
         publish = {str(w["replica"]) + "/" + str(w["pid"]): w["fabric"]
@@ -4589,12 +4803,17 @@ def fabric_phase(card: str) -> dict:
         del server, group
     _pids_gone(label, pids)
     free_after = _card_memory_back(label, free_before)
-    results = [seed_r] + wave + [last]
+    if shm:
+        left = _shm_segments() - segments0
+        if left:
+            raise AssertionError(f"{label}: segments left in {_SHM_DIR}: "
+                                 f"{sorted(left)}")
     pages = sum(v["published_pages"] for v in publish.values())
     publish_s = sum(v["publish_s"] for v in publish.values())
     ttfts = sorted(r["ttft_s"] for r in results)
     out = {"label": label, "model": "llama-3-8b", "quant": "none",
            "kv_quant": "none", "variant": "bf16", "dp": 2,
+           "layers": n_layers, "kv_plane": plane,
            "fleet": "subprocess", "boot_s": boot_s,
            "boot_walls_s": boot_walls, "seed_replica": seed,
            "seed_ttft_s": seed_r["ttft_s"],
@@ -4603,12 +4822,14 @@ def fabric_phase(card: str) -> dict:
                     "ttft_and_pulled_pages": warm,
                     "first_fabric_warm_ttft_s": min(
                         t for t, n in warm if n == n_prefix)},
+           "lone": {"ttft_s": lone_r["ttft_s"], "pull": lone_pulls[0]},
            "pulls": pulls, "respawn_s": respawn_s, "warm_boot": wb,
            "prefix_pages_in_mru_64": prefix_in_mru64,
            "last": {"ttft_s": last["ttft_s"],
                     "route_host_hit_pages": last_tl["route_host_hit_pages"],
                     "route_fabric_hit_pages":
                         last_tl["route_fabric_hit_pages"]},
+           "drain": drain, "shm": shm_out, "dev_shm": dev_shm,
            "publish": publish,
            "publish_s_per_page": publish_s / max(1, pages),
            "fabric": fabric_snap, "series": series,
@@ -4628,6 +4849,80 @@ def fabric_phase(card: str) -> dict:
            "free_memory_before_after_bytes": [free_before, free_after]}
     log(f"[{label}] on {card}: " + json.dumps(
         {k: v for k, v in out.items() if k != "label"}))
+
+    def parts(p: dict) -> dict:
+        w = p.get("worker_parts_s") or {}
+        return {"wall_s": p["wall_s"], "mb": p["bytes"] / 1e6,
+                **{k: w.get(k) for k in ("read", "deserialize", "apply")},
+                **{k: p[k] for k in ("get_s", "serialize_s") if k in p}}
+
+    log(f"[{label}] pull parts (s): alone "
+        f"{json.dumps(parts(lone_pulls[0]))}; 8 at once "
+        f"{json.dumps([parts(p) for p in pulls])}")
+    return out
+
+
+def _shm_drain(label: str, group, port: int, prompt: str, max_tokens: int,
+               reads: dict) -> dict:
+    """The shm arm's drain: one more request, and SIGTERM to the worker
+    serving it once it decodes. Gates: the stream "length" with its
+    tokens, one migration by descriptor (bytes migrated, none relayed),
+    the drain settled inside drain_timeout_s, the worker back. Returns
+    the walls (SIGTERM to the worker's exit, and to the request running
+    on the other worker), the bytes and the request's result."""
+    box: dict = {}
+
+    def traffic():
+        box["results"], box["wall"] = run_requests(port, [prompt],
+                                                   max_tokens)
+
+    th = threading.Thread(target=traffic)
+    th.start()
+
+    def mid_decode():
+        with group._lock:
+            return [e.worker.replica for e in group._tracked.values()
+                    if e.worker is not None
+                    and 4 <= len(e.tokens) <= max_tokens - 16]
+
+    _wait_fleet(group, label, lambda: bool(mid_decode()),
+                "the drained request mid-decode", 300.0)
+    victim = mid_decode()[0]
+    vh = group.workers[victim]
+    _worker_reads(group, reads, label)
+    mig0, bytes0 = group.migrations, group.migrated_bytes
+    relayed0 = dict(group.rpc_blob_bytes)
+    restarts0 = vh.restarts
+    budget = group.server_cfg.drain_timeout_s
+    t_kill = time.perf_counter()
+    group.apply_chaos({"replica": victim, "kill": "sigterm"})
+    _wait_fleet(group, label, lambda: vh.state != "up", "the drain",
+                budget + 30)
+    exit_s = time.perf_counter() - t_kill
+
+    def settled():
+        with group._lock:
+            return all(e.worker not in (None, vh)
+                       for e in group._tracked.values())
+
+    _wait_fleet(group, label, settled, "the migration", budget + 30)
+    settled_s = time.perf_counter() - t_kill
+    th.join(timeout=300)
+    if th.is_alive() or "results" not in box:
+        raise AssertionError(f"{label}: the drained request did not finish")
+    _wait_fleet(group, label, lambda: vh.restarts > restarts0
+                and _healed(group), "the restart after the drain", 300.0)
+    out = {"replica": victim, "worker_exit_s": exit_s,
+           "settled_s": settled_s, "migrations": group.migrations - mig0,
+           "migrated_bytes": group.migrated_bytes - bytes0,
+           "relayed_bytes": {v: group.rpc_blob_bytes[v] - relayed0[v]
+                             for v in relayed0},
+           "result": box["results"][0]}
+    if (out["migrations"] != 1 or out["migrated_bytes"] <= 0
+            or any(out["relayed_bytes"].values())
+            or settled_s > budget):
+        raise AssertionError(f"{label}: the drain did not migrate by "
+                             f"descriptor inside {budget} s: {out}")
     return out
 
 
@@ -4825,9 +5120,10 @@ def main() -> int:
     log_new_path(mp, card)
     main_paths[mp["label"]] = mp
     pd_identity = timed("pd_identity", pd_identity_phase, card)
-    # The fleet, pd and elastic lanes run CUT_LAYERS of llama-3-8b's
-    # layers (the elastic lane's TTFT target is a quarter of the fleet
-    # lane's p50, so both are cut alike); the fabric lane runs all 32.
+    # The fleet, pd and elastic lanes and the fabric lane's relay arm run
+    # CUT_LAYERS of llama-3-8b's layers (the elastic lane's TTFT target is
+    # a quarter of the fleet lane's p50, so both are cut alike); the
+    # fabric lane's shm arm runs all 32.
     with _depth_cut("llama-3-8b", CUT_LAYERS):
         fleet = timed("fleet", fleet_phase, card, main_paths["bf16"])
         main_paths[fleet["label"]] = fleet
@@ -4835,7 +5131,9 @@ def main() -> int:
         main_paths[mp["label"]] = mp
         mp = timed("elastic", elastic_phase, card, fleet)
         main_paths[mp["label"]] = mp
-    mp = timed("fabric", fabric_phase, card)
+        mp = timed("fabric", fabric_phase, card, "relay")
+        main_paths[mp["label"]] = mp
+    mp = timed("fabric_shm", fabric_phase, card, "shm")
     main_paths[mp["label"]] = mp
     # Mixtral runs CUT_LAYERS of its 32 layers.
     for name, phase, cut in (("mixtral", mixtral_phase, "mixtral-8x7b"),

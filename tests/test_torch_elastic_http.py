@@ -191,18 +191,34 @@ def test_elastic_series_match_reference():
 
 
 def test_elastic_knobs_build_and_the_rest_names_1_15b(ckpt):
-    """Autoscale and class lanes build a router on the process fleet;
-    the refusal that stays names only the shm arena."""
+    """Autoscale and class lanes build a router on the process fleet, on
+    the shm plane too (1.15b is whole: nothing of it is refused), and an
+    in-process fleet asked for the shm plane builds on the relay plane.
+    The refusal that stays names 1.16."""
     from tpu_inference_torch.server.http import build_engine_group
 
-    with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP 1\.15b \(shm arena\)\)$"):
-        build_engine_group(_cfg(ckpt, kv_plane="shm"), device="cpu")
     group = build_engine_group(_cfg(ckpt, autoscale=True,
-                                    class_queue_depth=4), device="cpu")
+                                    class_queue_depth=4, kv_plane="shm",
+                                    shm_arena_bytes=1 << 20), device="cpu")
     try:
         assert group.server_cfg.autoscale and group.dp == 2
         assert group.server_cfg.class_queue_depth == 4
         assert not group._started
+        # Regions for twice the boot-time fleet: a scale-up's worker at
+        # replica 2 or 3 still gets one, one past them relays.
+        assert group.arena is not None and group.arena.regions == 4
+        assert group.arena.region_spec(3)["region"] == 3
+        assert group.arena.region_spec(4) is None
+        assert group._envelope(1)["shm"]["region"] == 1
     finally:
         group.stop(drain=False)
+    group = build_engine_group(_cfg(ckpt, fleet="in-process",
+                                    kv_plane="shm"), device="cpu")
+    try:
+        assert not hasattr(group, "arena")
+    finally:
+        group.stop(drain=False)
+    cfg = _cfg(ckpt, autoscale=True)
+    cfg.parallel = tcfg.ParallelConfig(dp=2, sp=2)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.16\)"):
+        build_engine_group(cfg, device="cpu")

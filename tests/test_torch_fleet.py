@@ -7,8 +7,8 @@ oracle's through ``kill -9`` failover, SIGTERM drain with KV migration,
 transport corruption and a wedged connection; the in-process and the
 subprocess backends give the same ``outputs_sha256``; the metrics keep
 their replica labels and never fall across restarts; the HTTP layer
-serves dp=2 on both backends; the shm arena (ROADMAP 1.15b part 4) is
-refused.
+serves dp=2 on both backends; ``kv_plane="shm"`` builds on both (an
+arena on the process fleet, the relay plane in-process).
 """
 
 import dataclasses
@@ -245,11 +245,29 @@ def test_imports_applied_together_report_their_own_pages():
 
 
 def test_unported_fleet_features_raise_naming_1_15b(ckpt):
+    """Nothing of 1.15b is refused any more: ``kv_plane="shm"`` builds on
+    both backends (the process fleet creates its arena, the in-process
+    fleet rides the relay plane, as the reference's decision table
+    says), and the one refusal left names 1.16."""
+    from tpu_inference.server.shm_arena import effective_kv_plane as ref
     from tpu_inference_torch.server.http import build_engine_group
+    from tpu_inference_torch.server.shm_arena import effective_kv_plane
 
-    with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP 1\.15b \(shm arena\)\)$"):
-        build_engine_group(_cfg(ckpt, kv_plane="shm"), device="cpu")
+    for fleet in ("subprocess", "in-process"):
+        cfg = _cfg(ckpt, fleet=fleet, kv_plane="shm",
+                   shm_arena_bytes=1 << 20)
+        assert effective_kv_plane(cfg.server) == ref(cfg.server)
+        group = build_engine_group(cfg, device="cpu")
+        try:
+            arena = getattr(group, "arena", None)
+            if fleet == "subprocess":
+                assert arena is not None and arena.regions == 4
+                assert arena.region_spec(0)["region_bytes"] == (1 << 20) // 4
+            else:
+                assert arena is None
+        finally:
+            group.stop(drain=False)
+        assert getattr(group, "arena", None) is None
     # The KV fabric is served on both backends: each router holds a pool.
     for fleet in ("subprocess", "in-process"):
         group = build_engine_group(

@@ -568,13 +568,34 @@ def test_handoff_salvage_parks_the_prefix_and_the_retry_pulls_it(
         group.stop(drain=False)
 
 
+def _hold_respawn(group, replica):
+    """Keep ``replica``'s respawn from starting until the returned
+    function runs (the backoff is set before the state flips, so the
+    monitor never sees a due restart in between)."""
+    held = threading.Event()
+    orig = group._schedule_restart
+
+    def schedule_restart(h):
+        if h.replica != replica or held.is_set():
+            return orig(h)
+        h.restart_at = float("inf")
+        h.state = "restarting"
+
+    def release():
+        held.set()
+        group.workers[replica].restart_at = time.monotonic()
+
+    group._schedule_restart = schedule_restart
+    return release
+
+
 def test_migrate_salvage_with_no_other_worker(ckpt, oracle, monkeypatch):
     """SIGTERM mid-decode while the only sibling is down: the drain's
     export has no destination, so its pages are parked in the pool, and
-    the retry's dispatch (on the sibling's respawn, which boots with no
-    warm boot here) pulls the prefix back. Tokens equal the oracle's.
-    The re-route grace covers the sibling's whole respawn, which a
-    loaded machine can stretch past the default 10 s."""
+    the retry's dispatch (on a respawn, which boots with no warm boot
+    here) pulls the prefix back. Tokens equal the oracle's. The
+    sibling's respawn is held until the export has been salvaged, so a
+    quick respawn cannot take the export by import-kv first."""
     from tpu_inference_torch.server import fleet
     from tpu_inference_torch.server.fleet import ProcessEngineGroup
 
@@ -585,9 +606,11 @@ def test_migrate_salvage_with_no_other_worker(ckpt, oracle, monkeypatch):
     try:
         parked = []
         orig = group._fabric_salvage
+        release = _hold_respawn(group, 1)
 
         def salvage(digests, blob, rid, path):
             parked.append((path, orig(digests, blob, rid, path)))
+            release()
             return parked[-1][1]
 
         group._fabric_salvage = salvage
@@ -600,6 +623,58 @@ def test_migrate_salvage_with_no_other_worker(ckpt, oracle, monkeypatch):
         fin = _finish(done, box)
         assert parked and parked[0][0] == "migrate" and parked[0][1] >= 4
         assert fin.finish_reason == "length"
+        assert toks == oracle.generate([list(PROMPT)],
+                                       max_new_tokens=28)[0]
+        assert fin.route_fabric_hit_pages == 4
+    finally:
+        group.stop(drain=False)
+
+
+def test_salvage_retry_waits_for_a_respawn_not_the_draining_source(
+        ckpt, oracle, monkeypatch):
+    """The drained event trails a worker's migrate exports on its
+    connection. The router marks the worker draining at its first
+    export, so a salvage retry routed before the drained event waits for
+    a respawn instead of landing on the draining source, which refuses
+    it and exits: the failover then found no survivor and finished the
+    request "unavailable". Here the drained event is held until the
+    salvage has run, which opens that window every time."""
+    from tpu_inference_torch.server import fleet
+    from tpu_inference_torch.server.fleet import ProcessEngineGroup
+
+    monkeypatch.setattr(fleet, "_REROUTE_GRACE_S", 120.0)
+    group = ProcessEngineGroup(
+        _cfg(ckpt, fabric_warmboot_pages=0, **FABRIC_KW), device="cpu")
+    group.start()
+    try:
+        routable_at_salvage = []
+        salvaged = threading.Event()
+        orig_salvage, orig_drained = group._fabric_salvage, group._on_drained
+        release = _hold_respawn(group, 1)
+
+        def salvage(digests, blob, rid, path):
+            routable_at_salvage.append(
+                [w.replica for w in group._routable()])
+            n = orig_salvage(digests, blob, rid, path)
+            salvaged.set()
+            release()
+            return n
+
+        def on_drained(h, client, obj):
+            salvaged.wait(TIMEOUT)
+            orig_drained(h, client, obj)
+
+        group._fabric_salvage = salvage
+        group._on_drained = on_drained
+        group.apply_chaos({"replica": 1, "kill": "kill9"})
+        _wait(lambda: group.workers[1].state != "up",
+              what="the sibling down")
+        toks, done, box = _submit(group, 9401, PROMPT, 28)
+        _wait(lambda: len(toks) >= 4, what="decode under way")
+        group.apply_chaos({"replica": 0, "kill": "sigterm"})
+        fin = _finish(done, box)
+        assert fin.finish_reason == "length"
+        assert routable_at_salvage == [[]]
         assert toks == oracle.generate([list(PROMPT)],
                                        max_new_tokens=28)[0]
         assert fin.route_fabric_hit_pages == 4

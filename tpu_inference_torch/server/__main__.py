@@ -195,6 +195,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "pages into a newly spawned worker BEFORE it "
                         "becomes routable (warm boot for autoscale "
                         "scale-ups, restarts, and rollouts); 0 = off")
+    p.add_argument("--kv-plane", default="relay",
+                   choices=("relay", "shm"),
+                   help="KV data plane (README 'KV data plane'): how KV "
+                        "payloads (fabric publishes, P/D handoffs, drain "
+                        "migrations) move between processes. 'relay' = "
+                        "blobs ride the RPC sockets through the router "
+                        "(default, works everywhere); 'shm' = payloads "
+                        "go into a shared-memory page arena and only "
+                        "descriptors cross the sockets (zero-copy; "
+                        "needs --fleet subprocess on Linux, silently "
+                        "falls back to relay otherwise)")
+    p.add_argument("--shm-arena-bytes", type=int,
+                   default=256 * 1024 * 1024,
+                   help="--kv-plane shm: total shared-memory arena size "
+                        "in bytes, split into one single-writer region "
+                        "per worker (default 256 MiB)")
     p.add_argument("--route-fabric-hit-weight", type=float, default=0.25,
                    help="prefix-affinity: pages of prefill work one "
                         "fabric-pool hit page is worth (fourth "
@@ -549,6 +565,8 @@ def server_overrides(args) -> dict:
             "fabric_publish_min_pages": args.fabric_publish_min_pages,
             "fabric_warmboot_pages": args.fabric_warmboot_pages,
             "route_fabric_hit_weight": args.route_fabric_hit_weight,
+            "kv_plane": args.kv_plane,
+            "shm_arena_bytes": args.shm_arena_bytes,
             "worker_restart_max": args.worker_restart_max,
             "worker_restart_backoff_s": args.worker_restart_backoff_s,
             "drain_timeout_s": args.drain_timeout_s,

@@ -1,8 +1,7 @@
 """Process fleet router: ``EngineGroup`` semantics over worker processes.
 
-Twin of ``tpu_inference/server/fleet.py`` on the relay plane (the
-shared-memory arena is ROADMAP 1.15b part 4).
-``ProcessEngineGroup`` serves the same
+Twin of ``tpu_inference/server/fleet.py``. ``ProcessEngineGroup``
+serves the same
 facade as the in-process ``EngineGroup`` (submit/cancel; health, stats,
 metrics, steps, recent, trace and blackbox snapshots; prefix-affinity
 routing; failover; admission control) behind ``--fleet subprocess``, but
@@ -83,6 +82,21 @@ respawn, scale-up, rollout successor) gets the pool's MRU hot set
 drain export that finds no destination is parked in the pool (salvage),
 so the retry's dispatch pulls it back.
 
+KV planes (``kv_plane``): on the relay plane every KV payload crosses
+the router in RPC frames. On the shm plane (``shm_arena.
+effective_kv_plane``: worker processes on Linux) the router creates one
+shared-memory segment of ``shm_arena_bytes`` in ``max(4, 2 dp)``
+regions and names each boot-time worker its region in the envelope;
+handoff, migrate, fabric-publish, fabric-pull and warm-boot frames then
+carry slab descriptors, and ``rpc_blob_bytes`` stays at 0 for them. The
+router's ``SlabDirectory`` registers each descriptor it receives,
+releases it when the pool entry or the handoff lets go, and hands the
+frees to the owner on the stats tick; a dead incarnation's region is
+reclaimed by an epoch bump (``_reclaim_region``) at its respawn or
+quarantine. A segment that cannot be created leaves the fleet on the
+relay plane (``shm_arena_unavailable``); a worker past the region count
+(a scale-up's, a rollout successor's) relays.
+
 Before spawning workers for a card with the kernel backend, the router
 builds the kernels once (``kernels.KERNEL_SOURCES``), so workers never
 run ``nvcc`` side by side.
@@ -100,7 +114,7 @@ import sys
 import tempfile
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as _futures_wait
 from typing import Callable, Dict, List, Optional, Tuple
@@ -112,7 +126,7 @@ from tpu_inference_torch.config import (FrameworkConfig, class_rank,
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine.engine import Sequence
 from tpu_inference_torch.integrity import KVIntegrityError
-from tpu_inference_torch.server import kv_fabric
+from tpu_inference_torch.server import kv_fabric, shm_arena
 from tpu_inference_torch.server.replicas import (_RETRYABLE, FleetSaturated,
                                                  FleetUnavailable,
                                                  _clone_request,
@@ -368,7 +382,7 @@ class _Tracked:
     __slots__ = ("template", "on_token", "on_finish", "worker", "client",
                  "generation", "attempts", "tokens", "seq_local",
                  "resume_stream_len", "t_submit", "failed_workers",
-                 "handoff_blob", "handoff_meta")
+                 "handoff_blob", "handoff_desc", "handoff_meta")
 
     def __init__(self, template: Sequence, on_token, on_finish):
         self.template = template
@@ -390,7 +404,10 @@ class _Tracked:
         # A P/D handoff's KV blob and its {"ctx_len", "n_generated"}: the
         # blob is dropped once the adopter streams past the export; the
         # meta stays, so a later failover counts as a handoff recompute.
+        # On the shm plane the export is an arena descriptor instead,
+        # held (registered with the slab books) for the same span.
         self.handoff_blob: Optional[bytes] = None
+        self.handoff_desc: Optional[dict] = None
         self.handoff_meta: Optional[dict] = None
 
 
@@ -473,8 +490,30 @@ class ProcessEngineGroup:
         # The fleet KV fabric: the router's pool of serialized prefix
         # pages, fed by the workers' fabric_put events.
         self.fabric = kv_fabric.FabricPool(cfg.server.fabric_cache_pages)
-        # The latest pulls (replica, pages, bytes, wall), for the logs.
+        # The latest pulls (replica, pages, bytes, wall, plane), for the
+        # logs.
         self.fabric_pulls: deque = deque(maxlen=256)
+        # The shm plane: one segment for the fleet, a region per
+        # boot-time replica (None on the relay plane, or when the
+        # segment could not be created).
+        self.arena: Optional[shm_arena.ArenaSegment] = None
+        self._arena_dir: Optional[shm_arena.SlabDirectory] = None
+        self.shm_reclaims = 0
+        # Drain exports by descriptor still being read, by source region:
+        # the region's reclaim at the respawn waits for them.
+        self._arena_reads: Dict[int, int] = Counter()
+        if shm_arena.effective_kv_plane(cfg.server) == "shm":
+            try:
+                self.arena = shm_arena.ArenaSegment(
+                    cfg.server.shm_arena_bytes,
+                    regions=max(4, self.dp * 2))
+                self._arena_dir = shm_arena.SlabDirectory()
+                self.fabric.on_release = self._arena_dir.release
+            except Exception as e:  # noqa: BLE001 — degrade to relay
+                telemetry.log_event(
+                    "shm_arena_unavailable", level="warning", error=str(e),
+                    note="kv_plane=shm degraded to relay")
+                self.arena = None
         self._deadlines = {"fast": cfg.server.rpc_deadline_fast_s,
                            "slow": cfg.server.rpc_deadline_slow_s}
         # Transport chaos: config knobs, retuned by /debug/chaos. One
@@ -570,8 +609,25 @@ class ProcessEngineGroup:
         for verb in self.rpc_blob_bytes:
             r.counter("tpu_inf_rpc_blob_bytes_total",
                       "KV payload bytes relayed through the router's "
-                      "RPC/event frames, by verb",
+                      "RPC/event frames, by verb (descriptor frames on "
+                      "the shm plane count 0 here)",
                       fn=lambda v=verb: self.rpc_blob_bytes[v], verb=verb)
+        r.gauge("tpu_inf_shm_slabs_total",
+                "Arena slabs the router still tracks: live plus released "
+                "but not yet freed (frees go to the owning worker on its "
+                "next stats tick). 0 on the relay plane.",
+                fn=lambda: float(self._arena_dir.slabs_tracked
+                                 if self._arena_dir is not None else 0))
+        r.gauge("tpu_inf_shm_slabs_used",
+                "Arena slabs still held by a consumer (a fabric pool "
+                "entry or a pending handoff or migrate)",
+                fn=lambda: float(self._arena_dir.slabs_live
+                                 if self._arena_dir is not None else 0))
+        r.counter("tpu_inf_shm_reclaims_total",
+                  "Arena slabs reclaimed by a region epoch bump after "
+                  "their worker incarnation died (their consumers "
+                  "recompute)",
+                  fn=lambda: self.shm_reclaims)
         r.counter("tpu_inf_fleet_migrations_total",
                   "In-flight requests migrated off a draining worker",
                   fn=lambda: self.migrations)
@@ -751,7 +807,7 @@ class ProcessEngineGroup:
     # ----------------------------------------------------------- spawn
 
     def _envelope(self, replica: int) -> dict:
-        return {
+        env = {
             "config": framework_config_to_dict(self.cfg),
             # The worker builds on exactly this device.
             "device": str(replica_device(self.device, replica)),
@@ -765,12 +821,37 @@ class ProcessEngineGroup:
             # the stats calls keep it fresh).
             "fabric_free": self.fabric.free_pages,
         }
+        if self.arena is not None:
+            # The shm plane: this worker's region (none past the region
+            # count: such a worker relays, and says so).
+            shm = self.arena.region_spec(replica)
+            if shm is not None:
+                env["shm"] = shm
+            else:
+                telemetry.log_event(
+                    "shm_no_region", level="warning", replica=replica,
+                    regions=self.arena.regions,
+                    note="this worker rides the relay plane")
+        return env
 
     def _spawn(self, h: WorkerHandle) -> None:
         """Launch one worker incarnation and wait for its hello (which
         waits for the worker's engine to be built and warmed)."""
         t0 = time.perf_counter()
         h.incarnation += 1
+        if self.arena is not None and h.incarnation > 1:
+            # The dead incarnation's slabs (pooled fabric pages, a
+            # handoff nobody adopted) are taken back by an epoch bump:
+            # their descriptors fail closed, and the fresh incarnation
+            # mints under the new epoch in an empty region. A drain
+            # export still being read (a destination's import-kv or a
+            # salvage's copy, never a wait for a destination) finishes
+            # first, bounded by the drain budget.
+            deadline = time.monotonic() + self.server_cfg.drain_timeout_s
+            while (self._arena_reads[h.replica] > 0
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            self._reclaim_region(h.replica)
         h.socket_path = os.path.join(
             self._sock_dir, f"w{h.replica}.{h.incarnation}.sock")
         env = dict(os.environ)
@@ -824,39 +905,94 @@ class ProcessEngineGroup:
     def _fabric_warmboot(self, h: WorkerHandle,
                          client: WorkerClient) -> int:
         """Push the fabric pool's MRU hot set (``fabric_warmboot_pages``
-        of it) into a just-booted worker's host tier over import-kv.
-        Each blob is re-verified first: a corrupt entry is dropped and
-        counted, never shipped. Best effort: a failure leaves the worker
-        cold but serving. Returns the pages adopted."""
+        of it) into a just-booted worker's host tier over import-kv. On
+        the shm plane the descriptor entries go first, as descriptors:
+        the worker reads and verifies each slab, and the digests it
+        rejects are dropped from the pool. Each blob entry is re-verified
+        here first: a corrupt one is dropped and counted, never shipped.
+        Best effort: a failure leaves the worker cold but serving.
+        Returns the pages adopted."""
         t0 = time.perf_counter()
+        budget = self.server_cfg.fabric_warmboot_pages
+        adopted = offered_d = desc_bytes = 0
+        if self.arena is not None:
+            hot_d = self.fabric.hot_set_descs(budget)
+            if hot_d:
+                offered_d = len(hot_d)
+                desc_bytes = sum(int(dd["len"]) for _, dd in hot_d)
+                try:
+                    r = client.rpc(
+                        "import-kv", digests=[d.hex() for d, _ in hot_d],
+                        descs=[dd for _, dd in hot_d],
+                        idem=f"wbd{h.replica}.{h.incarnation}")
+                    adopted += int(r.get("adopted", 0))
+                    for hexd in r.get("rejected_digests") or ():
+                        self.fabric.reject(bytes.fromhex(hexd))
+                except (WorkerGone, TimeoutError, RuntimeError) as e:
+                    telemetry.log_event("fabric_warmboot_failed",
+                                        level="warning", replica=h.replica,
+                                        error=str(e))
+                budget = max(0, budget - len(hot_d))
         pairs = []
-        for d, b in self.fabric.hot_set(self.server_cfg.fabric_warmboot_pages):
+        for d, b in self.fabric.hot_set(budget):
             try:
                 pairs.append((d, kvc.deserialize_host_pages(b)[0]))
             except KVIntegrityError:
                 self.fabric.reject(d)
-        if not pairs:
-            return 0
-        try:
-            blob = kvc.serialize_host_pages([p for _, p in pairs])
-            with self._lock:
-                self.rpc_blob_bytes["import-kv"] += len(blob)
-            r = client.rpc("import-kv", blob=blob,
-                           digests=[d.hex() for d, _ in pairs],
-                           idem=f"wb{h.replica}.{h.incarnation}")
-        except (WorkerGone, TimeoutError, RuntimeError) as e:
-            telemetry.log_event("fabric_warmboot_failed", level="warning",
-                                replica=h.replica, error=str(e))
-            return 0
-        adopted = int(r.get("adopted", 0))
+        blob = b""
+        if pairs:
+            try:
+                blob = kvc.serialize_host_pages([p for _, p in pairs])
+                with self._lock:
+                    self.rpc_blob_bytes["import-kv"] += len(blob)
+                r = client.rpc("import-kv", blob=blob,
+                               digests=[d.hex() for d, _ in pairs],
+                               idem=f"wb{h.replica}.{h.incarnation}")
+                adopted += int(r.get("adopted", 0))
+            except (WorkerGone, TimeoutError, RuntimeError) as e:
+                telemetry.log_event("fabric_warmboot_failed",
+                                    level="warning", replica=h.replica,
+                                    error=str(e))
+                pairs = []
+        if not pairs and not offered_d:
+            return adopted
         h.warmboots.append({"incarnation": h.incarnation,
-                            "offered": len(pairs), "adopted": adopted,
-                            "bytes": len(blob),
+                            "offered": offered_d + len(pairs),
+                            "desc_pages": offered_d, "adopted": adopted,
+                            "bytes": desc_bytes + len(blob),
+                            "relay_bytes": len(blob),
                             "wall_s": round(time.perf_counter() - t0, 6)})
         telemetry.log_event("fabric_warmboot", level="info",
-                            replica=h.replica, offered=len(pairs),
-                            adopted=adopted)
+                            replica=h.replica,
+                            offered=offered_d + len(pairs), adopted=adopted)
         return adopted
+
+    def _reclaim_region(self, rg: int) -> int:
+        """A dead incarnation's slabs: drop the region's fabric entries,
+        settle the slab books and bump the region's epoch, so every
+        outstanding descriptor of it fails closed. Returns the slabs
+        reclaimed."""
+        if self.arena is None or self._arena_dir is None \
+                or not (0 <= rg < self.arena.regions):
+            return 0
+        dropped = self.fabric.drop_region(rg)
+        n = self._arena_dir.reclaim(rg)
+        self.arena.bump_epoch(rg)
+        with self._lock:
+            self.shm_reclaims += n
+        if n or dropped:
+            telemetry.log_event("shm_region_reclaimed", level="info",
+                                region=rg, slabs=n, fabric_entries=dropped)
+        return n
+
+    def _release_handoff_desc(self, entry: _Tracked) -> None:
+        """Let go of a tracked handoff's slab (idempotent), wherever the
+        blob variant would be dropped: it frees back to its owner on the
+        next stats tick."""
+        desc = entry.handoff_desc
+        entry.handoff_desc = None
+        if desc is not None and self._arena_dir is not None:
+            self._arena_dir.release(desc)
 
     def _connect(self, h: WorkerHandle, proc: subprocess.Popen,
                  connect_timeout: float) -> WorkerClient:
@@ -951,11 +1087,16 @@ class ProcessEngineGroup:
             for q in self._deferred.values():
                 q.clear()
         for entry in leftovers:
+            self._release_handoff_desc(entry)
             self._finish_trace(entry, "shutdown")
             ghost = entry.seq_local
             ghost.done, ghost.finish_reason = True, "shutdown"
             ghost.finish_time = time.perf_counter()
             entry.on_finish(ghost)
+        if self.arena is not None:
+            # Every worker is gone: unlink the segment.
+            self.arena.close(unlink=True)
+            self.arena = None
         if self._flight is not None:
             self._flight.close()
             self._flight = None
@@ -998,15 +1139,24 @@ class ProcessEngineGroup:
         for h in self.workers:
             if h.state != UP or h.client is None:
                 continue
+            # The tick carries the pool's watermark and this region's
+            # batched slab frees out; frees a failed call did not carry
+            # go back for the next tick.
+            frees = (self._arena_dir.drain_free(h.replica)
+                     if self._arena_dir is not None else [])
             try:
                 h.last_metrics = h.client.rpc("metrics")["samples"]
-                # The tick carries the pool's watermark out.
                 h.last_stats = h.client.rpc(
-                    "stats", fabric_free=self.fabric.free_pages)["stats"]
+                    "stats", fabric_free=self.fabric.free_pages,
+                    arena_free=frees)["stats"]
+                frees = []
                 h.last_health = h.client.rpc("healthz")
                 h.last_steps = h.client.rpc("steps")["steps"]
             except (WorkerGone, TimeoutError, RuntimeError):
                 pass
+            finally:
+                if frees and self._arena_dir is not None:
+                    self._arena_dir.requeue_free(h.replica, frees)
 
     def _schedule_restart(self, h: WorkerHandle) -> None:
         scfg = self.server_cfg
@@ -1022,6 +1172,9 @@ class ProcessEngineGroup:
             telemetry.log_event("worker_quarantined", level="error",
                                 replica=h.replica, restarts=h.restarts,
                                 consecutive_failures=h.consecutive_failures)
+            # No respawn will bump this region's epoch: reclaim now, or
+            # its slabs stay pinned.
+            self._reclaim_region(h.replica)
             return
         backoff = min(30.0, scfg.worker_restart_backoff_s
                       * (2 ** max(0, h.consecutive_failures)))
@@ -1135,6 +1288,7 @@ class ProcessEngineGroup:
             if self._tracked.pop(rid, None) is None:
                 return True
             self.poison_requests += 1
+            self._release_handoff_desc(entry)
         telemetry.log_event(
             "poison_quarantined", level="error",
             request_id=entry.template.trace_id or str(rid),
@@ -1410,17 +1564,52 @@ class ProcessEngineGroup:
         the engine loop applied the import, so the request's prefill
         sees the pages. get_pages verifies every blob (a corrupt or
         since-evicted entry shortens the run), and the worker verifies
-        the one import blob again. Returns the pages applied; 0 on a
-        transport failure, and the dispatch goes on cold."""
+        the one import blob again. On the shm plane a run of descriptor
+        entries goes as descriptors: the worker reads and verifies each
+        slab, and the digests it rejects are dropped from the pool; no KV
+        byte passes through the router. Returns the pages applied; 0 on
+        a transport failure, and the dispatch goes on cold. An applied
+        pull is recorded in ``fabric_pulls``: its wall and bytes, the
+        worker's parts of it (``worker_parts_s``: slab reads, deserialize,
+        the wait for the engine loop), and on the relay plane the
+        router's pool read and serialize."""
         if h.client is None:
             return 0
         t0 = time.perf_counter()
         digests = self._digests_for(t)[0]
-        entries = self.fabric.get_pages(digests[warm:warm + fabric_extra])
+        want = digests[warm:warm + fabric_extra]
+        if self.arena is not None:
+            descs = self.fabric.get_descs(want)
+            if descs:
+                try:
+                    r = h.client.rpc(
+                        "import-kv", digests=[d.hex() for d, _ in descs],
+                        descs=[dd for _, dd in descs],
+                        idem=f"fd{t.request_id}.{entry.attempts}."
+                             f"{entry.generation}")
+                except (WorkerGone, TimeoutError, RuntimeError) as e:
+                    telemetry.log_event("fabric_pull_failed",
+                                        level="warning", replica=h.replica,
+                                        error=str(e))
+                    return 0
+                rejected = r.get("rejected_digests") or ()
+                for hexd in rejected:
+                    self.fabric.reject(bytes.fromhex(hexd))
+                if not r.get("applied"):
+                    return 0
+                self.fabric_pulls.append({
+                    "replica": h.replica, "pages": len(descs),
+                    "bytes": sum(int(dd["len"]) for _, dd in descs),
+                    "wall_s": time.perf_counter() - t0, "plane": "shm",
+                    "worker_parts_s": r.get("parts_s")})
+                return max(0, len(descs) - len(rejected))
+        entries = self.fabric.get_pages(want)
         if not entries:
             return 0
+        t_get = time.perf_counter()
         try:
             blob = kvc.serialize_host_pages([p for _, p in entries])
+            t_ser = time.perf_counter()
             with self._lock:
                 self.rpc_blob_bytes["import-kv"] += len(blob)
             r = h.client.rpc(
@@ -1435,7 +1624,11 @@ class ProcessEngineGroup:
             return 0
         self.fabric_pulls.append({"replica": h.replica,
                                   "pages": len(entries), "bytes": len(blob),
-                                  "wall_s": time.perf_counter() - t0})
+                                  "wall_s": time.perf_counter() - t0,
+                                  "plane": "relay",
+                                  "get_s": t_get - t0,
+                                  "serialize_s": t_ser - t_get,
+                                  "worker_parts_s": r.get("parts_s")})
         return len(entries)
 
     def _shed(self, seq: Sequence, cls: str, load: int, cap: int) -> None:
@@ -1558,7 +1751,9 @@ class ProcessEngineGroup:
             gen0 = entry.generation
         hbm, host, fabric_extra = hit
         meta, handoff_blob = entry.handoff_meta, entry.handoff_blob
-        live_handoff = (meta is not None and bool(handoff_blob)
+        handoff_desc = entry.handoff_desc
+        live_handoff = (meta is not None
+                        and bool(handoff_blob or handoff_desc)
                         and len(gen_tokens) == meta["n_generated"])
         # The fabric pull, before the submit. A live handoff skips it:
         # the attempt carries the whole KV already.
@@ -1597,14 +1792,19 @@ class ProcessEngineGroup:
         if meta is not None:
             if live_handoff:
                 # A live handoff: the worker adopts the exported pages
-                # and decodes on with nothing recomputed.
+                # and decodes on with nothing recomputed. On the shm
+                # plane the frame carries the descriptor only.
                 payload_handoff = {"ctx_len": meta["ctx_len"]}
-                blob = handoff_blob
+                if handoff_desc is not None:
+                    payload_handoff["kv_desc"] = handoff_desc
+                else:
+                    blob = handoff_blob
             else:
                 # Decode went past the export (the blob was dropped at
                 # the adopter's first token), or it was never usable:
                 # recompute-resume from the token record.
                 entry.handoff_blob = entry.handoff_meta = None
+                self._release_handoff_desc(entry)
                 with self._lock:
                     self.pd_handoff_recomputes += 1
         payload = {
@@ -1715,6 +1915,7 @@ class ProcessEngineGroup:
         with self._lock:
             if self._tracked.pop(rid, None) is None:
                 return          # cancelled, or finished by stop()
+            self._release_handoff_desc(entry)
         telemetry.log_event("request_unavailable", level="warning",
                             request_id=rid, attempts=entry.attempts)
         self._finish_trace(entry, "unavailable")
@@ -1729,6 +1930,7 @@ class ProcessEngineGroup:
             if entry is not None:
                 entry.generation += 1
                 h = entry.worker
+                self._release_handoff_desc(entry)
         if entry is None or h is None or h.client is None:
             return
 
@@ -1774,8 +1976,25 @@ class ProcessEngineGroup:
         page's blob length, so the reader slices without deserializing;
         every pull verifies its blob, so a corrupt publish can take a
         slot but is never adopted. A frame whose lengths disagree with
-        its blob is dropped whole."""
+        its blob is dropped whole. On the shm plane the frame carries
+        descriptors and no blob: each slab is registered with the slab
+        books and its descriptor pooled."""
         digests = obj.get("digests") or ()
+        descs = obj.get("descs")
+        if descs is not None:
+            if len(digests) != len(descs) or blob:
+                with self._lock:
+                    self.frame_errors += 1
+                telemetry.log_event(
+                    "fabric_put_malformed", level="warning",
+                    replica=h.replica, digests=len(digests),
+                    descs=len(descs), blob_bytes=len(blob))
+                return
+            for d, desc in zip(digests, descs):
+                if self._arena_dir is not None:
+                    self._arena_dir.register(desc)
+                self.fabric.put_desc(bytes.fromhex(d), desc)
+            return
         lens = obj.get("lens") or ()
         if len(digests) != len(lens) or sum(lens) != len(blob):
             with self._lock:
@@ -1836,11 +2055,13 @@ class ProcessEngineGroup:
                 bad = None
                 entry.tokens.append(tok)
                 meta = entry.handoff_meta
-                if (entry.handoff_blob is not None and meta is not None
+                if ((entry.handoff_blob is not None
+                     or entry.handoff_desc is not None) and meta is not None
                         and len(entry.tokens) > meta["n_generated"]):
-                    # The adopter streamed past the export: adopting the
-                    # blob again would fork the stream. Drop it now.
+                    # The adopter streamed past the export: adopting it
+                    # again would fork the stream. Drop it now.
                     entry.handoff_blob = None
+                    self._release_handoff_desc(entry)
                 sl = entry.seq_local
                 sl.generated.append(tok)
                 if sl.first_token_time == 0.0:
@@ -1896,6 +2117,7 @@ class ProcessEngineGroup:
                 self.retries_attempted += 1
             else:
                 self._tracked.pop(rid, None)
+                self._release_handoff_desc(entry)
                 if entry.attempts and reason in ("stop", "length"):
                     self.retries_succeeded += 1
             # The resume stream this attempt re-prefilled, minus what the
@@ -1973,6 +2195,14 @@ class ProcessEngineGroup:
             self.pd_handoffs += 1
             if blob:
                 self.rpc_blob_bytes["handoff"] += len(blob)
+            kv_desc = obj.get("kv_desc")
+            if kv_desc is not None:
+                # The shm plane: the export is in the prefill worker's
+                # slab; the books hold it until the adopter streams past
+                # it or a fallback lets go.
+                if self._arena_dir is not None:
+                    self._arena_dir.register(kv_desc)
+                entry.handoff_desc = dict(kv_desc)
         threading.Thread(target=self._handoff_resume,
                          args=(h, entry, obj, blob, t0),
                          name="fleet-handoff", daemon=True).start()
@@ -1981,7 +2211,8 @@ class ProcessEngineGroup:
                         blob: bytes, t0: float) -> None:
         """Check the handoff blob's digest and resume the request on the
         least-loaded decode worker as an adoption; every failure falls
-        back to the recompute-resume machinery."""
+        back to the recompute-resume machinery. A descriptor export is
+        checked by its adopter, which reads the slab."""
         rid = entry.template.request_id
         n_gen = int(obj.get("n_generated", 0))
         entry.handoff_meta = {"ctx_len": int(obj.get("ctx_len", 0)),
@@ -1996,12 +2227,23 @@ class ProcessEngineGroup:
                 request_id=entry.template.trace_id or str(rid),
                 worker_generated=n_gen, router_streamed=len(entry.tokens))
             entry.handoff_blob = None
+            self._release_handoff_desc(entry)
         pool = ([w for w in self._phase_pool("decode") if w is not h]
                 or [w for w in self._routable() if w is not h]
                 or self._routable())
         if not pool:
             # No destination: park the settled prefix in the fabric pool,
-            # so the grace-window retry's dispatch pulls it back.
+            # so the grace-window retry's dispatch pulls it back. A
+            # descriptor export is read out of the arena first (the pool
+            # entry outlives the slab).
+            desc, arena = entry.handoff_desc, self.arena
+            if not checked and desc is not None and arena is not None:
+                try:
+                    checked = arena.read(desc)
+                except shm_arena.ArenaError:
+                    checked = b""
+                self._release_handoff_desc(entry)
+                entry.handoff_blob = checked or None
             self._fabric_salvage(self._digests_for(entry.template)[0],
                                  checked, rid, "handoff")
             self._retry_or_fail(entry)     # already claimed
@@ -2042,6 +2284,12 @@ class ProcessEngineGroup:
         self._recorder.ingest(obj.get("trace") or "",
                               obj.get("spans") or ())
         with self._lock:
+            # A draining worker refuses submits, and its drained event
+            # trails its exports on the connection: it leaves the
+            # routable set at its first export, so a salvage retry
+            # routed in between does not pick it.
+            if h.state == UP:
+                h.state = DRAINING
             entry = self._entry_for(rid, h, client)
             if entry is None:
                 return
@@ -2055,12 +2303,42 @@ class ProcessEngineGroup:
             self.failovers += 1
             if blob:
                 self.rpc_blob_bytes["migrate"] += len(blob)
+            kv_desc = obj.get("kv_desc")
+            if kv_desc is not None and self._arena_dir is not None:
+                # The shm plane: the export is in the draining worker's
+                # slab until the destination has read it.
+                self._arena_dir.register(kv_desc)
+                self._arena_reads[int(kv_desc["rg"])] += 1
         threading.Thread(target=self._migrate_resume,
                          args=(h, entry, obj, blob, t_mig),
                          name="fleet-migrate", daemon=True).start()
 
     def _migrate_resume(self, h: WorkerHandle, entry: _Tracked, obj: dict,
                         blob: bytes, t_mig: float) -> None:
+        kv_desc = obj.get("kv_desc")
+        if kv_desc is None or self._arena_dir is None:
+            kv_desc = None
+        let_go = []
+
+        def read_done() -> None:
+            # The export's slab has been read (or never will be): it is
+            # let go at once, before any wait for a destination, so the
+            # source region's reclaim at its respawn goes ahead (the
+            # respawn may be the destination that wait is for).
+            if kv_desc is not None and not let_go:
+                let_go.append(True)
+                self._arena_dir.release(kv_desc)
+                with self._lock:
+                    self._arena_reads[int(kv_desc["rg"])] -= 1
+
+        try:
+            self._migrate_to(h, entry, obj, blob, t_mig, kv_desc, read_done)
+        finally:
+            read_done()
+
+    def _migrate_to(self, h: WorkerHandle, entry: _Tracked, obj: dict,
+                    blob: bytes, t_mig: float, kv_desc: Optional[dict],
+                    read_done: Callable[[], None]) -> None:
         rid = entry.template.request_id
         n_gen = int(obj.get("n_generated", 0))
         if n_gen != len(entry.tokens):
@@ -2076,29 +2354,49 @@ class ProcessEngineGroup:
         if not others:
             # No destination: park the exported pages in the fabric pool
             # (under the digests the export carried), so the
-            # grace-window retry's dispatch pulls them back.
+            # grace-window retry's dispatch pulls them back. A
+            # descriptor export is read out of the arena first.
+            arena = self.arena
+            if not blob and kv_desc is not None and arena is not None:
+                try:
+                    blob = arena.read(kv_desc)
+                except shm_arena.ArenaError:
+                    blob = b""
+            read_done()
             self._fabric_salvage(digests, blob, rid, "migrate")
             self._retry_or_fail(entry)
             return
         dest, hit, _ = self._pick(others, entry.template,
                                   phase=self._entry_phase(entry))
-        if (blob and digests and self.server_cfg.fleet_migrate
+        if ((blob or kv_desc is not None) and digests
+                and self.server_cfg.fleet_migrate
                 and dest.client is not None):
             try:
-                with self._lock:
-                    self.rpc_blob_bytes["import-kv"] += len(blob)
-                r = dest.client.rpc(
-                    "import-kv", blob=blob,
-                    digests=[d.hex() for d in digests],
-                    idem=f"i{rid}.{entry.generation}")
+                if kv_desc is not None:
+                    # The destination reads the slab itself: no KV byte
+                    # passes through the router.
+                    r = dest.client.rpc(
+                        "import-kv", kv_desc=kv_desc,
+                        digests=[d.hex() for d in digests],
+                        idem=f"i{rid}.{entry.generation}")
+                    moved = int(kv_desc.get("len", 0))
+                else:
+                    with self._lock:
+                        self.rpc_blob_bytes["import-kv"] += len(blob)
+                    r = dest.client.rpc(
+                        "import-kv", blob=blob,
+                        digests=[d.hex() for d in digests],
+                        idem=f"i{rid}.{entry.generation}")
+                    moved = len(blob)
                 with self._lock:
                     self.migrated_pages += int(r.get("adopted", 0))
-                    self.migrated_bytes += len(blob)
+                    self.migrated_bytes += moved
                 # The routing span reflects the warmth just imported.
                 hit = self._peek_hit(dest, entry.template)
             except (WorkerGone, TimeoutError, RuntimeError) as e:
                 telemetry.log_event("migrate_import_failed",
                                     level="warning", error=str(e))
+        read_done()
         telemetry.log_event(
             "request_migrated", level="warning",
             request_id=entry.template.trace_id or str(rid),
@@ -2151,6 +2449,7 @@ class ProcessEngineGroup:
                 rid = entry.template.request_id
                 with self._lock:
                     self._tracked.pop(rid, None)
+                    self._release_handoff_desc(entry)
                 self._finish_trace(entry, "unavailable")
                 ghost = entry.seq_local
                 ghost.done, ghost.finish_reason = True, "unavailable"

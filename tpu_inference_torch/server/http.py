@@ -96,15 +96,13 @@ class HTTPError(Exception):
         self.headers = headers or {}
 
 
-# Server features of the process fleet this port does not serve yet.
-_UNPORTED_FLEET = "ROADMAP 1.15b (shm arena)"
-
-
 def check_server_config(cfg: FrameworkConfig) -> None:
     """Raise for server configurations the port does not serve:
     NotImplementedError naming the ROADMAP item, ValueError for a fleet
     backend that does not exist or P/D roles outside the process fleet.
-    dp > 1 is served by both backends at tp = sp = 1."""
+    dp > 1 is served by both backends at tp = sp = 1, and
+    ``kv_plane="shm"`` by both (the in-process fleet, which moves no KV
+    between processes, rides the relay plane, as in the reference)."""
     pcfg, scfg = cfg.parallel, cfg.server
     if pcfg.tp * pcfg.sp > 1:
         raise NotImplementedError(
@@ -122,10 +120,6 @@ def check_server_config(cfg: FrameworkConfig) -> None:
             "--fleet subprocess: the live KV handoff moves pages "
             "between worker PROCESSES (README 'P/D disaggregation'); "
             "the in-process fleet serves every replica mixed")
-    if scfg.kv_plane != "relay":
-        raise NotImplementedError(
-            f"ServerConfig.kv_plane={scfg.kv_plane!r} is not ported yet "
-            f"({_UNPORTED_FLEET})")
 
 
 def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,

@@ -1,11 +1,8 @@
 """Fleet KV fabric: a router-side, digest-keyed pool of serialized KV
 prefix pages shared by every replica.
 
-Twin of ``tpu_inference/server/kv_fabric.py`` on the relay plane (the
-shared-memory descriptor half, ``put_desc``/``get_descs``/
-``hot_set_descs``/``drop_region`` and the release hook, is ROADMAP 1.15b
-part 4). A prefix prefilled on one replica warms every replica,
-byte-identically:
+Twin of ``tpu_inference/server/kv_fabric.py``. A prefix prefilled on
+one replica warms every replica, byte-identically:
 
 - ``FabricPool``: a capacity-bounded (in pages) LRU of per-page
   ``serialize_host_pages`` blobs in the ROUTER process, the same under
@@ -15,9 +12,17 @@ byte-identically:
   pool holds beyond the routed replica's own warm depth into its host
   tier (``request_import_host``, over ``import-kv`` in the process
   fleet) before the request's prefill.
+- The shm plane (``server/shm_arena.py``): an entry holds the arena
+  descriptor of the page's slab instead of its blob (``put_desc``); the
+  payload never enters the router. ``get_descs`` and ``hot_set_descs``
+  hand descriptors to the adopting worker, which reads and verifies
+  the slab itself; ``drop_region`` forgets a dead incarnation's slabs,
+  and ``on_release`` gives every descriptor the pool stops holding back
+  to the router's slab books.
 - Integrity: every ``get`` re-verifies the blob's CRC-32C before
   adoption; a corrupt entry is dropped, counted and ends the run as a
-  miss, never adopted.
+  miss, never adopted (a descriptor's slab is verified by its reader,
+  which reports rejects back: ``reject``).
 - The routing formulas both fleet backends share, with the fourth
   temperature: fabric-warm scores between host-warm and cold, from the
   router's own index (no extra RPC).
@@ -31,20 +36,24 @@ from __future__ import annotations
 
 import collections
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.integrity import KVIntegrityError
 
 
 class _Entry:
-    """One pooled page: its serialized blob."""
+    """One pooled page: its serialized blob (relay plane) or the arena
+    descriptor of the slab that holds it (shm plane; ``nbytes`` is then
+    the slab's length)."""
 
-    __slots__ = ("blob", "nbytes")
+    __slots__ = ("blob", "desc", "nbytes")
 
-    def __init__(self, blob: bytes):
+    def __init__(self, blob: Optional[bytes] = None,
+                 desc: Optional[dict] = None):
         self.blob = blob
-        self.nbytes = len(blob)
+        self.desc = desc
+        self.nbytes = len(blob) if blob is not None else int(desc["len"])
 
 
 class FabricPool:
@@ -70,28 +79,53 @@ class FabricPool:
         self.superseded = 0            # puts that replaced a live entry
         self.evictions = 0             # LRU capacity drops
         self.kv_rejections = 0         # corrupt entries dropped
+        # Called with the descriptor of every entry the pool stops
+        # holding (evict, supersede, reject, clear, region drop): the
+        # process fleet releases the slab back to its owner.
+        self.on_release = None
 
     # ------------------------------------------------------------- put
+
+    def _release_entry(self, e: _Entry) -> None:
+        if e.desc is not None and self.on_release is not None:
+            try:
+                self.on_release(e.desc)
+            except Exception:  # noqa: BLE001 — a release is best effort
+                pass
+
+    def _drop_entry(self, e: _Entry) -> None:
+        """Caller holds the lock; ``e`` was resident."""
+        self._bytes -= e.nbytes
+        self._release_entry(e)
+
+    def _put_entry(self, digest: bytes, e: _Entry) -> None:
+        if self.capacity <= 0:
+            # Never resident, but a descriptor's slab is still released.
+            self._release_entry(e)
+            return
+        with self._lock:
+            old = self._entries.pop(digest, None)
+            if old is not None:
+                self._drop_entry(old)
+                self.superseded += 1
+            while len(self._entries) >= self.capacity:
+                _, ev = self._entries.popitem(last=False)
+                self._drop_entry(ev)
+                self.evictions += 1
+            self._entries[digest] = e
+            self._bytes += e.nbytes
+            self.puts += 1
 
     def put_blob(self, digest: bytes, blob: bytes) -> None:
         """Insert or supersede one page's blob under its chain digest. A
         second replica publishing the same prefix stores once (the fresh
         blob supersedes), and the entry moves to MRU either way."""
-        if self.capacity <= 0:
-            return
-        e = _Entry(blob)
-        with self._lock:
-            old = self._entries.pop(digest, None)
-            if old is not None:
-                self._bytes -= old.nbytes
-                self.superseded += 1
-            while len(self._entries) >= self.capacity:
-                _, ev = self._entries.popitem(last=False)
-                self._bytes -= ev.nbytes
-                self.evictions += 1
-            self._entries[digest] = e
-            self._bytes += e.nbytes
-            self.puts += 1
+        self._put_entry(digest, _Entry(blob=blob))
+
+    def put_desc(self, digest: bytes, desc: dict) -> None:
+        """Pool the arena descriptor of one page's slab: the payload
+        stays in the worker-written slab, and its reader verifies it."""
+        self._put_entry(digest, _Entry(desc=dict(desc)))
 
     def put_pages(self, pairs: Sequence[Tuple[bytes, "kvc.HostKVPage"]]
                   ) -> int:
@@ -132,7 +166,9 @@ class FabricPool:
                 e = self._entries.get(d)
                 if e is not None:
                     self._entries.move_to_end(d)
-            if e is None:
+            if e is None or e.blob is None:
+                # Absent, or a descriptor: its bytes are in the arena,
+                # pulled with get_descs by the adopting worker.
                 self.misses += 1
                 break
             try:
@@ -146,28 +182,74 @@ class FabricPool:
             out.append((d, page))
         return out
 
+    def get_descs(self, digests: Sequence[bytes]
+                  ) -> List[Tuple[bytes, dict]]:
+        """The contiguous run of descriptor entries for ``digests``,
+        counted like get_pages; no bytes move here (the adopting worker
+        reads and verifies each slab, and reports rejects back). A blob
+        entry ends the run."""
+        out: List[Tuple[bytes, dict]] = []
+        for d in digests:
+            with self._lock:
+                e = self._entries.get(d)
+                if e is not None and e.desc is not None:
+                    self._entries.move_to_end(d)
+            if e is None or e.desc is None:
+                self.misses += 1
+                break
+            self.hits += 1
+            out.append((d, dict(e.desc)))
+        return out
+
     def _drop(self, digest: bytes) -> None:
         with self._lock:
             live = self._entries.pop(digest, None)
             if live is not None:
-                self._bytes -= live.nbytes
+                self._drop_entry(live)
 
     def reject(self, digest: bytes) -> None:
         """Drop a corrupt entry found outside get_pages (the warm boot's
-        re-verify), counted like a get-time rejection."""
+        re-verify, or a worker's arena read that failed its CRC),
+        counted like a get-time rejection."""
         self._drop(digest)
         self.kv_rejections += 1
 
+    def drop_region(self, rg: int) -> int:
+        """Forget every descriptor entry whose slab is in arena region
+        ``rg`` (its worker incarnation died; the epoch bump already
+        made the descriptors fail closed). Neither an eviction nor a
+        rejection. Returns the entries dropped."""
+        with self._lock:
+            dead = [d for d, e in self._entries.items()
+                    if e.desc is not None
+                    and int(e.desc.get("rg", -1)) == int(rg)]
+            for d in dead:
+                self._drop_entry(self._entries.pop(d))
+            return len(dead)
+
     def hot_set(self, max_pages: int) -> List[Tuple[bytes, bytes]]:
-        """The MRU-first (digest, blob) list for a warm worker boot. Puts
-        land in chain order, so MRU slices keep chains roughly whole. No
-        counter moves (the import's adoption is what counts)."""
+        """The MRU-first (digest, blob) list of blob entries for a warm
+        worker boot. Puts land in chain order, so MRU slices keep chains
+        roughly whole. No counter moves (the import's adoption is what
+        counts)."""
         if max_pages <= 0:
             return []
         with self._lock:
-            ds = list(self._entries)[-max_pages:]
+            ds = [d for d, e in self._entries.items()
+                  if e.blob is not None][-max_pages:]
             ds.reverse()
             return [(d, self._entries[d].blob) for d in ds]
+
+    def hot_set_descs(self, max_pages: int) -> List[Tuple[bytes, dict]]:
+        """The MRU-first (digest, descriptor) list: the shm plane's warm
+        boot, which the fresh worker adopts from the arena."""
+        if max_pages <= 0:
+            return []
+        with self._lock:
+            ds = [d for d, e in self._entries.items()
+                  if e.desc is not None][-max_pages:]
+            ds.reverse()
+            return [(d, dict(self._entries[d].desc)) for d in ds]
 
     # ------------------------------------------------------ accounting
 
@@ -202,6 +284,8 @@ class FabricPool:
 
     def clear(self) -> None:
         with self._lock:
+            for e in self._entries.values():
+                self._drop_entry(e)
             self._entries.clear()
             self._bytes = 0
 

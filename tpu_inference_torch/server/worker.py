@@ -1,8 +1,7 @@
 """Engine-worker process: one replica's engine and scheduler per process.
 
-Twin of ``tpu_inference/server/worker.py`` on the relay plane (the
-shared-memory arena is ROADMAP 1.15b part 4). The worker owns
-one dp replica, its weights, KV pool, prefix cache and host tier and
+Twin of ``tpu_inference/server/worker.py``. The worker owns one dp
+replica, its weights, KV pool, prefix cache and host tier and
 its continuous-batching scheduler thread, on the one device the router
 names, and serves the framed JSON RPC of ``server/transport.py`` on a
 local unix socket:
@@ -29,6 +28,18 @@ sends each settled prefix run to the router as one ``fabric_put`` event
 the router's pool watermark (``fabric_free``, in the boot envelope and
 on every ``stats`` call) says it would not fit: then the publish is
 skipped and counted (``tpu_inf_fabric_publish_skipped_total``).
+
+The shm plane (``kv_plane="shm"``, ``server/shm_arena.py``): the boot
+envelope's ``shm`` names this worker's region of the router's segment.
+Then every KV export (fabric publish, handoff, drain migrate) is written
+into a slab of that region and its frame carries the slab's descriptor
+(``descs`` or ``kv_desc``) instead of the blob; a full region relays
+that one payload. ``import-kv`` and a handoff ``submit`` read the
+slabs they are given, checked as ``shm_arena.read_slab`` says: a stale
+slab recomputes, a corrupt one is counted and its digest reported back
+(``rejected_digests``). The router's stats call carries the batched
+frees (``arena_free``). A failed attach leaves the worker on the relay
+plane and logs ``shm_arena_attach_failed``.
 
 P/D roles: the router names each worker's phase role in its boot
 envelope ("prefill", "decode" or "mixed"). A prefill worker prefills,
@@ -179,6 +190,44 @@ class EngineWorker:
         # publishes freely.
         self._fabric_free = None
         self.fabric_publish_skipped = 0
+        # The shm plane's arena (a WorkerArena), None on the relay plane.
+        self._arena = None
+
+    def attach_arena(self, spec) -> None:
+        """Map the router's segment from the boot envelope's region
+        spec. A failure is not fatal: the worker stays on the relay
+        plane."""
+        if not spec:
+            return
+        from tpu_inference_torch import telemetry
+        from tpu_inference_torch.server import shm_arena
+        try:
+            self._arena = shm_arena.WorkerArena(spec)
+        except Exception as e:  # noqa: BLE001 — relay fallback, not fatal
+            self._arena = None
+            telemetry.log_event(
+                "shm_arena_attach_failed", level="warning",
+                replica=self.replica, error=str(e))
+
+    def _arena_blob(self, desc, path: str):
+        """A descriptor's payload out of the arena, as (blob, rejected):
+        ``rejected`` when the slab failed its integrity check (counted;
+        the router drops the descriptor), an empty blob alone when it is
+        stale or the arena is not attached (the caller recomputes)."""
+        from tpu_inference_torch import telemetry
+        from tpu_inference_torch.server import shm_arena
+        if self._arena is None or desc is None:
+            return b"", False
+        try:
+            return self._arena.read(desc), False
+        except shm_arena.ArenaCorrupt as e:
+            self.engine.kv_integrity_rejections += 1
+            telemetry.log_event(
+                "arena_slab_rejected", level="error", path=path,
+                replica=self.replica, reason=e.reason, detail=e.detail)
+            return b"", True
+        except shm_arena.ArenaError:
+            return b"", False
 
     def _build_chaos_rpc(self, over: Dict[str, Any] = None):
         """The worker's side of transport chaos (config knobs, then the
@@ -232,10 +281,31 @@ class EngineWorker:
             self.engine.fabric_publish = self._publish_fabric
             self.engine.fabric_publish_min_pages = \
                 cfg.server.fabric_publish_min_pages
-        self.engine.telemetry.registry.counter(
+        reg = self.engine.telemetry.registry
+        reg.counter(
             "tpu_inf_fabric_publish_skipped_total",
             "fabric publishes skipped by the pool-watermark gate",
             fn=lambda: self.fabric_publish_skipped)
+        # The shm plane's traffic (flat zeros on the relay plane, so the
+        # two arms' scrapes join).
+        reg.counter(
+            "tpu_inf_kv_plane_shm_puts_total",
+            "KV payloads published into the shm arena",
+            fn=lambda: self._arena.puts if self._arena else 0)
+        reg.counter(
+            "tpu_inf_kv_plane_shm_gets_total",
+            "KV payloads adopted out of the shm arena",
+            fn=lambda: self._arena.gets if self._arena else 0)
+        reg.counter(
+            "tpu_inf_kv_plane_shm_bytes_total",
+            "bytes moved through the shm arena by direction",
+            fn=lambda: self._arena.put_bytes if self._arena else 0,
+            op="put")
+        reg.counter(
+            "tpu_inf_kv_plane_shm_bytes_total",
+            "bytes moved through the shm arena by direction",
+            fn=lambda: self._arena.get_bytes if self._arena else 0,
+            op="get")
         if self.engine.telemetry.enabled:
             # Config-pure labels: identical across restarts, so the
             # router's carry never sees a label change.
@@ -309,20 +379,39 @@ class EngineWorker:
         thread, from the engine's publish hook), each page serialized on
         its own so the pool's entries evict and verify independently. A
         publish larger than the pool's advertised free pages would evict
-        on arrival: it is skipped and counted instead."""
+        on arrival: it is skipped and counted instead. On the shm plane
+        each page goes into a slab and the frame carries descriptors; a
+        full region relays the pages that did not fit."""
         from tpu_inference_torch.engine import kv_cache as kvc
+        from tpu_inference_torch.server import shm_arena
         free = self._fabric_free
         if free is not None:
             if len(pairs) > free:
                 self.fabric_publish_skipped += len(pairs)
                 return
             self._fabric_free = free - len(pairs)
-        blobs = [kvc.serialize_host_pages([p]) for _, p in pairs]
-        self._broadcast({"ev": "fabric_put",
-                         "digests": [d.hex() for d, _ in pairs],
-                         "lens": [len(b) for b in blobs],
-                         "replica": self.replica},
-                        b"".join(blobs), verb="fabric_put")
+        relay = []
+        if self._arena is not None:
+            hex_descs, descs = [], []
+            for d, p in pairs:
+                parts = kvc.serialize_host_pages_parts([p])
+                try:
+                    descs.append(self._arena.publish_parts(parts))
+                    hex_descs.append(d.hex())
+                except shm_arena.ArenaFull:
+                    relay.append((d, b"".join(parts)))
+            if descs:
+                self._broadcast({"ev": "fabric_put", "digests": hex_descs,
+                                 "descs": descs, "replica": self.replica},
+                                verb="fabric_put")
+        else:
+            relay = [(d, kvc.serialize_host_pages([p])) for d, p in pairs]
+        if relay:
+            self._broadcast({"ev": "fabric_put",
+                             "digests": [d.hex() for d, _ in relay],
+                             "lens": [len(b) for _, b in relay],
+                             "replica": self.replica},
+                            b"".join(b for _, b in relay), verb="fabric_put")
 
     # --------------------------------------------------------- dispatch
 
@@ -403,19 +492,32 @@ class EngineWorker:
             return False
         if not pages:
             return False
-        blob = kvc.serialize_host_pages(pages)
-        # The export span ends before the frame leaves: the send is the
-        # handoff window's (the router's handoff span).
+        parts = kvc.serialize_host_pages_parts(pages)
+        # The export span ends before the payload leaves: the arena
+        # write (shm) and the frame send (relay) are the data plane, in
+        # the handoff window (the router's handoff span).
+        t_ser = time.perf_counter()
+        kv_desc = None
+        if self._arena is not None:
+            from tpu_inference_torch.server import shm_arena
+            try:
+                kv_desc = self._arena.publish_parts(parts)
+            except shm_arena.ArenaFull:
+                kv_desc = None
         self.engine.telemetry.recorder.add(
             "handoff_export", seq.trace_id or str(seq.request_id), t0,
-            time.perf_counter(), pages=len(pages), bytes=len(blob),
-            ctx_len=ctx_len, plane="relay")
+            t_ser, pages=len(pages), bytes=sum(len(p) for p in parts),
+            ctx_len=ctx_len, plane="shm" if kv_desc else "relay")
         self._req_conn.pop(seq.request_id, None)
-        conn.send({"ev": "handoff", "rid": seq.request_id,
-                   "n_generated": len(seq.generated), "ctx_len": ctx_len,
-                   "export_s": round(time.perf_counter() - t0, 6),
-                   "digests": [d.hex() for d in digests]},
-                  blob, verb="handoff")
+        ev = {"ev": "handoff", "rid": seq.request_id,
+              "n_generated": len(seq.generated), "ctx_len": ctx_len,
+              "export_s": round(time.perf_counter() - t0, 6),
+              "digests": [d.hex() for d in digests]}
+        if kv_desc is not None:
+            ev["kv_desc"] = kv_desc
+            conn.send(ev, verb="handoff")
+        else:
+            conn.send(ev, b"".join(parts), verb="handoff")
         return True
 
     def _verb_hello(self, conn, obj, blob) -> dict:
@@ -471,6 +573,11 @@ class EngineWorker:
             seq.generated = list(generated)
             seq.resume_base = len(generated)
         handoff = s.get("handoff")
+        if handoff and not blob and handoff.get("kv_desc") is not None:
+            # The shm plane: the export is in the prefill worker's slab.
+            # A stale or corrupt one leaves the blob empty, and the
+            # adoption falls back to a recompute-resume below.
+            blob, _ = self._arena_blob(handoff["kv_desc"], "handoff")
         if handoff and generated:
             # A P/D handoff: admission adopts the blob's pages (the
             # partial final page included) and nothing is recomputed.
@@ -584,7 +691,8 @@ class EngineWorker:
         """The scheduler's stats snapshot, plus what only this process
         can see: its kernels' launch counts, the device's peak allocated
         memory and the fabric publish hook's totals. The router's call
-        carries the fabric pool's free-page watermark."""
+        carries the fabric pool's free-page watermark and the arena slab
+        frees the router batched for this region."""
         import torch
 
         from tpu_inference_torch.kernels import (paged_attention,
@@ -592,6 +700,10 @@ class EngineWorker:
         ff = obj.get("fabric_free")
         if ff is not None:
             self._fabric_free = int(ff)
+        frees = obj.get("arena_free")
+        if frees and self._arena is not None:
+            for off in frees:
+                self._arena.free(int(off))
         dev = self.engine.device
         return {
             "stats": self.sched.stats.snapshot(self.engine),
@@ -612,7 +724,21 @@ class EngineWorker:
             "fabric": {"published_pages": self.engine.fabric_published_pages,
                        "publish_s": round(self.engine.fabric_publish_s, 6),
                        "publish_skipped": self.fabric_publish_skipped},
+            "arena": self._arena_stats(),
         }
+
+    def _arena_stats(self):
+        """This worker's side of the shm plane (None on the relay
+        plane): its traffic and its region's allocator books."""
+        a = self._arena
+        if a is None:
+            return None
+        w = a.writer
+        return {"region": a.region, "epoch": w.epoch, "puts": a.puts,
+                "gets": a.gets, "put_bytes": a.put_bytes,
+                "get_bytes": a.get_bytes, "slabs_used": w.slabs_used,
+                "bytes_used": w.bytes_used,
+                "alloc_failures": w.alloc_failures}
 
     def _verb_steps(self, conn, obj, blob) -> dict:
         return {"steps": self.engine.telemetry.steps_report()}
@@ -711,25 +837,90 @@ class EngineWorker:
         return {"embeddings": vecs.tolist()}
 
     def _verb_import_kv(self, conn, obj, blob) -> dict:
-        """Adopt a sibling replica's drain export into the host tier.
-        Replies once the engine loop applied it, so the router's
-        resubmit sees the pages. A corrupt blob is rejected and
-        counted, never adopted."""
+        """Adopt KV pages into the host tier: a sibling's drain export,
+        a fabric pull or a warm boot. Replies once the engine loop
+        applied them, so the router's resubmit sees the pages. The pages
+        come as one blob (relay plane), as per-page arena descriptors
+        (``descs``: fabric pulls and warm boots on the shm plane) or as
+        one multi-page descriptor (``kv_desc``: a drain migrate on the
+        shm plane). A corrupt blob or slab is rejected and counted,
+        never adopted."""
         from tpu_inference_torch.engine import kv_cache as kvc
+        descs = obj.get("descs")
+        if descs is not None:
+            return self._import_kv_descs(obj.get("digests") or (), descs)
         digests = [bytes.fromhex(d) for d in obj.get("digests") or ()]
+        # The import's parts, in the reply: the slab read (its checks
+        # and copy), the payload's deserialize (with its CRC) and the
+        # wait for the engine loop to apply the pages.
+        parts = {"read": 0.0, "deserialize": 0.0, "apply": 0.0}
+        t = time.perf_counter()
+        if not blob and obj.get("kv_desc") is not None:
+            blob, rejected = self._arena_blob(obj["kv_desc"], "migrate")
+            if not blob:
+                return {"offered": 0, "applied": False, "adopted": 0,
+                        "rejected": ("arena slab corrupt" if rejected
+                                     else "arena slab unreadable")}
+        parts["read"] = time.perf_counter() - t
+        t = time.perf_counter()
         try:
             pages = kvc.deserialize_host_pages(blob) if blob else []
         except KVIntegrityError as e:
             self.engine.kv_integrity_rejections += 1
             return {"offered": 0, "applied": False, "adopted": 0,
                     "rejected": str(e)}
+        parts["deserialize"] = time.perf_counter() - t
         n = min(len(digests), len(pages))
+        t = time.perf_counter()
         done = self.engine.request_import_host(
             list(zip(digests[:n], pages[:n])))
         self.sched.kick()
         applied = done.wait(timeout=10.0)
+        parts["apply"] = time.perf_counter() - t
         return {"offered": n, "applied": bool(applied),
-                "adopted": done.adopted}
+                "adopted": done.adopted, "parts_s": parts}
+
+    def _import_kv_descs(self, hex_digests, descs) -> dict:
+        """The descriptor-list import: each per-page slab read from the
+        arena and deserialized, the survivors offered to the host tier.
+        A slab or page that fails its integrity check is counted and
+        its digest reported back (``rejected_digests``), so the router
+        drops that pool entry; a stale slab is skipped. The reply's
+        ``parts_s`` are as in ``_verb_import_kv``, summed over the
+        slabs."""
+        from tpu_inference_torch.engine import kv_cache as kvc
+        offers, rejected_hex = [], []
+        parts = {"read": 0.0, "deserialize": 0.0, "apply": 0.0}
+        for hexd, desc in zip(hex_digests, descs):
+            t = time.perf_counter()
+            pblob, rejected = self._arena_blob(desc, "fabric_pull")
+            parts["read"] += time.perf_counter() - t
+            if not pblob:
+                if rejected:
+                    rejected_hex.append(hexd)
+                continue
+            t = time.perf_counter()
+            try:
+                pgs = kvc.deserialize_host_pages(pblob)
+            except KVIntegrityError:
+                self.engine.kv_integrity_rejections += 1
+                rejected_hex.append(hexd)
+                continue
+            finally:
+                parts["deserialize"] += time.perf_counter() - t
+            if pgs:
+                offers.append((bytes.fromhex(hexd), pgs[0]))
+        if not offers:
+            return {"offered": 0, "applied": False, "adopted": 0,
+                    "rejected_digests": rejected_hex, "parts_s": parts}
+        t = time.perf_counter()
+        done = self.engine.request_import_host(offers)
+        self.sched.kick()
+        applied = done.wait(timeout=10.0)
+        parts["apply"] = time.perf_counter() - t
+        return {"offered": len(offers), "applied": bool(applied),
+                "adopted": done.adopted, "rejected_digests": rejected_hex,
+                "parts_s": parts}
 
     def _verb_drain(self, conn, obj, blob) -> dict:
         migrate = obj.get("migrate")
@@ -829,8 +1020,19 @@ class EngineWorker:
                   # travel with it.
                   "trace": tid,
                   "spans": engine.telemetry.recorder.export_open(tid)}
-            blob = (kvc.serialize_host_pages(host_pages)
-                    if host_pages else b"")
+            parts = (kvc.serialize_host_pages_parts(host_pages)
+                     if host_pages else [])
+            if parts and self._arena is not None:
+                # The shm plane: the export outlives this process in the
+                # router's segment, and only its descriptor rides the
+                # event. A full region relays the blob.
+                from tpu_inference_torch.server import shm_arena
+                try:
+                    ev["kv_desc"] = self._arena.publish_parts(parts)
+                    parts = []
+                except shm_arena.ArenaFull:
+                    pass
+            blob = b"".join(parts)
             target = self._req_conn.get(seq.request_id)
             if target is not None and target.alive:
                 target.send(ev, blob, verb="migrate")
@@ -888,7 +1090,9 @@ def main() -> None:
                           socket_path=args.socket,
                           device=envelope["device"],
                           warmup=bool(envelope.get("warmup", True)))
-    # The fabric pool's free pages at boot (publish back-pressure).
+    # This worker's arena region (the shm plane) and the fabric pool's
+    # free pages at boot (publish back-pressure).
+    worker.attach_arena(envelope.get("shm"))
     ff = envelope.get("fabric_free")
     if ff is not None:
         worker._fabric_free = int(ff)
