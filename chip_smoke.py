@@ -228,7 +228,8 @@ failing loudly (any failure exits non-zero before the result line):
    pull and warm-boot page by descriptor (_shm_gates: the router's arena
    up, every worker attached with no failed allocation, no relayed
    byte, slabs written and read). (b) the fabric lane's shm arm, after
-   the relay arm, at all 32 layers with ``--shm-arena-bytes``
+   the relay arm, CUT_LAYERS deep too (it ran all 32 layers until the
+   tp lanes joined the script's time) with ``--shm-arena-bytes``
    SHM_ARENA_BYTES (4 GiB, 1 GiB a region; /dev/shm's free space is
    logged and checked first): the same seed, wave, kill -9 and
    warm-booted respawn, then one more request and SIGTERM to its worker
@@ -245,6 +246,31 @@ failing loudly (any failure exits non-zero before the result line):
    and bytes, the
    router's RSS; in the shm arm the drain's walls and bytes. The fleet
    lane's CRC-32C line times 2 MiB pages one by one and from 8 threads.
+11. Tensor and expert parallelism (tp_phase, after the checkpoint lane;
+   one process drives every shard, all on the one card, back to back).
+   (a) both kernels at Llama-3-8B's head-sharded shapes, tp 2 (Hq 16,
+   Hkv 4) and tp 4 (Hq 8, Hkv 2), against their plain versions through
+   check_close and timed with bound and library times: decode B 8 ctx
+   1024 over the bf16, int8 and int4 pools, prefill 512 at offset 1024
+   over bf16 and int8 (the kernels line's ``*_tp2``/``*_tp4`` rows).
+   (b) tiny-llama, tiny-llama-fatkv, tiny-mixtral (expert parallel) and
+   tiny-gpt2 (float32, kernel backend): greedy tokens at tp 2, and tp 4
+   where the heads divide, equal tp 1's on the same weights, both
+   kernels launched at the shard's heads only, pools clean; tiny-llama
+   with int8 weights over an int8 pool and grouped int4 weights over an
+   int4 pool at tp 2, and a pipelined decode (depth 2) at tp 2. (c)
+   ``--model llama-3-8b --tp 2`` bf16 at all 32 layers, booted by
+   _serve_cli: the first step's logits against a tp 1 engine's on the
+   same seeded weights, gated twice (tp_serve_phase: in float32 within
+   max(1e-4 of the largest |logit|, 4 x float32's own M noise), and in
+   bf16 within twice tp 1's own bf16 error against float32; every
+   number printed), then the main path's six requests, every one "length"
+   with its 48 tokens, both kernels launched in bf16 only and at Hq 16
+   / Hkv 4 only (launches_by_heads). (d) the same with ``--quant int8
+   --kv-quant int8`` at CUT_LAYERS. (e) in fleet_tiny_phase, dp 2 x tp
+   2 on the subprocess fleet (_tp_fleet_tiny): the dp-1 sha, every
+   worker's kernels at its shards' heads. The tp lanes' launches join
+   the kernels line.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -3501,11 +3527,51 @@ def fleet_tiny_phase(card: str) -> dict:
                                        mix_new)
     out["fabric_shm"] = _fabric_fleet_tiny(label, cfg, fab_prompt, want_fab,
                                            mix_new, plane="shm")
+    out["tp2"] = _tp_fleet_tiny(label, cfg, run_mix, sha_dp1)
     log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
-        f"/ P/D (relay and shm) / elastic / dp-1; " + json.dumps({
+        f"/ P/D (relay and shm) / elastic / dp 2 x tp 2 / dp-1; "
+        + json.dumps({
             k: v for k, v in out.items()
             if k not in ("label", "outputs_sha256")}))
     return out
+
+
+def _tp_fleet_tiny(label: str, cfg, run_mix, sha_dp1: str) -> dict:
+    """(e) of the tp gates: dp 2 x tp 2 on the subprocess fleet, each
+    worker process driving its two shards on the card: the pinned mix's
+    sha equals the dp-1 engine's, every worker launched both kernels at
+    the shard's heads (tiny-llama's 4/2 split in two: 2/1) and no other,
+    the pools clean, no worker process left."""
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.server.http import build_engine_group
+
+    lab = f"{label} x tp2"
+    c = cfg("subprocess")
+    c.parallel = cfgs.ParallelConfig(dp=2, tp=2)
+    t0 = time.perf_counter()
+    group = build_engine_group(c, device="cuda")
+    pids, reads = set(), {}
+    try:
+        group.start()
+        boot_s = time.perf_counter() - t0
+        pids |= {h.pid for h in group.workers}
+        sha = _mix_sha(run_mix(group, 600))
+        if sha != sha_dp1:
+            raise AssertionError(f"{lab}: outputs_sha256 {sha} differs from "
+                                 f"the dp-1 engine's {sha_dp1}")
+        _worker_reads(group, reads, lab)
+        _gate_launches(reads, lab, "f32")
+        heads = {w["replica"]: w["kernels_by_heads"] for w in reads.values()}
+        for r, by in heads.items():
+            if any(set(n) != {"2/1"} for n in by.values()):
+                raise AssertionError(f"{lab}: worker {r} launched at heads "
+                                     f"{by}; its shards run at 2/1")
+        _pool_clean(lab, group)
+    finally:
+        group.stop(drain=False)
+    _pids_gone(lab, pids)
+    return {"outputs_sha256": sha, "boot_s": boot_s,
+            "launches_by_heads": heads}
 
 
 def _role_info(text: str) -> set:
@@ -4926,6 +4992,350 @@ def _shm_drain(label: str, group, port: int, prompt: str, max_tokens: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism: tp shards driven by one process
+# (parallel/tp.py), every shard on the one card.
+# ---------------------------------------------------------------------------
+
+# A tp shard's attention heads (Hq, Hkv, head_dim) of Llama-3-8B (and
+# Mixtral-8x7B): tp 2 and tp 4.
+TP_HEADS = {2: (16, 4, 128), 4: (8, 2, 128)}
+# The tiny models held at tp > 1 against tp 1 (every tp their heads,
+# d_ff, vocab and experts divide).
+TP_TINY = (("tiny_llama", (2,)), ("tiny_llama_fatkv", (2, 4)),
+           ("tiny_mixtral", (2,)), ("tiny_gpt2", (2, 4)))
+# The full-width lanes: (label, quant, kv_quant, variant, layers cut).
+TP_LANES = (("tp2 bf16", "none", "none", "bf16", None),
+            ("tp2 int8 weights + int8 KV", "int8", "int8", "int8",
+             CUT_LAYERS))
+
+
+def _tp_mesh(tp: int):
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.parallel import build_mesh
+    return build_mesh(cfgs.ParallelConfig(tp=tp))
+
+
+def _heads_counts() -> dict:
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    return {"paged_attention": dict(pa.launches_by_heads),
+            "prefill_attention": dict(pfa.launches_by_heads)}
+
+
+def _gate_heads(label: str, want: str, need_decode: bool = True) -> dict:
+    """Both kernels launched at the shard's heads ``want`` ("Hq/Hkv") and
+    at no other since the last reset."""
+    got = _heads_counts()
+    for name, counts in got.items():
+        if name == "paged_attention" and not need_decode and not counts:
+            continue
+        if set(counts) != {want} or counts[want] <= 0:
+            raise AssertionError(f"{label}: {name} launched at heads "
+                                 f"{counts}; every shard runs at {want}")
+    return got
+
+
+def tp_kernel_cases() -> dict:
+    """(a) Both kernels at the head-sharded shapes of Llama-3-8B at tp 2
+    (Hq 16, Hkv 4) and tp 4 (Hq 8, Hkv 2) against their plain versions,
+    timed as the full-head cases are: decode B 8 ctx 1024 over the bf16,
+    int8 and int4 pools, prefill 512 at offset 1024 over bf16 and int8."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    bf16 = torch.bfloat16
+    decode, prefill = [], []
+    for tp, heads in TP_HEADS.items():
+        for kv in ("none", "int8", "int4"):
+            tag = "" if kv == "none" else f" {kv} pool"
+            c = decode_case(f"decode tp{tp} bs8 ctx1024{tag}", 8,
+                            [1024] * 8, 0, bf16, flush, gen, kv, heads=heads)
+            decode.append({**c, "tp": tp})
+        for kv in ("none", "int8"):
+            tag = "" if kv == "none" else f" {kv} pool"
+            c = prefill_case(f"prefill tp{tp} chunk 512 at offset 1024{tag}",
+                             512, [1024], [1500], 0, bf16, flush, gen, kv,
+                             heads=heads)
+            prefill.append({**c, "tp": tp})
+    del flush
+    return {"decode": decode, "prefill": prefill}
+
+
+def tp_tiny_phase() -> list:
+    """(b) Tiny float32 models on the card with the kernel backend: greedy
+    tokens at tp 2 (and tp 4 where the heads divide) equal tp 1's on the
+    same weights, every shard's kernels launched at its head counts and
+    at no other, the pools clean; then tiny-llama with int8 weights over
+    an int8 pool and grouped int4 weights over an int4 pool at tp 2, and
+    a pipelined decode (depth 2, through the scheduler) at tp 2."""
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    from tpu_inference_torch.models.registry import build_model
+
+    base = cfgs.EngineConfig(page_size=8, num_pages=64, max_pages_per_seq=16,
+                             max_batch_size=4, prefill_buckets=(16, 32),
+                             decode_steps_per_call=4)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 12, 27, 70)]
+    cases = ([(p, tps, "none", "none", {}) for p, tps in TP_TINY]
+             + [("tiny_llama", (2,), q, q, {}) for q in ("int8", "int4")]
+             + [("tiny_llama", (2,), "none", "none",
+                 {"decode_pipeline_depth": 2})])
+    done = []
+    for preset, tps, quant, kv_quant, over in cases:
+        mcfg = tiny_config(preset)
+        ecfg = dataclasses.replace(base, quant=quant, kv_quant=kv_quant,
+                                   **over)
+        params, _ = build_model(mcfg, seed=SEED, device="cuda", quant=quant)
+
+        def run(tp: int):
+            eng = InferenceEngine(mcfg, ecfg, params=params,
+                                  attn_backend="kernel", device="cuda",
+                                  mesh=_tp_mesh(tp) if tp > 1 else None)
+            if over:
+                out = _sched_run(eng, prompts, 24)
+                return [out[i] for i in range(len(prompts))]
+            out = eng.generate(prompts, max_new_tokens=12)
+            eng.check_pool_clean()
+            return out
+
+        want = run(1)
+        label = (f"tp {mcfg.name} quant={quant} kv_quant={kv_quant}"
+                 + (" depth 2" if over else ""))
+        heads = {}
+        for tp in tps:
+            pa.reset_counts()
+            pfa.reset_counts()
+            got = run(tp)
+            if got != want:
+                raise AssertionError(f"{label}: tp {tp} greedy tokens differ "
+                                     f"from tp 1: {got} vs {want}")
+            heads[tp] = _gate_heads(
+                f"{label} tp {tp}",
+                f"{mcfg.n_heads // tp}/{mcfg.n_kv_heads // tp}")
+        log(f"engine {label}: tokens at tp {list(tps)} identical to tp 1 "
+            f"({sum(len(t) for t in want)} tokens), pools clean; launches by "
+            f"shard heads {json.dumps(heads)}")
+        done.append({"label": label, "tps": list(tps), "heads": heads})
+    return done
+
+
+def _widen(tree: dict) -> dict:
+    """A params dict with every float leaf in float32 (quantized codes
+    and scales as they are)."""
+    return {k: _widen(v) if isinstance(v, dict)
+            else v.float() if isinstance(v, torch.Tensor) else v
+            for k, v in tree.items()}
+
+
+def _tp_reference_logits(mcfg, quant: str, kv_quant: str, prompt: list,
+                         tp: int) -> dict:
+    """The first-step logits (and first tokens) a tp lane is held
+    against, on the seeded weights the CLI builds: ``bf16`` at tp 1;
+    then those weights widened to float32 at tp 1, at tp 1 with the
+    prompt in a 1024-row bucket (only the GEMMs' M changes: float32's
+    own noise) and at ``tp`` (``f32``, ``f32_m1024``, ``f32_tp``)."""
+    import gc
+
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.models.registry import build_model
+
+    def first(cfg, params, buckets=None, tp_: int = 1) -> tuple:
+        kw = {"prefill_buckets": buckets} if buckets else {}
+        eng = InferenceEngine(cfg, cfgs.EngineConfig(
+            page_size=16, num_pages=64, max_pages_per_seq=128,
+            max_batch_size=8, quant=quant, kv_quant=kv_quant, **kw),
+            params=params, device="cuda",
+            mesh=_tp_mesh(tp_) if tp_ > 1 else None)
+        logits, token, *_ = _first_step(eng, prompt)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return logits, token
+
+    params, _ = build_model(mcfg, seed=SEED, device="cuda", quant=quant)
+    out = {"bf16": first(mcfg, params)}
+    wide = _widen(params)
+    del params
+    gc.collect()
+    f32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    out["f32"] = first(f32, wide)
+    out["f32_m1024"] = first(f32, wide, (1024,))
+    out["f32_tp"] = first(f32, wide, tp_=tp)
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a - b).abs().max().item()
+
+
+def tp_serve_phase(label: str, quant: str, kv_quant: str, variant: str,
+                   card: str) -> dict:
+    """(c)/(d) llama-3-8b at full width through the CLI
+    (``--model llama-3-8b --tp 2``), its first-step logits held against
+    tp 1's on the same seeded weights by two gates (every number
+    printed):
+
+    - the tp arithmetic, in float32 (the weights widened, TF32 off):
+      tp 2 within max(TOL float32 x the largest |logit|, 4 x float32's
+      own noise) of tp 1, the noise being tp 1 against itself with only
+      the GEMMs' M changed;
+    - the served bf16 model: tp 2 within 2 x tp 1's own bf16 error (tp
+      1 bf16 against tp 1 float32) of tp 1. Not a fixed share of the
+      largest |logit|: on an H100 bf16 tp 2 and tp 1 differ by 3.6% of
+      it at 32 layers while their float32 forms agree to 1.6e-5, as
+      cuBLAS's own bf16 rounding of a full-width row-parallel product
+      is 1 ulp off the exact product in 0.24-0.78% of its elements (tp
+      2's float32 partial sums: 0.13-0.42%) and the norms spread each
+      such ulp over the row (scripts/tp_logit_gap.py measures both).
+
+    Then the main path's six requests, every one finishing "length"
+    with all its tokens, both kernels launched in the lane's variant
+    only and at the shard's heads (Hq 16 / Hkv 4) only. The server is
+    freed after."""
+    import gc
+
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+
+    tp = 2
+    mcfg = cfgs.PRESETS["llama-3-8b"]()
+    prompt = np.random.default_rng(SEED + 2).integers(
+        0, mcfg.vocab_size, size=300).tolist()
+    allocated_before = _free_card(label)
+    t0 = time.perf_counter()
+    refs = _tp_reference_logits(mcfg, quant, kv_quant, prompt, tp)
+    refs_s = time.perf_counter() - t0
+    f32, scale32 = refs["f32"][0], refs["f32"][0].abs().max().item()
+    noise = _max_diff(refs["f32_m1024"][0], f32)
+    diff_f32 = _max_diff(refs["f32_tp"][0], f32)
+    limit_f32 = max(TOL[torch.float32] * scale32, 4 * noise)
+    want = refs["bf16"][0]
+    bf16_err = _max_diff(want, f32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server, engine_args = _serve_cli([
+        "--model", "llama-3-8b", "--tp", str(tp), "--quant", quant,
+        "--kv-quant", kv_quant, "--num-pages", "512",
+        "--max-pages-per-seq", "128", "--max-batch-size", "8",
+        "--host-cache-pages", "0", "--seed", str(SEED), "--debug"])
+    try:
+        eng = server.engine
+        hkv = [s.k.shape[3] for s in eng.kv.shards]
+        if eng.tp != tp or hkv != [mcfg.n_kv_heads // tp] * tp:
+            raise AssertionError(f"{label}: engine tp {eng.tp}, pool heads "
+                                 f"per shard {hkv}")
+        got, first_tp, *_ = _first_step(eng, prompt)
+        diff = _max_diff(got, want)
+        scale = want.abs().max().item()
+        gates = {
+            "f32_max_abs_diff": diff_f32, "f32_limit": limit_f32,
+            "f32_max_abs_logit": scale32, "f32_m_noise": noise,
+            "bf16_max_abs_diff": diff, "bf16_max_abs_logit": scale,
+            "bf16_over_max_logit": diff / scale,
+            "bf16_tp1_err_vs_f32": bf16_err, "bf16_limit": 2 * bf16_err,
+            "first_tokens": {"bf16_tp1": refs["bf16"][1], "bf16_tp2":
+                             first_tp, "f32_tp1": refs["f32"][1],
+                             "f32_tp2": refs["f32_tp"][1]}}
+        log(f"[{label}] first-step logits, tp {tp} vs tp 1: float32 max "
+            f"|diff| {diff_f32:.4g} (limit {limit_f32:.4g}; max |logit| "
+            f"{scale32:.4g}, float32 M noise {noise:.4g}); bf16 max |diff| "
+            f"{diff:.4g}, max |logit| {scale:.4g} ({diff / scale:.4g} of "
+            f"it; limit 2 x tp 1's bf16 error against float32 "
+            f"{bf16_err:.4g}); first tokens "
+            f"{json.dumps(gates['first_tokens'])}")
+        if not diff_f32 <= limit_f32:
+            raise AssertionError(f"{label}: float32 tp {tp} first-step "
+                                 f"logits off by {diff_f32:.4g} (limit "
+                                 f"{limit_f32:.4g})")
+        if not diff <= 2 * bf16_err:
+            raise AssertionError(f"{label}: bf16 tp {tp} first-step logits "
+                                 f"off by {diff:.4g}, over twice tp 1's own "
+                                 f"bf16 error {bf16_err:.4g}")
+        port = server.start(port=0)
+        boot_s = time.perf_counter() - t0
+        max_tokens = 48
+        pa.reset_counts()
+        pfa.reset_counts()
+        results, wall = run_requests(port, _prompts(), max_tokens)
+        counts = _check_variant(label, variant)
+        heads = _gate_heads(label, f"{mcfg.n_heads // tp}/{hkv[0]}")
+        short = [r["eval_count"] for r in results
+                 if r["done_reason"] != "length"
+                 or r["eval_count"] != max_tokens]
+        if short:
+            raise AssertionError(f"{label}: requests ended short: {short}")
+        phases = engine_phases(server_stats(port))
+        serve_peak = torch.cuda.max_memory_allocated()
+        n_layers, weight_bytes = eng.model_cfg.n_layers, eng.weight_bytes
+    finally:
+        server.shutdown()
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {
+        "label": label, "model": "llama-3-8b", "layers": n_layers, "tp": tp,
+        "activations": "bfloat16", "quant": quant, "kv_quant": kv_quant,
+        "variant": variant, "boot_s": boot_s, "reference_logits_s": refs_s,
+        "allocated_before_boot_bytes": allocated_before,
+        "max_memory_allocated": serve_peak, "weight_bytes": weight_bytes,
+        "logit_gates": gates, "max_tokens": max_tokens, "engine_args": {
+            k: engine_args[k] for k in ("num_pages", "max_batch_size",
+                                        "decode_ladder")},
+        **_summarize(results, wall),
+        "ttft_s": [r["ttft_s"] for r in results],
+        "launches_by_variant": counts["by_variant"],
+        "decode_launches_by_batch": counts["decode_by_batch"],
+        "prefill_launches_by_len": counts["prefill_by_len"],
+        "prefill_launches_by_path": counts["prefill_by_path"],
+        "launches_by_heads": heads, "engine_phases": phases,
+    }
+
+
+def tp_phase(card: str) -> dict:
+    """Gates (a)-(d) of tensor parallelism (the docstring's item 11)."""
+    out, walls = {}, {}
+    for name, fn in (("kernels", tp_kernel_cases), ("tiny", tp_tiny_phase)):
+        t = time.perf_counter()
+        out[name] = fn()
+        walls[name] = time.perf_counter() - t
+    for c in out["kernels"]["decode"] + out["kernels"]["prefill"]:
+        log(f"kernel {c['variant']} [{c['dtype']}]: err "
+            f"{c['max_abs_err']:.3g} ({c['err_over_scale']:.3g} of the "
+            f"largest output) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
+            f"library {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']})" + (f" path {c['path']}" if "path" in c
+                                    else ""))
+    out["lanes"] = []
+    for label, quant, kv_quant, variant, cut in TP_LANES:
+        t = time.perf_counter()
+        with (_depth_cut("llama-3-8b", cut) if cut
+              else contextlib.nullcontext()):
+            mp = tp_serve_phase(label, quant, kv_quant, variant, card)
+        walls[label] = time.perf_counter() - t
+        per = mp["decode_tok_s_per_request"]
+        log(f"main path llama-3-8b [{label}] on {card}: {mp['layers']} "
+            f"layers, {mp['requests']} requests, TTFT p50 "
+            f"{mp['ttft_p50_s']:.3f}s max {mp['ttft_max_s']:.3f}s; decode "
+            f"{min(per):.1f}-{max(per):.1f} tok/s per request, "
+            f"{mp['aggregate_tok_s']:.1f} aggregate; peak allocated "
+            f"{mp['max_memory_allocated'] / 1e9:.2f} GB; launches "
+            f"{json.dumps(mp['launches_by_variant'])}; by shard heads "
+            f"{json.dumps(mp['launches_by_heads'])}")
+        out["lanes"].append(mp)
+    out["walls_s"] = walls
+    return out
+
+
 def log_ledger(label: str, prof: dict) -> None:
     """The step ledger's verdicts over a profiled window."""
     led = prof.get("ledger")
@@ -5133,7 +5543,10 @@ def main() -> int:
         main_paths[mp["label"]] = mp
         mp = timed("fabric", fabric_phase, card, "relay")
         main_paths[mp["label"]] = mp
-    mp = timed("fabric_shm", fabric_phase, card, "shm")
+    # The fabric lane's shm arm too, since the tp lanes joined (the
+    # script must stay inside its time limit).
+    with _depth_cut("llama-3-8b", CUT_LAYERS):
+        mp = timed("fabric_shm", fabric_phase, card, "shm")
     main_paths[mp["label"]] = mp
     # Mixtral runs CUT_LAYERS of its 32 layers.
     for name, phase, cut in (("mixtral", mixtral_phase, "mixtral-8x7b"),
@@ -5145,6 +5558,9 @@ def main() -> int:
         main_paths[mp["label"]] = mp
     checkpoint = timed("checkpoint", checkpoint_phase, card)
     log(f"checkpoint lane: {json.dumps(checkpoint)}")
+    tp = timed("tp", tp_phase, card)
+    for mp in tp["lanes"]:
+        main_paths[mp["label"]] = mp
 
     entries = []
     for kind, name, src, replaces in (
@@ -5213,6 +5629,38 @@ def main() -> int:
                     "main_paths": [mp["label"] for mp in paths],
                     "path": head["path"],
                     "launches_by_path": _path_totals(paths)})
+    # The head-sharded cases (tp_phase (a)): "launches" as the full-head
+    # rows' (the variant over every main path), "launches_at_these_heads"
+    # over the tp lanes that ran the variant.
+    for kind, name, src, replaces in (
+            ("decode", "paged_attention",
+             "tpu_inference_torch/csrc/paged_attention.cu",
+             "tpu_inference/kernels/paged_attention.py:46"),
+            ("prefill", "prefill_attention",
+             "tpu_inference_torch/csrc/prefill_attention.cu",
+             "tpu_inference/kernels/prefill_attention.py:46")):
+        for head in tp["kernels"][kind]:
+            variant = {"none": "bf16"}.get(head["kv"], head["kv"])
+            paths = [mp for mp in main_paths.values()
+                     if mp["variant"] == variant]
+            sh = head["shape"]
+            at = f"{sh['Hq']}/{sh['Hkv']}"
+            entries.append({
+                "name": (name if variant == "bf16" else f"{name}_{variant}")
+                + f"_tp{head['tp']}",
+                "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(mp["launches_by_variant"][name][variant]
+                                for mp in paths),
+                "launches_at_these_heads": sum(
+                    mp["launches_by_heads"][name].get(at, 0)
+                    for mp in tp["lanes"] if mp["variant"] == variant),
+                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], "library": LIBRARY_NOTE,
+                "variant": head["variant"], "pool": variant,
+                "heads": at, "main_paths": [mp["label"] for mp in paths],
+                **({"path": head["path"]} if "path" in head else {})})
     gpt2_paths = [mp for mp in main_paths.values() if mp["model"] == "gpt2"]
     for head, name, src, replaces in zip(
             kernels["gpt2"], ("paged_attention", "prefill_attention"),
@@ -5238,6 +5686,7 @@ def main() -> int:
               "kernels": entries, "kernel_cases": kernels,
               "main_paths": main_paths, "checkpoint": checkpoint,
               "pd_identity": pd_identity, "phase_s": phase_s,
+              "tp": {k: v for k, v in tp.items() if k != "lanes"},
               "engine_cases": engines, "spec_engine_cases": spec_engines,
               "chaos": chaos, "rung_identity": rung_identity,
               "gemm_rung_evidence": gemm_evidence,

@@ -194,7 +194,7 @@ def test_elastic_knobs_build_and_the_rest_names_1_15b(ckpt):
     """Autoscale and class lanes build a router on the process fleet, on
     the shm plane too (1.15b is whole: nothing of it is refused), and an
     in-process fleet asked for the shm plane builds on the relay plane.
-    The refusal that stays names 1.16."""
+    The refusal that stays (sp > 1) names 1.16b."""
     from tpu_inference_torch.server.http import build_engine_group
 
     group = build_engine_group(_cfg(ckpt, autoscale=True,
@@ -220,5 +220,5 @@ def test_elastic_knobs_build_and_the_rest_names_1_15b(ckpt):
         group.stop(drain=False)
     cfg = _cfg(ckpt, autoscale=True)
     cfg.parallel = tcfg.ParallelConfig(dp=2, sp=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.16\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.16b\)"):
         build_engine_group(cfg, device="cpu")

@@ -248,7 +248,7 @@ def test_unported_fleet_features_raise_naming_1_15b(ckpt):
     """Nothing of 1.15b is refused any more: ``kv_plane="shm"`` builds on
     both backends (the process fleet creates its arena, the in-process
     fleet rides the relay plane, as the reference's decision table
-    says), and the one refusal left names 1.16."""
+    says), and the one refusal left (sp > 1) names 1.16b."""
     from tpu_inference.server.shm_arena import effective_kv_plane as ref
     from tpu_inference_torch.server.http import build_engine_group
     from tpu_inference_torch.server.shm_arena import effective_kv_plane
@@ -278,8 +278,8 @@ def test_unported_fleet_features_raise_naming_1_15b(ckpt):
         finally:
             group.stop(drain=False)
     cfg = _cfg(ckpt)
-    cfg.parallel = tcfg.ParallelConfig(dp=2, tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.16"):
+    cfg.parallel = tcfg.ParallelConfig(dp=2, sp=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.16b"):
         build_engine_group(cfg, device="cpu")
     # P/D roles are served by the process fleet only.
     cfg = _cfg(ckpt, fleet="in-process")

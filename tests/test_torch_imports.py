@@ -1,7 +1,7 @@
 """The port imports PyTorch, never JAX (nor ``ml_dtypes``, which the
 card's machine does not have), and nothing of the reference package:
-every .py under tpu_inference_torch/ (and chip_smoke.py, which drives
-the port on the card) is scanned with ``ast``."""
+every .py under tpu_inference_torch/ (and chip_smoke.py and scripts/,
+which drive the port on the card) is scanned with ``ast``."""
 
 import ast
 import os
@@ -14,6 +14,10 @@ PKG = os.path.join(ROOT, "tpu_inference_torch")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    if os.path.isdir(scripts):
+        out += [os.path.join(scripts, f) for f in os.listdir(scripts)
+                if f.endswith(".py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -42,7 +46,8 @@ def test_port_has_sources():
     assert os.path.isfile(os.path.join(PKG, "csrc", "paged_attention.cu"))
     assert os.path.isfile(os.path.join(PKG, "csrc", "prefill_attention.cu"))
     for mod in ("integrity.py", "server/transport.py", "server/worker.py",
-                "server/fleet.py"):
+                "server/fleet.py", "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/shardings.py", "parallel/tp.py"):
         assert os.path.join(PKG, mod) in files, mod
 
 

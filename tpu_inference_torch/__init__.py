@@ -12,6 +12,9 @@ reference package.
             one host sync per call, sampling, prefix cache, the
             continuous-batching scheduler.
 - server/   Ollama /api/generate over the standard library's HTTP server.
+- parallel/ the tp mesh, sharding specs and the sharded forward that one
+            process drives over every shard (tensor and expert
+            parallelism).
 
 Entry points run on CUDA unless the caller asks for the CPU.
 """

@@ -254,7 +254,10 @@ PRESETS = {
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device-mesh axes (dp, tp, sp). The port serves 1 x 1 x 1 only."""
+    """Device-mesh axes (dp, tp, sp). The port serves dp replicas of tp
+    shards (experts too, for Mixtral), each replica's shards driven by
+    one process (parallel/tp.py); sp > 1 is not served (ROADMAP
+    1.16b)."""
 
     dp: int = 1
     tp: int = 1

@@ -70,6 +70,11 @@ PyTorch:
   copies a live sequence's full pages off the pool for migration, and
   ``request_import_host`` / ``apply_pending_imports`` adopt another
   replica's export into the host tier on the engine thread.
+- **Tensor and expert parallelism** (``mesh`` with tp > 1): the weights
+  are cut into one dict per shard (parallel/shardings.py), the pool
+  into one per shard over its kv heads, and ``self.mod`` is the sharded
+  forward (parallel/tp.py), so every call site below is unchanged; the
+  allocator, block tables and sampling stay single.
 - **P/D roles** (``EngineConfig.role``): a "prefill" engine warms only
   the prefill shapes, a "decode" engine only the decode calls and verify
   widths. ``export_sequence_kv_live`` copies every page of a live
@@ -155,24 +160,31 @@ def make_paged_attn(cfg: ModelConfig, page_size: int,
 
     slots = kvc.slot_mapping(block_tables, positions, valid, page_size)
     win = cfg.sliding_window
+    # The index tensors on each device a tp shard's pool sits on, copied
+    # once per forward (the closure lives for one forward).
+    home = (block_tables, slots, kv_len, q_offset)
+    on_device = {block_tables.device: home}
 
     def attn(layer_idx, q, k, v, kv: kvc.KVPages):
-        kv = kvc.write_kv(kv, layer_idx, k, v, slots)
+        if q.device not in on_device:
+            on_device[q.device] = tuple(t.to(q.device) for t in home)
+        bts, slot, lens, offs = on_device[q.device]
+        kv = kvc.write_kv(kv, layer_idx, k, v, slot)
         ks, vs = ((kv.k_scale[layer_idx], kv.v_scale[layer_idx])
                   if kv.quantized else (None, None))
         if attn_backend == "kernel" and q.shape[1] == 1:
             out = paged_attention(q[:, 0].contiguous(), kv.k[layer_idx],
-                                  kv.v[layer_idx], block_tables, kv_len,
+                                  kv.v[layer_idx], bts, lens,
                                   ks, vs, sliding_window=win)
             return out[:, None], kv
         if attn_backend == "kernel":
             return paged_prefill_attention(
                 q.contiguous(), kv.k[layer_idx], kv.v[layer_idx],
-                block_tables, kv_len, q_offset, ks, vs,
+                bts, lens, offs, ks, vs,
                 sliding_window=win), kv
-        k_all, v_all = kvc.gather_kv(kv, layer_idx, block_tables)
-        out = dense_causal_attention(q, k_all, v_all, q_offset=q_offset,
-                                     kv_len=kv_len, sliding_window=win)
+        k_all, v_all = kvc.gather_kv(kv, layer_idx, bts)
+        out = dense_causal_attention(q, k_all, v_all, q_offset=offs,
+                                     kv_len=lens, sliding_window=win)
         return out, kv
 
     return attn
@@ -293,12 +305,37 @@ class InferenceEngine:
                  params: Optional[dict] = None, seed: int = 0,
                  attn_backend: Optional[str] = None, device="cuda",
                  draft_cfg: Optional[ModelConfig] = None,
-                 draft_params: Optional[dict] = None):
+                 draft_params: Optional[dict] = None, mesh=None):
         """``draft_cfg`` (with ``spec_mode="draft"`` and
         ``num_speculative_tokens`` > 0) turns on draft-model speculation;
-        its weights are ``draft_params`` or random from ``seed + 1``."""
+        its weights are ``draft_params`` or random from ``seed + 1``.
+
+        ``mesh`` (parallel/mesh.py, dp = sp = 1) with tp > 1 shards the
+        weights (``params`` a dict, sharded here, or a ShardedParams
+        already cut for this mesh) and the KV pool over the mesh's tp
+        devices, the first of which becomes the engine's device;
+        ``device`` then only names the device type."""
         self.device = resolve_device(device)
         model_cfg.validate()
+        self.tp = 1
+        if mesh is not None:
+            shape = mesh.shape
+            if shape.get("dp", 1) != 1 or shape.get("sp", 1) != 1:
+                raise NotImplementedError(
+                    f"engine mesh {shape}: an engine serves one replica's "
+                    "tp shards (dp = 1; sp > 1 is ROADMAP 1.16b)")
+            from tpu_inference_torch.parallel import shardings as shd
+            # Fail fast, before any weight is materialized.
+            shd.validate_tp(model_cfg, shape["tp"])
+            if draft_cfg is not None:
+                shd.validate_tp(draft_cfg, shape["tp"])
+            devs = mesh.tp_devices()
+            if any(d.type != self.device.type for d in devs):
+                raise ValueError(f"mesh devices {[str(d) for d in devs]} "
+                                 f"are not {self.device.type} devices")
+            self.device = resolve_device(devs[0])
+            self.tp = shape["tp"]
+        self.mesh = mesh if self.tp > 1 else None
         if engine_cfg.role not in WORKER_ROLES:
             raise ValueError(f"unknown engine role {engine_cfg.role!r}; "
                              f"one of {WORKER_ROLES}")
@@ -334,7 +371,7 @@ class InferenceEngine:
             self.ladder = (engine_cfg.max_batch_size,)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
-        self.mod = get_model_fns(model_cfg)
+        self.mod = self._model_fns(model_cfg)
         backend = attn_backend or engine_cfg.attn_backend
         if backend == "auto":
             backend = "kernel"
@@ -342,20 +379,17 @@ class InferenceEngine:
             raise ValueError(f"unknown attn_backend {backend!r}; "
                              "expected 'auto', 'dense' or 'kernel'")
         self.attn_backend = backend
-        if params is None:
-            # With a quant mode, leaf-by-leaf init + quantize: peak card
-            # memory stays near the quantized model's size.
-            params, _ = build_model(model_cfg, seed=seed, device=self.device,
-                                    quant=engine_cfg.quant)
-        # No-op on leaves already quantized (init above, or a caller's).
-        self.params = quantize_params(params, engine_cfg.quant)
-        # Quantized leaves count their codes and their scales.
-        leaves = _leaves(self.params)
-        self.n_params = int(sum(t.numel() for t in leaves))
-        self.weight_bytes = int(sum(t.numel() * t.element_size()
-                                    for t in leaves))
-        self.kv = kvc.alloc_kv_pages(model_cfg, engine_cfg,
-                                     device=self.device)
+        self.params = self._materialize(model_cfg, params, seed)
+        # Quantized leaves count their codes and their scales; sharded
+        # weights count the unsharded model's (a replicated leaf once).
+        if self.mesh is not None:
+            self.n_params, self.weight_bytes = self.params.global_totals()
+        else:
+            leaves = _leaves(self.params)
+            self.n_params = int(sum(t.numel() for t in leaves))
+            self.weight_bytes = int(sum(t.numel() * t.element_size()
+                                        for t in leaves))
+        self.kv = self._alloc_pool(model_cfg)
         self.allocator = PageAllocator(engine_cfg.num_pages)
         # Batch ladder state: the rung of the latest decode call, the
         # highest reached, and calls that changed rung.
@@ -504,15 +538,63 @@ class InferenceEngine:
                                  "tokenizer/vocab")
             draft_cfg.validate()
             self.draft_cfg = draft_cfg
-            self.draft_mod = get_model_fns(draft_cfg)
-            if draft_params is None:
-                draft_params, _ = build_model(draft_cfg, seed=seed + 1,
-                                              device=self.device,
-                                              quant=engine_cfg.quant)
-            self.draft_params = quantize_params(draft_params,
-                                                engine_cfg.quant)
-            self.draft_kv = kvc.alloc_kv_pages(draft_cfg, engine_cfg,
-                                               device=self.device)
+            # The draft gets the target's mesh treatment: sharded weights
+            # and a pool split over its kv heads.
+            self.draft_mod = self._model_fns(draft_cfg)
+            self.draft_params = self._materialize(draft_cfg, draft_params,
+                                                  seed + 1)
+            self.draft_kv = self._alloc_pool(draft_cfg)
+
+    def _model_fns(self, cfg: ModelConfig):
+        """The family module, or at tp > 1 its sharded forward
+        (parallel/tp.py) with the same interface."""
+        mod = get_model_fns(cfg)
+        if self.mesh is None:
+            return mod
+        from tpu_inference_torch.parallel.tp import TPModel
+        return TPModel(mod, self.mesh.tp_devices())
+
+    def _materialize(self, cfg: ModelConfig, params, seed: int):
+        """The weights of ``cfg``: ``params``, or random from ``seed``;
+        quantized under ``quant`` (a no-op on quantized leaves), then at
+        tp > 1 cut into the mesh's shards. A ShardedParams is taken as
+        cut (and must be quantized already under ``quant``)."""
+        from tpu_inference_torch.parallel import shardings as shd
+
+        quant = self.engine_cfg.quant
+        if isinstance(params, shd.ShardedParams):
+            if self.mesh is None or len(params) != self.tp:
+                raise ValueError(f"{cfg.name}: params cut into "
+                                 f"{len(params)} shards for an engine at "
+                                 f"tp {self.tp}")
+            plain = shd.unquantized_matmuls(params) if quant != "none" \
+                else []
+            if plain:
+                raise ValueError(f"{cfg.name}: sharded params with "
+                                 f"quant={quant!r} must be quantized before "
+                                 f"they are cut (load_checkpoint(quant=, "
+                                 f"mesh=)); plain leaves {plain}")
+            return params
+        if params is None:
+            # With a quant mode, leaf-by-leaf init + quantize: peak card
+            # memory stays near the quantized model's size.
+            params, _ = build_model(cfg, seed=seed, device=self.device,
+                                    quant=quant)
+        # No-op on leaves already quantized (init above, or a caller's).
+        params = quantize_params(params, quant)
+        if self.mesh is None:
+            return params
+        return shd.shard_params(params, cfg, self.mesh)
+
+    def _alloc_pool(self, cfg: ModelConfig):
+        """The zeroed KV pool of ``cfg``: at tp > 1 split over its kv
+        heads, one pool per shard."""
+        sharding = None
+        if self.mesh is not None:
+            from tpu_inference_torch.parallel.shardings import kv_sharding
+            sharding = kv_sharding(self.mesh)
+        return kvc.alloc_kv_pages(cfg, self.engine_cfg, device=self.device,
+                                  sharding=sharding)
 
     # ------------------------------------------------------------------
     # Host <-> device transfers
@@ -838,7 +920,9 @@ class InferenceEngine:
         naming the first layer whose output is non-finite (the check
         after each layer is the counterpart of the reference's checkify'd
         forward), or the logits."""
-        bad = [path for path, t in _named_leaves(self.params)
+        named = (((p, t) for p, t, _ in self.params.named_tensors())
+                 if self.mesh is not None else _named_leaves(self.params))
+        bad = [path for path, t in named
                if t.is_floating_point() and not bool(torch.isfinite(t).all())]
         if bad:
             raise FloatingPointError(f"non-finite values in params at {bad}")

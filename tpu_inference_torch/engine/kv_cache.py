@@ -23,6 +23,12 @@ Twin of the device half of ``tpu_inference/engine/kv_cache.py`` plus its
 Host side, ``PageAllocator`` is a free-list with refcounts so shared
 prompt prefixes map the same physical pages.
 
+Tensor parallelism: ``ShardedKVPages`` splits the pool over its kv heads,
+one ``KVPages`` per tp shard; page ids, block tables and slots are the
+same for every shard, and its host copies (``offload_pages``) keep the
+full-head layout, so the host tier and the wire format below do not
+change with tp.
+
 Host tier (the tiered KV cache): ``offload_pages`` copies pool pages
 into pinned host memory and ``restore_pages`` scatters host copies back
 into freshly allocated pool pages, both as non-blocking copies on the
@@ -84,10 +90,44 @@ class KVPages(NamedTuple):
         return self.k.dtype == torch.uint8
 
 
+class ShardedKVPages:
+    """A pool split over its kv heads: one KVPages per tp shard, shard i
+    holding heads ``[i * Hkv/tp, (i + 1) * Hkv/tp)`` on its shard's
+    device. Page ids, block tables and slot maps are the same for every
+    shard (one PageAllocator serves them all); host copies of its pages
+    (``offload_pages``) keep the full-head layout."""
+
+    def __init__(self, shards):
+        self.shards = tuple(shards)
+
+    @property
+    def quantized(self) -> bool:
+        return self.shards[0].quantized
+
+
 def alloc_kv_pages(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                   dtype=None, device="cuda") -> KVPages:
+                   dtype=None, device="cuda", sharding=None):
+    """The zeroed pool ``[L, P, page, Hkv, D]``. With ``sharding`` (a
+    parallel/shardings.py ``kv_sharding`` of a tp > 1 mesh) one pool per
+    tp shard with ``Hkv / tp`` heads on that shard's device, bundled in a
+    ShardedKVPages; ``device`` is then unused."""
+    if sharding is not None and sharding.mesh.shape["tp"] > 1:
+        devices = sharding.mesh.tp_devices()
+        n = len(devices)
+        if model_cfg.n_kv_heads % n:
+            raise ValueError(f"tp={n} does not divide n_kv_heads="
+                             f"{model_cfg.n_kv_heads}")
+        return ShardedKVPages(
+            _alloc_pool(model_cfg, engine_cfg, model_cfg.n_kv_heads // n,
+                        dtype, d) for d in devices)
+    return _alloc_pool(model_cfg, engine_cfg, model_cfg.n_kv_heads, dtype,
+                       device)
+
+
+def _alloc_pool(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                n_kv_heads: int, dtype, device) -> KVPages:
     shape = (model_cfg.n_layers, engine_cfg.num_pages, engine_cfg.page_size,
-             model_cfg.n_kv_heads, model_cfg.head_dim)
+             n_kv_heads, model_cfg.head_dim)
     dtype = dtype or model_cfg.dtype
     mode = engine_cfg.kv_quant
     if mode not in ("none", "int8", "int4"):
@@ -345,6 +385,49 @@ def _pool_arrays(kv: KVPages) -> List[torch.Tensor]:
     return out
 
 
+# The head dim of every pool array ([L, P, page, Hkv, ...]) and of the
+# gathered batch ([L, n, page, Hkv, ...]).
+_HEAD_DIM = 3
+
+
+def _gather_pages(kv, pages: List[int]) -> List[torch.Tensor]:
+    """Each pool array's ``pages`` as [L, n, page, Hkv, ...] on the
+    (first shard's) device; a sharded pool's shards concatenate along
+    the head dim, so the result has the full-head layout."""
+    if not isinstance(kv, ShardedKVPages):
+        idx = _index(pages, kv.k.device)
+        return [pool.index_select(1, idx) for pool in _pool_arrays(kv)]
+    home = kv.shards[0].k.device
+    idx = {}
+    per_shard = []
+    for shard in kv.shards:
+        dev = shard.k.device
+        if dev not in idx:
+            idx[dev] = _index(pages, dev)
+        per_shard.append([pool.index_select(1, idx[dev]).to(home)
+                          for pool in _pool_arrays(shard)])
+    return [torch.cat(parts, dim=_HEAD_DIM) for parts in zip(*per_shard)]
+
+
+def _scatter_pages(kv, pages: List[int], data: List[torch.Tensor]) -> None:
+    """Write full-head [L, n, page, Hkv, ...] arrays into the pool at
+    ``pages``; a sharded pool takes each shard's head range."""
+    if not isinstance(kv, ShardedKVPages):
+        idx = _index(pages, kv.k.device)
+        for pool, arr in zip(_pool_arrays(kv), data):
+            pool.index_copy_(1, idx, arr)
+        return
+    idx = {}
+    for i, shard in enumerate(kv.shards):
+        dev = shard.k.device
+        if dev not in idx:
+            idx[dev] = _index(pages, dev)
+        for pool, arr in zip(_pool_arrays(shard), data):
+            h = pool.shape[_HEAD_DIM]
+            pool.index_copy_(1, idx[dev],
+                             arr.narrow(_HEAD_DIM, i * h, h).to(dev))
+
+
 def offload_pages(kv: KVPages, pages: List[int]) -> List[HostKVPage]:
     """Copy ``pages`` out of the pool into host memory, one HostKVPage
     each. For a CUDA pool: one gather per pool array on the device, then
@@ -357,12 +440,11 @@ def offload_pages(kv: KVPages, pages: List[int]) -> List[HostKVPage]:
     n = len(pages)
     if n == 0:
         return []
-    dev = kv.k.device
-    idx = _index(pages, dev)
     per_array = []
-    for pool in _pool_arrays(kv):
+    for gathered in _gather_pages(kv, pages):
         # [L, n, ...] -> [n, L, ...]: one contiguous block per page.
-        g = pool.index_select(1, idx).transpose(0, 1).contiguous()
+        g = gathered.transpose(0, 1).contiguous()
+        dev = g.device
         if dev.type == "cuda":
             host = [torch.empty(g.shape[1:], dtype=g.dtype, pin_memory=True)
                     for _ in range(n)]
@@ -389,16 +471,17 @@ def restore_pages(kv: KVPages, pages: List[int],
     if n == 0:
         return kv
     assert n == len(host_pages)
-    dev = kv.k.device
-    idx = _index(pages, dev)
-    fields = ("k", "v", "k_scale", "v_scale")
-    for pool, field in zip(_pool_arrays(kv), fields):
+    dev = (kv.shards[0] if isinstance(kv, ShardedKVPages) else kv).k.device
+    fields = ("k", "v", "k_scale", "v_scale")[:4 if kv.quantized else 2]
+    staged = []
+    for field in fields:
         first = getattr(host_pages[0], field)
         data = torch.empty((n,) + tuple(first.shape), dtype=first.dtype,
                            device=dev)
         for i, hp in enumerate(host_pages):
             data[i].copy_(getattr(hp, field), non_blocking=True)
-        pool.index_copy_(1, idx, data.transpose(0, 1))
+        staged.append(data.transpose(0, 1))
+    _scatter_pages(kv, pages, staged)
     return kv
 
 

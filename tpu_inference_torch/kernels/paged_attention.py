@@ -20,7 +20,8 @@ across blocks, from the table width, page size and window alone. ``launches`` co
 (one per layer per decode step; the merge of a call's splits happens
 inside that launch) and nothing else; ``launches_by_variant`` splits
 them by pool kind (``f32``, ``bf16``, ``int8``, ``int4``) and
-``launches_by_batch`` by batch width (the decode ladder's rungs).
+``launches_by_batch`` by batch width (the decode ladder's rungs) and
+``launches_by_heads`` by ``"Hq/Hkv"`` (a tp shard's head counts).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ NEG_INF = -1e30
 launches = 0
 launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
 launches_by_batch: dict = {}
+launches_by_heads: dict = {}
 
 # Tokens per split: the split plan cuts the readable pages into
 # MIN_SPLIT_TOKENS-token pieces (the last may be shorter).
@@ -58,6 +60,7 @@ def reset_counts() -> None:
     for k in launches_by_variant:
         launches_by_variant[k] = 0
     launches_by_batch.clear()
+    launches_by_heads.clear()
 
 
 def _library() -> ctypes.CDLL:
@@ -217,4 +220,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     launches += 1
     launches_by_variant[variant] += 1
     launches_by_batch[b] = launches_by_batch.get(b, 0) + 1
+    heads = f"{hq}/{hkv}"
+    launches_by_heads[heads] = launches_by_heads.get(heads, 0) + 1
     return out

@@ -25,7 +25,8 @@ runs ``paged_prefill_attention_plain``. ``launches`` counts kernel
 launches and nothing else; ``launches_by_variant`` splits them by pool
 kind, ``launches_by_path`` by pool kind and path (``"bf16/wgmma"``) and
 ``launches_by_len`` by query length S (prompt chunks at the prefill
-buckets, speculative verify rounds at S = γ+1 and the 2-wide probe).
+buckets, speculative verify rounds at S = γ+1 and the 2-wide probe), and
+``launches_by_heads`` by ``"Hq/Hkv"`` (a tp shard's head counts).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ launches = 0
 launches_by_variant = dict.fromkeys(_pool.VARIANTS, 0)
 launches_by_path: dict = {}
 launches_by_len: dict = {}
+launches_by_heads: dict = {}
 
 _lib = None
 
@@ -70,6 +72,7 @@ def reset_counts() -> None:
         launches_by_variant[k] = 0
     launches_by_path.clear()
     launches_by_len.clear()
+    launches_by_heads.clear()
 
 
 def prefill_plan(s: int, n_rep: int, d: int, variant: str,
@@ -235,4 +238,6 @@ def _launch(plan: dict, q: torch.Tensor, k_pages: torch.Tensor,
     key = f"{variant}/{plan['path']}"
     launches_by_path[key] = launches_by_path.get(key, 0) + 1
     launches_by_len[s] = launches_by_len.get(s, 0) + 1
+    heads = f"{q.shape[2]}/{k_pages.shape[2]}"
+    launches_by_heads[heads] = launches_by_heads.get(heads, 0) + 1
     return out

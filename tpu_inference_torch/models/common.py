@@ -186,21 +186,41 @@ def make_dense_attn(sliding_window: int = 0) -> AttentionFn:
     return attn
 
 
-def qdot(x: torch.Tensor, w) -> torch.Tensor:
+def qdot(x: torch.Tensor, w, f32_product: bool = False) -> torch.Tensor:
     """``x @ w`` returned in float32; w: [in, out], or a
     ``QuantizedArray`` (models/quant.py qdot). Float32 operands multiply
     in float32; bf16 operands multiply on the tensor cores with float32
-    accumulation and a bf16-rounded product."""
-    return quant.qdot(x, w)
+    accumulation and a bf16-rounded product, or with ``f32_product`` a
+    float32 one (a tp shard's row-parallel partial)."""
+    return quant.qdot(x, w, f32_product)
+
+
+def swiglu_partial(x: torch.Tensor, w_gate, w_up, w_down,
+                   act: str = "silu", f32_product: bool = False
+                   ) -> torch.Tensor:
+    """Gated FFN ``down( act(x @ gate) * (x @ up) )`` in float32, before
+    the cast: a tp shard's partial sum (parallel/tp.py reduces the
+    shards' partials, then casts; ``f32_product`` for ``w_down``)."""
+    fn = _GATE_ACTS[act]
+    gate = fn(qdot(x, w_gate))
+    up = qdot(x, w_up)
+    return qdot((gate * up).to(x.dtype), w_down, f32_product)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Gated FFN: down( act(x @ gate) * (x @ up) )."""
-    fn = _GATE_ACTS[act]
-    gate = fn(qdot(x, w_gate))
-    up = qdot(x, w_up)
-    return qdot((gate * up).to(x.dtype), w_down).to(x.dtype)
+    return swiglu_partial(x, w_gate, w_up, w_down, act).to(x.dtype)
+
+
+def residual(x: torch.Tensor, total: torch.Tensor,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` plus a block's float32 output ``total`` (the sum of the tp
+    shards' partials; the one partial at tp 1), plus a bias applied once
+    after the sum, cast to x's dtype before the add."""
+    if bias is not None:
+        total = total + bias.float()
+    return x + total.to(x.dtype)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,

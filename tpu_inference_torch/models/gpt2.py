@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from tpu_inference_torch.config import ModelConfig
 from tpu_inference_torch.models import llama
 from tpu_inference_torch.models.common import (AttentionFn, init_stacked,
-                                               layer_norm, linear)
+                                               layer_norm, linear, qdot,
+                                               residual)
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's layout: leaf name -> shape."""
@@ -53,30 +54,68 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         fill)
 
 
+# The block's halves, as models/llama.py's (parallel/tp.py drives them
+# per shard). ``b_proj``/``b_out`` are added once, after the reduction.
+USES_ROPE = False
+ATTN_BIAS, FFN_BIAS = "b_proj", "b_out"
+
+
+def attn_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
+
+
+def attn_partial(cfg: ModelConfig, layer_idx: int, lp: dict,
+                 h: torch.Tensor, kv: Any, attn: AttentionFn, rope=None,
+                 f32_product: bool = False):
+    """Fused QKV (a shard's ``w_qkv`` packs its own q|k|v heads),
+    attention and ``w_proj`` without its bias -> (float32, kv)."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q, k, v = linear(h, lp["w_qkv"], lp["b_qkv"]).chunk(3, dim=-1)
+    attn_out, kv = attn(layer_idx, q.reshape(b, s, -1, hd),
+                        k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd), kv)
+    return qdot(attn_out.reshape(b, s, -1), lp["w_proj"], f32_product), kv
+
+
+def ffn_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
+
+
+def ffn_partial(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+                f32_product: bool = False) -> torch.Tensor:
+    h = F.gelu(linear(h, lp["w_fc"], lp["b_fc"]), approximate="tanh")
+    return qdot(h, lp["w_out"], f32_product)
+
+
 def decoder_block(cfg: ModelConfig, layer_idx: int, lp: dict,
                   x: torch.Tensor, kv: Any, attn: AttentionFn):
-    b, s, d = x.shape
-    hd = cfg.head_dim
-    h = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
-    q, k, v = linear(h, lp["w_qkv"], lp["b_qkv"]).split(d, dim=-1)
-    attn_out, kv = attn(layer_idx, q.reshape(b, s, cfg.n_heads, hd),
-                        k.reshape(b, s, cfg.n_kv_heads, hd),
-                        v.reshape(b, s, cfg.n_kv_heads, hd), kv)
-    x = x + linear(attn_out.reshape(b, s, d), lp["w_proj"], lp["b_proj"])
-    h = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
-    h = F.gelu(linear(h, lp["w_fc"], lp["b_fc"]), approximate="tanh")
-    return x + linear(h, lp["w_out"], lp["b_out"]), kv
+    part, kv = attn_partial(cfg, layer_idx, lp, attn_norm(cfg, lp, x), kv,
+                            attn)
+    x = residual(x, part, lp[ATTN_BIAS])
+    return residual(x, ffn_partial(cfg, lp, ffn_norm(cfg, lp, x)),
+                    lp[FFN_BIAS]), kv
+
+
+def embed_rows(params: dict, cfg: ModelConfig, rows: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Token-table rows plus learned position embeddings. Positions
+    clamp into their table, as the reference's XLA gather does: a
+    position at or past ``max_seq_len`` reads the table's last row."""
+    pos = positions.clamp(0, cfg.max_seq_len - 1)
+    return (rows + params["pos_embed"][pos]).to(cfg.dtype)
 
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
-    """Token plus learned position embeddings. Ids and positions clamp
-    into their tables, as the reference's XLA gathers do: a position at
-    or past ``max_seq_len`` reads the table's last row (an out-of-range
-    index would fault on the card instead)."""
+    """Token plus learned position embeddings. Ids clamp into the table
+    (an out-of-range index would fault on the card)."""
     ids = tokens.clamp(0, cfg.vocab_size - 1)
-    pos = positions.clamp(0, cfg.max_seq_len - 1)
-    return (params["embed"][ids] + params["pos_embed"][pos]).to(cfg.dtype)
+    return embed_rows(params, cfg, params["embed"][ids], positions)
+
+
+def final_norm(params: dict, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, params["ln_f_w"], params["ln_f_b"], cfg.norm_eps)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -91,8 +130,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                               attn)
         if on_layer is not None:
             on_layer(i, x)
-    return layer_norm(x, params["ln_f_w"], params["ln_f_b"],
-                      cfg.norm_eps), kv
+    return final_norm(params, cfg, x), kv
 
 
 def unembed(params: dict, cfg: ModelConfig,

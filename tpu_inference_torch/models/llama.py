@@ -21,9 +21,10 @@ from tpu_inference_torch.models.common import (
     apply_rope_tables,
     init_stacked,
     qdot,
+    residual,
     rms_norm,
     rope_tables,
-    swiglu,
+    swiglu_partial,
 )
 
 
@@ -69,6 +70,51 @@ def layer_params(params: dict, layer_idx: int) -> dict:
     return {k: v[layer_idx] for k, v in params["blocks"].items()}
 
 
+# The block's halves, shared with parallel/tp.py: each half's matmul
+# output comes back as a float32 partial, which the block (or, at tp > 1,
+# the sum over the shards) casts and adds to the residual stream. Head
+# counts come from the (possibly head-sharded) weights, never from cfg.
+USES_ROPE = True
+ATTN_BIAS = FFN_BIAS = None      # biases applied after the reduction
+
+
+def attn_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_offset)
+
+
+def attn_partial(cfg: ModelConfig, layer_idx: int, lp: dict,
+                 h: torch.Tensor, kv: Any, attn: AttentionFn,
+                 rope: Tuple[torch.Tensor, torch.Tensor],
+                 f32_product: bool = False):
+    """Projections, RoPE, attention and ``wo`` of the normed input
+    ``h`` [B, S, D] -> (float32 [B, S, D], kv). ``f32_product``: ``wo``'s
+    product unrounded (a tp shard's partial, models/quant.py qdot)."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q, k, v = qdot(h, lp["wq"]), qdot(h, lp["wk"]), qdot(h, lp["wv"])
+    if cfg.qkv_bias:
+        q = q + lp["bq"].float()
+        k = k + lp["bk"].float()
+        v = v + lp["bv"].float()
+    q = q.to(h.dtype).reshape(b, s, -1, hd)
+    k = k.to(h.dtype).reshape(b, s, -1, hd)
+    v = v.to(h.dtype).reshape(b, s, -1, hd)
+    q = apply_rope_tables(q, *rope)
+    k = apply_rope_tables(k, *rope)
+    attn_out, kv = attn(layer_idx, q, k, v, kv)
+    return qdot(attn_out.reshape(b, s, -1), lp["wo"], f32_product), kv
+
+
+def ffn_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, lp["ffn_norm"], cfg.norm_eps, cfg.norm_offset)
+
+
+def ffn_partial(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+                f32_product: bool = False) -> torch.Tensor:
+    return swiglu_partial(h, lp["w_gate"], lp["w_up"], lp["w_down"],
+                          act=cfg.hidden_act, f32_product=f32_product)
+
+
 def decoder_block(cfg: ModelConfig, layer_idx: int, lp: dict,
                   x: torch.Tensor, positions: torch.Tensor, kv: Any,
                   attn: AttentionFn,
@@ -76,31 +122,23 @@ def decoder_block(cfg: ModelConfig, layer_idx: int, lp: dict,
     """One transformer block. x: [B, S, D]. ``rope`` = precomputed
     (cos, sin) tables for ``positions`` (models/common.py rope_tables);
     computed here when omitted."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
     if rope is None:
-        rope = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_scaling)
+    part, kv = attn_partial(cfg, layer_idx, lp, attn_norm(cfg, lp, x), kv,
+                            attn, rope)
+    x = residual(x, part)
+    return residual(x, ffn_partial(cfg, lp, ffn_norm(cfg, lp, x))), kv
 
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_offset)
-    q, k, v = qdot(h, lp["wq"]), qdot(h, lp["wk"]), qdot(h, lp["wv"])
-    if cfg.qkv_bias:
-        q = q + lp["bq"].float()
-        k = k + lp["bk"].float()
-        v = v + lp["bv"].float()
-    q = q.to(x.dtype).reshape(b, s, cfg.n_heads, hd)
-    k = k.to(x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.to(x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope_tables(q, *rope)
-    k = apply_rope_tables(k, *rope)
 
-    attn_out, kv = attn(layer_idx, q, k, v, kv)
-    attn_out = attn_out.reshape(b, s, cfg.n_heads * hd)
-    x = x + qdot(attn_out, lp["wo"]).to(x.dtype)
-
-    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps, cfg.norm_offset)
-    x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"],
-                   act=cfg.hidden_act)
-    return x, kv
+def embed_rows(params: dict, cfg: ModelConfig, rows: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding-table rows of the tokens -> the first layer's input."""
+    x = rows.to(cfg.dtype)
+    if cfg.embed_scale:
+        # Gemma: the sqrt(d) normalizer rounds to the activation dtype.
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+    return x
 
 
 def embed_tokens(params: dict, cfg: ModelConfig,
@@ -109,11 +147,12 @@ def embed_tokens(params: dict, cfg: ModelConfig,
     reference's XLA gather does (an out-of-range index would fault on the
     card instead)."""
     ids = tokens.clamp(0, cfg.vocab_size - 1)
-    x = params["embed"][ids].to(cfg.dtype)
-    if cfg.embed_scale:
-        # Gemma: the sqrt(d) normalizer rounds to the activation dtype.
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
-    return x
+    return embed_rows(params, cfg, params["embed"][ids])
+
+
+def final_norm(params: dict, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -130,8 +169,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                               kv, attn, rope=rope)
         if on_layer is not None:
             on_layer(i, x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
-    return x, kv
+    return final_norm(params, cfg, x), kv
 
 
 def unembed(params: dict, cfg: ModelConfig,

@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from tpu_inference_torch.config import ModelConfig
 from tpu_inference_torch.models import llama
-from tpu_inference_torch.models.common import (AttentionFn, apply_rope_tables,
-                                               init_stacked, qdot, rms_norm,
+from tpu_inference_torch.models.common import (AttentionFn, init_stacked,
+                                               qdot, residual, rms_norm,
                                                rope_tables)
 from tpu_inference_torch.models.quant import qeinsum
 
@@ -95,17 +95,29 @@ def route(cfg: ModelConfig, w_router: torch.Tensor, x2: torch.Tensor):
     return top_idx, top_w, slot, slot < cap
 
 
-def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
-    """Sparse MoE FFN. x: [B, S, D] -> [B, S, D].
+def moe_partial(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                expert_lo: int = 0) -> torch.Tensor:
+    """The sparse MoE FFN's float32 output, before the cast. x: [B, S, D].
+
+    ``lp`` may hold a slice of the experts (expert parallelism:
+    ``w_gate``/``w_up``/``w_down`` of experts ``expert_lo`` onwards). The
+    tokens are routed over all ``cfg.n_experts`` with the replicated
+    router at the call's global capacity, and only this slice's experts
+    are computed; pairs routed to other experts read the zero row, so
+    the slices' outputs sum to the whole FFN's.
 
     Shapes stay static (no host sync): a dropped (token, expert) pair
     writes to and reads from one spare row past the E * C buffer rows,
     which holds zeros on the way back."""
     b, s, d = x.shape
-    t, e, k = b * s, cfg.n_experts, cfg.n_experts_per_tok
+    t, k = b * s, cfg.n_experts_per_tok
+    e = lp["w_gate"].shape[0]                   # this slice's experts
     cap = expert_capacity(cfg, t)
     x2 = x.reshape(t, d)
     top_idx, top_w, slot, keep = route(cfg, lp["w_router"], x2)
+    if e != cfg.n_experts:
+        top_idx = top_idx - expert_lo
+        keep = keep & (top_idx >= 0) & (top_idx < e)
     dest = torch.where(keep, top_idx * cap + slot, e * cap)     # [T, k]
     buf = x2.new_zeros((e * cap + 1, d))
     buf[dest.reshape(-1)] = x2.repeat_interleave(k, dim=0)
@@ -117,24 +129,52 @@ def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     rows = torch.cat([expert_out.reshape(e * cap, d),
                       expert_out.new_zeros((1, d))])
     out = (rows[dest] * top_w[..., None]).sum(dim=1)            # [T, D]
-    return out.to(x.dtype).reshape(b, s, d)
+    return out.reshape(b, s, d)
+
+
+def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """Sparse MoE FFN. x: [B, S, D] -> [B, S, D] (moe_partial, cast)."""
+    return moe_partial(cfg, lp, x).to(x.dtype)
+
+
+# The block's halves, as models/llama.py's (parallel/tp.py drives them
+# per shard); the attention half is llama's. Expert parallelism splits
+# no contraction, so the FFN half takes no ``f32_product``: a shard's
+# experts' outputs are whole.
+USES_ROPE = True
+ATTN_BIAS = FFN_BIAS = None
+attn_partial = llama.attn_partial
+
+
+def attn_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+
+
+def ffn_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+
+
+def ffn_partial(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+                expert_lo: int = 0) -> torch.Tensor:
+    return moe_partial(cfg, lp, h, expert_lo)
 
 
 def decoder_block(cfg: ModelConfig, layer_idx: int, lp: dict,
                   x: torch.Tensor, kv: Any, attn: AttentionFn,
                   rope: Tuple[torch.Tensor, torch.Tensor]):
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = qdot(h, lp["wq"]).to(x.dtype).reshape(b, s, cfg.n_heads, hd)
-    k = qdot(h, lp["wk"]).to(x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    v = qdot(h, lp["wv"]).to(x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    attn_out, kv = attn(layer_idx, apply_rope_tables(q, *rope),
-                        apply_rope_tables(k, *rope), v, kv)
-    attn_out = attn_out.reshape(b, s, cfg.n_heads * hd)
-    x = x + qdot(attn_out, lp["wo"]).to(x.dtype)
-    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + moe_ffn(cfg, lp, h), kv
+    part, kv = attn_partial(cfg, layer_idx, lp, attn_norm(cfg, lp, x), kv,
+                            attn, rope)
+    x = residual(x, part)
+    return residual(x, ffn_partial(cfg, lp, ffn_norm(cfg, lp, x))), kv
+
+
+embed_rows = llama.embed_rows
+embed_tokens = llama.embed_tokens
+
+
+def final_norm(params: dict, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -151,7 +191,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                               attn, rope)
         if on_layer is not None:
             on_layer(i, x)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), kv
+    return final_norm(params, cfg, x), kv
 
 
 def unembed(params: dict, cfg: ModelConfig,

@@ -132,7 +132,36 @@ def dequantize(w: QuantizedArray,
     return full.reshape(codes.shape).to(dtype)
 
 
-def qdot(x: torch.Tensor, w) -> torch.Tensor:
+def _mm(x: torch.Tensor, w: torch.Tensor, f32_product: bool
+        ) -> torch.Tensor:
+    """``x @ w`` in float32. With ``f32_product`` a bf16/f16 product is
+    not rounded to x's dtype: one GEMM with a float32 result on the card
+    (``torch.mm(..., out_dtype=torch.float32)``), widened operands on the
+    CPU."""
+    if not f32_product or x.dtype == torch.float32:
+        return torch.matmul(x, w).float()
+    if x.device.type != "cuda":
+        return torch.matmul(x.float(), w.float())
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _grouped(xg: torch.Tensor, qg: torch.Tensor, f32_product: bool
+             ) -> torch.Tensor:
+    """``einsum("...gi,gio->...go")`` in float32 (int4 groups), the
+    product kept in float32 as ``_mm``'s with ``f32_product``."""
+    if not f32_product or xg.dtype == torch.float32:
+        return torch.einsum("...gi,gio->...go", xg, qg).float()
+    lead, (g, i) = xg.shape[:-2], xg.shape[-2:]
+    x3 = xg.reshape(-1, g, i).transpose(0, 1)                  # [g, N, i]
+    if xg.device.type != "cuda":
+        y = torch.bmm(x3.float(), qg.float())
+    else:
+        y = torch.bmm(x3, qg, out_dtype=torch.float32)
+    return y.transpose(0, 1).reshape(*lead, g, qg.shape[-1])
+
+
+def qdot(x: torch.Tensor, w, f32_product: bool = False) -> torch.Tensor:
     """``x @ w`` returned in float32; w: [in, out] or a QuantizedArray.
 
     int8 (one group): the codes convert to x's dtype, one matmul, then
@@ -141,19 +170,23 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     scales in float32. Float32 operands multiply in float32; bf16
     operands multiply on the tensor cores with float32 accumulation and
     a bf16-rounded product (the reference keeps that product in float32
-    before the scale)."""
+    before the scale). ``f32_product`` keeps it in float32 too: a tp
+    shard's row-parallel partial sum (parallel/tp.py), which is added
+    to the other shards' before any rounding, as the reference's
+    all-reduce adds its float32 dot outputs."""
     if isinstance(w, QuantizedArray):
         ngrp = w.scale.shape[-2]
-        if ngrp == 1:
-            y = torch.matmul(x, w.q.to(x.dtype)).float()
-            return y * w.scale[..., 0, :]
+        # One group of unpacked codes; packed int4 codes hold half the
+        # contraction rows (a tp shard of a grouped leaf may keep a
+        # single group, still packed).
+        if ngrp == 1 and w.q.shape[-2] == x.shape[-1]:
+            return _mm(x, w.q.to(x.dtype), f32_product) * w.scale[..., 0, :]
         codes = unpack_int4(w.q)
         gsz = codes.shape[-2] // ngrp
         xg = x.reshape(*x.shape[:-1], ngrp, gsz)
         qg = codes.reshape(ngrp, gsz, codes.shape[-1]).to(x.dtype)
-        y = torch.einsum("...gi,gio->...go", xg, qg).float()
-        return (y * w.scale).sum(dim=-2)
-    return torch.matmul(x, w).float()
+        return (_grouped(xg, qg, f32_product) * w.scale).sum(dim=-2)
+    return _mm(x, w, f32_product)
 
 
 def _contract_dtype(a: torch.Tensor) -> torch.dtype:
@@ -185,7 +218,7 @@ def qeinsum(eq: str, a: torch.Tensor, w) -> torch.Tensor:
     if not isinstance(w, QuantizedArray):
         return torch.bmm(a, w).float()
     ngrp = w.scale.shape[-2]
-    if ngrp == 1:
+    if ngrp == 1 and w.q.shape[-2] == a.shape[-1]:
         return torch.bmm(a, w.q.to(a.dtype)).float() * w.scale
     codes = unpack_int4(w.q)                              # [E, in, out]
     e, in_dim, out = codes.shape

@@ -23,7 +23,8 @@ Twin of ``tpu_inference/models/weights.py``:
   whether they transpose, an optional row range of a fused tensor) and
   filled one ``[in, out]`` slab at a time from memory-mapped files:
   host memory holds one slab, device memory the model plus one slab.
-  With ``quant`` each matmul slab is quantized as it lands.
+  With ``quant`` each matmul slab is quantized as it lands; with
+  ``mesh`` (tp > 1) each slab is cut and copied onto every tp shard.
 
 The reference's Orbax ``save_native``/``load_native`` (its TPU-native
 restart tier) have no twin here.
@@ -42,7 +43,7 @@ import torch
 
 from tpu_inference_torch.config import ModelConfig, RopeScaling
 from tpu_inference_torch.models.quant import (QUANT_KEYS, QuantizedArray,
-                                              quantize_slabs)
+                                              quantize_array, quantize_slabs)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
@@ -453,7 +454,7 @@ def _flatten(keys) -> tuple:
 
 
 def load_checkpoint(cfg: ModelConfig, path: str, quant: str = "none",
-                    device="cuda") -> dict:
+                    device="cuda", mesh=None):
     """Load a HF safetensors directory into the port's parameter dict on
     ``device`` in ``cfg.dtype``. Each leaf fills one HF tensor (one
     ``[in, out]`` slab after the transpose) at a time; with ``quant``
@@ -461,9 +462,19 @@ def load_checkpoint(cfg: ModelConfig, path: str, quant: str = "none",
     lands, so a model that only fits quantized loads without its
     full-precision copy ever existing. The result equals
     ``convert_state_dict`` of the same tensors (then ``quantize_params``
-    with ``quant``)."""
+    with ``quant``).
+
+    With ``mesh`` (parallel/mesh.py, tp > 1) each slab is cut along
+    parallel/shardings.py's specs as it lands and each piece copied onto
+    its shard's device (the twin of the reference's ``shardings=``): a
+    ShardedParams equal to ``shard_params`` of the unsharded load, with
+    no unsharded copy of the model on any device. A quantized slab is
+    quantized whole, then cut (an int8 scale reduces over the whole
+    contraction dim). ``device`` is then unused."""
     files = _CheckpointFiles(path)
     plan = _PLANNERS[cfg.family](cfg, set(files.keys()))
+    if mesh is not None and mesh.shape["tp"] > 1:
+        return _load_sharded(cfg, files, plan, quant, mesh)
 
     def slab(key: str, transpose: bool, rows) -> torch.Tensor:
         sl = files.get_slice(key)
@@ -493,3 +504,83 @@ def load_checkpoint(cfg: ModelConfig, path: str, quant: str = "none",
                 for k, v in tree.items()}
 
     return walk(plan)
+
+
+def _load_sharded(cfg: ModelConfig, files: _CheckpointFiles, plan: dict,
+                  quant: str, mesh):
+    """load_checkpoint's mesh path: every slab read once, onto the first
+    shard's device, (quantized,) cut and copied into each shard's
+    preallocated leaf."""
+    from tpu_inference_torch.parallel import shardings as shd
+
+    shd.validate_tp(cfg, mesh.shape["tp"])
+    devices = mesh.tp_devices()
+    n = len(devices)
+    home = devices[0]
+
+    def build(name: str, leaf_plan: tuple, spec):
+        keys, transpose, *rest = leaf_plan
+        rows = rest[0] if rest else None
+        lead, names = _flatten(keys)
+        nl = len(lead)
+        lead_dim = shd.shard_dim(spec)
+        if lead_dim is not None and lead_dim >= nl:
+            lead_dim = None                  # split inside each slab
+        quantized = quant != "none" and name in QUANT_KEYS
+        outs, sharding = [None] * n, None
+        for i, key in enumerate(names):
+            sl = files.get_slice(key)
+            t = sl[rows[0]:rows[1]] if rows is not None else sl[:]
+            t = t.to(device=home, dtype=cfg.dtype)
+            t = t.t() if transpose else t
+            part = quantize_array(t, quant) if quantized else t
+            if sharding is None:
+                skeleton = (QuantizedArray(
+                    torch.empty(lead + tuple(part.q.shape), device="meta"),
+                    torch.empty(lead + tuple(part.scale.shape),
+                                device="meta"))
+                            if quantized else
+                            torch.empty(lead + tuple(t.shape), device="meta"))
+                sharding = shd.leaf_sharding(spec, skeleton, mesh)
+            idx = list(np.unravel_index(i, lead)) if lead else []
+            for j in range(n):
+                at = idx
+                if lead_dim is not None:
+                    per = lead[lead_dim] // n
+                    if idx[lead_dim] // per != j:
+                        continue
+                    at = idx[:lead_dim] + [idx[lead_dim] % per] \
+                        + idx[lead_dim + 1:]
+                pieces = ([(part.q, sharding.q.spec),
+                           (part.scale, sharding.scale.spec)] if quantized
+                          else [(part, sharding.spec)])
+                cut = [shd.narrow(x, shd.P(*sp[nl:], packed=sp.packed), j, n)
+                       for x, sp in pieces]
+                if outs[j] is None:
+                    local = [lead[d] // n if d == lead_dim else lead[d]
+                             for d in range(nl)]
+                    outs[j] = [torch.empty(local + list(c.shape),
+                                           dtype=c.dtype, device=devices[j])
+                               for c in cut]
+                for buf, c in zip(outs[j], cut):
+                    buf[tuple(at)].copy_(c)
+        leaves = [QuantizedArray(*o) if quantized else o[0]
+                  for o in outs]
+        return leaves, sharding
+
+    specs = shd.param_specs(cfg)
+    shards = [{} for _ in range(n)]
+    shardings = {}
+
+    def walk(tree, spec_tree, outs, sh_out):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                sub = [o.setdefault(k, {}) for o in outs]
+                walk(v, spec_tree[k], sub, sh_out.setdefault(k, {}))
+            else:
+                leaves, sh_out[k] = build(k, v, spec_tree[k])
+                for o, leaf in zip(outs, leaves):
+                    o[k] = leaf
+
+    walk(plan, specs, shards, shardings)
+    return shd.ShardedParams(shards, shardings)

@@ -48,6 +48,13 @@ replica) over ``--pd-ratio P:D|auto`` (sized by
 ``autosize.pd_worker_roles``, with ``--pd-prompt-rate`` and
 ``--pd-decode-rate``) over a uniform ``--role``;
 ``--pd-prefill-nice`` lowers the prefill workers' CPU priority.
+
+Tensor parallelism: ``--tp N`` splits every replica's weights (heads,
+d_ff, experts, vocab) and KV pool (kv heads) over N shards that one
+process drives (parallel/tp.py); shard i of replica r serves on
+``cuda:{(r * N + i) % device_count}``, so on one card every shard shares
+it, and ``--num-pages``/``--max-batch-size`` must then be integers.
+``--sp``/``--sp-attn`` are parsed and refused (ROADMAP 1.16b).
 """
 
 from __future__ import annotations
@@ -306,6 +313,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chaos-step-wedge-s", type=float, default=0.0,
                    help="engine fault injection: each dispatch sleeps "
                         "this long first (exercises the step watchdog)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: weights and the KV pool "
+                        "split over this many shards (experts too, for "
+                        "Mixtral), driven by one process; shard i on "
+                        "cuda:{i %% device_count} (one card: all share "
+                        "it)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree (parsed; only 1 is "
+                        "served, ROADMAP 1.16b)")
+    p.add_argument("--sp-attn", default="ring",
+                   choices=("ring", "ulysses"),
+                   help="sequence-parallel algorithm (with --sp > 1, "
+                        "ROADMAP 1.16b)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas, each with its own "
                         "weights, KV pool and scheduler; replica i on "
@@ -473,6 +493,13 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         p.error(f"--num-pages/--max-batch-size auto with --dp {args.dp}: "
                 "replicas on one card would each size themselves from "
                 "the whole card; pass integers")
+    if args.tp > 1 and "auto" in (args.num_pages, args.max_batch_size) \
+            and shards_share_a_card(args.device, args.tp):
+        # The sizing takes weights/tp per card; shards on one card hold
+        # the whole model there.
+        p.error(f"--num-pages/--max-batch-size auto with --tp {args.tp}: "
+                "the tp shards share a card, so a card holds more than "
+                "weights/tp; pass integers")
     try:
         max_batch_size, num_pages = autosize.resolve_sizing_args(args)
         decode_ladder = autosize.parse_decode_ladder(args.decode_ladder,
@@ -512,7 +539,7 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         optimistic_headroom_pages=args.optimistic_headroom_pages,
         preempt_watermark_pages=args.preempt_watermark_pages,
         preempt_max_per_request=args.preempt_max_per_request,
-        max_new_tokens=args.max_new_tokens,
+        max_new_tokens=args.max_new_tokens, sp_attn=args.sp_attn,
         spec_mode="ngram" if spec_mode == "ngram" else "draft",
         ngram_window=args.ngram_window,
         num_speculative_tokens=(args.num_speculative_tokens
@@ -522,6 +549,16 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         chaos_step_wedge_s=args.chaos_step_wedge_s,
         step_ledger_depth=args.step_ledger_depth,
         slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms)
+
+
+def shards_share_a_card(device, tp: int) -> bool:
+    """Whether ``tp`` shards on ``device`` land on fewer cards than tp
+    (they wrap onto the visible cards; the CPU counts as one)."""
+    import torch
+
+    if str(device).split(":")[0] != "cuda":
+        return True
+    return torch.cuda.device_count() < tp
 
 
 def worker_roles_from_args(args) -> tuple:
@@ -633,6 +670,10 @@ def boot_server(args, p: argparse.ArgumentParser):
     if args.autoscale and not (args.slo_ttft_ms or args.slo_tpot_ms):
         p.error("--autoscale needs an SLO target to scale on: set "
                 "--slo-ttft-ms and/or --slo-tpot-ms")
+    if args.sp > 1:
+        p.error(f"--sp {args.sp}: sequence parallelism (ring / Ulysses "
+                "prefill) is not ported yet (ROADMAP 1.16b); the port "
+                "serves --tp")
     if args.fleet == "subprocess" and args.check_numerics:
         p.error("--check-numerics needs the in-process fleet (the "
                 "workers load their own weights)")
@@ -645,7 +686,8 @@ def boot_server(args, p: argparse.ArgumentParser):
         checkpoint=args.checkpoint, warmup=not args.no_warmup,
         device=args.device, seed=args.seed, draft_model=args.draft_model,
         draft_checkpoint=args.draft_checkpoint, enable_debug=args.debug,
-        server_overrides=server_overrides(args), dp=args.dp, **engine_args)
+        server_overrides=server_overrides(args), dp=args.dp, tp=args.tp,
+        sp=args.sp, **engine_args)
     if args.check_numerics:
         for engine in server.group.engines:
             engine.check_numerics()
@@ -667,7 +709,7 @@ def main(argv=None) -> None:
           f"ladder={list(server.engine.ladder)}, "
           f"pages={engine_args['num_pages']}, "
           f"step_ledger={engine_args['step_ledger_depth']}, "
-          f"dp={args.dp} fleet={args.fleet})",
+          f"dp={args.dp} tp={args.tp} fleet={args.fleet})",
           flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())

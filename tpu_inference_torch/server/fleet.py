@@ -131,8 +131,8 @@ from tpu_inference_torch.server.replicas import (_RETRYABLE, FleetSaturated,
                                                  FleetUnavailable,
                                                  _clone_request,
                                                  aggregate_replica_stats,
-                                                 replica_device,
-                                                 routing_digests)
+                                                 routing_digests,
+                                                 shard_devices)
 from tpu_inference_torch.server.transport import (ChaosPolicy,
                                                   ChaosTransport, FrameError,
                                                   recv_frame, send_frame)
@@ -807,10 +807,15 @@ class ProcessEngineGroup:
     # ----------------------------------------------------------- spawn
 
     def _envelope(self, replica: int) -> dict:
+        tp = max(1, self.cfg.parallel.tp)
+        devices = shard_devices(self.device, replica, tp)
         env = {
             "config": framework_config_to_dict(self.cfg),
-            # The worker builds on exactly this device.
-            "device": str(replica_device(self.device, replica)),
+            # The worker builds on exactly this device; at tp > 1 its
+            # shards on these (as the in-process group's), the degree
+            # being the config's parallel.tp.
+            "device": str(devices[0]),
+            "devices": [str(d) for d in devices] if tp > 1 else None,
             "warmup": self.cfg.server.warmup,
             # The one field that differs between replicas: this worker's
             # phase role, and the prefill tier's nice increment.

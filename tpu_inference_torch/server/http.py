@@ -98,17 +98,17 @@ class HTTPError(Exception):
 
 def check_server_config(cfg: FrameworkConfig) -> None:
     """Raise for server configurations the port does not serve:
-    NotImplementedError naming the ROADMAP item, ValueError for a fleet
-    backend that does not exist or P/D roles outside the process fleet.
-    dp > 1 is served by both backends at tp = sp = 1, and
+    NotImplementedError naming the ROADMAP item (sp > 1), ValueError for
+    a fleet backend that does not exist or P/D roles outside the process
+    fleet. dp replicas of tp shards are served by both backends, and
     ``kv_plane="shm"`` by both (the in-process fleet, which moves no KV
     between processes, rides the relay plane, as in the reference)."""
     pcfg, scfg = cfg.parallel, cfg.server
-    if pcfg.tp * pcfg.sp > 1:
+    if pcfg.sp > 1:
         raise NotImplementedError(
-            f"dp/tp/sp = {pcfg.dp}/{pcfg.tp}/{pcfg.sp}: tensor and "
-            "sequence parallelism are not ported yet (ROADMAP 1.16); the "
-            "port serves dp replicas of tp = sp = 1")
+            f"dp/tp/sp = {pcfg.dp}/{pcfg.tp}/{pcfg.sp}: sequence "
+            "parallelism is not ported yet (ROADMAP 1.16b); the port "
+            "serves dp replicas of tp shards")
     if scfg.fleet not in ("in-process", "subprocess"):
         raise ValueError(f"unknown fleet backend {scfg.fleet!r}; one of "
                          "('in-process', 'subprocess')")
@@ -127,14 +127,18 @@ def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,
     """The dp replica fleet of ``cfg``: ``fleet="in-process"`` builds dp
     engines in this process behind an EngineGroup, replica i on
     ``replica_device(device, i)`` (``cuda:{i % device_count}``: on one
-    card every replica shares it) with the weights of
-    ``cfg.checkpoint_path`` or random ones from ``cfg.seed``;
-    ``"subprocess"`` returns a ProcessEngineGroup router that spawns one
-    worker process per replica at start() (each loads its own weights,
-    so a draft model is refused there, as in the reference)."""
+    card every replica shares it), at tp > 1 over its own tp mesh
+    (``shard_devices``: the twin of the reference's per-replica
+    submesh), with the weights of ``cfg.checkpoint_path``
+    (streamed shard by shard onto the replica's mesh) or random ones
+    from ``cfg.seed``; ``"subprocess"`` returns a ProcessEngineGroup
+    router that spawns one worker process per replica at start() (each
+    loads its own weights, so a draft model is refused there, as in the
+    reference)."""
     from tpu_inference_torch.engine.engine import resolve_device
     from tpu_inference_torch.models.weights import load_checkpoint
-    from tpu_inference_torch.server.replicas import replica_device
+    from tpu_inference_torch.parallel.mesh import build_mesh
+    from tpu_inference_torch.server.replicas import shard_devices
 
     check_server_config(cfg)
     if cfg.server.fleet == "subprocess":
@@ -145,19 +149,23 @@ def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,
                 "params; use spec_mode='ngram' or the in-process fleet)")
         from tpu_inference_torch.server.fleet import ProcessEngineGroup
         return ProcessEngineGroup(cfg, device=device)
-    engines = []
+    engines, tp = [], max(1, cfg.parallel.tp)
     for i in range(max(1, cfg.parallel.dp)):
-        dev = resolve_device(replica_device(device, i))
+        devices = shard_devices(device, i, tp)
+        mesh = (build_mesh(ParallelConfig(tp=tp), devices=devices)
+                if tp > 1 else None)
+        dev = resolve_device(devices[0])
 
-        def load(mcfg, path, dev=dev):
+        def load(mcfg, path, dev=dev, mesh=mesh):
             return (load_checkpoint(mcfg, path, quant=cfg.engine.quant,
-                                    device=dev) if path else None)
+                                    device=dev, mesh=mesh)
+                    if path else None)
 
         engines.append(InferenceEngine(
             cfg.model, cfg.engine,
             params=load(cfg.model, cfg.checkpoint_path), seed=cfg.seed,
             device=dev, draft_cfg=draft_cfg,
-            draft_params=load(draft_cfg, draft_checkpoint)))
+            draft_params=load(draft_cfg, draft_checkpoint), mesh=mesh))
     return EngineGroup(engines, cfg.server)
 
 
@@ -985,6 +993,7 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
                  draft_checkpoint: Optional[str] = None,
                  enable_debug: bool = False,
                  server_overrides: Optional[dict] = None, dp: int = 1,
+                 tp: int = 1, sp: int = 1,
                  **engine_overrides) -> InferenceServer:
     """Convenience constructor used by the CLI, tests and chip_smoke.py.
 
@@ -998,7 +1007,8 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
     fields (``quant``, ``kv_quant``, ``spec_mode``, ...),
     ``server_overrides`` ServerConfig fields (``step_watchdog_s``,
     ``quarantine_after_failures``, ``fleet``, ...); ``dp`` replicas
-    (``fleet="subprocess"``: one worker process each)."""
+    (``fleet="subprocess"``: one worker process each) of ``tp`` shards
+    each (``sp`` > 1 raises NotImplementedError, ROADMAP 1.16b)."""
     import os
 
     from tpu_inference_torch.engine.autosize import (
@@ -1023,7 +1033,7 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
     cfg = FrameworkConfig(
         model=model_cfg,
         engine=EngineConfig(**engine_overrides),
-        parallel=ParallelConfig(dp=dp),
+        parallel=ParallelConfig(dp=dp, tp=tp, sp=sp),
         server=ServerConfig(model_name=model, tokenizer=tokenizer,
                             warmup=warmup, enable_debug=enable_debug,
                             **(server_overrides or {})),

@@ -191,6 +191,13 @@ def replica_device(device, replica: int) -> torch.device:
     return torch.device("cuda", replica % n) if n else dev
 
 
+def shard_devices(device, replica: int, tp: int) -> list:
+    """The devices of replica ``replica``'s ``tp`` shards: replica_device
+    of ``replica * tp + i``, so shards wrap onto the visible cards as
+    replicas do (one card: every shard of every replica shares it)."""
+    return [replica_device(device, replica * tp + i) for i in range(tp)]
+
+
 # Finish reasons a zero-delivery request may be resubmitted after.
 _RETRYABLE = ("error",)
 

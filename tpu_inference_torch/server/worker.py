@@ -160,11 +160,14 @@ class EngineWorker:
     """One replica's engine and scheduler behind the RPC socket."""
 
     def __init__(self, cfg, replica: int, socket_path: str, device: str,
-                 warmup: bool = True):
+                 warmup: bool = True, devices=None):
+        """``devices``: the tp shards' devices (at tp > 1; the first is
+        ``device``)."""
         self.cfg = cfg
         self.replica = replica
         self.socket_path = socket_path
         self.device = device
+        self.devices = list(devices or ())
         # Phase role: a "prefill" worker hands each settled prefill off.
         self.role = cfg.engine.role
         self.do_warmup = warmup
@@ -263,13 +266,21 @@ class EngineWorker:
 
         cfg = self.cfg
         dev = resolve_device(self.device)
+        mesh = None
+        if len(self.devices) > 1:
+            # This replica's tp shards, driven by this process.
+            from tpu_inference_torch.config import ParallelConfig
+            from tpu_inference_torch.parallel.mesh import build_mesh
+            mesh = build_mesh(ParallelConfig(tp=len(self.devices)),
+                              devices=self.devices)
         params = None
         if cfg.checkpoint_path:
             from tpu_inference_torch.models.weights import load_checkpoint
             params = load_checkpoint(cfg.model, cfg.checkpoint_path,
-                                     quant=cfg.engine.quant, device=dev)
+                                     quant=cfg.engine.quant, device=dev,
+                                     mesh=mesh)
         self.engine = InferenceEngine(cfg.model, cfg.engine, params=params,
-                                      seed=cfg.seed, device=dev)
+                                      seed=cfg.seed, device=dev, mesh=mesh)
         self.sched = EngineScheduler(self.engine)
         self.engine.telemetry.recorder.replica = self.replica
         if self.role == "prefill":
@@ -340,8 +351,11 @@ class EngineWorker:
         srv.listen(4)
         srv.settimeout(0.25)
         self.boot()
+        shards = (f", tp {len(self.devices)} on "
+                  f"{','.join(str(d) for d in self.devices)}"
+                  if self.engine.mesh is not None else "")
         print(f"[worker {self.replica}] pid={os.getpid()} serving on "
-              f"{self.socket_path} ({self.engine.device})",
+              f"{self.socket_path} ({self.engine.device}{shards})",
               file=sys.stderr, flush=True)
         while not self._shutdown.is_set():
             if os.getppid() != self._parent_pid:
@@ -719,6 +733,10 @@ class EngineWorker:
                     sorted(prefill_attention.launches_by_len.items())},
                 "prefill_by_path": dict(
                     sorted(prefill_attention.launches_by_path.items()))},
+            # By a tp shard's "Hq/Hkv" (the full heads at tp 1).
+            "kernels_by_heads": {
+                "decode": dict(paged_attention.launches_by_heads),
+                "prefill": dict(prefill_attention.launches_by_heads)},
             "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else 0),
             "fabric": {"published_pages": self.engine.fabric_published_pages,
@@ -1089,7 +1107,8 @@ def main() -> None:
     worker = EngineWorker(cfg, replica=args.replica,
                           socket_path=args.socket,
                           device=envelope["device"],
-                          warmup=bool(envelope.get("warmup", True)))
+                          warmup=bool(envelope.get("warmup", True)),
+                          devices=envelope.get("devices"))
     # This worker's arena region (the shm plane) and the fabric pool's
     # free pages at boot (publish back-pressure).
     worker.attach_arena(envelope.get("shm"))
