@@ -259,7 +259,8 @@ failing loudly (any failure exits non-zero before the result line):
    kernels launched at the shard's heads only, pools clean; tiny-llama
    with int8 weights over an int8 pool and grouped int4 weights over an
    int4 pool at tp 2, and a pipelined decode (depth 2) at tp 2. (c)
-   ``--model llama-3-8b --tp 2`` bf16 at all 32 layers, booted by
+   ``--model llama-3-8b --tp 2`` bf16 at CUT_LAYERS (it ran all 32
+   layers until the sp phase joined the script's time), booted by
    _serve_cli: the first step's logits against a tp 1 engine's on the
    same seeded weights, gated twice (tp_serve_phase: in float32 within
    max(1e-4 of the largest |logit|, 4 x float32's own M noise), and in
@@ -271,6 +272,37 @@ failing loudly (any failure exits non-zero before the result line):
    2 on the subprocess fleet (_tp_fleet_tiny): the dp-1 sha, every
    worker's kernels at its shards' heads. The tp lanes' launches join
    the kernels line.
+12. Sequence parallelism, pipeline stages and several processes
+   (sp_phase, after the tp phase; every sp slice on the one card, back
+   to back). (a) tiny-llama-fatkv and tiny-mistral (float32, kernel
+   backend) at SP_TINY's meshes: ring at sp 2 and 4, Ulysses at sp 2,
+   tp 2 x sp 2 with both, the window dialect under each, int8 KV at tp
+   2 x sp 2: greedy tokens equal sp 1's, every fresh single-chunk prompt
+   on the sp path (the engine's prefill_paths), a prompt over a cached
+   prefix on the prefill kernel, pools clean. (b) ring at sp 2 and 4
+   and Ulysses at sp 2 at Llama-3-8B's heads, S 4096, bf16 and float32,
+   within check_close of dense attention, their device ms beside dense
+   attention's and the prefill kernel's on the same fresh prompt (not
+   kernels of the repo: logged, not in the kernels line). (c) ``--model
+   llama-3-8b --sp 2 --sp-attn ring`` bf16 at 32 layers through the
+   CLI, buckets to 4096: the first-step logits of a 4096-token prompt
+   against tp 1 x sp 1's under the tp lanes' rule, then four fresh
+   prompts of 2048-4095 tokens at once (the sp path) and one over a
+   cached prefix (the prefill kernel): every request "length" with its
+   48 tokens, both kernels in bf16 only; the prompt's prefill wall
+   beside sp 1's. (d) the same for ``--tp 2 --sp 2 --sp-attn ulysses``
+   with int8 weights and int8 KV at CUT_LAYERS (held against sp 1 over a
+   float pool: the sp prefill attends its raw K/V, as the reference's).
+   (e) pp_forward of llama-3-8b at 32 layers, pp 2 and 4, 4
+   micro-batches of 512 tokens, against the unsharded forward (float32
+   within max(1e-4 of the largest |logit|, 4 x its M noise), bf16 within
+   twice its own error against float32). (f) two processes of this
+   script (``--multihost-worker``) join through ``initialize(...,
+   backend="gloo")`` on a TCP store, build the dp 2 hybrid mesh over
+   their cuda:0, all_reduce a sum computed on the card (32), row 0's
+   process alone hosts the frontend, each serves its row: tokens equal
+   each other's and one process's. The sp lanes' launches join the
+   kernels line.
 
 Then it prints one JSON line {"kernels": [...]} (one entry per kernel
 variant), the card line, and as the last line {"ok": true, "device":
@@ -2269,10 +2301,10 @@ def _summarize(results: list, wall: float) -> dict:
             "prompt_tokens": [r["prompt_tokens"] for r in results]}
 
 
-# Every llama-3-8b lane but the bf16 main path, the draft lane and the
-# fabric lane's shm arm, and the Mixtral lane, serve their model at full
-# width cut to this many of its 32 layers (their host-bound walls scale with the
-# layers; the script must stay well inside its time limit).
+# Every llama-3-8b lane but the bf16 main path, the draft lane and the sp
+# phase's ring lane, and the Mixtral lane, serve their model at full
+# width cut to this many of its 32 layers (their host-bound walls scale
+# with the layers; the script must stay well inside its time limit).
 CUT_LAYERS = 8
 
 
@@ -5005,7 +5037,7 @@ TP_HEADS = {2: (16, 4, 128), 4: (8, 2, 128)}
 TP_TINY = (("tiny_llama", (2,)), ("tiny_llama_fatkv", (2, 4)),
            ("tiny_mixtral", (2,)), ("tiny_gpt2", (2, 4)))
 # The full-width lanes: (label, quant, kv_quant, variant, layers cut).
-TP_LANES = (("tp2 bf16", "none", "none", "bf16", None),
+TP_LANES = (("tp2 bf16", "none", "none", "bf16", CUT_LAYERS),
             ("tp2 int8 weights + int8 KV", "int8", "int8", "int8",
              CUT_LAYERS))
 
@@ -5317,6 +5349,9 @@ def tp_phase(card: str) -> dict:
                                     else ""))
     out["lanes"] = []
     for label, quant, kv_quant, variant, cut in TP_LANES:
+        if cut:
+            log(f"tp lane [{label}]: llama-3-8b cut to {cut} of its 32 "
+                "layers (the script's time limit)")
         t = time.perf_counter()
         with (_depth_cut("llama-3-8b", cut) if cut
               else contextlib.nullcontext()):
@@ -5332,6 +5367,588 @@ def tp_phase(card: str) -> dict:
             f"{json.dumps(mp['launches_by_variant'])}; by shard heads "
             f"{json.dumps(mp['launches_by_heads'])}")
         out["lanes"].append(mp)
+    out["walls_s"] = walls
+    return out
+
+
+# The sp phase's tiny engines: (preset, tp, sp, sp_attn, kv_quant).
+SP_TINY = (("tiny_llama_fatkv", 1, 2, "ring", "none"),
+           ("tiny_llama_fatkv", 1, 4, "ring", "none"),
+           ("tiny_llama_fatkv", 1, 2, "ulysses", "none"),
+           ("tiny_llama_fatkv", 2, 2, "ring", "none"),
+           ("tiny_llama_fatkv", 2, 2, "ulysses", "none"),
+           ("tiny_mistral", 1, 2, "ring", "none"),
+           ("tiny_mistral", 1, 2, "ulysses", "none"),
+           ("tiny_llama_fatkv", 2, 2, "ring", "int8"))
+# (b): the sp attention against dense attention at Llama-3-8B's heads.
+SP_ATTN_CASES = (("ring", 2), ("ring", 4), ("ulysses", 2))
+SP_ATTN_S = 4096
+# The full-width lanes: (label, quant, kv_quant, variant, tp, sp, sp_attn,
+# layers cut).
+SP_LANES = (("sp2 ring bf16", "none", "none", "bf16", 1, 2, "ring", None),
+            ("tp2 x sp2 ulysses int8 weights + int8 KV", "int8", "int8",
+             "int8", 2, 2, "ulysses", CUT_LAYERS))
+# Buckets and table width of the sp lanes: a 4096-token prompt prefills
+# in one chunk (the sp path takes single-chunk prompts only).
+SP_BUCKETS = (512, 1024, 2048, 4096)
+SP_MAX_PAGES = 272                      # 4352 tokens of context at page 16
+
+
+def _sp_mesh(tp: int, sp: int):
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.parallel import build_mesh
+    return build_mesh(cfgs.ParallelConfig(tp=tp, sp=sp))
+
+
+def sp_tiny_phase() -> list:
+    """(a) Tiny float32 engines on the card (kernel backend): greedy
+    tokens at each SP_TINY mesh equal sp 1's on the same weights; every
+    fresh single-chunk prompt counted on the sp path (the engine's
+    prefill_paths) and no other; then, where the prefix cache is on, a
+    prompt over a cached prefix served by the prefill kernel (paged
+    path, launches counted); pools clean."""
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    from tpu_inference_torch.models.registry import build_model
+
+    base = cfgs.EngineConfig(page_size=8, num_pages=96, max_pages_per_seq=16,
+                             max_batch_size=4, prefill_buckets=(16, 32, 128),
+                             decode_steps_per_call=4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 12, 27, 100)]
+    done = []
+    for preset, tp, sp, attn, kv_quant in SP_TINY:
+        mcfg = tiny_config(preset)
+        ecfg = dataclasses.replace(base, kv_quant=kv_quant, sp_attn=attn)
+        params, _ = build_model(mcfg, seed=SEED, device="cuda")
+
+        def engine(tp_: int, sp_: int):
+            return InferenceEngine(mcfg, ecfg, params=params,
+                                   attn_backend="kernel", device="cuda",
+                                   mesh=(_sp_mesh(tp_, sp_)
+                                         if tp_ * sp_ > 1 else None))
+
+        want = engine(1, 1).generate(prompts, max_new_tokens=12)
+        label = (f"sp {mcfg.name} tp {tp} x sp {sp} {attn} "
+                 f"kv_quant={kv_quant}")
+        eng = engine(tp, sp)
+        got = eng.generate(prompts, max_new_tokens=12)
+        if got != want:
+            raise AssertionError(f"{label}: greedy tokens differ from sp 1: "
+                                 f"{got} vs {want}")
+        fresh = {f"sp_{attn}": len(prompts)}
+        if eng.prefill_paths != fresh:
+            raise AssertionError(f"{label}: prefill chunks by path "
+                                 f"{eng.prefill_paths}; every fresh prompt "
+                                 f"must take the sp path ({fresh})")
+        cached = None
+        if eng.prefix_cache is not None:
+            # The longest prompt's pages are cached now: a prompt over
+            # them prefills its tail through the prefill kernel.
+            seq = Sequence(request_id=99, prompt_tokens=prompts[3][:96]
+                           + [1, 2, 3], max_new_tokens=4)
+            n0 = pfa.launches
+            eng.prefill(seq)
+            while not seq.done:
+                eng.decode_steps()
+            eng.release(seq)
+            cached = {"cached_tokens": seq.cached_tokens,
+                      "prefill_launches": pfa.launches - n0,
+                      "paths": dict(eng.prefill_paths)}
+            if (seq.cached_tokens <= 0 or cached["prefill_launches"] <= 0
+                    or eng.prefill_paths.get("paged") != 1):
+                raise AssertionError(f"{label}: the cached-prefix prompt "
+                                     f"did not take the prefill kernel: "
+                                     f"{cached}")
+        eng.check_pool_clean()
+        log(f"engine {label}: tokens identical to sp 1 "
+            f"({sum(len(t) for t in want)} tokens), prefill chunks by path "
+            f"{json.dumps(fresh)}, cached prefix {json.dumps(cached)}, "
+            "pool clean")
+        done.append({"label": label, "paths": fresh, "cached": cached})
+    return done
+
+
+def sp_attention_cases() -> list:
+    """(b) Ring at sp 2 and 4 and Ulysses at sp 2 (every slice on the one
+    card) at Llama-3-8B's heads (Hq 32, Hkv 8, D 128), S SP_ATTN_S, bf16
+    and float32, each within check_close of dense_causal_attention on
+    the same inputs; device times beside dense attention's and the
+    prefill kernel's on a fresh prompt of the same length (prefill_case:
+    q_offset 0, kv_len S, checked against its plain version too). These
+    are evidence, not kernels of the repo's table."""
+    from tpu_inference_torch.kernels.ring_attention import (
+        ring_attention_local, seq_sharded_call)
+    from tpu_inference_torch.kernels.ulysses_attention import (
+        ulysses_attention_local)
+    from tpu_inference_torch.models.common import dense_causal_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    hq, hkv, d = LLAMA_HEADS
+    s = SP_ATTN_S
+    bodies = {"ring": ring_attention_local,
+              "ulysses": ulysses_attention_local}
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, s, hq, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((1, s, hkv, d), generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn((1, s, hkv, d), generator=gen,
+                        device="cuda").to(dtype)
+        want = dense_causal_attention(q, k, v)
+        dense_ms = time_ms(lambda: dense_causal_attention(q, k, v), iters=5)
+        kernel = prefill_case(f"prefill fresh S {s}", s, [0], [s], 0, dtype,
+                              flush, gen)
+        for attn, sp in SP_ATTN_CASES:
+            devs = [torch.device("cuda", 0)] * sp
+
+            def run():
+                return seq_sharded_call(bodies[attn], q, k, v, devs)
+
+            name = f"{attn} sp {sp} S {s}"
+            err, rel = check_close(name, run(), want, dtype)
+            out.append({"name": name, "dtype": str(dtype)[6:],
+                        "shape": {"B": 1, "S": s, "Hq": hq, "Hkv": hkv,
+                                  "D": d, "sp": sp},
+                        "max_abs_err": err, "err_over_scale": rel,
+                        "ms": time_ms(run, iters=5), "dense_ms": dense_ms,
+                        "prefill_kernel_ms": kernel["ms"],
+                        "prefill_kernel_path": kernel["path"],
+                        "prefill_kernel_max_abs_err": kernel["max_abs_err"]})
+        del q, k, v, want
+    del flush
+    return out
+
+
+def _sp_reference_logits(mcfg, quant: str, kv_quant: str, prompt: list,
+                         tp: int, sp: int, sp_attn: str) -> dict:
+    """The first-step logits (and first tokens, and the prefill's wall)
+    an sp lane is held against, on the seeded weights the CLI builds:
+    ``bf16`` at tp 1 x sp 1 (the wall of its second, warm run); then
+    those weights widened to float32 at tp 1 x sp 1, the same with the
+    prompt in a 16-row-larger bucket (only the GEMMs' M changes:
+    float32's own noise), and at the lane's tp x sp (``f32``, ``f32_m``,
+    ``f32_sp``). A fresh prompt's sp prefill attends its raw K/V, not
+    the pool (as the reference's), so the tp 1 x sp 1 engines run over a
+    float pool: a quantized pool would put its codes' error into the
+    references' first step and not into the lane's."""
+    import gc
+
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.models.registry import build_model
+
+    n = len(prompt)
+
+    def first(cfg, params, bucket=SP_BUCKETS[-1], tp_=1, sp_=1,
+              repeat: int = 1) -> tuple:
+        eng = InferenceEngine(cfg, cfgs.EngineConfig(
+            page_size=16, num_pages=SP_MAX_PAGES + 8,
+            max_pages_per_seq=SP_MAX_PAGES, max_batch_size=8, quant=quant,
+            kv_quant=kv_quant if tp_ * sp_ > 1 else "none",
+            prefill_buckets=(bucket,), sp_attn=sp_attn,
+            enable_prefix_cache=False),
+            params=params, device="cuda",
+            mesh=_sp_mesh(tp_, sp_) if tp_ * sp_ > 1 else None)
+        for _ in range(repeat):
+            logits, token, _, _, _, wall = _first_step(eng, prompt)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return logits, token, wall
+
+    params, _ = build_model(mcfg, seed=SEED, device="cuda", quant=quant)
+    out = {"bf16": first(mcfg, params, repeat=2)}
+    wide = _widen(params)
+    del params
+    gc.collect()
+    f32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    out["f32"] = first(f32, wide)
+    out["f32_m"] = first(f32, wide, bucket=n + 16)
+    out["f32_sp"] = first(f32, wide, tp_=tp, sp_=sp)
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_prompts() -> list:
+    """Four fresh prompts of 2048-4095 tokens (byte tokenizer: n bytes ->
+    n + 1 tokens), distinct from their first bytes on, then one sharing
+    the third's first 3000 bytes (187 full pages cached after it
+    finishes)."""
+    import numpy as np
+    words = []
+    for i, n in enumerate((2047, 2600, 3300, 4094)):
+        rng = np.random.default_rng(SEED + 40 + i)
+        words.append("".join(chr(97 + c) for c in
+                             rng.integers(0, 26, size=n)))
+    tail = "".join(chr(65 + c) for c in
+                   np.random.default_rng(SEED + 50).integers(0, 26, 700))
+    return words + [words[2][:3000] + tail]
+
+
+def sp_serve_phase(label: str, quant: str, kv_quant: str, variant: str,
+                   tp: int, sp: int, sp_attn: str, card: str) -> dict:
+    """(c)/(d) llama-3-8b at full width through the CLI (``--sp 2
+    --sp-attn ...``, buckets up to 4096 and a table of SP_MAX_PAGES
+    pages), its first-step logits on a 4096-token prompt held against tp
+    1 x sp 1's on the same seeded weights under the tp lanes' rule
+    (float32 within max(TOL float32 x the largest |logit|, 4 x float32's
+    own M noise); bf16 within 2 x tp 1 x sp 1's own bf16 error against
+    float32). Then four fresh prompts of 2048-4095 tokens at once and one
+    over a cached prefix: every request "length" with its 48 tokens, the
+    fresh ones on the sp path, the cached one on the prefill kernel (the
+    engine's prefill_paths), both kernels launched in the lane's variant
+    only. The prefill walls of the 4096-token prompt alone (sp 1 vs the
+    lane) are recorded beside the requests' TTFTs. The server is freed
+    after."""
+    import gc
+
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+
+    mcfg = cfgs.PRESETS["llama-3-8b"]()
+    prompt = np.random.default_rng(SEED + 3).integers(
+        0, mcfg.vocab_size, size=SP_BUCKETS[-1]).tolist()
+    allocated_before = _free_card(label)
+    t0 = time.perf_counter()
+    refs = _sp_reference_logits(mcfg, quant, kv_quant, prompt, tp, sp,
+                                sp_attn)
+    refs_s = time.perf_counter() - t0
+    f32, scale32 = refs["f32"][0], refs["f32"][0].abs().max().item()
+    noise = _max_diff(refs["f32_m"][0], f32)
+    diff_f32 = _max_diff(refs["f32_sp"][0], f32)
+    limit_f32 = max(TOL[torch.float32] * scale32, 4 * noise)
+    want = refs["bf16"][0]
+    bf16_err = _max_diff(want, f32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server, engine_args = _serve_cli([
+        "--model", "llama-3-8b", "--tp", str(tp), "--sp", str(sp),
+        "--sp-attn", sp_attn, "--quant", quant, "--kv-quant", kv_quant,
+        "--num-pages", "1536", "--max-pages-per-seq", str(SP_MAX_PAGES),
+        "--prefill-buckets", ",".join(map(str, SP_BUCKETS)),
+        "--max-batch-size", "8", "--host-cache-pages", "0",
+        "--seed", str(SEED), "--debug"])
+    try:
+        eng = server.engine
+        if (eng.tp, eng.sp) != (tp, sp):
+            raise AssertionError(f"{label}: engine tp {eng.tp} sp {eng.sp}")
+        got, first_sp, _, _, _, sp_wall = _first_step(eng, prompt)
+        diff = _max_diff(got, want)
+        scale = want.abs().max().item()
+        gates = {
+            "f32_max_abs_diff": diff_f32, "f32_limit": limit_f32,
+            "f32_max_abs_logit": scale32, "f32_m_noise": noise,
+            "bf16_max_abs_diff": diff, "bf16_max_abs_logit": scale,
+            "bf16_over_max_logit": diff / scale,
+            "bf16_sp1_err_vs_f32": bf16_err, "bf16_limit": 2 * bf16_err,
+            "first_tokens": {"bf16_sp1": refs["bf16"][1], "bf16_sp":
+                             first_sp, "f32_sp1": refs["f32"][1],
+                             "f32_sp": refs["f32_sp"][1]}}
+        log(f"[{label}] first-step logits on a {len(prompt)}-token prompt, "
+            f"tp {tp} x sp {sp} {sp_attn} vs tp 1 x sp 1: float32 max "
+            f"|diff| {diff_f32:.4g} (limit {limit_f32:.4g}; max |logit| "
+            f"{scale32:.4g}, float32 M noise {noise:.4g}); bf16 max |diff| "
+            f"{diff:.4g}, max |logit| {scale:.4g} ({diff / scale:.4g} of "
+            f"it; limit 2 x sp 1's bf16 error against float32 "
+            f"{bf16_err:.4g}); first tokens "
+            f"{json.dumps(gates['first_tokens'])}")
+        if not diff_f32 <= limit_f32:
+            raise AssertionError(f"{label}: float32 first-step logits off "
+                                 f"by {diff_f32:.4g} (limit "
+                                 f"{limit_f32:.4g})")
+        if not diff <= 2 * bf16_err:
+            raise AssertionError(f"{label}: bf16 first-step logits off by "
+                                 f"{diff:.4g}, over twice sp 1's own bf16 "
+                                 f"error {bf16_err:.4g}")
+        port = server.start(port=0)
+        boot_s = time.perf_counter() - t0
+        max_tokens = 48
+        prompts = _sp_prompts()
+        pa.reset_counts()
+        pfa.reset_counts()
+        eng.prefill_paths.clear()
+        results, wall = run_requests(port, prompts[:4], max_tokens)
+        fresh_paths = dict(eng.prefill_paths)
+        cached, _ = run_requests(port, prompts[4:], max_tokens)
+        results += cached
+        counts = _check_variant(label, variant)
+        paths = dict(eng.prefill_paths)
+        want_paths = {f"sp_{sp_attn}": 4, "paged": 1}
+        if fresh_paths != {f"sp_{sp_attn}": 4} or paths != want_paths:
+            raise AssertionError(f"{label}: prefill chunks by path "
+                                 f"{fresh_paths} then {paths}; want the four "
+                                 f"fresh prompts on the sp path and the "
+                                 f"cached one paged ({want_paths})")
+        short = [r["eval_count"] for r in results
+                 if r["done_reason"] != "length"
+                 or r["eval_count"] != max_tokens]
+        if short:
+            raise AssertionError(f"{label}: requests ended short: {short}")
+        phases = engine_phases(server_stats(port))
+        serve_peak = torch.cuda.max_memory_allocated()
+        n_layers, weight_bytes = eng.model_cfg.n_layers, eng.weight_bytes
+    finally:
+        server.shutdown()
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {
+        "label": label, "model": "llama-3-8b", "layers": n_layers, "tp": tp,
+        "sp": sp, "sp_attn": sp_attn, "activations": "bfloat16",
+        "quant": quant, "kv_quant": kv_quant, "variant": variant,
+        "boot_s": boot_s, "reference_logits_s": refs_s,
+        "allocated_before_boot_bytes": allocated_before,
+        "max_memory_allocated": serve_peak, "weight_bytes": weight_bytes,
+        "logit_gates": gates, "max_tokens": max_tokens,
+        "prefill_wall_4096_s": {"sp1_bf16": refs["bf16"][2],
+                                "lane": sp_wall},
+        "prefill_paths": paths, "engine_args": {
+            k: engine_args[k] for k in ("num_pages", "max_batch_size",
+                                        "decode_ladder")},
+        **_summarize(results, wall),
+        "ttft_s": [r["ttft_s"] for r in results],
+        "launches_by_variant": counts["by_variant"],
+        "decode_launches_by_batch": counts["decode_by_batch"],
+        "prefill_launches_by_len": counts["prefill_by_len"],
+        "prefill_launches_by_path": counts["prefill_by_path"],
+        "launches_by_heads": _heads_counts(), "engine_phases": phases,
+    }
+
+
+def sp_pp_phase() -> list:
+    """(e) pp_forward of llama-3-8b at full width (32 layers) at pp 2 and
+    4, 4 micro-batches over 4 x 512 tokens, against the unsharded forward
+    with the same dense attention: float32 (weights widened) within
+    max(TOL float32 x the largest |logit|, 4 x float32's own M noise, the
+    unsharded forward micro-batch by micro-batch); bf16 within twice the
+    unsharded bf16's own error against float32."""
+    import gc
+
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.models import llama
+    from tpu_inference_torch.models.common import make_dense_attn
+    from tpu_inference_torch.models.registry import build_model
+    from tpu_inference_torch.parallel.mesh import Mesh
+    from tpu_inference_torch.parallel.pipeline import pp_forward
+
+    import numpy as np
+    mcfg = cfgs.PRESETS["llama-3-8b"]()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    toks = torch.randint(0, mcfg.vocab_size, (4, 512), generator=gen,
+                         device="cuda")
+    pos = torch.arange(512, device="cuda")[None].expand(4, 512)
+
+    def mesh(pp: int) -> Mesh:
+        devs = np.empty(pp, dtype=object)
+        devs[:] = [torch.device("cuda", 0)] * pp
+        return Mesh(devs, ("pp",))
+
+    def plain(params, cfg, rows=slice(None)):
+        with torch.no_grad():
+            out, _ = llama.forward(params, cfg, toks[rows], pos[rows], None,
+                                   make_dense_attn(cfg.sliding_window))
+        return out
+
+    def run(params, cfg) -> dict:
+        out = {"plain": plain(params, cfg)}
+        for pp in (2, 4):
+            t = time.perf_counter()
+            out[pp] = pp_forward(params, cfg, toks, pos, mesh(pp), n_micro=4)
+            torch.cuda.synchronize()
+            out[f"wall_{pp}"] = time.perf_counter() - t
+        return out
+
+    params, _ = build_model(mcfg, seed=SEED, device="cuda")
+    b16 = run(params, mcfg)
+    wide = _widen(params)
+    del params
+    gc.collect()
+    f32cfg = dataclasses.replace(mcfg, dtype=torch.float32)
+    f32 = run(wide, f32cfg)
+    f32_m = torch.cat([plain(wide, f32cfg, slice(i, i + 1))
+                       for i in range(4)])
+    del wide
+    gc.collect()
+    scale32 = f32["plain"].abs().max().item()
+    noise = _max_diff(f32_m, f32["plain"])
+    limit32 = max(TOL[torch.float32] * scale32, 4 * noise)
+    bf16_err = _max_diff(b16["plain"], f32["plain"])
+    out = []
+    for pp in (2, 4):
+        row = {"pp": pp, "n_micro": 4, "tokens": [4, 512],
+               "f32_max_abs_diff": _max_diff(f32[pp], f32["plain"]),
+               "f32_limit": limit32, "f32_m_noise": noise,
+               "f32_max_abs_logit": scale32,
+               "bf16_max_abs_diff": _max_diff(b16[pp], b16["plain"]),
+               "bf16_err_vs_f32": bf16_err, "bf16_limit": 2 * bf16_err,
+               "wall_s": {"bf16": b16[f"wall_{pp}"],
+                          "f32": f32[f"wall_{pp}"]}}
+        log(f"pp llama-3-8b pp {pp} x 4 micro-batches: float32 max |diff| "
+            f"{row['f32_max_abs_diff']:.4g} (limit {limit32:.4g}; max "
+            f"|logit| {scale32:.4g}, M noise {noise:.4g}); bf16 max |diff| "
+            f"{row['bf16_max_abs_diff']:.4g} (limit 2 x {bf16_err:.4g}); "
+            f"walls {json.dumps(row['wall_s'])}")
+        if not row["f32_max_abs_diff"] <= limit32:
+            raise AssertionError(f"pp {pp}: float32 logits off by "
+                                 f"{row['f32_max_abs_diff']:.4g}")
+        if not row["bf16_max_abs_diff"] <= 2 * bf16_err:
+            raise AssertionError(f"pp {pp}: bf16 logits off by "
+                                 f"{row['bf16_max_abs_diff']:.4g}, over "
+                                 f"twice the unsharded bf16 error")
+        out.append(row)
+    del b16, f32, f32_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# (f): the two processes' tiny engine.
+MH_ENGINE = dict(page_size=8, num_pages=32, max_pages_per_seq=4,
+                 max_batch_size=2, prefill_buckets=(16,))
+MH_PROMPTS = [[1, 2, 3, 4, 5], [9, 8, 7]]
+
+
+def _mh_tokens(mesh=None) -> list:
+    """tiny-llama (float32, kernel backend, seeded weights) on this
+    process's card: the greedy tokens of MH_PROMPTS."""
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    eng = InferenceEngine(cfgs.tiny_llama(), cfgs.EngineConfig(**MH_ENGINE),
+                          seed=SEED, attn_backend="kernel", device="cuda",
+                          mesh=mesh)
+    out = eng.generate(MH_PROMPTS, max_new_tokens=6)
+    eng.check_pool_clean()
+    return out
+
+
+def multihost_worker(coord: str, nproc: str, pid: str) -> int:
+    """One process of (f): join through initialize(..., backend="gloo")
+    (NCCL refuses two ranks on one card), build the dp 2 hybrid mesh over
+    both processes' cuda:0, all_reduce a sum computed on the card, serve
+    this process's dp row; prints one JSON line."""
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.parallel import multihost
+
+    nproc, pid = int(nproc), int(pid)
+    for _ in range(2):              # the second call is a no-op
+        multihost.initialize(coord, nproc, pid, backend="gloo",
+                             local_devices=["cuda:0"])
+    mesh = multihost.build_hybrid_mesh(cfgs.ParallelConfig(dp=2),
+                                       num_slices=2)
+    role = multihost.process_local_engine_role(mesh)
+    total = torch.ones(4, 4, device="cuda").sum().cpu()
+    torch.distributed.all_reduce(total)
+    (row, sub), = multihost.replica_meshes(mesh)
+    tokens = _mh_tokens(sub)
+    print(json.dumps({"pid": pid, "process_count": multihost.process_count(),
+                      "global_devices": len(multihost.global_devices()),
+                      "mesh_shape": mesh.shape, "all_reduce": float(total),
+                      "replica_row": row,
+                      "device": str(list(sub.devices.flat)[0]),
+                      "tokens": tokens, "role": role}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sp_multihost_phase() -> dict:
+    """(f) Two processes on the card (multihost_worker): both see two
+    global devices, the all_reduce gives 32, rank 0 alone hosts the
+    frontend, each serves its own row, and their tokens equal each
+    other's and a single-process run's."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         coord, "2", str(pid)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"multihost worker rc {p.returncode}: "
+                                     f"{err.decode()[-2000:]}")
+            outs.append(json.loads(out.decode().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    wall = time.perf_counter() - t0
+    want = _mh_tokens()
+    for rec in outs:
+        if (rec["process_count"] != 2 or rec["global_devices"] != 2
+                or rec["all_reduce"] != 32.0
+                or rec["mesh_shape"] != {"dp": 2, "tp": 1, "sp": 1}
+                or rec["role"]["local_devices_in_mesh"] != 1
+                or rec["device"] != "cuda:0"):
+            raise AssertionError(f"multihost worker saw {rec}")
+    if {r["pid"]: r["role"]["hosts_frontend"] for r in outs} != {
+            0: True, 1: False}:
+        raise AssertionError(f"multihost roles {[r['role'] for r in outs]}")
+    if sorted(r["replica_row"] for r in outs) != [0, 1]:
+        raise AssertionError("the two processes did not serve both rows")
+    if not outs[0]["tokens"] == outs[1]["tokens"] == want:
+        raise AssertionError(f"multihost tokens {outs[0]['tokens']} / "
+                             f"{outs[1]['tokens']} vs one process {want}")
+    return {"processes": 2, "wall_s": wall, "all_reduce": 32.0,
+            "tokens_equal": True, "roles": [r["role"] for r in outs]}
+
+
+def sp_phase(card: str) -> dict:
+    """Gates (a)-(f) of sequence parallelism, pipeline stages and several
+    processes (the docstring's item 12)."""
+    out, walls = {}, {}
+    for name, fn in (("tiny", sp_tiny_phase), ("attention",
+                                               sp_attention_cases)):
+        t = time.perf_counter()
+        out[name] = fn()
+        walls[name] = time.perf_counter() - t
+    for c in out["attention"]:
+        log(f"sp attention {c['name']} [{c['dtype']}]: err "
+            f"{c['max_abs_err']:.3g} ({c['err_over_scale']:.3g} of the "
+            f"largest output) ms {c['ms']:.3f}; dense attention "
+            f"{c['dense_ms']:.3f} ms; the prefill kernel on the fresh "
+            f"prompt {c['prefill_kernel_ms']:.3f} ms "
+            f"({c['prefill_kernel_path']} path)")
+    out["lanes"] = []
+    for label, quant, kv_quant, variant, tp, sp, attn, cut in SP_LANES:
+        t = time.perf_counter()
+        with (_depth_cut("llama-3-8b", cut) if cut
+              else contextlib.nullcontext()):
+            mp = sp_serve_phase(label, quant, kv_quant, variant, tp, sp,
+                                attn, card)
+        walls[label] = time.perf_counter() - t
+        per = mp["decode_tok_s_per_request"]
+        log(f"main path llama-3-8b [{label}] on {card}: {mp['layers']} "
+            f"layers, {mp['requests']} requests of "
+            f"{min(mp['prompt_tokens'])}-{max(mp['prompt_tokens'])} "
+            f"tokens, TTFT p50 {mp['ttft_p50_s']:.3f}s max "
+            f"{mp['ttft_max_s']:.3f}s; decode {min(per):.1f}-{max(per):.1f} "
+            f"tok/s per request; peak allocated "
+            f"{mp['max_memory_allocated'] / 1e9:.2f} GB; the 4096-token "
+            f"prompt's prefill alone {json.dumps(mp['prefill_wall_4096_s'])}"
+            f" s; prefill chunks by path {json.dumps(mp['prefill_paths'])}; "
+            f"launches {json.dumps(mp['launches_by_variant'])}")
+        out["lanes"].append(mp)
+    for name, fn in (("pp", sp_pp_phase), ("multihost", sp_multihost_phase)):
+        t = time.perf_counter()
+        out[name] = fn()
+        walls[name] = time.perf_counter() - t
+    log(f"multihost: {json.dumps(out['multihost'])}")
     out["walls_s"] = walls
     return out
 
@@ -5439,6 +6056,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        # One of the sp phase's two processes (sp_multihost_phase).
+        return multihost_worker(*sys.argv[2:5])
     t_all = time.perf_counter()
     # The port comes first: without it (a directory holding this script
     # alone) the run fails before printing anything.
@@ -5561,6 +6181,9 @@ def main() -> int:
     tp = timed("tp", tp_phase, card)
     for mp in tp["lanes"]:
         main_paths[mp["label"]] = mp
+    sp = timed("sp", sp_phase, card)
+    for mp in sp["lanes"]:
+        main_paths[mp["label"]] = mp
 
     entries = []
     for kind, name, src, replaces in (
@@ -5631,7 +6254,7 @@ def main() -> int:
                     "launches_by_path": _path_totals(paths)})
     # The head-sharded cases (tp_phase (a)): "launches" as the full-head
     # rows' (the variant over every main path), "launches_at_these_heads"
-    # over the tp lanes that ran the variant.
+    # over the tp and sp lanes that ran the variant.
     for kind, name, src, replaces in (
             ("decode", "paged_attention",
              "tpu_inference_torch/csrc/paged_attention.cu",
@@ -5653,7 +6276,8 @@ def main() -> int:
                                 for mp in paths),
                 "launches_at_these_heads": sum(
                     mp["launches_by_heads"][name].get(at, 0)
-                    for mp in tp["lanes"] if mp["variant"] == variant),
+                    for mp in tp["lanes"] + sp["lanes"]
+                    if mp["variant"] == variant),
                 "max_abs_err": head["max_abs_err"], "ms": head["ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"],
@@ -5687,6 +6311,7 @@ def main() -> int:
               "main_paths": main_paths, "checkpoint": checkpoint,
               "pd_identity": pd_identity, "phase_s": phase_s,
               "tp": {k: v for k, v in tp.items() if k != "lanes"},
+              "sp": {k: v for k, v in sp.items() if k != "lanes"},
               "engine_cases": engines, "spec_engine_cases": spec_engines,
               "chaos": chaos, "rung_identity": rung_identity,
               "gemm_rung_evidence": gemm_evidence,

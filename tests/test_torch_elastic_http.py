@@ -194,7 +194,9 @@ def test_elastic_knobs_build_and_the_rest_names_1_15b(ckpt):
     """Autoscale and class lanes build a router on the process fleet, on
     the shm plane too (1.15b is whole: nothing of it is refused), and an
     in-process fleet asked for the shm plane builds on the relay plane.
-    The refusal that stays (sp > 1) names 1.16b."""
+    Since 1.16b sp > 1 is served too: an autoscaled dp 2 x sp 2 fleet
+    hands each worker its two sp devices, its workers report sp 2, and
+    it stops."""
     from tpu_inference_torch.server.http import build_engine_group
 
     group = build_engine_group(_cfg(ckpt, autoscale=True,
@@ -220,5 +222,11 @@ def test_elastic_knobs_build_and_the_rest_names_1_15b(ckpt):
         group.stop(drain=False)
     cfg = _cfg(ckpt, autoscale=True)
     cfg.parallel = tcfg.ParallelConfig(dp=2, sp=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.16b\)"):
-        build_engine_group(cfg, device="cpu")
+    group = build_engine_group(cfg, device="cpu")
+    try:
+        assert group._envelope(1)["devices"] == ["cpu", "cpu"]
+        group.start()
+        assert [h.client.rpc("stats")["parallel"] for h in
+                group.workers] == [{"tp": 1, "sp": 2}] * 2
+    finally:
+        group.stop(drain=False)

@@ -248,7 +248,8 @@ def test_unported_fleet_features_raise_naming_1_15b(ckpt):
     """Nothing of 1.15b is refused any more: ``kv_plane="shm"`` builds on
     both backends (the process fleet creates its arena, the in-process
     fleet rides the relay plane, as the reference's decision table
-    says), and the one refusal left (sp > 1) names 1.16b."""
+    says), and since 1.16b sp > 1 is served too: a dp 2 x sp 2 group
+    builds, its replicas report sp 2, and it stops."""
     from tpu_inference.server.shm_arena import effective_kv_plane as ref
     from tpu_inference_torch.server.http import build_engine_group
     from tpu_inference_torch.server.shm_arena import effective_kv_plane
@@ -277,10 +278,14 @@ def test_unported_fleet_features_raise_naming_1_15b(ckpt):
             assert group.health_snapshot()["fabric"]["capacity_pages"] == 64
         finally:
             group.stop(drain=False)
-    cfg = _cfg(ckpt)
+    cfg = _cfg(ckpt, fleet="in-process")
     cfg.parallel = tcfg.ParallelConfig(dp=2, sp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.16b"):
-        build_engine_group(cfg, device="cpu")
+    group = build_engine_group(cfg, device="cpu")
+    try:
+        assert [(e.tp, e.sp) for e in group.engines] == [(1, 2), (1, 2)]
+        assert len(group.health_snapshot()["replicas"]) == 2
+    finally:
+        group.stop(drain=False)
     # P/D roles are served by the process fleet only.
     cfg = _cfg(ckpt, fleet="in-process")
     cfg.engine = tcfg.EngineConfig(**ENGINE_KW, role="decode")

@@ -446,10 +446,17 @@ def test_engine_refuses_mismatched_shards_and_sp():
     with pytest.raises(ValueError, match="quantized before"):
         InferenceEngine(tm, tcfg.EngineConfig(**ENGINE, quant="int8"),
                         params=cut, device="cpu", mesh=_mesh(2))
-    with pytest.raises(NotImplementedError, match="1.16b"):
-        InferenceEngine(tm, tcfg.EngineConfig(**ENGINE), device="cpu",
-                        mesh=build_mesh(tcfg.ParallelConfig(tp=2, sp=2),
+    # sp is served since 1.16b: what stays refused is the reference's
+    # Ulysses head split that does not divide (n_heads 4 over tp*sp 8).
+    ekw = dict(ENGINE, sp_attn="ulysses")
+    with pytest.raises(ValueError) as want:
+        JEngine(jcfg.tiny_llama(), jcfg.EngineConfig(**ekw), seed=0,
+                mesh=j_mesh(jcfg.ParallelConfig(tp=2, sp=4)))
+    with pytest.raises(ValueError, match="use sp_attn='ring'") as got:
+        InferenceEngine(tm, tcfg.EngineConfig(**ekw), device="cpu",
+                        mesh=build_mesh(tcfg.ParallelConfig(tp=2, sp=4),
                                         platform="cpu"))
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="n_kv_heads"):
         InferenceEngine(tm, tcfg.EngineConfig(**ENGINE), device="cpu",
                         mesh=_mesh(4))

@@ -4,9 +4,10 @@ server, the CLI, the in-process group and the process fleet.
 - ``build_server(tp=2)`` answers ``/api/generate`` with the tp 1
   server's greedy text and reports the reference's fields (``/api/ps``
   sizes the whole model once, ``/healthz`` as at tp 1);
-- ``--tp 2`` parses and boots; ``--sp 2`` and ``--num-pages auto`` with
-  shards sharing a card are usage errors naming why;
-- ``check_server_config`` refuses only sp > 1 (ROADMAP 1.16b);
+- ``--tp 2`` parses and boots, so does ``--sp 2``; ``--num-pages auto``
+  with shards (tp or sp) sharing a card is a usage error naming why;
+- ``check_server_config`` refuses nothing of dp/tp/sp since 1.16b, only
+  a fleet backend that does not exist;
 - a dp 2 x tp 2 fleet on either backend, booted from a checkpoint the
   test writes, gives the JAX oracle's tokens (each worker process drives
   its two shards).
@@ -70,8 +71,17 @@ def test_cli_tp_flags(capsys):
     base = ["--device", "cpu", "--model", "tiny-llama", "--no-warmup",
             "--host-cache-pages", "0"]
     with pytest.raises(SystemExit):
-        boot_server(p.parse_args(base + ["--sp", "2"]), p)
-    assert "ROADMAP 1.16b" in capsys.readouterr().err
+        boot_server(p.parse_args(base + ["--sp", "2", "--num-pages",
+                                         "auto"]), p)
+    assert "sp shards share a card" in capsys.readouterr().err
+    server, _ = boot_server(p.parse_args(
+        base + ["--sp", "2", "--sp-attn", "ulysses", "--num-pages", "64",
+                "--max-pages-per-seq", "16"]), p)
+    try:
+        assert (server.engine.tp, server.engine.sp) == (1, 2)
+        assert server.engine.engine_cfg.sp_attn == "ulysses"
+    finally:
+        server.shutdown(timeout=30.0)
     with pytest.raises(SystemExit):
         boot_server(p.parse_args(base + ["--tp", "2", "--num-pages",
                                          "auto"]), p)
@@ -89,12 +99,14 @@ def test_cli_tp_flags(capsys):
 def test_check_server_config_refuses_only_sp():
     from tpu_inference_torch.server.http import check_server_config
 
-    for dp, tp in ((1, 2), (2, 2), (4, 1)):
+    for dp, tp, sp in ((1, 2, 1), (2, 2, 1), (4, 1, 1), (1, 2, 2),
+                       (2, 1, 2)):
         check_server_config(tcfg.FrameworkConfig(
-            parallel=tcfg.ParallelConfig(dp=dp, tp=tp)))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.16b"):
+            parallel=tcfg.ParallelConfig(dp=dp, tp=tp, sp=sp)))
+    with pytest.raises(ValueError, match="unknown fleet backend"):
         check_server_config(tcfg.FrameworkConfig(
-            parallel=tcfg.ParallelConfig(tp=2, sp=2)))
+            parallel=tcfg.ParallelConfig(tp=2, sp=2),
+            server=tcfg.ServerConfig(fleet="threads")))
 
 
 @pytest.mark.parametrize("fleet", ["in-process", "subprocess"])

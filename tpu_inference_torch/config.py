@@ -255,9 +255,10 @@ PRESETS = {
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """Device-mesh axes (dp, tp, sp). The port serves dp replicas of tp
-    shards (experts too, for Mixtral), each replica's shards driven by
-    one process (parallel/tp.py); sp > 1 is not served (ROADMAP
-    1.16b)."""
+    shards (experts too, for Mixtral) whose fresh prompts' prefill
+    attention splits over sp sequence slices (``EngineConfig.sp_attn``),
+    each replica's tp x sp shards driven by one process (parallel/tp.py,
+    kernels/ring_attention.py, kernels/ulysses_attention.py)."""
 
     dp: int = 1
     tp: int = 1

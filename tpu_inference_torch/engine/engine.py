@@ -39,6 +39,12 @@ PyTorch:
   versions for CPU tensors) or the dense gather path (``"dense"``) read
   them back. The pool is updated in place (kv_cache.write_kv), which is
   what the reference's buffer donation achieves under XLA.
+- **Sequence parallelism** (a mesh with sp > 1, ``sp_attn``): a fresh
+  full-prompt chunk (no cached prefix, one chunk, its bucket divisible
+  by sp) attends through ring or Ulysses attention over each tp shard's
+  sp slices, after its K/V are written into the pool; every other chunk
+  and every decode step reads the pool through the kernels. Batched
+  prefills group by (bucket, sp or not), as in the reference.
 - **Speculative decoding** (``spec_mode``, ``num_speculative_tokens``;
   engine/speculative.py): "ngram" proposes from each sequence's own
   history on the host and verifies γ+1 positions in one target forward
@@ -145,7 +151,9 @@ def resolve_device(device) -> torch.device:
 def make_paged_attn(cfg: ModelConfig, page_size: int,
                     block_tables: torch.Tensor, positions: torch.Tensor,
                     valid: torch.Tensor, q_offset: torch.Tensor,
-                    kv_len: torch.Tensor, attn_backend: str = "dense"):
+                    kv_len: torch.Tensor, attn_backend: str = "dense",
+                    sp_mode: Optional[str] = None,
+                    sp_devices: Optional[Dict[torch.device, list]] = None):
     """AttentionFn that writes new K/V into the paged pool, then attends.
 
     block_tables [B, MP] int32; positions/valid [B, S]; q_offset/kv_len
@@ -153,6 +161,14 @@ def make_paged_attn(cfg: ModelConfig, page_size: int,
     and longer ones to the prefill kernel; ``"dense"`` gathers the pages
     and runs dense causal attention. The slot map is shared by every
     layer of the forward.
+
+    ``sp_mode`` ("ring" or "ulysses"; the reference's ``_sp_prefill``):
+    the chunk is a fresh full prompt (no cached prefix), so after the
+    pool write its attention is self-attention over the raw (q, k, v),
+    split over the sp devices of the shard q sits on (``sp_devices``:
+    a tp shard's device -> its sp slices' devices). Quantized pools
+    therefore serve this prefill unquantized K/V, as in the reference;
+    decode reads the codes.
     """
     from tpu_inference_torch.kernels.paged_attention import paged_attention
     from tpu_inference_torch.kernels.prefill_attention import (
@@ -164,6 +180,14 @@ def make_paged_attn(cfg: ModelConfig, page_size: int,
     # once per forward (the closure lives for one forward).
     home = (block_tables, slots, kv_len, q_offset)
     on_device = {block_tables.device: home}
+    sp_body = None
+    if sp_mode is not None:
+        from tpu_inference_torch.kernels.ring_attention import (
+            ring_attention_local, seq_sharded_call)
+        from tpu_inference_torch.kernels.ulysses_attention import (
+            ulysses_attention_local)
+        sp_body = {"ring": ring_attention_local,
+                   "ulysses": ulysses_attention_local}[sp_mode]
 
     def attn(layer_idx, q, k, v, kv: kvc.KVPages):
         if q.device not in on_device:
@@ -177,6 +201,9 @@ def make_paged_attn(cfg: ModelConfig, page_size: int,
                                   kv.v[layer_idx], bts, lens,
                                   ks, vs, sliding_window=win)
             return out[:, None], kv
+        if sp_body is not None and q.shape[1] > 1:
+            return seq_sharded_call(sp_body, q, k, v, sp_devices[q.device],
+                                    sliding_window=win), kv
         if attn_backend == "kernel":
             return paged_prefill_attention(
                 q.contiguous(), kv.k[layer_idx], kv.v[layer_idx],
@@ -310,32 +337,58 @@ class InferenceEngine:
         ``num_speculative_tokens`` > 0) turns on draft-model speculation;
         its weights are ``draft_params`` or random from ``seed + 1``.
 
-        ``mesh`` (parallel/mesh.py, dp = sp = 1) with tp > 1 shards the
+        ``mesh`` (parallel/mesh.py, dp = 1) with tp > 1 shards the
         weights (``params`` a dict, sharded here, or a ShardedParams
         already cut for this mesh) and the KV pool over the mesh's tp
         devices, the first of which becomes the engine's device;
-        ``device`` then only names the device type."""
+        ``device`` then only names the device type. With sp > 1 a fresh
+        full-prompt chunk's attention runs sequence-parallel
+        (``engine_cfg.sp_attn``: "ring" or "ulysses") over each tp
+        shard's sp devices; at tp 1 the model stays unsharded."""
         self.device = resolve_device(device)
         model_cfg.validate()
-        self.tp = 1
+        self.tp = self.sp = 1
+        # Each tp shard's device -> its sp slices' devices (sp > 1).
+        self._sp_devices: Optional[Dict[torch.device, list]] = None
         if mesh is not None:
             shape = mesh.shape
-            if shape.get("dp", 1) != 1 or shape.get("sp", 1) != 1:
+            if shape.get("dp", 1) != 1:
                 raise NotImplementedError(
                     f"engine mesh {shape}: an engine serves one replica's "
-                    "tp shards (dp = 1; sp > 1 is ROADMAP 1.16b)")
+                    "tp x sp shards (dp = 1; dp replicas are an engine "
+                    "group, server/http.py build_engine_group)")
             from tpu_inference_torch.parallel import shardings as shd
             # Fail fast, before any weight is materialized.
             shd.validate_tp(model_cfg, shape["tp"])
             if draft_cfg is not None:
                 shd.validate_tp(draft_cfg, shape["tp"])
-            devs = mesh.tp_devices()
+            devs = [torch.device(d) for d in mesh.devices.flat]
             if any(d.type != self.device.type for d in devs):
                 raise ValueError(f"mesh devices {[str(d) for d in devs]} "
                                  f"are not {self.device.type} devices")
-            self.device = resolve_device(devs[0])
+            self.device = resolve_device(mesh.tp_devices()[0])
             self.tp = shape["tp"]
+            self.sp = shape.get("sp", 1)
+            if self.sp > 1:
+                self._sp_devices = self._sp_device_map(mesh)
+        if self.sp > 1:
+            if engine_cfg.sp_attn not in ("ring", "ulysses"):
+                raise ValueError(f"sp_attn={engine_cfg.sp_attn!r}: "
+                                 "one of ('ring', 'ulysses')")
+            if engine_cfg.sp_attn == "ulysses" and (
+                    model_cfg.n_heads % (self.tp * self.sp)
+                    or model_cfg.n_kv_heads % (self.tp * self.sp)):
+                raise ValueError(
+                    f"sp_attn='ulysses' needs n_heads "
+                    f"({model_cfg.n_heads}) and n_kv_heads "
+                    f"({model_cfg.n_kv_heads}) divisible by tp*sp "
+                    f"({self.tp}*{self.sp}); use sp_attn='ring'")
         self.mesh = mesh if self.tp > 1 else None
+        # Prefill chunks served (one per lane of a dispatch; warmup not
+        # counted) by attention path: "sp_ring" / "sp_ulysses" (a fresh
+        # full prompt at sp > 1) or "paged" (the prefill kernel, or the
+        # dense gather path).
+        self.prefill_paths: Dict[str, int] = {}
         if engine_cfg.role not in WORKER_ROLES:
             raise ValueError(f"unknown engine role {engine_cfg.role!r}; "
                              f"one of {WORKER_ROLES}")
@@ -545,6 +598,23 @@ class InferenceEngine:
                                                   seed + 1)
             self.draft_kv = self._alloc_pool(draft_cfg)
 
+    @staticmethod
+    def _sp_device_map(mesh) -> Dict[torch.device, list]:
+        """Each tp shard's device -> the devices of its sp slices. The
+        attention finds its shard by the device its q sits on, so tp
+        shards sharing a device must share their sp devices too (as the
+        default device lists, wrapping onto the visible cards, do)."""
+        out: Dict[torch.device, list] = {}
+        for j, home in enumerate(mesh.tp_devices()):
+            devs = [torch.device(d) for d in mesh.sp_devices(0, j)]
+            home = torch.device(home)
+            if out.setdefault(home, devs) != devs:
+                raise ValueError(
+                    f"tp shards on {home} have different sp devices "
+                    f"({[str(d) for d in out[home]]} vs "
+                    f"{[str(d) for d in devs]})")
+        return out
+
     def _model_fns(self, cfg: ModelConfig):
         """The family module, or at tp > 1 its sharded forward
         (parallel/tp.py) with the same interface."""
@@ -642,14 +712,16 @@ class InferenceEngine:
                               seed=np.asarray(st["seeds"]))
 
     @torch.no_grad()
-    def _prefill_fn(self, st: dict) -> torch.Tensor:
+    def _prefill_fn(self, st: dict, use_sp: bool = False) -> torch.Tensor:
         """Lanes ``st["tokens"]`` [P, S_bucket] right-padded; lane i's new
         tokens occupy positions [prefix_len[i], prefix_len[i] +
-        prompt_len[i]). Returns the sampled first tokens [P] int32 on
-        the device."""
+        prompt_len[i]). ``use_sp``: every lane is a fresh full prompt
+        (``_use_sp``), attended sequence-parallel. Returns the sampled
+        first tokens [P] int32 on the device."""
         cfg, dev = self.model_cfg, self.device
+        sp_mode = self.engine_cfg.sp_attn if use_sp else None
         hidden, self.kv = self._chunk_forward(st, cfg, self.mod, self.params,
-                                              self.kv)
+                                              self.kv, sp_mode)
         plen = self._to_device(st["prompt_len"])
         lanes = torch.arange(hidden.shape[0], device=dev)
         last = hidden[lanes, (plen - 1).long()]                 # [P, D]
@@ -663,10 +735,11 @@ class InferenceEngine:
                       repeat_penalty=self._to_device(st["rpens"]),
                       repeat_last_n=self._to_device(st["rlasts"]))
 
-    def _chunk_forward(self, st: dict, cfg: ModelConfig, mod, params, kv):
+    def _chunk_forward(self, st: dict, cfg: ModelConfig, mod, params, kv,
+                       sp_mode: Optional[str] = None):
         """The forward of the prefill lanes ``st`` through one model
-        (the target's, or the draft's into its own pool); returns
-        (hidden [P, S, D], kv)."""
+        (the target's, or the draft's into its own pool; ``sp_mode`` as
+        make_paged_attn's); returns (hidden [P, S, D], kv)."""
         ecfg, dev = self.engine_cfg, self.device
         toks = self._to_device(st["tokens"])
         plen = self._to_device(st["prompt_len"])
@@ -678,7 +751,8 @@ class InferenceEngine:
         attn = make_paged_attn(cfg, ecfg.page_size, bts, positions,
                                ar < plen[:, None], q_offset=pref,
                                kv_len=pref + plen,
-                               attn_backend=self.attn_backend)
+                               attn_backend=self.attn_backend,
+                               sp_mode=sp_mode, sp_devices=self._sp_devices)
         return mod.forward_hidden(params, cfg, toks, positions, kv, attn)
 
     @torch.no_grad()
@@ -807,7 +881,9 @@ class InferenceEngine:
     def warmup(self) -> float:
         """Build and load the kernels (CUDA, kernel backend), then run
         every shape serving meets: the prefill at every bucket and lane
-        count (and the draft model's prefill), the decode call (K steps
+        count (at sp > 1 also the sequence-parallel prefill at every
+        bucket the sp slices divide; and the draft model's prefill), the
+        decode call (K steps
         and the one-step route) at every ladder rung, the n-gram verify
         round at every (rung, width) or the draft-model round at the top
         rung, and with hybrid steps the hybrid call at every reachable
@@ -835,6 +911,8 @@ class InferenceEngine:
         for p in (self._prefill_batch_sizes if warm_prefill else ()):
             for bucket in buckets:
                 self._prefill_fn(chunk_arrays(p, bucket))
+                if self.sp > 1 and bucket % self.sp == 0:
+                    self._prefill_fn(chunk_arrays(p, bucket), use_sp=True)
                 if self.spec_draft:
                     self._draft_prefill_fn(chunk_arrays(p, bucket))
         k = max(1, ecfg.decode_steps_per_call)
@@ -1310,12 +1388,15 @@ class InferenceEngine:
                 a["windows"][i] = self._penalty_window_row(seq)
         return a
 
-    def _run_prefill(self, st: dict) -> Tuple[np.ndarray, float]:
-        """One prefill call with telemetry; returns (the sampled tokens
-        [P] on the host, the call's wall: it syncs)."""
+    def _run_prefill(self, st: dict, lanes: int, use_sp: bool = False
+                     ) -> Tuple[np.ndarray, float]:
+        """One prefill call of ``lanes`` chunks with telemetry; returns
+        (the sampled tokens [P] on the host, the call's wall: it
+        syncs)."""
+        self._count_prefill(use_sp, lanes)
         t0 = time.perf_counter()
         self._last_decode_end = None     # prefill breaks the decode streak
-        out = self._prefill_fn(st)
+        out = self._prefill_fn(st, use_sp)
         if self.spec_draft:
             # Mirror the chunk into the draft model's pool (same pages).
             self._draft_prefill_fn(st)
@@ -1324,6 +1405,18 @@ class InferenceEngine:
         self.telemetry.prefill_dispatch_s.observe(dt)
         self.telemetry.prefill_dispatches.inc()
         return out, dt
+
+    def _count_prefill(self, use_sp: bool, lanes: int) -> None:
+        path = f"sp_{self.engine_cfg.sp_attn}" if use_sp else "paged"
+        self.prefill_paths[path] = self.prefill_paths.get(path, 0) + lanes
+
+    def _use_sp(self, offset: int, chunk_len: int, prompt_len: int,
+                bucket: int) -> bool:
+        """Sequence-parallel prefill takes a fresh single-chunk prompt on
+        an sp > 1 mesh (self-attention only, no cached prefix), its
+        bucket split evenly over the sp slices."""
+        return (self.sp > 1 and offset == 0 and chunk_len == prompt_len
+                and bucket % self.sp == 0)
 
     def _stage_chunk_arrays(self, seq: Sequence, prompt: List[int],
                             offset: int, chunk_cap: int) -> dict:
@@ -1351,8 +1444,10 @@ class InferenceEngine:
         # Active decode lanes wait behind this serial chunk (the stall
         # hybrid steps remove); mid-prefill sequences are not active.
         stalled = bool(self.active_sequences())
+        use_sp = self._use_sp(offset, st["chunk_tokens"], len(prompt),
+                              st["bucket"])
         t0 = time.perf_counter()
-        out, dt = self._run_prefill(st)      # syncs on the chunk's token
+        out, dt = self._run_prefill(st, 1, use_sp)  # syncs on its token
         if stalled:
             self.telemetry.decode_stall_during_prefill_s.observe(dt)
         if self.telemetry.enabled:
@@ -1418,8 +1513,9 @@ class InferenceEngine:
         return slot
 
     def _prefill_run_batched(self, group: List[Tuple[Sequence, List[int]]],
-                             bucket: int) -> None:
-        """One multi-lane prefill call: P sequences, same bucket. Lanes
+                             bucket: int, use_sp: bool = False) -> None:
+        """One multi-lane prefill call: P sequences, same bucket (and all
+        fresh full prompts under ``use_sp``, else none taken so). Lanes
         pad to a batch size of the set; dummy lanes carry prompt_len=1
         and an all-zero block table, so their one write lands on the
         trash page and their token is discarded."""
@@ -1436,7 +1532,7 @@ class InferenceEngine:
             st["prompt_len"][i] = len(chunk)
             st["prefix_len"][i] = seq.cached_tokens
             st["bts"][i] = self._block_table_array(seq.pages)
-        out, dt = self._run_prefill(st)
+        out, dt = self._run_prefill(st, len(group), use_sp)
         if self.telemetry.enabled:
             for seq, _ in group:
                 seq.dispatch_wall_s += dt
@@ -1463,18 +1559,22 @@ class InferenceEngine:
                                f"only {len(slots)} free slots")
         staged = [(seq, self._prefill_setup(seq, slot))
                   for seq, slot in zip(seqs, slots)]
-        groups: Dict[int, List[Tuple[Sequence, List[int]]]] = {}
+        groups: Dict[Tuple[int, bool],
+                     List[Tuple[Sequence, List[int]]]] = {}
         for seq, prompt in staged:
             rest = len(prompt) - seq.cached_tokens
             if rest <= ecfg.chunk_tokens_cap:
-                groups.setdefault(ecfg.bucket_for(rest), []).append(
+                bucket = ecfg.bucket_for(rest)
+                use_sp = self._use_sp(seq.cached_tokens, rest, len(prompt),
+                                      bucket)
+                groups.setdefault((bucket, use_sp), []).append(
                     (seq, prompt))
             else:
                 self._prefill_chunked(seq, prompt)
         cap = self._prefill_batch_sizes[-1]
-        for bucket, group in groups.items():
+        for (bucket, use_sp), group in groups.items():
             for i in range(0, len(group), cap):
-                self._prefill_run_batched(group[i:i + cap], bucket)
+                self._prefill_run_batched(group[i:i + cap], bucket, use_sp)
 
     def _chaos_step_gate(self) -> None:
         """Engine-level fault injection at the top of every prefill and
@@ -2069,6 +2169,7 @@ class InferenceEngine:
                                       self._hybrid_chunk_cap(decode_tokens))
         seq.prefill_offset = offset + st["chunk_tokens"]
         st["final"] = seq.prefill_offset >= len(prompt)
+        self._count_prefill(False, 1)
         return st
 
     def _chunk_record(self, chunk: dict, p_tok: torch.Tensor) -> dict:

@@ -8,6 +8,10 @@ version beside every kernel. Importing builds nothing; see _build.py.
 Each takes a float pool in q's dtype, an int8 pool, or a packed int4
 pool (the last two with per-(token, head) scales; _pool.py has the
 rules) and counts its launches per pool kind.
+
+ring_attention.py and ulysses_attention.py are not kernels: the
+sequence-parallel prefill attention over sp slices in plain PyTorch, as
+the reference's are plain JAX with collectives.
 """
 
 # csrc/<name>.cu of every kernel library on the serving path.

@@ -3,10 +3,11 @@
 
 Axes (ParallelConfig): ``dp`` replicates the model, ``tp`` shards
 attention heads / FFN hidden / experts / vocab, ``sp`` shards the
-sequence (not served yet, ROADMAP 1.16b). The reference's mesh is a grid
-of JAX devices that GSPMD compiles one program over; here it is a grid of
+sequence of a fresh prompt's prefill attention (kernels/ring_attention.py,
+kernels/ulysses_attention.py). The reference's mesh is a grid of JAX
+devices that GSPMD compiles one program over; here it is a grid of
 ``torch.device``s that one process drives shard by shard
-(parallel/tp.py).
+(parallel/tp.py), each tp shard's sp slices on ``sp_devices``.
 
 A documented difference: the default device list wraps onto the visible
 cards, ``cuda:{i % device_count}``, as dp replicas already do
@@ -42,6 +43,18 @@ class Mesh:
         """The devices of one replica's tp shards, in shard order."""
         return list(self.devices[dp_row, :, 0])
 
+    def sp_devices(self, dp_row: int = 0, tp_index: int = 0) -> list:
+        """The devices of one tp shard's sp sequence slices, in slice
+        order (the first is the tp shard's own device)."""
+        return list(self.devices[dp_row, tp_index, :])
+
+    def axis_devices(self, axis_name: str) -> list:
+        """The devices along ``axis_name``, every other axis at index 0
+        (the sp slices of a one-axis ``("sp",)`` mesh, for example)."""
+        axis = self.axis_names.index(axis_name)
+        index = [0] * self.devices.ndim
+        index[axis] = slice(None)
+        return list(self.devices[tuple(index)])
 
 
 def default_devices(n: int, platform: str = "cuda") -> list:

@@ -26,9 +26,16 @@ interface (``embed_tokens``, ``forward_hidden``, ``unembed``,
 Collectives: shards on one device reduce with ``torch.add`` and gather
 with ``torch.cat``. Shards on several cards reduce onto the first shard's
 card and broadcast back (``torch.cuda.comm``); that branch has not run on
-a card yet (ROADMAP 1.16b). These are collectives, not kernels: the
-attention kernels run unchanged, once per shard per layer, at the
-shard's head counts.
+several cards yet (ROADMAP, "Documented differences"). These are
+collectives, not kernels: the attention kernels run unchanged, once per
+shard per layer, at the shard's head counts.
+
+Sequence parallelism composes per shard: ``attn`` is called with each tp
+shard's q/k/v, and the engine's attention (engine.py make_paged_attn)
+splits a fresh prompt's sequence over that shard's sp devices, so the
+shards' slices are the reference's ``P(None, "sp", "tp", None)``. At
+tp 1 with sp > 1 the engine keeps the unsharded model and only the
+attention splits.
 """
 
 from __future__ import annotations

@@ -54,7 +54,11 @@ d_ff, experts, vocab) and KV pool (kv heads) over N shards that one
 process drives (parallel/tp.py); shard i of replica r serves on
 ``cuda:{(r * N + i) % device_count}``, so on one card every shard shares
 it, and ``--num-pages``/``--max-batch-size`` must then be integers.
-``--sp``/``--sp-attn`` are parsed and refused (ROADMAP 1.16b).
+Sequence parallelism: ``--sp N --sp-attn ring|ulysses`` splits a fresh
+prompt's prefill attention over N sequence slices of each tp shard
+(kernels/ring_attention.py, kernels/ulysses_attention.py); a replica's
+tp x sp devices wrap onto the cards as tp's do, and the same integer
+sizing rule holds when they share one.
 """
 
 from __future__ import annotations
@@ -320,12 +324,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "cuda:{i %% device_count} (one card: all share "
                         "it)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree (parsed; only 1 is "
-                        "served, ROADMAP 1.16b)")
+                   help="sequence-parallel degree: sharded-sequence "
+                        "prefill over this many devices (long prompts); "
+                        "the tp x sp devices wrap onto the visible cards "
+                        "as --tp's do")
     p.add_argument("--sp-attn", default="ring",
                    choices=("ring", "ulysses"),
-                   help="sequence-parallel algorithm (with --sp > 1, "
-                        "ROADMAP 1.16b)")
+                   help="sequence-parallel algorithm: 'ring' (K/V chunks "
+                        "rotate over the sp slices, O((S/n)^2) memory) or "
+                        "'ulysses' (regroup to head slices and back, "
+                        "balanced causal load; needs head counts "
+                        "divisible by tp*sp)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel replicas, each with its own "
                         "weights, KV pool and scheduler; replica i on "
@@ -493,13 +502,17 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
         p.error(f"--num-pages/--max-batch-size auto with --dp {args.dp}: "
                 "replicas on one card would each size themselves from "
                 "the whole card; pass integers")
-    if args.tp > 1 and "auto" in (args.num_pages, args.max_batch_size) \
-            and shards_share_a_card(args.device, args.tp):
+    n_shards = args.tp * args.sp
+    if n_shards > 1 and "auto" in (args.num_pages, args.max_batch_size) \
+            and shards_share_a_card(args.device, n_shards):
         # The sizing takes weights/tp per card; shards on one card hold
-        # the whole model there.
-        p.error(f"--num-pages/--max-batch-size auto with --tp {args.tp}: "
-                "the tp shards share a card, so a card holds more than "
-                "weights/tp; pass integers")
+        # the whole model there, and sp slices their attention's
+        # activations beside it.
+        what = "tp x sp" if args.tp > 1 and args.sp > 1 else (
+            "tp" if args.tp > 1 else "sp")
+        p.error(f"--num-pages/--max-batch-size auto with --tp {args.tp} "
+                f"--sp {args.sp}: the {what} shards share a card, so a "
+                "card holds more than weights/tp; pass integers")
     try:
         max_batch_size, num_pages = autosize.resolve_sizing_args(args)
         decode_ladder = autosize.parse_decode_ladder(args.decode_ladder,
@@ -552,8 +565,9 @@ def resolve_engine_args(args, p: argparse.ArgumentParser) -> dict:
 
 
 def shards_share_a_card(device, tp: int) -> bool:
-    """Whether ``tp`` shards on ``device`` land on fewer cards than tp
-    (they wrap onto the visible cards; the CPU counts as one)."""
+    """Whether ``tp`` shards (a replica's tp * sp) on ``device`` land on
+    fewer cards than that (they wrap onto the visible cards; the CPU
+    counts as one)."""
     import torch
 
     if str(device).split(":")[0] != "cuda":
@@ -670,10 +684,6 @@ def boot_server(args, p: argparse.ArgumentParser):
     if args.autoscale and not (args.slo_ttft_ms or args.slo_tpot_ms):
         p.error("--autoscale needs an SLO target to scale on: set "
                 "--slo-ttft-ms and/or --slo-tpot-ms")
-    if args.sp > 1:
-        p.error(f"--sp {args.sp}: sequence parallelism (ring / Ulysses "
-                "prefill) is not ported yet (ROADMAP 1.16b); the port "
-                "serves --tp")
     if args.fleet == "subprocess" and args.check_numerics:
         p.error("--check-numerics needs the in-process fleet (the "
                 "workers load their own weights)")
@@ -709,7 +719,8 @@ def main(argv=None) -> None:
           f"ladder={list(server.engine.ladder)}, "
           f"pages={engine_args['num_pages']}, "
           f"step_ledger={engine_args['step_ledger_depth']}, "
-          f"dp={args.dp} tp={args.tp} fleet={args.fleet})",
+          f"dp={args.dp} tp={args.tp} sp={args.sp} "
+          f"sp_attn={args.sp_attn} fleet={args.fleet})",
           flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())

@@ -807,15 +807,16 @@ class ProcessEngineGroup:
     # ----------------------------------------------------------- spawn
 
     def _envelope(self, replica: int) -> dict:
-        tp = max(1, self.cfg.parallel.tp)
-        devices = shard_devices(self.device, replica, tp)
+        pcfg = self.cfg.parallel
+        n = max(1, pcfg.tp) * max(1, pcfg.sp)
+        devices = shard_devices(self.device, replica, n)
         env = {
             "config": framework_config_to_dict(self.cfg),
-            # The worker builds on exactly this device; at tp > 1 its
-            # shards on these (as the in-process group's), the degree
-            # being the config's parallel.tp.
+            # The worker builds on exactly this device; at tp * sp > 1
+            # its tp x sp shards on these (as the in-process group's),
+            # the degrees being the config's parallel.tp and .sp.
             "device": str(devices[0]),
-            "devices": [str(d) for d in devices] if tp > 1 else None,
+            "devices": [str(d) for d in devices] if n > 1 else None,
             "warmup": self.cfg.server.warmup,
             # The one field that differs between replicas: this worker's
             # phase role, and the prefill tier's nice increment.

@@ -97,18 +97,12 @@ class HTTPError(Exception):
 
 
 def check_server_config(cfg: FrameworkConfig) -> None:
-    """Raise for server configurations the port does not serve:
-    NotImplementedError naming the ROADMAP item (sp > 1), ValueError for
-    a fleet backend that does not exist or P/D roles outside the process
-    fleet. dp replicas of tp shards are served by both backends, and
-    ``kv_plane="shm"`` by both (the in-process fleet, which moves no KV
-    between processes, rides the relay plane, as in the reference)."""
-    pcfg, scfg = cfg.parallel, cfg.server
-    if pcfg.sp > 1:
-        raise NotImplementedError(
-            f"dp/tp/sp = {pcfg.dp}/{pcfg.tp}/{pcfg.sp}: sequence "
-            "parallelism is not ported yet (ROADMAP 1.16b); the port "
-            "serves dp replicas of tp shards")
+    """Raise ValueError for server configurations that do not exist: a
+    fleet backend other than the two, or P/D roles outside the process
+    fleet. dp replicas of tp x sp shards are served by both backends,
+    and ``kv_plane="shm"`` by both (the in-process fleet, which moves no
+    KV between processes, rides the relay plane, as in the reference)."""
+    scfg = cfg.server
     if scfg.fleet not in ("in-process", "subprocess"):
         raise ValueError(f"unknown fleet backend {scfg.fleet!r}; one of "
                          "('in-process', 'subprocess')")
@@ -127,8 +121,8 @@ def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,
     """The dp replica fleet of ``cfg``: ``fleet="in-process"`` builds dp
     engines in this process behind an EngineGroup, replica i on
     ``replica_device(device, i)`` (``cuda:{i % device_count}``: on one
-    card every replica shares it), at tp > 1 over its own tp mesh
-    (``shard_devices``: the twin of the reference's per-replica
+    card every replica shares it), at tp * sp > 1 over its own tp x sp
+    mesh (``shard_devices``: the twin of the reference's per-replica
     submesh), with the weights of ``cfg.checkpoint_path``
     (streamed shard by shard onto the replica's mesh) or random ones
     from ``cfg.seed``; ``"subprocess"`` returns a ProcessEngineGroup
@@ -149,11 +143,13 @@ def build_engine_group(cfg: FrameworkConfig, device="cuda", draft_cfg=None,
                 "params; use spec_mode='ngram' or the in-process fleet)")
         from tpu_inference_torch.server.fleet import ProcessEngineGroup
         return ProcessEngineGroup(cfg, device=device)
-    engines, tp = [], max(1, cfg.parallel.tp)
+    engines = []
+    sub = ParallelConfig(tp=max(1, cfg.parallel.tp),
+                         sp=max(1, cfg.parallel.sp))
     for i in range(max(1, cfg.parallel.dp)):
-        devices = shard_devices(device, i, tp)
-        mesh = (build_mesh(ParallelConfig(tp=tp), devices=devices)
-                if tp > 1 else None)
+        devices = shard_devices(device, i, sub.n_devices)
+        mesh = (build_mesh(sub, devices=devices)
+                if sub.n_devices > 1 else None)
         dev = resolve_device(devices[0])
 
         def load(mcfg, path, dev=dev, mesh=mesh):
@@ -1007,8 +1003,9 @@ def build_server(model: str = "tiny-llama", tokenizer: str = "byte",
     fields (``quant``, ``kv_quant``, ``spec_mode``, ...),
     ``server_overrides`` ServerConfig fields (``step_watchdog_s``,
     ``quarantine_after_failures``, ``fleet``, ...); ``dp`` replicas
-    (``fleet="subprocess"``: one worker process each) of ``tp`` shards
-    each (``sp`` > 1 raises NotImplementedError, ROADMAP 1.16b)."""
+    (``fleet="subprocess"``: one worker process each) of ``tp`` x
+    ``sp`` shards each (``sp`` > 1: a fresh prompt's prefill attention
+    split over sp sequence slices, ``sp_attn`` "ring" or "ulysses")."""
     import os
 
     from tpu_inference_torch.engine.autosize import (

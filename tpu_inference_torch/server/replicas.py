@@ -191,11 +191,12 @@ def replica_device(device, replica: int) -> torch.device:
     return torch.device("cuda", replica % n) if n else dev
 
 
-def shard_devices(device, replica: int, tp: int) -> list:
-    """The devices of replica ``replica``'s ``tp`` shards: replica_device
-    of ``replica * tp + i``, so shards wrap onto the visible cards as
-    replicas do (one card: every shard of every replica shares it)."""
-    return [replica_device(device, replica * tp + i) for i in range(tp)]
+def shard_devices(device, replica: int, n: int) -> list:
+    """The ``n`` devices of replica ``replica``'s shards (its tp * sp
+    mesh, in build_mesh's order): replica_device of ``replica * n + i``,
+    so shards wrap onto the visible cards as replicas do (one card:
+    every shard of every replica shares it)."""
+    return [replica_device(device, replica * n + i) for i in range(n)]
 
 
 # Finish reasons a zero-delivery request may be resubmitted after.

@@ -161,8 +161,8 @@ class EngineWorker:
 
     def __init__(self, cfg, replica: int, socket_path: str, device: str,
                  warmup: bool = True, devices=None):
-        """``devices``: the tp shards' devices (at tp > 1; the first is
-        ``device``)."""
+        """``devices``: the replica's tp x sp devices in mesh order (at
+        tp * sp > 1; the first is ``device``)."""
         self.cfg = cfg
         self.replica = replica
         self.socket_path = socket_path
@@ -268,10 +268,11 @@ class EngineWorker:
         dev = resolve_device(self.device)
         mesh = None
         if len(self.devices) > 1:
-            # This replica's tp shards, driven by this process.
+            # This replica's tp x sp shards, driven by this process.
             from tpu_inference_torch.config import ParallelConfig
             from tpu_inference_torch.parallel.mesh import build_mesh
-            mesh = build_mesh(ParallelConfig(tp=len(self.devices)),
+            mesh = build_mesh(ParallelConfig(tp=max(1, cfg.parallel.tp),
+                                             sp=max(1, cfg.parallel.sp)),
                               devices=self.devices)
         params = None
         if cfg.checkpoint_path:
@@ -351,9 +352,10 @@ class EngineWorker:
         srv.listen(4)
         srv.settimeout(0.25)
         self.boot()
-        shards = (f", tp {len(self.devices)} on "
-                  f"{','.join(str(d) for d in self.devices)}"
-                  if self.engine.mesh is not None else "")
+        e = self.engine
+        shards = (f", tp {e.tp}" + (f" x sp {e.sp}" if e.sp > 1 else "")
+                  + f" on {','.join(str(d) for d in self.devices)}"
+                  if len(self.devices) > 1 else "")
         print(f"[worker {self.replica}] pid={os.getpid()} serving on "
               f"{self.socket_path} ({self.engine.device}{shards})",
               file=sys.stderr, flush=True)
@@ -733,6 +735,10 @@ class EngineWorker:
                     sorted(prefill_attention.launches_by_len.items())},
                 "prefill_by_path": dict(
                     sorted(prefill_attention.launches_by_path.items()))},
+            # This replica's mesh and its prefill chunks by attention
+            # path (sp_ring / sp_ulysses / paged: the prefill kernel).
+            "parallel": {"tp": self.engine.tp, "sp": self.engine.sp},
+            "prefill_paths": dict(self.engine.prefill_paths),
             # By a tp shard's "Hq/Hkv" (the full heads at tp 1).
             "kernels_by_heads": {
                 "decode": dict(paged_attention.launches_by_heads),
