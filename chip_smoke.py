@@ -50,7 +50,11 @@ failing loudly (any failure exits non-zero before the result line):
    degraded then quarantined then recovered, the same tokens after, the
    step watchdog, page pressure, the pool clean; the flight recorder's
    step_error and watchdog captures listed newest first, each with step
-   records).
+   records). Then ``--debug-nans`` (debug_nans_phase, engine/numerics.py):
+   tiny-llama's scheduler runs give the same tokens with the switch on
+   and off (baseline and hybrid steps; the host wall of each recorded),
+   and with a NaN planted in layer 1's wo the first prefill raises
+   FloatingPointError naming layer 1 after launching the prefill kernel.
 5. main paths: the Ollama server in-process with llama-3-8b at full
    width (32 layers, bf16 activations, random weights from a seed, byte
    tokenizer), concurrent streamed /api/generate requests over
@@ -120,7 +124,16 @@ failing loudly (any failure exits non-zero before the result line):
    served through the CLI's ``--model auto --checkpoint DIR
    --check-numerics`` must give the tokens of the same weights carried
    in by params_from_numpy (recorded as not run when safetensors is not
-   importable).
+   importable). Then the native checkpoint lane (native_checkpoint_phase):
+   llama-3-8b at full width, CUT_LAYERS deep, with int8 weights from
+   init_quantized_params, written by save_native under build/ (bytes,
+   save_s and GB/s), restored by load_native onto the card at tp 1
+   (every tensor equal) and into the tp 2 layout from a meta template
+   cut by shard_params (equal to shard_params of the saved tree); four
+   prompts of 41-900 tokens, 16 out, one at a time over int8 KV through
+   InferenceServer from the in-memory tree and each restore at tp 1 and
+   tp 2: the restores' tokens equal the in-memory tree's, both kernels
+   in int8 (at 16/4 at tp 2); their launches join the kernels line.
 
 7. dp > 1 on the one card (the replicas share it): fleet_tiny_phase,
    after the chaos phase, runs tiny-llama (float32, so greedy tokens do
@@ -132,7 +145,9 @@ failing loudly (any failure exits non-zero before the result line):
    /metrics counter or histogram series falls, pages migrated and a
    swap-in-resume after the next stats refresh) and a seeded corrupt
    and delay transport-chaos run (the same sha, frame errors, no
-   restart); every worker's pool clean. fleet_phase, after the draft
+   restart); every worker's pool clean; and a dp 2 CLI boot with
+   ``--routing least_loaded --failover-retries 2 --route-hit-weight 8``
+   whose /healthz reports least_loaded. fleet_phase, after the draft
    lane, serves llama-3-8b (bf16, full width, CUT_LAYERS deep) through
    the CLI with ``--dp 2 --fleet subprocess --num-pages 512``: two waves
    of 8
@@ -284,8 +299,9 @@ failing loudly (any failure exits non-zero before the result line):
    within check_close of dense attention, their device ms beside dense
    attention's and the prefill kernel's on the same fresh prompt (not
    kernels of the repo: logged, not in the kernels line). (c) ``--model
-   llama-3-8b --sp 2 --sp-attn ring`` bf16 at 32 layers through the
-   CLI, buckets to 4096: the first-step logits of a 4096-token prompt
+   llama-3-8b --sp 2 --sp-attn ring`` bf16 at CUT_LAYERS (it ran all 32
+   layers until the native checkpoint lane joined the script's time)
+   through the CLI, buckets to 4096: the first-step logits of a 4096-token prompt
    against tp 1 x sp 1's under the tp lanes' rule, then four fresh
    prompts of 2048-4095 tokens at once (the sp path) and one over a
    cached prefix (the prefill kernel): every request "length" with its
@@ -1392,6 +1408,92 @@ def _chaos_run(blackbox_dir: str) -> dict:
                          for c in captures]}
 
 
+def debug_nans_phase() -> dict:
+    """--debug-nans on the card (engine/numerics.py): tiny-llama
+    (float32, kernel backend) through the scheduler in the serving modes'
+    baseline (chunked prefill, 4 decode steps a call) and with hybrid
+    steps, once untimed, then switch off, on, on, off: the same greedy
+    tokens each time,
+    both kernels launched, the host wall of each run recorded (the
+    check's cost: a sync and a NaN scan per layer). Then, switch on, one
+    row of layer 1's wo set to NaN: the first prefill raises
+    FloatingPointError naming layer 1."""
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine import numerics
+    from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    from tpu_inference_torch.models.registry import build_model
+
+    label = "debug-nans"
+    mcfg = tiny_config("tiny_llama")
+    params, _ = build_model(mcfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, size=n).tolist()
+               for n in (5, 9, 12, 40, 7, 14, 3, 70, 11, 6, 16, 10)]
+    base = cfgs.EngineConfig(page_size=8, num_pages=128,
+                             max_pages_per_seq=16, max_batch_size=4,
+                             prefill_buckets=(16, 32),
+                             decode_steps_per_call=4,
+                             chunked_prefill_size=16)
+    out = {}
+    previous = numerics.set_debug_nans(False)
+    try:
+        for mode, over in (("baseline", {}),
+                           ("hybrid prefill", {"hybrid_prefill": True})):
+            ecfg = dataclasses.replace(base, **over)
+            # One untimed run first: the first calls of a shape set up
+            # the card's libraries.
+            tokens = {"want": _sched_run(InferenceEngine(
+                mcfg, ecfg, params=params, device="cuda"), prompts, 24)}
+            walls = {"off": [], "on": []}
+            for on in (False, True, True, False):
+                engine = InferenceEngine(mcfg, ecfg, params=params,
+                                         device="cuda")
+                numerics.set_debug_nans(on)
+                pa.reset_counts()
+                pfa.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = _sched_run(engine, prompts, 24)
+                walls["on" if on else "off"].append(
+                    time.perf_counter() - t0)
+                numerics.set_debug_nans(False)
+                _check_variant(f"{label} {mode}", "f32")
+                if tokens.setdefault("want", got) != got:
+                    raise AssertionError(f"{label} {mode}: tokens with the "
+                                         f"switch {'on' if on else 'off'} "
+                                         "differ")
+            out[mode] = {"wall_s": walls,
+                         "cost_s": (sum(walls["on"]) - sum(walls["off"]))
+                         / 2}
+        bad = {**params, "blocks": dict(params["blocks"])}
+        wo = bad["blocks"]["wo"].clone()
+        wo[1, 3] = float("nan")
+        bad["blocks"]["wo"] = wo
+        engine = InferenceEngine(mcfg, base, params=bad, device="cuda")
+        numerics.set_debug_nans(True)
+        pfa.reset_counts()
+        try:
+            engine.prefill(Sequence(request_id=0, prompt_tokens=prompts[3],
+                                    max_new_tokens=4))
+            raise AssertionError(f"{label}: a NaN in layer 1 raised nothing")
+        except FloatingPointError as e:
+            if "layer 1 " not in str(e):
+                raise AssertionError(f"{label}: the error names another "
+                                     f"layer: {e}") from e
+            out["poisoned_error"] = str(e)
+        out["poisoned_prefill_launches"] = sum(
+            pfa.launches_by_variant.values())
+        if not out["poisoned_prefill_launches"]:
+            raise AssertionError(f"{label}: the poisoned prefill never "
+                                 "launched the prefill kernel")
+    finally:
+        numerics.set_debug_nans(previous)
+    return out
+
+
 def _stream_request(port: int, prompt: str, max_tokens: int,
                     options: dict | None = None,
                     headers: dict | None = None) -> dict:
@@ -2230,6 +2332,197 @@ def _tensors(tree) -> list:
             for t in (_tensors(v) if isinstance(v, dict) else [v])]
 
 
+# The native checkpoint lane's four prompts (byte tokenizer: 41 to 900
+# tokens with the BOS) and their greedy tokens out.
+NATIVE_PROMPT_BYTES = (40, 200, 600, 899)
+NATIVE_MAX_TOKENS = 16
+
+
+def _meta_tree(tree):
+    """The abstract twin of a params tree: meta tensors of the same shapes
+    and dtypes, QuantizedArray nodes kept."""
+    from tpu_inference_torch.models.quant import QuantizedArray
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedArray):
+        return QuantizedArray(_meta_tree(tree.q), _meta_tree(tree.scale))
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def _leaf_tensors(tree) -> list:
+    """Every tensor of a params tree in order (a quantized leaf's codes,
+    then its scale)."""
+    from tpu_inference_torch.models.quant import QuantizedArray
+    out = []
+    for v in tree.values():
+        if isinstance(v, dict):
+            out += _leaf_tensors(v)
+        elif isinstance(v, QuantizedArray):
+            out += [v.q, v.scale]
+        else:
+            out.append(v)
+    return out
+
+
+def _same_tensors(label: str, got: list, want: list) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.dtype != b.dtype or a.shape != b.shape
+           or not torch.equal(a, b)]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(want)} tensors "
+                             f"differ (first at {bad[:3]}; counts "
+                             f"{len(got)} vs {len(want)})")
+
+
+def native_checkpoint_phase(card: str) -> dict:
+    """The native checkpoint tier (models/weights.py save_native /
+    load_native) at the reference's chip configuration: llama-3-8b at full
+    width with int8 weights (init_quantized_params, seed SEED, on the
+    card; main() cuts it to CUT_LAYERS layers) saved under build/ (bytes,
+    save_s and GB/s recorded), restored onto the card at tp 1 (every
+    tensor torch.equal to the saved one) and into the tp 2 layout on the
+    one card from a meta template cut by shard_params (equal to
+    shard_params of the saved tree). Four prompts of 41-900 tokens, 16
+    tokens out, served one at a time over int8 KV through InferenceServer
+    from the saved tree and from each restore, at tp 1 and tp 2: the
+    restores' greedy tokens must equal the in-memory tree's, and their
+    runs (the lane's launches: counts set to 0 just before each) launch
+    both kernels in the int8 variant, at tp 2 at the shard's heads
+    (16/4). The directory is deleted after."""
+    import gc
+    import shutil
+
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine.engine import InferenceEngine
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.kernels import prefill_attention as pfa
+    from tpu_inference_torch.models.quant import init_quantized_params
+    from tpu_inference_torch.models.weights import (NATIVE_FILE,
+                                                    load_native,
+                                                    save_native)
+    from tpu_inference_torch.parallel import shard_params
+    from tpu_inference_torch.server.http import InferenceServer
+
+    label = "native checkpoint"
+    _free_card(label)
+    mcfg = cfgs.PRESETS["llama-3-8b"]()
+    tree = init_quantized_params(mcfg, seed=SEED, mode="int8",
+                                 device="cuda")
+    want_tensors = _leaf_tensors(tree)
+    tree_bytes = sum(t.numel() * t.element_size() for t in want_tensors)
+    path = os.path.join("build", "native-llama-3-8b-int8")
+    shutil.rmtree(path, ignore_errors=True)
+    mesh = _tp_mesh(2)
+    prompts = _family_prompts(NATIVE_PROMPT_BYTES)
+    heads = f"{mcfg.n_heads // 2}/{mcfg.n_kv_heads // 2}"
+
+    def serve(name: str, params, tp: int) -> tuple:
+        ecfg = cfgs.EngineConfig(quant="int8", kv_quant="int8",
+                                 num_pages=512, max_pages_per_seq=128,
+                                 max_batch_size=8, host_cache_pages=0)
+        fcfg = cfgs.FrameworkConfig(
+            model=mcfg, engine=ecfg, parallel=cfgs.ParallelConfig(tp=tp),
+            server=cfgs.ServerConfig(model_name="llama-3-8b", warmup=False),
+            seed=SEED)
+        server = InferenceServer(fcfg, engine=InferenceEngine(
+            mcfg, ecfg, params=params, device="cuda",
+            mesh=mesh if tp > 1 else None))
+        pa.reset_counts()
+        pfa.reset_counts()
+        try:
+            port = server.start(port=0)
+            t0 = time.perf_counter()
+            results = [_stream_request(port, p, NATIVE_MAX_TOKENS)
+                       for p in prompts]
+            wall = time.perf_counter() - t0
+            counts = _check_variant(f"{label} {name}", "int8")
+            by_heads = (_gate_heads(f"{label} {name}", heads) if tp > 1
+                        else None)
+            server_stats(port)
+        finally:
+            server.shutdown()
+            del server
+            gc.collect()
+        lane = {"label": f"native restore {name} int8 + int8 KV",
+                "model": "llama-3-8b", "layers": mcfg.n_layers, "tp": tp,
+                "quant": "int8", "kv_quant": "int8", "variant": "int8",
+                **_summarize(results, wall),
+                "launches_by_variant": counts["by_variant"],
+                "decode_launches_by_batch": counts["decode_by_batch"],
+                "prefill_launches_by_len": counts["prefill_by_len"],
+                "prefill_launches_by_path": counts["prefill_by_path"]}
+        if by_heads is not None:
+            lane["launches_by_heads"] = by_heads
+        return [r["context"] for r in results], lane
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_native(tree, path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, NATIVE_FILE))
+        t0 = time.perf_counter()
+        tp1 = load_native(path, _meta_tree(tree), device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        _same_tensors(f"{label} tp 1", _leaf_tensors(tp1), want_tensors)
+        t0 = time.perf_counter()
+        tp2 = load_native(path, shard_params(_meta_tree(tree), mcfg, mesh))
+        torch.cuda.synchronize()
+        restore_tp2_s = time.perf_counter() - t0
+        want_tp2 = shard_params(tree, mcfg, mesh)
+        _same_tensors(f"{label} tp 2",
+                      [t for _, t, _ in tp2.named_tensors()],
+                      [t for _, t, _ in want_tp2.named_tensors()])
+        if not all(p == q for (p, _, _), (q, _, _) in zip(
+                tp2.named_tensors(), want_tp2.named_tensors())):
+            raise AssertionError(f"{label} tp 2: leaf paths differ from "
+                                 "shard_params'")
+        log(f"[{label}] llama-3-8b int8 at {mcfg.n_layers} layers on "
+            f"{card}: {nbytes} bytes written in {save_s:.3f}s "
+            f"({nbytes / save_s / 1e9:.3f} GB/s); restored at tp 1 in "
+            f"{restore_s:.3f}s ({nbytes / restore_s / 1e9:.3f} GB/s), into "
+            f"tp 2 in {restore_tp2_s:.3f}s; every tensor equal")
+        runs, lanes = {}, []
+        for name, params, tp in (("in-memory tp1", tree, 1),
+                                 ("tp1", tp1, 1),
+                                 ("in-memory tp2", want_tp2, 2),
+                                 ("tp2", tp2, 2)):
+            runs[name], lane = serve(name, params, tp)
+            if not name.startswith("in-memory"):
+                lanes.append(lane)
+        for tp in ("tp1", "tp2"):
+            if runs[tp] != runs[f"in-memory {tp}"]:
+                raise AssertionError(f"{label}: greedy tokens of the {tp} "
+                                     "restore differ from the in-memory "
+                                     "tree's")
+        if runs["tp1"] != runs["tp2"]:
+            log(f"[{label}] tp 2 tokens differ from tp 1's (bf16 "
+                "row-parallel sums; not a gate)")
+    finally:
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(path, ignore_errors=True)
+    out = {"label": label, "model": "llama-3-8b", "layers": mcfg.n_layers,
+           "quant": "int8", "bytes": nbytes, "tree_bytes": tree_bytes,
+           "save_s": save_s, "save_gb_s": nbytes / save_s / 1e9,
+           "restore_s": restore_s, "restore_gb_s": nbytes / restore_s / 1e9,
+           "restore_tp2_s": restore_tp2_s,
+           "restore_tp2_gb_s": nbytes / restore_tp2_s / 1e9,
+           "requests": len(prompts), "max_tokens": NATIVE_MAX_TOKENS,
+           "tokens_equal": True, "tp1_equals_tp2": runs["tp1"] == runs["tp2"],
+           "lanes": lanes}
+    for lane in lanes:
+        log(f"main path llama-3-8b [{lane['label']}] on {card}: "
+            f"{lane['layers']} layers, {lane['requests']} requests one at a "
+            f"time, TTFT p50 {lane['ttft_p50_s']:.3f}s; launches "
+            f"{json.dumps(lane['launches_by_variant'])}"
+            + (f"; by shard heads {json.dumps(lane['launches_by_heads'])}"
+               if "launches_by_heads" in lane else ""))
+    return out
+
+
 def _burst_prompts(n: int, echo: bool = False) -> list:
     """``n`` prompts whose lengths are the ``Request tokens`` of BurstGPT
     rows drawn with numpy from SEED (capped at 1500 tokens); byte
@@ -2301,8 +2594,8 @@ def _summarize(results: list, wall: float) -> dict:
             "prompt_tokens": [r["prompt_tokens"] for r in results]}
 
 
-# Every llama-3-8b lane but the bf16 main path, the draft lane and the sp
-# phase's ring lane, and the Mixtral lane, serve their model at full
+# Every llama-3-8b lane but the bf16 main path and the draft lane, and
+# the Mixtral lane, serve their model at full
 # width cut to this many of its 32 layers (their host-bound walls scale
 # with the layers; the script must stay well inside its time limit).
 CUT_LAYERS = 8
@@ -3434,6 +3727,7 @@ def fleet_tiny_phase(card: str) -> dict:
     finally:
         inproc.stop(drain=False)
         del inproc
+    cli_flags = _routing_flags_tiny(label)
     t0 = time.perf_counter()
     group = build_engine_group(cfg("subprocess"), device="cuda")
     pids, reads = set(), {}
@@ -3560,12 +3854,42 @@ def fleet_tiny_phase(card: str) -> dict:
     out["fabric_shm"] = _fabric_fleet_tiny(label, cfg, fab_prompt, want_fab,
                                            mix_new, plane="shm")
     out["tp2"] = _tp_fleet_tiny(label, cfg, run_mix, sha_dp1)
+    out["cli_flags"] = cli_flags
     log(f"[{label}] on {card}: sha {sha_sub} equal in-process / subprocess "
         f"/ P/D (relay and shm) / elastic / dp 2 x tp 2 / dp-1; "
         + json.dumps({
             k: v for k, v in out.items()
             if k not in ("label", "outputs_sha256")}))
     return out
+
+
+def _routing_flags_tiny(label: str) -> dict:
+    """The reference's routing and failover flags through the CLI: dp 2
+    in-process tiny-llama with ``--routing least_loaded --failover-retries
+    2 --route-hit-weight 8``; /healthz must report least_loaded, the
+    group's ServerConfig the flags' values, and a request finish."""
+    flags = ["--model", "tiny-llama", "--dp", "2", "--routing",
+             "least_loaded", "--failover-retries", "2",
+             "--route-hit-weight", "8", "--num-pages", "128",
+             "--max-pages-per-seq", "16", "--prefill-buckets", "16,32",
+             "--host-cache-pages", "0", "--no-warmup"]
+    server, _ = _serve_cli(flags)
+    try:
+        port = server.start(port=0)
+        health = _http_json(port, "GET", "/healthz")
+        sc = server.group.server_cfg
+        got = {"routing": health.get("routing"),
+               "failover_max_retries": sc.failover_max_retries,
+               "route_hit_weight": sc.route_hit_weight,
+               "replicas": len(server.group.engines)}
+        if got != {"routing": "least_loaded", "failover_max_retries": 2,
+                   "route_hit_weight": 8.0, "replicas": 2}:
+            raise AssertionError(f"{label}: CLI routing flags: {got}")
+        got["eval_count"] = _stream_request(port, "routing flags",
+                                            8)["eval_count"]
+    finally:
+        server.shutdown()
+    return got
 
 
 def _tp_fleet_tiny(label: str, cfg, run_mix, sha_dp1: str) -> dict:
@@ -5385,7 +5709,8 @@ SP_ATTN_CASES = (("ring", 2), ("ring", 4), ("ulysses", 2))
 SP_ATTN_S = 4096
 # The full-width lanes: (label, quant, kv_quant, variant, tp, sp, sp_attn,
 # layers cut).
-SP_LANES = (("sp2 ring bf16", "none", "none", "bf16", 1, 2, "ring", None),
+SP_LANES = (("sp2 ring bf16", "none", "none", "bf16", 1, 2, "ring",
+             CUT_LAYERS),
             ("tp2 x sp2 ulysses int8 weights + int8 KV", "int8", "int8",
              "int8", 2, 2, "ulysses", CUT_LAYERS))
 # Buckets and table width of the sp lanes: a 4096-token prompt prefills
@@ -5926,6 +6251,9 @@ def sp_phase(card: str) -> dict:
             f"({c['prefill_kernel_path']} path)")
     out["lanes"] = []
     for label, quant, kv_quant, variant, tp, sp, attn, cut in SP_LANES:
+        if cut:
+            log(f"sp lane [{label}]: llama-3-8b cut to {cut} of its 32 "
+                "layers (the script's time limit)")
         t = time.perf_counter()
         with (_depth_cut("llama-3-8b", cut) if cut
               else contextlib.nullcontext()):
@@ -6122,6 +6450,9 @@ def main() -> int:
         f"{' -> '.join(chaos['health_states'])}, tokens after recovery "
         f"identical, watchdog fired, page pressure returned, pool clean: "
         f"{json.dumps(chaos)}")
+    debug_nans = timed("debug_nans", debug_nans_phase)
+    log(f"debug-nans: tokens equal with the switch on and off, a NaN in "
+        f"layer 1 raised on the first prefill: {json.dumps(debug_nans)}")
     main_paths = {}
     mp = timed("fleet_tiny", fleet_tiny_phase, card)
     main_paths[mp["label"]] = mp
@@ -6178,6 +6509,12 @@ def main() -> int:
         main_paths[mp["label"]] = mp
     checkpoint = timed("checkpoint", checkpoint_phase, card)
     log(f"checkpoint lane: {json.dumps(checkpoint)}")
+    with _depth_cut("llama-3-8b", CUT_LAYERS):
+        native = timed("native_checkpoint", native_checkpoint_phase, card)
+    for mp in native["lanes"]:
+        main_paths[mp["label"]] = mp
+    log(f"native checkpoint lane: "
+        f"{json.dumps({k: v for k, v in native.items() if k != 'lanes'})}")
     tp = timed("tp", tp_phase, card)
     for mp in tp["lanes"]:
         main_paths[mp["label"]] = mp
@@ -6276,8 +6613,9 @@ def main() -> int:
                                 for mp in paths),
                 "launches_at_these_heads": sum(
                     mp["launches_by_heads"][name].get(at, 0)
-                    for mp in tp["lanes"] + sp["lanes"]
-                    if mp["variant"] == variant),
+                    for mp in tp["lanes"] + sp["lanes"] + native["lanes"]
+                    if mp["variant"] == variant
+                    and "launches_by_heads" in mp),
                 "max_abs_err": head["max_abs_err"], "ms": head["ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"],
@@ -6309,6 +6647,9 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "kernels": entries, "kernel_cases": kernels,
               "main_paths": main_paths, "checkpoint": checkpoint,
+              "native_checkpoint": {k: v for k, v in native.items()
+                                    if k != "lanes"},
+              "debug_nans": debug_nans,
               "pd_identity": pd_identity, "phase_s": phase_s,
               "tp": {k: v for k, v in tp.items() if k != "lanes"},
               "sp": {k: v for k, v in sp.items() if k != "lanes"},

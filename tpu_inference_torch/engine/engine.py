@@ -111,6 +111,7 @@ from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import (WORKER_ROLES, EngineConfig,
                                         ModelConfig, validate_spec_config)
 from tpu_inference_torch.engine import kv_cache as kvc
+from tpu_inference_torch.engine import numerics
 from tpu_inference_torch.engine.autosize import validate_ladder
 from tpu_inference_torch.engine.kv_cache import PageAllocator
 from tpu_inference_torch.engine.prefix_cache import PrefixCache, _chain_hashes
@@ -712,20 +713,23 @@ class InferenceEngine:
                               seed=np.asarray(st["seeds"]))
 
     @torch.no_grad()
-    def _prefill_fn(self, st: dict, use_sp: bool = False) -> torch.Tensor:
+    def _prefill_fn(self, st: dict, use_sp: bool = False,
+                    kind: str = "prefill") -> torch.Tensor:
         """Lanes ``st["tokens"]`` [P, S_bucket] right-padded; lane i's new
         tokens occupy positions [prefix_len[i], prefix_len[i] +
         prompt_len[i]). ``use_sp``: every lane is a fresh full prompt
-        (``_use_sp``), attended sequence-parallel. Returns the sampled
-        first tokens [P] int32 on the device."""
+        (``_use_sp``), attended sequence-parallel. ``kind`` names the step
+        in a --debug-nans error. Returns the sampled first tokens [P]
+        int32 on the device."""
         cfg, dev = self.model_cfg, self.device
         sp_mode = self.engine_cfg.sp_attn if use_sp else None
         hidden, self.kv = self._chunk_forward(st, cfg, self.mod, self.params,
-                                              self.kv, sp_mode)
+                                              self.kv, sp_mode, kind)
         plen = self._to_device(st["prompt_len"])
         lanes = torch.arange(hidden.shape[0], device=dev)
         last = hidden[lanes, (plen - 1).long()]                 # [P, D]
         logits = self.mod.unembed(self.params, cfg, last)       # [P, V]
+        numerics.check_logits(cfg, kind, logits)
         use_pen = bool(np.any(np.asarray(st["rpens"]) != 1.0))
         return sample(logits, self._sampling(st), self._generator,
                       ctx=st["prefix_len"] + st["prompt_len"],
@@ -736,7 +740,7 @@ class InferenceEngine:
                       repeat_last_n=self._to_device(st["rlasts"]))
 
     def _chunk_forward(self, st: dict, cfg: ModelConfig, mod, params, kv,
-                       sp_mode: Optional[str] = None):
+                       sp_mode: Optional[str] = None, kind: str = "prefill"):
         """The forward of the prefill lanes ``st`` through one model
         (the target's, or the draft's into its own pool; ``sp_mode`` as
         make_paged_attn's); returns (hidden [P, S, D], kv)."""
@@ -753,7 +757,8 @@ class InferenceEngine:
                                kv_len=pref + plen,
                                attn_backend=self.attn_backend,
                                sp_mode=sp_mode, sp_devices=self._sp_devices)
-        return mod.forward_hidden(params, cfg, toks, positions, kv, attn)
+        return mod.forward_hidden(params, cfg, toks, positions, kv, attn,
+                                  on_layer=numerics.layer_check(cfg, kind))
 
     @torch.no_grad()
     def _draft_prefill_fn(self, st: dict) -> None:
@@ -761,7 +766,7 @@ class InferenceEngine:
         sampling): the lanes and pages of ``_prefill_fn``."""
         _, self.draft_kv = self._chunk_forward(
             st, self.draft_cfg, self.draft_mod, self.draft_params,
-            self.draft_kv)
+            self.draft_kv, kind="draft prefill")
 
     @torch.no_grad()
     def _spec_round_fn(self, st: dict, cap, active):
@@ -826,6 +831,7 @@ class InferenceEngine:
         ctx_host = np.asarray(st["ctx"])
         alive = torch.ones(tok.shape, dtype=torch.bool, device=self.device)
         outs = []
+        check = numerics.layer_check(cfg, "decode")
         for s in range(k_steps):
             act = alive & (allow > s)
             positions = ctx.clamp(max=ecfg.max_context - 1)[:, None]
@@ -834,8 +840,10 @@ class InferenceEngine:
                                    kv_len=ctx + 1,
                                    attn_backend=self.attn_backend)
             hidden, self.kv = self.mod.forward_hidden(
-                self.params, cfg, tok[:, None], positions, self.kv, attn)
+                self.params, cfg, tok[:, None], positions, self.kv, attn,
+                on_layer=check)
             logits = self.mod.unembed(self.params, cfg, hidden[:, 0])
+            numerics.check_logits(cfg, "decode", logits)
             # The sampled token sits at absolute index ctx + 1: for an
             # active lane that is ctx_lens + s + 1, known on the host.
             new = sample(logits, sp, self._generator,
@@ -858,7 +866,7 @@ class InferenceEngine:
         its own sequence's pages, each lane its own), so this computes
         what the two serial calls compute. Returns (chunk's sampled
         token [1], then _decode_multi_fn's outputs)."""
-        p_tok = self._prefill_fn(chunk)
+        p_tok = self._prefill_fn(chunk, kind="hybrid")
         return (p_tok,) + self._decode_multi_fn(st, k_steps)
 
     def _decode_warm_arrays(self, b: int) -> dict:

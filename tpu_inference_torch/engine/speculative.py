@@ -39,6 +39,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpu_inference_torch.engine import numerics
+
 
 class SpecRoundOut(NamedTuple):
     kv: object               # target KVPages
@@ -169,6 +171,7 @@ def spec_round(engine, params, draft_params, kv, draft_kv, tokens,
     # sampled token and probabilities are discarded.
     tok, ctx = tokens, ctx_lens
     drafts, p_rows = [], []
+    draft_check = numerics.layer_check(engine.draft_cfg, "draft")
     for _ in range(gamma + 1):
         positions = ctx.clamp(max=ecfg.max_context - 1)[:, None]
         valid = active[:, None] & (positions < cap[:, None])
@@ -177,9 +180,10 @@ def spec_round(engine, params, draft_params, kv, draft_kv, tokens,
                                q_offset=ctx, kv_len=ctx + 1)
         hidden, draft_kv = engine.draft_mod.forward_hidden(
             draft_params, engine.draft_cfg, tok[:, None], positions,
-            draft_kv, attn)
+            draft_kv, attn, on_layer=draft_check)
         logits = engine.draft_mod.unembed(draft_params, engine.draft_cfg,
                                           hidden[:, 0])
+        numerics.check_logits(engine.draft_cfg, "draft", logits)
         p_row = _probs(logits, temperature, top_p, top_k, all_greedy)
         tok = _sample_from(p_row, gen)
         drafts.append(tok)
@@ -197,9 +201,11 @@ def spec_round(engine, params, draft_params, kv, draft_kv, tokens,
     attn = make_paged_attn(engine.model_cfg, ecfg.page_size, block_tables,
                            positions, valid, q_offset=ctx_lens,
                            kv_len=ctx_lens + s_len)
-    hidden, kv = engine.mod.forward_hidden(params, engine.model_cfg,
-                                           tokens_in, positions, kv, attn)
+    hidden, kv = engine.mod.forward_hidden(
+        params, engine.model_cfg, tokens_in, positions, kv, attn,
+        on_layer=numerics.layer_check(engine.model_cfg, "verify"))
     logits_all = engine.mod.unembed(params, engine.model_cfg, hidden)
+    numerics.check_logits(engine.model_cfg, "verify", logits_all)
     q_rows = torch.stack([_probs(logits_all[:, i], temperature, top_p,
                                  top_k, all_greedy)
                           for i in range(s_len)], dim=1)      # [B, g+1, V]
@@ -265,9 +271,11 @@ def verify_round(engine, params, kv, tokens, ctx_lens, block_tables, cap,
                            positions, valid, q_offset=ctx_lens,
                            kv_len=ctx_lens + s_len,
                            attn_backend=engine.attn_backend)
-    hidden, kv = engine.mod.forward_hidden(params, engine.model_cfg,
-                                           tokens_in, positions, kv, attn)
+    hidden, kv = engine.mod.forward_hidden(
+        params, engine.model_cfg, tokens_in, positions, kv, attn,
+        on_layer=numerics.layer_check(engine.model_cfg, "verify"))
     logits_all = engine.mod.unembed(params, engine.model_cfg, hidden)
+    numerics.check_logits(engine.model_cfg, "verify", logits_all)
 
     if window is not None:
         # window_i = base window rolled with d_1..d_i: the state the

@@ -25,9 +25,13 @@ Twin of ``tpu_inference/models/weights.py``:
   host memory holds one slab, device memory the model plus one slab.
   With ``quant`` each matmul slab is quantized as it lands; with
   ``mesh`` (tp > 1) each slab is cut and copied onto every tp shard.
-
-The reference's Orbax ``save_native``/``load_native`` (its TPU-native
-restart tier) have no twin here.
+- ``save_native(params, path)`` / ``load_native(path, template)``: the
+  restart-after-failure tier, the twin of the reference's Orbax pair. A
+  params tree (quantized leaves included, or a tp ``ShardedParams``
+  saved whole) goes to ``path/params.safetensors`` as stored, and comes
+  back into a template's structure and placement: onto one device, or
+  cut straight into a tp layout. The reference's own Orbax directories
+  are not read.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import struct
 import sys
 from typing import Any, Dict
 
@@ -584,3 +589,340 @@ def _load_sharded(cfg: ModelConfig, files: _CheckpointFiles, plan: dict,
 
     walk(plan, specs, shards, shardings)
     return shd.ShardedParams(shards, shardings)
+
+
+# ---------------------------------------------------------------------------
+# Native checkpoint tier (save_native / load_native)
+# ---------------------------------------------------------------------------
+#
+# One safetensors file: each tensor under its path in the tree
+# ("blocks/wq"; a quantized leaf as "blocks/wq.q" and "blocks/wq.scale"),
+# and in the header's metadata the tree itself: every leaf's path, node
+# kind, dtypes and shapes, and for a quantized leaf its scale groups
+# (more than one: grouped int4, codes nibble-packed; all ``dequantize``
+# needs). safetensors rather than ``torch.save``: no pickle, a header any
+# tool reads, and safe_open's memory-mapped slices read one slab of a
+# leaf without the rest of the file. The writer is this module's own, so
+# each slab streams from its device to the file: host memory holds one
+# slab, as on load.
+
+NATIVE_FILE = "params.safetensors"
+NATIVE_FORMAT = "tpu_inference_torch.native/1"
+
+_ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16",
+              torch.float16: "F16", torch.float64: "F64",
+              torch.int8: "I8", torch.uint8: "U8", torch.int16: "I16",
+              torch.int32: "I32", torch.int64: "I64", torch.bool: "BOOL"}
+
+
+def _tree_leaves(tree: dict, prefix: str = "") -> list:
+    """(path, node) of every leaf (a tensor, a QuantizedArray or a
+    NamedSharding), in the tree's order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _tree_leaves(v, f"{prefix}{k}/")
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
+def _tree_rebuild(tree: dict, values: dict, prefix: str = "") -> dict:
+    """``tree``'s structure with the leaf at each path from ``values``."""
+    return {k: (_tree_rebuild(v, values, f"{prefix}{k}/")
+                if isinstance(v, dict) else values[prefix + k])
+            for k, v in tree.items()}
+
+
+def _fields(node) -> tuple:
+    """The tensors of a leaf: a QuantizedArray's codes and scale, or the
+    tensor itself (field None)."""
+    return ("q", "scale") if isinstance(node, QuantizedArray) else (None,)
+
+
+def _field(node, field):
+    return getattr(node, field) if field else node
+
+
+def _key(path: str, field) -> str:
+    return f"{path}.{field}" if field else path
+
+
+def _by_slab(path: str, spec) -> bool:
+    """Leaves under "blocks" stack their layers along dim 0 and move a
+    layer (one slab) at a time; a top-level leaf is one slab."""
+    from tpu_inference_torch.parallel import shardings as shd
+    return path.startswith("blocks/") and shd.shard_dim(spec) != 0
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def save_native(params, path: str) -> None:
+    """Write a params tree to ``path/params.safetensors`` (the directory
+    is made; the file is written beside it and renamed over it once
+    whole, so a crash mid-save leaves the previous checkpoint).
+
+    ``params`` is a params dict (tensors and QuantizedArray nodes) or a
+    tp ``ShardedParams``, which is saved in the full-head layout: each
+    sharded leaf put back together from its shards, a replicated one
+    written once, so any tp restores it. Bytes are written as stored: no
+    float leaf goes through another dtype, codes stay codes. Each slab (a
+    layer of a stacked leaf, or a top-level leaf) is copied to the host,
+    written and dropped before the next."""
+    from tpu_inference_torch.parallel import shardings as shd
+
+    if isinstance(params, shd.ShardedParams):
+        shards = [dict(_tree_leaves(t)) for t in params.shards]
+        specs = dict(_tree_leaves(params.shardings))
+        top = params.shards[0]
+    else:
+        shards, specs, top = [dict(_tree_leaves(params))], None, params
+    n = len(shards)
+    tree, tensors = {}, []      # tensors: (key, leaf path, spec, pieces)
+    header, offset = {}, 0
+    for path_, node in _tree_leaves(top):
+        shapes = {}
+        for field in _fields(node):
+            spec = (_field(specs[path_], field).spec if specs is not None
+                    else shd.P())
+            pieces = [_field(s[path_], field) for s in shards]
+            shape = list(pieces[0].shape)
+            dim = shd.shard_dim(spec)
+            if dim is not None:
+                shape[dim] *= n
+            shapes[field] = shape
+            key, dtype = _key(path_, field), pieces[0].dtype
+            size = math.prod(shape) * pieces[0].element_size()
+            header[key] = {"dtype": _ST_DTYPES[dtype], "shape": shape,
+                           "data_offsets": [offset, offset + size]}
+            offset += size
+            tensors.append((key, path_, spec, pieces))
+        if isinstance(node, QuantizedArray):
+            tree[path_] = {
+                "kind": "quantized", "groups": int(node.scale.shape[-2]),
+                **{f: {"dtype": _dtype_name(_field(node, f).dtype),
+                       "shape": shapes[f]} for f in ("q", "scale")}}
+        else:
+            tree[path_] = {"kind": "tensor", "dtype": _dtype_name(node.dtype),
+                           "shape": shapes[None]}
+    header["__metadata__"] = {"format": NATIVE_FORMAT,
+                              "tree": json.dumps(tree)}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+
+    def host_slabs(path_, spec, pieces):
+        """The full tensor's slabs on the host (a sharded one put back
+        together from its shards' slabs)."""
+        sharded = shd.shard_dim(spec) is not None
+
+        def whole(parts, sp):
+            return (shd.unnarrow([p.cpu() for p in parts], sp) if sharded
+                    else parts[0].cpu())
+
+        if not _by_slab(path_, spec):
+            yield whole(pieces, spec)
+            return
+        inner = shd.P(*spec[1:], packed=spec.packed)
+        for i in range(pieces[0].shape[0]):
+            yield whole([p[i] for p in pieces], inner)
+
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, NATIVE_FILE)
+    with open(target + ".partial", "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for key, path_, spec, pieces in tensors:
+            wrote = 0
+            for slab in host_slabs(path_, spec, pieces):
+                wrote += f.write(memoryview(
+                    slab.contiguous().reshape(-1).view(torch.uint8).numpy()))
+            start, end = header[key]["data_offsets"]
+            if wrote != end - start:
+                raise RuntimeError(f"save_native: {key} wrote {wrote} "
+                                   f"bytes, expected {end - start}")
+    os.replace(target + ".partial", target)
+
+
+def _native_tree(path: str):
+    """(open safetensors handle, the saved tree)."""
+    from safetensors import safe_open
+
+    f = safe_open(os.path.join(path, NATIVE_FILE), framework="pt",
+                  device="cpu")
+    meta = f.metadata() or {}
+    if meta.get("format") != NATIVE_FORMAT:
+        raise ValueError(f"{path}: not a native checkpoint (format "
+                         f"{meta.get('format')!r}, expected "
+                         f"{NATIVE_FORMAT!r})")
+    return f, json.loads(meta["tree"])
+
+
+def _saved(entry: dict, field) -> dict:
+    return entry[field] if field else entry
+
+
+def _check_paths(saved: dict, leaves: list) -> None:
+    have = {p for p, _ in leaves}
+    missing, extra = sorted(set(saved) - have), sorted(have - set(saved))
+    if missing or extra:
+        raise ValueError(f"load_native: the template and the checkpoint "
+                         f"differ in leaves: only in the checkpoint "
+                         f"{missing}, only in the template {extra}")
+
+
+def _check_leaf(path: str, entry: dict, node, shape_of) -> None:
+    """Raise ValueError naming ``path`` when the template's node kind,
+    dtype or shape (``shape_of(saved shape, field)``: a shard's cut of
+    it) differs from the checkpoint's."""
+    kind = "quantized" if isinstance(node, QuantizedArray) else "tensor"
+    if entry["kind"] != kind:
+        raise ValueError(f"load_native: leaf {path!r} is a {entry['kind']} "
+                         f"in the checkpoint, a {kind} in the template")
+    for field in _fields(node):
+        t, saved = _field(node, field), _saved(entry, field)
+        name = _key(path, field)
+        if _dtype_name(t.dtype) != saved["dtype"]:
+            raise ValueError(f"load_native: leaf {name!r} has dtype "
+                             f"{saved['dtype']} in the checkpoint, "
+                             f"{_dtype_name(t.dtype)} in the template")
+        want = tuple(shape_of(tuple(saved["shape"]), field))
+        if tuple(t.shape) != want:
+            raise ValueError(f"load_native: leaf {name!r} has shape "
+                             f"{want} in the checkpoint, {tuple(t.shape)} "
+                             f"in the template")
+
+
+def _empty(saved: dict, device, shape=None) -> torch.Tensor:
+    return torch.empty(shape if shape is not None else saved["shape"],
+                       dtype=getattr(torch, saved["dtype"]), device=device)
+
+
+def _restore_plain(f, saved: dict, template: dict, device) -> dict:
+    """Every leaf of ``template`` onto ``device``, a slab at a time."""
+    from tpu_inference_torch.parallel import shardings as shd
+
+    values = {}
+    for path_, node in _tree_leaves(template):
+        parts = []
+        for field in _fields(node):
+            entry = _saved(saved[path_], field)
+            out = _empty(entry, device)
+            sl = f.get_slice(_key(path_, field))
+            if _by_slab(path_, shd.P()):
+                for i in range(out.shape[0]):
+                    out[i].copy_(sl[i])
+            else:
+                out.copy_(sl[:])
+            parts.append(out)
+        values[path_] = (QuantizedArray(*parts)
+                         if isinstance(node, QuantizedArray) else parts[0])
+    return _tree_rebuild(template, values)
+
+
+def load_native(path: str, template, device="cuda", mesh=None):
+    """Restore a ``save_native`` checkpoint into ``template``'s structure.
+
+    ``template`` is a params tree of tensors, or of meta stand-ins
+    (``torch.empty(shape, dtype=..., device="meta")``, the twin of
+    ``jax.ShapeDtypeStruct``), with QuantizedArray nodes where the tree
+    has them; a leaf whose path, node kind, shape or dtype differs from
+    the checkpoint raises ValueError naming it. Each leaf lands on
+    ``device``, read slab by slab.
+
+    A ``ShardedParams`` template (``shard_params(template, cfg, mesh)``;
+    meta leaves stay meta, the reference's sharded abstract leaves)
+    restores straight into its tp layout on ``mesh``'s tp devices
+    (default: the mesh its shardings name): a ShardedParams equal to
+    ``shard_params(load_native(path, template), cfg, mesh)``. Where the
+    shards share one device it is exactly that, one copy with the shards
+    views of it. Otherwise each slab is read once on the host, cut along
+    the leaf's spec and each piece copied to its shard's device: no
+    device holds an unsharded copy of a sharded leaf, the host one
+    slab."""
+    from tpu_inference_torch.parallel import shardings as shd
+
+    f, saved = _native_tree(path)
+    if not isinstance(template, shd.ShardedParams):
+        if mesh is not None and mesh.shape.get("tp", 1) > 1:
+            raise ValueError("load_native: a tp > 1 restore takes its "
+                             "specs from a sharded template; pass "
+                             "shard_params(template, cfg, mesh)")
+        leaves = _tree_leaves(template)
+        _check_paths(saved, leaves)
+        for path_, node in leaves:
+            _check_leaf(path_, saved[path_], node, lambda shape, _: shape)
+        return _restore_plain(f, saved, template, device)
+
+    specs = dict(_tree_leaves(template.shardings))
+    if mesh is None:
+        first = next(iter(specs.values()))
+        mesh = _field(first, "q" if isinstance(first, QuantizedArray)
+                      else None).mesh
+    devices = mesh.tp_devices()
+    n = len(devices)
+    if n != len(template):
+        raise ValueError(f"load_native: template cut into {len(template)} "
+                         f"shards, mesh tp {n}")
+
+    def spec_of(path_, field):
+        return _field(specs[path_], field).spec
+
+    _check_paths(saved, _tree_leaves(template.shards[0]))
+    for shard in template.shards:
+        for path_, node in _tree_leaves(shard):
+            _check_leaf(path_, saved[path_], node,
+                        lambda shape, field, p=path_: shd.shard_shape(
+                            shape, spec_of(p, field), n))
+    top = template.shards[0]
+    if _shards_share_a_device(devices):
+        full = {p: (QuantizedArray(*(_empty(saved[p][x], "meta")
+                                     for x in ("q", "scale")))
+                    if saved[p]["kind"] == "quantized"
+                    else _empty(saved[p], "meta"))
+                for p, _ in _tree_leaves(top)}
+        plain = _restore_plain(f, saved, _tree_rebuild(top, full),
+                               devices[0])
+        return shd.cut_params(plain, template.shardings, devices)
+    return _restore_per_shard(f, saved, template, devices, spec_of)
+
+
+def _shards_share_a_device(devices: list) -> bool:
+    return len({torch.device(d) for d in devices}) == 1
+
+
+def _restore_per_shard(f, saved: dict, template, devices: list, spec_of):
+    """load_native's path for shards on distinct devices: each slab read
+    once on the host, cut, each piece copied into its shard's leaf."""
+    from tpu_inference_torch.parallel import shardings as shd
+
+    n = len(devices)
+    top = template.shards[0]
+    values = [{} for _ in range(n)]
+    for path_, node in _tree_leaves(top):
+        parts = [[] for _ in range(n)]
+        for field in _fields(node):
+            entry = _saved(saved[path_], field)
+            spec = spec_of(path_, field)
+            outs = [_empty(entry, d, shd.shard_shape(entry["shape"], spec, n))
+                    for d in devices]
+            sl = f.get_slice(_key(path_, field))
+            if _by_slab(path_, spec):
+                inner = shd.P(*spec[1:], packed=spec.packed)
+                for i in range(entry["shape"][0]):
+                    slab = sl[i]
+                    for j in range(n):
+                        outs[j][i].copy_(shd.narrow(slab, inner, j, n))
+            else:
+                whole = sl[:]
+                for j in range(n):
+                    outs[j].copy_(shd.narrow(whole, spec, j, n))
+            for j in range(n):
+                parts[j].append(outs[j])
+        for j in range(n):
+            values[j][path_] = (QuantizedArray(*parts[j])
+                                if isinstance(node, QuantizedArray)
+                                else parts[j][0])
+    return shd.ShardedParams([_tree_rebuild(top, v) for v in values],
+                             template.shardings)

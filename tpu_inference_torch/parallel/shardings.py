@@ -236,6 +236,29 @@ def narrow(t: torch.Tensor, spec: P, shard: int, n: int) -> torch.Tensor:
     return t.narrow(dim, shard * c, c)
 
 
+def unnarrow(pieces: List[torch.Tensor], spec: P) -> torch.Tensor:
+    """The full tensor whose ``narrow`` along ``spec`` gives ``pieces``
+    (shard order); a replicated spec gives the first piece."""
+    dim = shard_dim(spec)
+    if dim is None or len(pieces) == 1:
+        return pieces[0]
+    if spec.packed > 1:
+        c = pieces[0].shape[dim] // spec.packed
+        return torch.cat([t.narrow(dim, p * c, c) for p in
+                          range(spec.packed) for t in pieces], dim=dim)
+    return torch.cat(pieces, dim=dim)
+
+
+def shard_shape(shape, spec: P, n: int) -> tuple:
+    """The shape of one of ``n`` shards of a ``shape`` tensor cut along
+    ``spec`` (``narrow``'s result shape)."""
+    out = list(shape)
+    dim = shard_dim(spec)
+    if dim is not None and n > 1:
+        out[dim] //= n
+    return tuple(out)
+
+
 class ShardedParams:
     """One parameter dict per tp shard (shard ``i`` on the mesh's tp
     device ``i``), with the NamedSharding tree they were cut along (for
@@ -280,7 +303,9 @@ def _named(tree, shardings, prefix: str):
 
 
 def _place(t: torch.Tensor, device) -> torch.Tensor:
-    return t if t.device == torch.device(device) else t.to(device)
+    if t.is_meta or t.device == torch.device(device):
+        return t
+    return t.to(device)
 
 
 def shard_params(params: dict, cfg: ModelConfig, mesh: Mesh
@@ -288,9 +313,16 @@ def shard_params(params: dict, cfg: ModelConfig, mesh: Mesh
     """Cut a params dict into one dict per tp shard along
     ``param_specs``, each placed on its shard's device. On the device
     the params already live on, a shard's leaves are views of the full
-    ones (no copy), except GPT-2's packed q/k/v."""
-    shardings = param_shardings(cfg, mesh, params)
-    devices = mesh.tp_devices()
+    ones (no copy), except GPT-2's packed q/k/v. Meta tensors stay meta
+    (an abstract sharded template, models/weights.py ``load_native``)."""
+    return cut_params(params, param_shardings(cfg, mesh, params),
+                      mesh.tp_devices())
+
+
+def cut_params(params: dict, shardings: Any, devices: list
+               ) -> ShardedParams:
+    """``params`` cut along the NamedSharding tree ``shardings``, shard
+    ``j`` placed on ``devices[j]`` (shard_params's body)."""
     n = len(devices)
 
     def cut(tree, sh, j):

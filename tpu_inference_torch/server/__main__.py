@@ -8,9 +8,10 @@ model is a preset of any of the three families (``llama-3-8b``,
 reads the architecture from DIR/config.json and streams DIR's
 safetensors onto the card (``--tokenizer auto`` takes DIR's tokenizer;
 ``--check-numerics`` checks the weights and one forward before
-serving). ``--quant int8 --kv-quant int8`` serves int8 weights over an
-int8 KV pool (int4 for either is the other tier); Mixtral-8x7B fits one
-80 GB card only with ``--quant int8`` or int4.
+serving; ``--debug-nans`` checks every serving forward layer by layer).
+``--quant int8 --kv-quant int8`` serves int8 weights over an int8 KV
+pool (int4 for either is the other tier); Mixtral-8x7B fits one 80 GB
+card only with ``--quant int8`` or int4.
 
 The sizing and engine flags are the reference's, with its defaults and
 its order of resolving "auto": ``--max-batch-size``/``--num-pages auto``
@@ -40,6 +41,10 @@ Replicas: ``--dp N`` serves N replicas, as threads of this process
 router (``--fleet subprocess``: ``--worker-restart-*``,
 ``--drain-timeout-s``, ``--no-fleet-migrate``, ``--rpc-deadline-*``,
 ``--poison-max-workers`` and the ``--chaos-rpc-*`` transport faults).
+Both route by ``--routing`` (``prefix_affinity``, weighted by
+``--route-hit-weight``/``--route-host-hit-weight``, or
+``least_loaded``) and resubmit a failed request up to
+``--failover-retries`` times.
 Replica i serves on ``cuda:{i % device_count}``, so on one card they all
 share it, and ``--num-pages``/``--max-batch-size`` must then be integers
 (``auto`` would size every replica from the whole card). P/D roles
@@ -96,6 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="before serving: every parameter finite, and one "
                         "forward finite layer by layer (catches corrupt "
                         "checkpoints)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="while serving, check every layer's output and "
+                        "the logits of every forward for NaNs and fail "
+                        "the step naming the layer (the twin of "
+                        "jax_debug_nans; syncs once a layer)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=11434)
     p.add_argument("--device", default="cuda",
@@ -285,6 +295,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quarantined replicas re-enter (probation) after "
                         "this long; one clean step re-promotes, one "
                         "failure re-quarantines")
+    p.add_argument("--failover-retries", type=int, default=1,
+                   help="resubmit a request failed/stranded by a sick "
+                        "replica (before any token streamed) to a "
+                        "healthy one at most this many times")
+    p.add_argument("--routing", default="prefix_affinity",
+                   choices=("prefix_affinity", "least_loaded"),
+                   help="dp replica routing: 'prefix_affinity' scores "
+                        "replicas by expected re-prefill pages (prompt "
+                        "pages minus a prefix-cache peek) blended with "
+                        "load/pressure; 'least_loaded' routes on load "
+                        "alone")
+    p.add_argument("--route-hit-weight", type=float, default=1.0,
+                   help="prefix-affinity: pages of prefill work one "
+                        "peeked cache-hit page is worth in the routing "
+                        "score (1.0 = at cost; larger lets warmth "
+                        "outbid queue depth and pool pressure)")
+    p.add_argument("--route-host-hit-weight", type=float, default=0.5,
+                   help="prefix-affinity: pages of prefill work one "
+                        "host-tier hit page is worth (a host page saves "
+                        "the compute but pays a host->device swap-in; 0 "
+                        "ignores host warmth)")
     p.add_argument("--default-class", default="interactive",
                    choices=("interactive", "batch", "background"),
                    help="priority class for requests without an "
@@ -605,6 +636,10 @@ def server_overrides(args) -> dict:
             "step_watchdog_s": args.step_watchdog_s,
             "quarantine_after_failures": args.quarantine_after,
             "quarantine_cooldown_s": args.quarantine_cooldown_s,
+            "failover_max_retries": args.failover_retries,
+            "routing": args.routing,
+            "route_hit_weight": args.route_hit_weight,
+            "route_host_hit_weight": args.route_host_hit_weight,
             "default_class": args.default_class,
             "profile_dir": args.profile_dir,
             "blackbox_dir": args.blackbox_dir,
@@ -688,6 +723,15 @@ def boot_server(args, p: argparse.ArgumentParser):
         p.error("--check-numerics needs the in-process fleet (the "
                 "workers load their own weights)")
     engine_args = resolve_engine_args(args, p)
+    if args.debug_nans:
+        # Before the engine is built, as the reference's
+        # jax.config.update("jax_debug_nans", True).
+        from tpu_inference_torch.engine.numerics import set_debug_nans
+        set_debug_nans(True)
+        if args.fleet == "subprocess":
+            print("[debug-nans] on in this process only: the worker "
+                  "processes do not inherit it (as the reference's "
+                  "workers do not inherit jax_debug_nans)", file=sys.stderr)
 
     from tpu_inference_torch.server.http import build_server
 
