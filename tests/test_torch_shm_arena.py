@@ -379,8 +379,11 @@ def test_arena_larger_than_dev_shm_is_refused(monkeypatch):
 
 def test_metric_names_are_the_references_but_one():
     """Every ``tpu_inf_*`` series the reference constructs, the port
-    constructs too, except the TPU int4 Mosaic gate, and the port has no
-    name of its own (the metric catalog's literal grep)."""
+    constructs too, except the TPU int4 Mosaic gate, and the port's own
+    names are exactly ``telemetry.PORT_SERIES`` (the metric catalog's
+    literal grep)."""
+    from tpu_inference_torch import telemetry
+
     root = pathlib.Path(__file__).resolve().parent.parent
     lit = re.compile(r'"(tpu_inf_[a-z0-9_]+)"')
 
@@ -390,7 +393,7 @@ def test_metric_names_are_the_references_but_one():
 
     r, t = names("tpu_inference"), names("tpu_inference_torch")
     assert r - t == {"tpu_inf_degraded_mode"}
-    assert t - r == set()
+    assert t - r == set(telemetry.PORT_SERIES)
 
 
 # ------------------------------------------------------ fleets end to end

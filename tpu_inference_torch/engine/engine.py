@@ -67,9 +67,17 @@ PyTorch:
   card, chip_smoke.py holds the int4 variants of both kernels against
   their plain versions on every run.
 - **Step ledger**: every dispatch pushes one record (kind, rung, lanes,
-  tokens, device and host walls, cache reads, swap bytes) into
+  tokens, device time and host walls, cache reads, swap bytes) into
   ``telemetry.step_ledger`` (``_ledger_push``); pipelined calls push at
-  their sync with the fields captured when they were staged.
+  their sync with the fields captured when they were staged. On the
+  card ``device_s`` is the dispatch's CUDA-event time (a pair of
+  events around every prefill, decode, hybrid and verify dispatch,
+  ``telemetry.DeviceClock``, read once the host has synchronised
+  anyway; the gaps between dispatches while a sequence is bound feed
+  ``tpu_inf_device_gap_seconds_total``); on the CPU its host wall.
+  Every decode call also splits its launch (entry until the readback
+  copy is queued: ``tpu_inf_decode_launch_seconds``, with the engine
+  thread's CPU seconds over it) from the wait that follows.
 - **Embeddings** (``embed_many``): mean-pooled hidden states from dense,
   cache-free forwards, apart from the pool and the scheduler.
 - **Drain and import** (the process fleet): ``export_sequence_kv``
@@ -464,6 +472,8 @@ class InferenceEngine:
         self._last_compile_event = False
         self._last_verify_dt = 0.0
         self._last_verify_kv_read = 0
+        # The engine thread's CPU clock at the decode call's entry.
+        self._launch_cpu0 = 0.0
         self.admission = engine_cfg.admission
         self.preemptions_total = 0        # sequences evicted for pressure
         self.resumes_total = 0            # recompute-resume prefills
@@ -1397,22 +1407,35 @@ class InferenceEngine:
         return a
 
     def _run_prefill(self, st: dict, lanes: int, use_sp: bool = False
-                     ) -> Tuple[np.ndarray, float]:
+                     ) -> Tuple[np.ndarray, float, float]:
         """One prefill call of ``lanes`` chunks with telemetry; returns
-        (the sampled tokens [P] on the host, the call's wall: it
-        syncs)."""
+        (the sampled tokens [P] on the host, the call's wall: it syncs,
+        its device seconds: the CUDA events' on the card, else the
+        wall). Decode lanes bound meanwhile stall behind it (the
+        sequences it prefills are not bound yet, a mid-prefill one is
+        not active): its wall is their stall."""
         self._count_prefill(use_sp, lanes)
+        stalled = bool(self.active_sequences())
         t0 = time.perf_counter()
         self._last_decode_end = None     # prefill breaks the decode streak
-        out = self._prefill_fn(st, use_sp)
-        if self.spec_draft:
-            # Mirror the chunk into the draft model's pool (same pages).
-            self._draft_prefill_fn(st)
-        out = out.cpu().numpy()
+        with telemetry.phase_range("prefill"):
+            clk = self._clock_start()
+            out = self._prefill_fn(st, use_sp)
+            if self.spec_draft:
+                # Mirror the chunk into the draft model's pool (same pages).
+                self._draft_prefill_fn(st)
+            # The end event precedes the first tokens' readback (a few
+            # bytes, from whichever device the sp path left them on).
+            self._clock_stop(clk, bound=True)
+            with telemetry.phase_range("sync"):
+                out = out.cpu()
+        out = out.numpy()
         dt = time.perf_counter() - t0
         self.telemetry.prefill_dispatch_s.observe(dt)
         self.telemetry.prefill_dispatches.inc()
-        return out, dt
+        if stalled:
+            self.telemetry.decode_stall_during_prefill_s.observe(dt)
+        return out, dt, self._clock_read(clk, dt)
 
     def _count_prefill(self, use_sp: bool, lanes: int) -> None:
         path = f"sp_{self.engine_cfg.sp_attn}" if use_sp else "paged"
@@ -1449,15 +1472,11 @@ class InferenceEngine:
         sampled token)."""
         st = self._stage_chunk_arrays(seq, prompt, offset,
                                       self.engine_cfg.chunk_tokens_cap)
-        # Active decode lanes wait behind this serial chunk (the stall
-        # hybrid steps remove); mid-prefill sequences are not active.
-        stalled = bool(self.active_sequences())
         use_sp = self._use_sp(offset, st["chunk_tokens"], len(prompt),
                               st["bucket"])
         t0 = time.perf_counter()
-        out, dt = self._run_prefill(st, 1, use_sp)  # syncs on its token
-        if stalled:
-            self.telemetry.decode_stall_during_prefill_s.observe(dt)
+        # Syncs on its token; bound decode lanes stall behind it.
+        out, dt, device_s = self._run_prefill(st, 1, use_sp)
         if self.telemetry.enabled:
             seq.dispatch_wall_s += dt
             # A child of the request's prefill span: a long prompt's
@@ -1470,7 +1489,7 @@ class InferenceEngine:
             self._ledger_push(
                 "prefill_chunk", rung=0, slots=1,
                 tokens=1 if offset + c >= len(prompt) else 0,
-                chunk_tokens=c, device_s=dt,
+                chunk_tokens=c, device_s=device_s,
                 kv_read=_chunk_kv_read(c, offset),
                 compile_event=st["bucket"]
                 not in self._prefill_buckets_seen)
@@ -1540,7 +1559,7 @@ class InferenceEngine:
             st["prompt_len"][i] = len(chunk)
             st["prefix_len"][i] = seq.cached_tokens
             st["bts"][i] = self._block_table_array(seq.pages)
-        out, dt = self._run_prefill(st, len(group), use_sp)
+        out, dt, device_s = self._run_prefill(st, len(group), use_sp)
         if self.telemetry.enabled:
             for seq, _ in group:
                 seq.dispatch_wall_s += dt
@@ -1548,7 +1567,7 @@ class InferenceEngine:
             plen, pref = st["prompt_len"][:n], st["prefix_len"][:n]
             self._ledger_push(
                 "prefill_chunk", rung=0, slots=n, tokens=n,
-                chunk_tokens=int(plen.sum()), device_s=dt,
+                chunk_tokens=int(plen.sum()), device_s=device_s,
                 kv_read=int(_chunk_kv_read(plen, pref).sum()),
                 compile_event=(bucket, p) not in self._prefill_buckets_seen)
             self._prefill_buckets_seen.add((bucket, p))
@@ -2122,7 +2141,8 @@ class InferenceEngine:
             return {}
         b = self._rung_for_slots(active)
         self._note_rung(b)
-        st = self._stage_batch(active, b)
+        with telemetry.phase_range("stage"):
+            st = self._stage_batch(active, b)
         st["allowed"] = np.zeros((b,), np.int32)
         st["eos"] = np.full((b,), -1, np.int32)
         for seq in active:
@@ -2130,9 +2150,18 @@ class InferenceEngine:
             if seq.eos_token_id is not None:
                 st["eos"][seq.slot] = seq.eos_token_id
         t0 = self._note_decode_entry(active)
-        outs, _, _ = self._decode_multi_fn(st, k_steps)
-        outs = outs.cpu().numpy()                      # [K, B]: one sync
+        with telemetry.phase_range("launch"):
+            clk = self._clock_start()
+            outs, _, _ = self._decode_multi_fn(st, k_steps)
+            (outs,), event = self._to_host_async(outs)
+            self._clock_stop(clk)
+        self._note_launched(t0)
+        with telemetry.phase_range("sync"):
+            if event is not None:
+                event.synchronize()                    # the one sync
+        outs = outs.numpy()                            # [K, B]
         dt = self._note_decode_exit(t0, active)
+        device_s = self._clock_read(clk, dt)
         kv_read = sum(s.ctx_len for s in active) * k_steps
         result: Dict[int, List[int]] = {}
         for seq in active:
@@ -2145,7 +2174,7 @@ class InferenceEngine:
             self.telemetry.tokens_per_dispatch.observe(n_tokens)
             self._ledger_push("decode", rung=b, slots=len(active),
                               tokens=n_tokens, steps=k_steps,
-                              device_s=dt, kv_read=kv_read)
+                              device_s=device_s, kv_read=kv_read)
         return result
 
     # ------------------------------------------------------------------
@@ -2189,14 +2218,17 @@ class InferenceEngine:
         advance in this call), as a pipeline call."""
         t0 = time.perf_counter()
         self._last_decode_end = None   # prefill breaks the decode streak
-        p_tok = self._prefill_fn(chunk)
-        (p_host,), event = self._to_host_async(p_tok)
+        with telemetry.phase_range("prefill"):
+            clk = self._clock_start()
+            p_tok = self._prefill_fn(chunk)
+            (p_host,), event = self._to_host_async(p_tok)
+            self._clock_stop(clk, bound=True)
         dt = time.perf_counter() - t0
         self.telemetry.prefill_dispatch_s.observe(dt)
         self.telemetry.prefill_dispatches.inc()
         call = {"outs": None, "final": None, "final_window": None,
                 "event": event, "allowed": {}, "seqs": {}, "rung": 0,
-                "prefill": self._chunk_record(chunk, p_host)}
+                "prefill": self._chunk_record(chunk, p_host), "clock": clk}
         if self.telemetry.enabled:
             chunk["seq"].dispatch_wall_s += dt
             c = chunk["chunk_tokens"]
@@ -2262,7 +2294,8 @@ class InferenceEngine:
         for call in self._inflight:
             b = max(b, call["rung"])
         self._note_rung(b)
-        st = self._stage_batch(active, b)
+        with telemetry.phase_range("stage"):
+            st = self._stage_batch(active, b)
         st["allowed"] = np.zeros((b,), np.int32)
         st["eos"] = np.full((b,), -1, np.int32)
         for seq in staged:
@@ -2271,33 +2304,40 @@ class InferenceEngine:
             if seq.eos_token_id is not None:
                 st["eos"][seq.slot] = seq.eos_token_id
         use_pen = bool(np.any(st["rpens"] != 1.0))
-        tokens_d = self._to_device(st["tokens"])
-        window_d = self._to_device(st["windows"]) if use_pen else None
-        # A continuing lane takes the carry token (and window) of the
-        # NEWEST in-flight call that advanced it; lanes in no in-flight
-        # call (fresh prefills) keep their host-known state.
-        for call in self._inflight:
-            if call["final"] is None:
-                continue          # chunk-only call: no decode half
-            carried = np.zeros((b,), bool)
-            for slot in call["allowed"]:
-                carried[slot] = True
-            carried_d = self._to_device(carried)
-            tokens_d = torch.where(carried_d, call["final"], tokens_d)
-            if use_pen and call["final_window"] is not None:
-                window_d = torch.where(carried_d[:, None],
-                                       call["final_window"], window_d)
+        # The dispatch's device time starts at its first queued copy.
+        clk = self._clock_start()
+        with telemetry.phase_range("stage"):
+            tokens_d = self._to_device(st["tokens"])
+            window_d = self._to_device(st["windows"]) if use_pen else None
+            # A continuing lane takes the carry token (and window) of the
+            # NEWEST in-flight call that advanced it; lanes in no
+            # in-flight call (fresh prefills) keep their host-known state.
+            for call in self._inflight:
+                if call["final"] is None:
+                    continue          # chunk-only call: no decode half
+                carried = np.zeros((b,), bool)
+                for slot in call["allowed"]:
+                    carried[slot] = True
+                carried_d = self._to_device(carried)
+                tokens_d = torch.where(carried_d, call["final"], tokens_d)
+                if use_pen and call["final_window"] is not None:
+                    window_d = torch.where(carried_d[:, None],
+                                           call["final_window"], window_d)
         st["tokens"], st["windows"] = tokens_d, window_d
         t0 = self._note_decode_entry(staged)
-        if chunk is None:
-            outs, final, final_window = self._decode_multi_fn(st, k_steps)
-            p_tok = None
-        else:
-            p_tok, outs, final, final_window = self._hybrid_step_fn(
-                chunk, st, k_steps)
-            self.hybrid_steps_total += 1
-            self.telemetry.hybrid_steps.inc()
-        (outs_h, p_host), event = self._to_host_async(outs, p_tok)
+        with telemetry.phase_range("launch"):
+            if chunk is None:
+                outs, final, final_window = self._decode_multi_fn(st,
+                                                                  k_steps)
+                p_tok = None
+            else:
+                p_tok, outs, final, final_window = self._hybrid_step_fn(
+                    chunk, st, k_steps)
+                self.hybrid_steps_total += 1
+                self.telemetry.hybrid_steps.inc()
+            (outs_h, p_host), event = self._to_host_async(outs, p_tok)
+            self._clock_stop(clk)
+        self._note_launched(t0)
         # Non-blocking: this wall is the host's dispatch; the device
         # wait shows in decode_sync_s at _sync_oldest.
         dispatch_dt = self._note_decode_exit(t0, staged)
@@ -2308,13 +2348,13 @@ class InferenceEngine:
         call = {"outs": outs_h, "final": final,
                 "final_window": final_window, "event": event,
                 "allowed": allowed_by_slot, "rung": b,
-                "seqs": {s.slot: s for s in staged}}
+                "seqs": {s.slot: s for s in staged}, "clock": clk}
         if chunk is not None:
             call["prefill"] = self._chunk_record(chunk, p_host)
         if self.telemetry.enabled:
             # The ledger fields known at stage time (this dispatch's
             # staging and bubble walls); the record is pushed at sync
-            # with device_s = dispatch + sync wall and the folded tokens.
+            # with its device time (_push_staged) and the folded tokens.
             kv_read = sum(int(st["ctx"][s.slot]) * allowed_by_slot[s.slot]
                           for s in staged)
             compile_ev = self._last_compile_event
@@ -2350,9 +2390,11 @@ class InferenceEngine:
         if call.get("spec"):
             return self._sync_spec_call(call)
         t0 = time.perf_counter()
-        if call["event"] is not None:
-            call["event"].synchronize()
+        with telemetry.phase_range("sync"):
+            if call["event"] is not None:
+                call["event"].synchronize()
         sync_dt = time.perf_counter() - t0
+        device_s = self._clock_read(call.get("clock"), None)
         if self.telemetry.enabled:
             if call["outs"] is not None:
                 self.telemetry.decode_sync_s.observe(sync_dt)
@@ -2396,7 +2438,7 @@ class InferenceEngine:
             tokens = led["tokens"]
             if led["kind"] != "prefill_chunk":
                 tokens += sum(len(t) for t in result.values())
-            self._push_staged(led, tokens, sync_dt)
+            self._push_staged(led, tokens, sync_dt, device_s=device_s)
         return result
 
     def _pressure_settle_round(self) -> Dict[int, List[int]]:
@@ -2535,7 +2577,8 @@ class InferenceEngine:
         self._compact_slots()
         b = self._rung_for_slots(active)
         self._note_rung(b)
-        st = self._stage_batch(active, b)
+        with telemetry.phase_range("stage"):
+            st = self._stage_batch(active, b)
         st["allowed"] = np.zeros((b,), np.int32)
         for seq in active:
             st["allowed"][seq.slot] = k_steps
@@ -2544,18 +2587,28 @@ class InferenceEngine:
         outs_all = []
         kv_read = sum(s.ctx_len for s in active) * total
         dispatch_wall = 0.0
+        # One dispatch on the device clock: the chained run, one sync.
+        clk = self._clock_start()
         for c in range(n_calls):
             st["ctx"] = ctx0 + c * st["allowed"]
             t0 = self._note_decode_entry(active)
-            outs, st["tokens"], st["windows"] = self._decode_multi_fn(
-                st, k_steps)
+            with telemetry.phase_range("launch"):
+                outs, st["tokens"], st["windows"] = self._decode_multi_fn(
+                    st, k_steps)
+            self._note_launched(t0)
             if st["windows"] is None:
                 st["windows"] = np.full((b, PENALTY_WINDOW), -1, np.int64)
             outs_all.append(outs)
             dispatch_wall += self._note_decode_exit(t0, active)
+        (outs_all,), event = self._to_host_async(torch.cat(outs_all))
+        self._clock_stop(clk)
         t_sync = time.perf_counter()
-        outs_all = torch.cat(outs_all).cpu().numpy()   # the one sync
+        with telemetry.phase_range("sync"):
+            if event is not None:
+                event.synchronize()                    # the one sync
+        outs_all = outs_all.numpy()
         sync_dt = time.perf_counter() - t_sync
+        device_s = self._clock_read(clk, dispatch_wall + sync_dt)
         self.telemetry.decode_sync_s.observe(sync_dt)
         self._last_decode_end = time.perf_counter()
         result: Dict[int, List[int]] = {}
@@ -2572,7 +2625,7 @@ class InferenceEngine:
             self._ledger_push(
                 "decode", rung=b, slots=len(active),
                 tokens=sum(len(t) for t in result.values()), steps=total,
-                device_s=dispatch_wall + sync_dt, kv_read=kv_read)
+                device_s=device_s, kv_read=kv_read)
         return result
 
     # ------------------------------------------------------------------
@@ -2621,7 +2674,8 @@ class InferenceEngine:
         """(staged arrays, cap, active) of a spec round at rung ``b``:
         cap = provisioned token capacity per slot (writes at or past it
         land on the trash page)."""
-        st = self._stage_batch(active_seqs, b)
+        with telemetry.phase_range("stage"):
+            st = self._stage_batch(active_seqs, b)
         cap = np.zeros((b,), np.int32)
         active = np.zeros((b,), bool)
         for seq in active_seqs:
@@ -2651,9 +2705,18 @@ class InferenceEngine:
         b = ecfg.max_batch_size       # draft spec runs at the top rung
         st, cap, active = self._spec_stage(active_seqs, b)
         t0 = self._note_decode_entry(active_seqs)
-        emitted, n_acc = self._spec_round_fn(st, cap, active)
-        emitted, n_acc = emitted.cpu().numpy(), n_acc.cpu().numpy()
+        with telemetry.phase_range("launch"):
+            clk = self._clock_start()
+            emitted, n_acc = self._spec_round_fn(st, cap, active)
+            (emitted, n_acc), event = self._to_host_async(emitted, n_acc)
+            self._clock_stop(clk)
+        self._note_launched(t0)
+        with telemetry.phase_range("sync"):
+            if event is not None:
+                event.synchronize()
+        emitted, n_acc = emitted.numpy(), n_acc.numpy()
         dt = self._note_decode_exit(t0, active_seqs)
+        device_s = self._clock_read(clk, dt)
         # The verify forward read the cache at the ctx the lanes entered
         # the round with.
         kv_read = sum(s.ctx_len for s in active_seqs) * s_len
@@ -2681,7 +2744,7 @@ class InferenceEngine:
             self.telemetry.tokens_per_dispatch.observe(n_toks)
             self._ledger_push(
                 "spec_verify", rung=b, slots=len(active_seqs),
-                tokens=n_toks, device_s=dt, kv_read=kv_read,
+                tokens=n_toks, device_s=device_s, kv_read=kv_read,
                 spec_accepted=self.spec_accepted - acc0)
         return result
 
@@ -2792,10 +2855,11 @@ class InferenceEngine:
     def _dispatch_verify(self, active_seqs: List[Sequence],
                          proposals: Dict[int, np.ndarray], s_len: int):
         """Stage and queue one verify round at the smallest rung covering
-        the batch and width ``s_len`` (non-blocking). Per-request seeds
-        do not reach spec rounds; greedy rows are unaffected. Returns
-        ((emitted, n_accepted) on the device, {slot: n proposed},
-        rung)."""
+        the batch and width ``s_len``, and the readback of its outputs
+        (non-blocking). Per-request seeds do not reach spec rounds;
+        greedy rows are unaffected. Returns ((emitted, n_accepted) as
+        host copies, the event they land by (None on the CPU), the
+        round's device-clock number), {slot: n proposed}, rung)."""
         gamma = s_len - 1
         b = self._rung_for_slots(active_seqs)
         self._note_rung(b)
@@ -2809,7 +2873,12 @@ class InferenceEngine:
                 drafts[seq.slot, :n] = prop[:n]
                 n_prop[seq.slot] = n
         t0 = self._note_decode_entry(active_seqs)
-        out = self._verify_fn(st, cap, act, drafts, n_prop)
+        with telemetry.phase_range("launch"):
+            clk = self._clock_start()
+            out = self._verify_fn(st, cap, act, drafts, n_prop)
+            out_h, event = self._to_host_async(*out)
+            self._clock_stop(clk)
+        self._note_launched(t0)
         # The dispatch wall and the cache reads, for whichever caller
         # pushes this round's ledger record (after the fold, or at sync).
         self._last_verify_dt = self._note_decode_exit(t0, active_seqs)
@@ -2820,7 +2889,8 @@ class InferenceEngine:
         gammas = [s.spec_gamma if s.spec_gamma >= 0 else full
                   for s in active_seqs]
         self.telemetry.spec_gamma_g.set(sum(gammas) / len(gammas))
-        return out, {s.slot: int(n_prop[s.slot]) for s in active_seqs}, b
+        return ((out_h, event, clk),
+                {s.slot: int(n_prop[s.slot]) for s in active_seqs}, b)
 
     def _fold_spec_emissions(self, seqs: Dict[int, Sequence],
                              emit_by_slot: Dict[int, int],
@@ -2878,17 +2948,21 @@ class InferenceEngine:
                                                      max_steps)
         if not active_seqs:
             return {}
-        (emitted, n_acc), prop_by_slot, rung = self._dispatch_verify(
-            active_seqs, proposals, s_len)
+        ((emitted, n_acc), event, clk), prop_by_slot, rung = \
+            self._dispatch_verify(active_seqs, proposals, s_len)
+        with telemetry.phase_range("sync"):
+            if event is not None:
+                event.synchronize()
+        device_s = self._clock_read(clk, self._last_verify_dt)
         acc0 = self.spec_accepted
         result = self._fold_spec_emissions(
             {s.slot: s for s in active_seqs}, emit_by_slot, prop_by_slot,
-            emitted.cpu().numpy(), n_acc.cpu().numpy())
+            emitted.numpy(), n_acc.numpy())
         if self.telemetry.enabled:
             self._ledger_push(
                 "spec_verify", rung=rung, slots=len(active_seqs),
                 tokens=sum(len(t) for t in result.values()),
-                device_s=self._last_verify_dt,
+                device_s=device_s,
                 kv_read=self._last_verify_kv_read,
                 spec_accepted=self.spec_accepted - acc0)
         return result
@@ -2912,18 +2986,17 @@ class InferenceEngine:
                                                      None)
         if not active_seqs:
             return None
-        (emitted, n_acc), prop_by_slot, rung = self._dispatch_verify(
-            active_seqs, proposals, s_len)
-        (emitted_h, n_acc_h), event = self._to_host_async(emitted, n_acc)
+        ((emitted_h, n_acc_h), event, clk), prop_by_slot, rung = \
+            self._dispatch_verify(active_seqs, proposals, s_len)
         call = {"spec": True, "emitted": emitted_h, "n_accepted": n_acc_h,
                 "event": event, "allowed": dict(emit_by_slot),
                 "n_prop": prop_by_slot,
                 "seqs": {s.slot: s for s in active_seqs},
                 "rung": rung, "outs": None, "final": None,
-                "final_window": None}
+                "final_window": None, "clock": clk}
         if self.telemetry.enabled:
             # Stage-time fields ride on the call; the record is pushed at
-            # sync with the dispatch + sync wall (_sync_spec_call).
+            # sync with its device time (_sync_spec_call).
             call["ledger"] = {
                 "kind": "spec_verify", "rung": rung,
                 "slots": len(active_seqs), "chunk_tokens": 0, "steps": 1,
@@ -2941,9 +3014,11 @@ class InferenceEngine:
         """Wait for an in-flight verify round and fold its emissions (the
         _sync_oldest arm of ``spec`` calls)."""
         t0 = time.perf_counter()
-        if call["event"] is not None:
-            call["event"].synchronize()
+        with telemetry.phase_range("sync"):
+            if call["event"] is not None:
+                call["event"].synchronize()
         sync_dt = time.perf_counter() - t0
+        device_s = self._clock_read(call.get("clock"), None)
         if self.telemetry.enabled:
             self.telemetry.decode_sync_s.observe(sync_dt)
             for seq in call["seqs"].values():
@@ -2962,7 +3037,8 @@ class InferenceEngine:
         led = call.get("ledger")
         if led is not None:
             self._push_staged(led, sum(len(t) for t in result.values()),
-                              sync_dt, self.spec_accepted - acc0)
+                              sync_dt, self.spec_accepted - acc0,
+                              device_s=device_s)
         return result
 
     def _ngram_steps_pipelined(self) -> Dict[int, List[int]]:
@@ -2984,8 +3060,11 @@ class InferenceEngine:
     def _note_decode_entry(self, active_seqs: List[Sequence]) -> float:
         """Observe the host bubble since the last decode call ended (while
         the decode streak lasts; the step ledger's bubble_s), accrue it to
-        the lanes of this call, and return the call's start."""
+        the lanes of this call, and return the call's start (with the
+        engine thread's CPU clock, for ``_note_launched``)."""
         now = time.perf_counter()
+        if self.telemetry.enabled:
+            self._launch_cpu0 = time.thread_time()
         self._pending_bubble = 0.0
         if self._last_decode_end is not None and self.telemetry.enabled:
             gap = now - self._last_decode_end
@@ -2994,6 +3073,43 @@ class InferenceEngine:
             for seq in active_seqs:
                 seq.bubble_s += gap
         return now
+
+    def _note_launched(self, t0: float) -> None:
+        """The decode call that began at ``t0`` has queued its last
+        operation (its readback copy): observe the launch wall and the
+        engine thread's CPU seconds over it, before the host blocks."""
+        tel = self.telemetry
+        if tel.enabled:
+            tel.decode_launch_s.observe(time.perf_counter() - t0)
+            tel.decode_launch_cpu.inc(time.thread_time() - self._launch_cpu0)
+
+    def _clock_start(self) -> Optional[int]:
+        """Record a dispatch's start event (the card, telemetry on) before
+        its first queued operation; its number, or None."""
+        clock = self.telemetry.device_clock
+        return None if clock is None else clock.start()
+
+    def _clock_stop(self, n: Optional[int],
+                    bound: Optional[bool] = None) -> None:
+        """Record the dispatch's end event after its last queued
+        operation. ``bound``: a sequence waits on the card after it (by
+        default, one is bound and unfinished; a prefill's own sequences
+        bind at its sync)."""
+        if n is None:
+            return
+        if bound is None:
+            bound = any(s is not None and not s.done for s in self.slots)
+        self.telemetry.device_clock.stop(n, bound)
+
+    def _clock_read(self, n: Optional[int],
+                    host_s: Optional[float]) -> Optional[float]:
+        """The dispatch's device seconds from its events, once the host
+        has synchronised on it (this also counts its gap); ``host_s``
+        with no clock or a reading lost to the event ring."""
+        if n is None:
+            return host_s
+        dev = self.telemetry.device_clock.read(n)
+        return host_s if dev is None else dev
 
     def _note_decode_exit(self, t0: float,
                           active_seqs: List[Sequence]) -> float:
@@ -3049,14 +3165,18 @@ class InferenceEngine:
             compile_event)
 
     def _push_staged(self, led: dict, tokens: int, sync_dt: float,
-                     spec_accepted: int = 0) -> None:
+                     spec_accepted: int = 0,
+                     device_s: Optional[float] = None) -> None:
         """A pipelined call's record, pushed at its sync: the fields
-        captured at stage time (``led``) with device_s = the dispatch
-        wall + the sync wall."""
+        captured at stage time (``led``) with device_s = the call's CUDA
+        event time on the card, else the dispatch wall + the sync
+        wall."""
+        if device_s is None:
+            device_s = led["dispatch_s"] + sync_dt
         self._ledger_push(
             led["kind"], rung=led["rung"], slots=led["slots"],
             tokens=tokens, chunk_tokens=led["chunk_tokens"],
-            steps=led["steps"], device_s=led["dispatch_s"] + sync_dt,
+            steps=led["steps"], device_s=device_s,
             kv_read=led["kv_read"], staging_s=led["staging_s"],
             bubble_s=led["bubble_s"], compile_event=led["compile"],
             spec_accepted=spec_accepted)

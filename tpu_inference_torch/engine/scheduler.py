@@ -35,6 +35,10 @@ Twin of ``tpu_inference/engine/scheduler.py`` at the default path:
   arrives with a handoff's pages (``seq.adopt_kv``) is admitted alone
   through ``engine.adopt_sequence``, with no prefill, and falls back to
   a recompute-resume when the adoption fails.
+- Profiler ranges: while a torch profiler records, the loop's phases
+  show as ``tpu_inf.<phase>`` ranges on its clock (``admit``,
+  ``deliver`` and ``finish`` here; ``prefill``, ``stage``, ``launch``
+  and ``sync`` in the engine; telemetry.phase_range).
 - Request observability at finish: the phase histograms, the
   ``queue_wait``/``prefill``/``decode`` spans (the engine records the
   ``prefill_chunk`` and ``kv_swap_in`` children; an adoption records
@@ -624,13 +628,14 @@ class EngineScheduler:
                 return
             seq.reaped = True
             pending = self._callbacks.pop(seq.request_id, None)
-        self.engine.release(seq)
-        self.stats.requests_finished += 1
-        self._observe_finish(seq)
-        with self._lock:
-            self.recent.append(self._timeline(seq))
-        if pending is not None:
-            pending.on_finish(seq)
+        with telemetry.phase_range("finish"):
+            self.engine.release(seq)
+            self.stats.requests_finished += 1
+            self._observe_finish(seq)
+            with self._lock:
+                self.recent.append(self._timeline(seq))
+            if pending is not None:
+                pending.on_finish(seq)
 
     def _observe_finish(self, seq: Sequence) -> None:
         """Fold one finished request into the phase histograms, its
@@ -762,11 +767,14 @@ class EngineScheduler:
         }
 
     def _deliver(self, new_tokens: Dict[int, List[int]]) -> None:
-        for rid, toks in new_tokens.items():
-            pending = self._callbacks.get(rid)
-            if pending is not None:
-                for tok in toks:
-                    pending.on_token(pending.seq, tok)
+        if not new_tokens:
+            return
+        with telemetry.phase_range("deliver"):
+            for rid, toks in new_tokens.items():
+                pending = self._callbacks.get(rid)
+                if pending is not None:
+                    for tok in toks:
+                        pending.on_token(pending.seq, tok)
 
     def _reapable(self) -> List[Sequence]:
         """Finished sequences the loop may finish now (a sequence still
@@ -791,7 +799,8 @@ class EngineScheduler:
             # Migrated KV lands in the host tier before admission, so a
             # resubmitted request swaps it in.
             engine.apply_pending_imports()
-            self._admit()
+            with telemetry.phase_range("admit"):
+                self._admit()
             active = engine.active_sequences()
             if not active:
                 # Flush dispatch-ahead calls, then reap even when idle.

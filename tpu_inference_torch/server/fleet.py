@@ -567,6 +567,11 @@ class ProcessEngineGroup:
     def _build_registry(self) -> None:
         r = self._fleet_registry
         telemetry.register_span_ring(r, self._recorder)
+        # The HTTP layer's token stream lag (server/http.py), beside the
+        # supervision series, which are the reference's.
+        self._http_registry = telemetry.Registry()
+        self.stream_lag_s = telemetry.stream_lag_histogram(
+            self._http_registry, self._recorder.enabled)
         r.gauge("tpu_inf_replicas",
                 "Live replicas (quarantined workers excluded)",
                 fn=lambda: float(len(self._live_workers())))
@@ -1930,6 +1935,11 @@ class ProcessEngineGroup:
         ghost.finish_time = time.perf_counter()
         entry.on_finish(ghost)
 
+    def annotate_request(self, trace_id: str, **attrs) -> None:
+        """Attributes a later layer learns (the HTTP layer's write
+        times) on the request's root span, once the router recorded it."""
+        self._recorder.annotate(trace_id, "request", **attrs)
+
     def cancel(self, request_id: int) -> None:
         with self._lock:
             entry = self._tracked.pop(request_id, None)
@@ -2979,7 +2989,7 @@ class ProcessEngineGroup:
             merged = telemetry.apply_carry(h.carry, dump)
             groups.append(({"replica": str(h.replica)},
                            telemetry.registry_from_dump(merged)))
-        groups.append(({}, self._fleet_registry))
+        groups += [({}, self._fleet_registry), ({}, self._http_registry)]
         return telemetry.render_prometheus(groups)
 
     def recent_snapshot(self, n: int) -> List[dict]:

@@ -465,13 +465,17 @@ class InferenceServer:
         return seq, stream, model_name, stop, warnings
 
     def submit(self, seq: Sequence) -> queue.Queue:
-        """Submit; events ("token", id) / ("finish", seq) arrive on the
-        returned queue from the engine thread."""
+        """Submit; events ("token", id, t) / ("finish", seq, t) arrive on
+        the returned queue from the engine thread, each stamped with the
+        engine thread's perf_counter when it was queued (the stream
+        lag's start)."""
         events: queue.Queue = queue.Queue()
         try:
-            self.group.submit(seq,
-                              lambda s, tok: events.put(("token", tok)),
-                              lambda s: events.put(("finish", s)))
+            self.group.submit(
+                seq,
+                lambda s, tok: events.put(("token", tok,
+                                           time.perf_counter())),
+                lambda s: events.put(("finish", s, time.perf_counter())))
         except FleetSaturated as e:
             raise HTTPError(429, str(e),
                             self._retry_after_headers(e.retry_after_s))
@@ -604,6 +608,47 @@ class _TraceThread(threading.Thread):
             self.error = e
         finally:
             self.started.set()
+
+
+class _StreamLag:
+    """One request's token stream lag: from the engine thread's stamp of
+    the oldest event not yet written to the return of the write that
+    carries it, one ``tpu_inf_stream_lag_seconds`` observation per token
+    line (per response, unstreamed); and for the request's root span the
+    first write (from the request's receipt) and the largest lag."""
+
+    __slots__ = ("group", "recv_t", "oldest", "first_write_s",
+                 "max_lag_s")
+
+    def __init__(self, group, recv_t: float):
+        self.group = group
+        self.recv_t = recv_t
+        self.oldest: Optional[float] = None
+        self.first_write_s: Optional[float] = None
+        self.max_lag_s = 0.0
+
+    def stamp(self, t: float) -> None:
+        if self.oldest is None:
+            self.oldest = t
+
+    def written(self) -> None:
+        if self.oldest is None:
+            return
+        now = time.perf_counter()
+        lag = now - self.oldest
+        self.oldest = None
+        self.group.stream_lag_s.observe(lag)
+        if self.first_write_s is None:
+            self.first_write_s = now - self.recv_t
+        self.max_lag_s = max(self.max_lag_s, lag)
+
+    def annotate(self, trace_id: str) -> None:
+        """The write times on the root span, where the router recorded
+        one (a request a stop sequence cut finishes later)."""
+        if self.first_write_s is not None:
+            self.group.annotate_request(
+                trace_id, first_write_s=round(self.first_write_s, 6),
+                max_lag_s=round(self.max_lag_s, 6))
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -872,6 +917,7 @@ class _Handler(BaseHTTPRequestHandler):
         matcher = StopMatcher(stop)
         consumed: list = []
         started = False
+        lag = _StreamLag(app.group, recv_t)
 
         def begin() -> None:
             # First token ready -> now send headers (TTFT contract).
@@ -885,6 +931,10 @@ class _Handler(BaseHTTPRequestHandler):
 
         def line(obj) -> None:
             self._write_chunk(json.dumps(obj).encode() + b"\n")
+
+        def token_line(text: str) -> None:
+            line(app.token_line(model_name, text, chat))
+            lag.written()
 
         def finish(fseq: Sequence, stopped: bool) -> None:
             final = app.final_record(fseq, model_name, recv_t, warnings,
@@ -901,12 +951,13 @@ class _Handler(BaseHTTPRequestHandler):
 
         while True:
             try:
-                kind, payload = self._next_event(events, seq)
+                kind, payload, stamp = self._next_event(events, seq)
             except HTTPError:
                 if not started:
                     raise
                 self.close_connection = True   # headers out: just end
                 return
+            lag.stamp(stamp)
             if kind == "token":
                 consumed.append(payload)
                 emit, stopped = matcher.push(decoder.push(payload))
@@ -914,11 +965,11 @@ class _Handler(BaseHTTPRequestHandler):
                     begin()
                 if stopped:
                     if emit:
-                        line(app.token_line(model_name, emit, chat))
+                        token_line(emit)
                     app.group.cancel(seq.request_id)
                     finish(seq, stopped=True)
                     return
-                line(app.token_line(model_name, emit, chat))
+                token_line(emit)
                 continue
             if (payload.finish_reason in ("error", "unavailable")
                     and not consumed and not started):
@@ -931,7 +982,10 @@ class _Handler(BaseHTTPRequestHandler):
             if not stopped:
                 tail += matcher.flush()
             if tail:
-                line(app.token_line(model_name, tail, chat))
+                token_line(tail)
+            # Every token line is out: the root span learns its write
+            # times before the final record ends the response.
+            lag.annotate(seq.trace_id)
             finish(payload, stopped)
             return
 
@@ -942,6 +996,9 @@ class _Handler(BaseHTTPRequestHandler):
         matcher = StopMatcher(stop)
         parts: list = []
         consumed: list = []
+        # The one response carries every token: its lag runs from the
+        # first token's stamp.
+        lag = _StreamLag(app.group, recv_t)
 
         def respond(fseq: Sequence, stopped: bool) -> None:
             final = app.final_record(fseq, model_name, recv_t, warnings,
@@ -957,9 +1014,11 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 final["response"] = text
             self._send_json(200, final, {"X-Request-Id": seq.trace_id})
+            lag.written()
 
         while True:
-            kind, payload = self._next_event(events, seq)
+            kind, payload, stamp = self._next_event(events, seq)
+            lag.stamp(stamp)
             if kind == "token":
                 consumed.append(payload)
                 emit, stopped = matcher.push(decoder.push(payload))
@@ -979,6 +1038,7 @@ class _Handler(BaseHTTPRequestHandler):
             if not stopped:
                 parts.append(matcher.flush())
             respond(payload, stopped)
+            lag.annotate(seq.trace_id)
             return
 
 

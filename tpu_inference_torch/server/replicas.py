@@ -291,6 +291,11 @@ class EngineGroup:
         self._fleet_registry = telemetry.Registry()
         r = self._fleet_registry
         telemetry.register_span_ring(r, self._recorder)
+        # The HTTP layer's token stream lag (server/http.py), beside the
+        # supervision series, which are the reference's.
+        self._http_registry = telemetry.Registry()
+        self.stream_lag_s = telemetry.stream_lag_histogram(
+            self._http_registry, self._recorder.enabled)
         r.gauge("tpu_inf_replicas", "Configured dp replicas",
                 fn=lambda: len(self.engines))
         r.counter("tpu_inf_retries_attempted_total",
@@ -768,6 +773,11 @@ class EngineGroup:
 
     # ----------------------------------------------------- observability
 
+    def annotate_request(self, trace_id: str, **attrs) -> None:
+        """Attributes a later layer learns (the HTTP layer's write
+        times) on the request's root span, once the router recorded it."""
+        self._recorder.annotate(trace_id, "request", **attrs)
+
     def health_snapshot(self) -> dict:
         """/healthz: per-replica states, pool pressure, routing and tier
         views, the fleet status and the supervision counters."""
@@ -837,7 +847,7 @@ class EngineGroup:
         the fleet registry."""
         groups = [({"replica": str(i)}, s.engine.telemetry.registry)
                   for i, s in enumerate(self.schedulers)]
-        groups.append(({}, self._fleet_registry))
+        groups += [({}, self._fleet_registry), ({}, self._http_registry)]
         return telemetry.render_prometheus(groups)
 
     def recent_snapshot(self, n: int) -> List[dict]:

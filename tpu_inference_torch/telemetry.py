@@ -40,6 +40,7 @@ recorder is bound, and the phase snapshot is empty.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -170,6 +171,23 @@ class Histogram:
                 "buckets": [[b, c] for b, c in zip(self.bounds, cum)]}
 
 
+class SharedHistogram(Histogram):
+    """A Histogram that several threads observe (one HTTP handler thread
+    per stream): each observation's two read-modify-writes happen under
+    a lock, so none is lost. The engine's own histograms have one writer,
+    the engine thread, and take no lock."""
+
+    __slots__ = ("_lock",)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            Histogram.observe(self, v)
+
+
 class Registry:
     """Ordered metric collection; re-adding a (name, labels) key with a
     ``fn`` re-binds it (restartable components never leave stale
@@ -284,6 +302,17 @@ def render_prometheus(groups: Iterable[Tuple[Mapping[str, str], Registry]]
 
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# The series this package builds that the reference has no twin of: the
+# decode call's launch split, the card's dispatch and gap time from CUDA
+# events, and the HTTP stream's lag (PERF.md section 3 names each).
+PORT_SERIES = (
+    "tpu_inf_decode_launch_seconds",
+    "tpu_inf_decode_launch_cpu_seconds_total",
+    "tpu_inf_device_dispatch_seconds_total",
+    "tpu_inf_device_gap_seconds_total",
+    "tpu_inf_stream_lag_seconds",
+)
 
 # JSON phases key (stats snapshot) -> histogram attribute.
 PHASE_HISTOGRAMS = {
@@ -514,7 +543,8 @@ STEP_FIELDS = (
     "chunk_tokens",   # prompt tokens processed (prefill / hybrid chunk)
     "steps",          # device loop iterations (the weights stream from
                       # memory once per iteration)
-    "device_s",       # dispatch wall + sync wall
+    "device_s",       # the card: the dispatch's CUDA-event time; the
+                      # CPU: dispatch wall + sync wall
     "staging_s",      # host batch-staging wall
     "bubble_s",       # host gap before the dispatch while lanes were
                       # active
@@ -594,6 +624,104 @@ class _NullLedger:
 
 
 NULL_LEDGER = _NullLedger()
+
+
+class DeviceClock:
+    """Device time of the engine's dispatches from CUDA events (the card
+    only; the engine builds none on the CPU or with telemetry off).
+
+    ``start()`` records a dispatch's start event before its first queued
+    operation and returns the dispatch's number; ``stop(n, bound)``
+    records its end event after its last one, with ``bound`` = a
+    sequence stays bound after it; ``read(n)``, once the host has
+    synchronised on the dispatch anyway, adds start -> end to
+    ``dispatch_total`` and, if a sequence was bound when the previous
+    dispatch ended, that end -> this start to ``gap_total`` (the card's
+    time outside any dispatch while requests wait: host staging, launch
+    latency, the loop's other work, and any device work outside the
+    brackets), and returns the dispatch's device seconds. It adds no
+    synchronisation.
+
+    Events come from ``event_factory`` (``torch.cuda.Event(
+    enable_timing=True)``; fakes with known times in the tests), made
+    once: a ring of ``depth`` (start, end) pairs, re-recorded in turn.
+    A dispatch read after ``depth`` newer ones started has lost its pair
+    and counts nothing (``read`` returns None), and a gap whose end
+    event was re-recorded is left out, so a reading is never another
+    dispatch's."""
+
+    __slots__ = ("dispatch_total", "gap_total", "_stream", "_ring",
+                 "_gen", "_prev", "_n", "_bound_end")
+
+    def __init__(self, event_factory: Callable[[], Any],
+                 dispatch_total, gap_total, depth: int = 16,
+                 stream: Any = None):
+        self.dispatch_total = dispatch_total
+        self.gap_total = gap_total
+        self._stream = stream
+        depth = max(2, int(depth))
+        self._ring = [(event_factory(), event_factory())
+                      for _ in range(depth)]
+        self._gen: List[int] = [-1] * depth     # dispatch held by a slot
+        self._prev: List[Optional[int]] = [None] * depth
+        self._n = 0
+        self._bound_end: Optional[int] = None
+
+    def start(self) -> int:
+        n = self._n
+        self._n += 1
+        slot = n % len(self._ring)
+        self._gen[slot] = n
+        self._prev[slot] = self._bound_end
+        self._ring[slot][0].record(self._stream)
+        return n
+
+    def stop(self, n: int, bound: bool) -> None:
+        self._ring[n % len(self._ring)][1].record(self._stream)
+        self._bound_end = n if bound else None
+
+    def read(self, n: int) -> Optional[float]:
+        d = len(self._ring)
+        if self._gen[n % d] != n:
+            return None
+        start, end = self._ring[n % d]
+        dt = start.elapsed_time(end) / 1e3
+        self.dispatch_total.inc(dt)
+        prev = self._prev[n % d]
+        if prev is not None and self._gen[prev % d] == prev:
+            gap = self._ring[prev % d][1].elapsed_time(start) / 1e3
+            self.gap_total.inc(max(0.0, gap))
+        return dt
+
+
+_NULL_RANGE = contextlib.nullcontext()
+
+
+def phase_range(phase: str):
+    """The engine loop's phase ``phase`` as a profiler range named
+    ``tpu_inf.<phase>`` (``torch.profiler.record_function``), on the
+    profiler's own clock beside the kernels and the CUDA calls, while a
+    torch profiler records; otherwise a shared no-op context (one module
+    lookup and one flag read)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return _NULL_RANGE
+    import torch
+    return torch.profiler.record_function(f"tpu_inf.{phase}")
+
+
+def stream_lag_histogram(registry: Registry, enabled: bool):
+    """The HTTP layer's ``tpu_inf_stream_lag_seconds`` in ``registry`` (a
+    fleet's registry of the HTTP layer, rendered without labels; every
+    handler thread observes it), or NULL_METRIC when telemetry is off."""
+    if not enabled:
+        return NULL_METRIC
+    return registry.add(SharedHistogram(
+        "tpu_inf_stream_lag_seconds",
+        "Per token line written to a client: the engine thread's stamp "
+        "of the oldest token in the line to the return of the line's "
+        "socket write (streamed); the one response of a non-streamed "
+        "request counts once, from its first token"))
 
 
 class StepCostModel:
@@ -986,6 +1114,21 @@ class SpanRecorder:
                 self._recent.popitem(last=False)
                 self.traces_evicted += 1
             self._recent[trace_id] = spans
+
+    def annotate(self, trace_id: str, name: str, **attrs: Any) -> bool:
+        """Add ``attrs`` to the span ``name`` of a trace, open or sealed
+        (what a later layer learns about a recorded span: the HTTP
+        layer's write times on the root "request" span). False when the
+        trace holds no such span."""
+        if not self.enabled or not trace_id:
+            return False
+        with self._lock:
+            spans = self._recent.get(trace_id) or self._open.get(trace_id)
+            for span in spans or ():
+                if span["name"] == name:
+                    span["attrs"] = {**span.get("attrs", {}), **attrs}
+                    return True
+        return False
 
     def get_trace(self, trace_id: str) -> Optional[List[dict]]:
         with self._lock:
@@ -1599,17 +1742,28 @@ class EngineTelemetry:
     event), ``dispatch_bubble_s`` (host gap between consecutive decode
     calls while sequences were active), ``tokens_per_dispatch``,
     ``hybrid_dispatch_s`` (host wall of one hybrid prefill+decode call),
-    ``decode_stall_during_prefill_s`` (wall of one serial chunked-prefill
-    call, up to its synced output, while decode lanes were active: the
-    stall hybrid steps remove),
+    ``decode_stall_during_prefill_s`` (wall of one prefill dispatch,
+    batched, single or one chunk, up to its synced output, while decode
+    lanes were bound: the stall hybrid steps remove),
+    ``decode_launch_s`` (host wall of one decode call from its entry
+    until its last operation, the readback copy, is queued: the launch
+    alone, before the host blocks) and ``decode_launch_cpu`` (the engine
+    thread's CPU seconds over the same intervals, ``time.thread_time``:
+    below the wall the thread was off the CPU while launching, waiting
+    for the GIL, descheduled or blocked in a CUDA call; the counter
+    says how long, not why),
     ``kv_swap_s`` (host wall of one host-tier page batch copy),
     ``spec_accept_rate`` (acceptance per lane per spec round) and
     ``spec_gamma_g`` (mean adaptive γ of the latest verify round).
     Request phases (engine/scheduler.py at finish): ``queue_wait_s``,
     ``prefill_phase_s``, ``decode_phase_s``, ``ttft_s``, ``e2e_s``.
     ``step_ledger``: one record per dispatch (engine._ledger_push),
-    graded by ``cost_model`` in ``steps_report``. ``recorder``: the
-    replica's span sink (the owning EngineGroup stamps its replica
+    graded by ``cost_model`` in ``steps_report``. ``device_clock``: on
+    the card, the dispatches' device time from CUDA events
+    (``DeviceClock``, bound in ``bind_engine``; None on the CPU), behind
+    ``tpu_inf_device_dispatch_seconds_total`` and
+    ``tpu_inf_device_gap_seconds_total`` and the ledger's ``device_s``.
+    ``recorder``: the replica's span sink (the owning EngineGroup stamps its replica
     index). ``slo``: the rolling TTFT/TPOT windows, bound in
     ``bind_engine``. ``flight``: the crash flight recorder, attached by
     the owning EngineGroup when the operator set a blackbox directory.
@@ -1625,13 +1779,15 @@ class EngineTelemetry:
         self.step_ledger = NULL_LEDGER
         self.cost_model: Optional[StepCostModel] = None
         self.flight: Optional[FlightRecorder] = None
+        self.device_clock: Optional[DeviceClock] = None
         if not self.enabled:
             for attr in PHASE_HISTOGRAMS.values():
                 setattr(self, attr, NULL_METRIC)
             for attr in ("decode_dispatches", "prefill_dispatches",
                          "hybrid_steps", "spec_gamma_g",
                          "kv_offload_pages", "kv_restore_pages",
-                         "kv_offload_bytes", "kv_restore_bytes"):
+                         "kv_offload_bytes", "kv_restore_bytes",
+                         "decode_launch_s", "decode_launch_cpu"):
                 setattr(self, attr, NULL_METRIC)
             return
         register_span_ring(r, self.recorder)
@@ -1656,10 +1812,22 @@ class EngineTelemetry:
             "Host wall time of one hybrid prefill+decode fused dispatch")
         self.decode_stall_during_prefill_s = r.histogram(
             "tpu_inf_decode_stall_during_prefill_seconds",
-            "Wall time active decode lanes sat stalled behind a serial "
-            "chunked-prefill dispatch (structurally zero while hybrid "
+            "Wall time bound decode lanes sat stalled behind one prefill "
+            "dispatch (batched, single or one chunk of a long prompt, up "
+            "to its synced first tokens; structurally zero while hybrid "
             "steps fuse chunks into the decode dispatch; pressure-"
             "degraded rounds chunk serially and record their real stalls)")
+        self.decode_launch_s = r.histogram(
+            "tpu_inf_decode_launch_seconds",
+            "Host wall of one decode call from its entry until its last "
+            "operation (the readback copy) is queued, before the host "
+            "blocks on it")
+        self.decode_launch_cpu = r.counter(
+            "tpu_inf_decode_launch_cpu_seconds_total",
+            "Engine-thread CPU seconds (thread_time) over the decode "
+            "calls' launch walls; below the wall the thread was off the "
+            "CPU while launching (GIL wait, descheduled or a blocking "
+            "CUDA call): how long, not why")
         self.kv_swap_s = r.histogram(
             "tpu_inf_kv_swap_seconds",
             "Host wall of one device<->host KV page-batch swap (both "
@@ -1722,6 +1890,23 @@ class EngineTelemetry:
         self.step_ledger = StepLedger(engine.engine_cfg.step_ledger_depth)
         self.cost_model = StepCostModel.from_engine(engine)
         r = self.registry
+        if engine.device.type == "cuda":
+            import torch
+
+            self.device_clock = DeviceClock(
+                lambda: torch.cuda.Event(enable_timing=True),
+                r.counter("tpu_inf_device_dispatch_seconds_total",
+                          "Device seconds of the engine's dispatches "
+                          "(prefill, decode, hybrid, verify), CUDA events "
+                          "before the first queued operation and after the "
+                          "last"),
+                r.counter("tpu_inf_device_gap_seconds_total",
+                          "Device seconds from one dispatch's end event to "
+                          "the next one's start while a sequence was "
+                          "bound: the card idle, or busy outside the "
+                          "engine's dispatches"),
+                depth=engine.engine_cfg.decode_pipeline_depth + 16,
+                stream=torch.cuda.current_stream(engine.device))
         alloc = engine.allocator
         total = engine.engine_cfg.num_pages - 1   # page 0 = trash page
         r.counter("tpu_inf_kv_page_allocs_total", "KV pool pages allocated",
