@@ -55,6 +55,11 @@ failing loudly (any failure exits non-zero before the result line):
    and off (baseline and hybrid steps; the host wall of each recorded),
    and with a NaN planted in layer 1's wo the first prefill raises
    FloatingPointError naming layer 1 after launching the prefill kernel.
+   Then the decode graphs (decode_graph_phase, engine/decode_graphs.py):
+   tiny Mistral- and Mixtral-shaped engines and int8/int4 pools capture
+   every (rung, K) at warm-up, replayed tokens equal an eager engine's,
+   a replay counts its decode-kernel launches, a sampled or penalty row
+   keeps its call eager (``--only decode_graphs`` runs this lane alone).
 5. main paths: the Ollama server in-process with llama-3-8b at full
    width (32 layers, bf16 activations, random weights from a seed, byte
    tokenizer), concurrent streamed /api/generate requests over
@@ -1491,6 +1496,142 @@ def debug_nans_phase() -> dict:
                                  "launched the prefill kernel")
     finally:
         numerics.set_debug_nans(previous)
+    return out
+
+
+# The tiny engines the decode-graph lane captures: (label, preset, dtype,
+# weight quant, KV pool). Mistral- and Mixtral-shaped, float32 and bf16,
+# and the int8 and int4 pools.
+GRAPH_CASES = (("tiny-mistral f32", "tiny_mistral", None, "none", "none"),
+               ("tiny-mistral bf16", "tiny_mistral", "bfloat16", "none",
+                "none"),
+               ("tiny-mixtral f32", "tiny_mixtral", None, "none", "none"),
+               ("tiny-llama int8 + int8 KV", "tiny_llama", None, "int8",
+                "int8"),
+               ("tiny-llama int4 KV", "tiny_llama", None, "none", "int4"))
+
+
+def decode_graph_phase() -> dict:
+    """The greedy decode call as CUDA graphs (engine/decode_graphs.py).
+    For each GRAPH_CASES engine: warm-up captures every (rung, K) of
+    the ladder (4, 8, 16) at K 1 and 4; 3, 8 and 13 lanes (rungs 4, 8,
+    16) then run one-step and K-step calls and a chained pair, and
+    their greedy tokens equal an eager engine's on the same weights and
+    prompts, with every (rung, K) replayed. A replay's decode-kernel
+    launches are counted (layers x K into ``paged_attention.launches``
+    at the rung's batch). A mixed batch with a sampled and a penalty row
+    runs eager (no replay, eager counter unchanged); with those rows
+    gone, the greedy batch replays. Each engine's graph pool bytes and
+    capture seconds are reported."""
+    import numpy as np
+    from tpu_inference_torch import config as cfgs
+    from tpu_inference_torch.engine import decode_graphs
+    from tpu_inference_torch.engine.engine import InferenceEngine, Sequence
+    from tpu_inference_torch.kernels import paged_attention as pa
+    from tpu_inference_torch.models.registry import build_model
+
+    k = 4
+    ecfg0 = cfgs.EngineConfig(page_size=8, num_pages=512,
+                              max_pages_per_seq=16, max_batch_size=16,
+                              decode_ladder=(4, 8, 16),
+                              prefill_buckets=(16, 32),
+                              decode_steps_per_call=k)
+    out = {}
+    for label, preset, dtype, quant, kv_quant in GRAPH_CASES:
+        mcfg = tiny_config(preset)
+        if dtype is not None:
+            mcfg = dataclasses.replace(mcfg, dtype=getattr(torch, dtype))
+        ecfg = dataclasses.replace(ecfg0, quant=quant, kv_quant=kv_quant)
+        params, _ = build_model(mcfg, seed=SEED, device="cuda", quant=quant)
+        graph = InferenceEngine(mcfg, ecfg, params=params, device="cuda")
+        graph.warmup()
+        eager = InferenceEngine(mcfg, ecfg, params=params, device="cuda")
+        graphs = graph._decode_graphs
+        if graphs is None or sorted(graphs.graphs) != [
+                (b, s) for b in (4, 8, 16) for s in (1, k)]:
+            raise AssertionError(f"graphs {label}: warm-up captured "
+                                 f"{None if graphs is None else sorted(graphs.graphs)}")
+        if eager._decode_graphs is not None:
+            raise AssertionError(f"graphs {label}: an engine with no "
+                                 "warm-up holds graphs")
+        rid = 0
+        for lanes in (3, 8, 13):
+            rng = np.random.default_rng(lanes)
+            prompts = [rng.integers(0, 256, size=3 + i % 11).tolist()
+                       for i in range(lanes)]
+            got = []
+            for eng in (graph, eager):
+                seqs = [Sequence(request_id=rid + i, prompt_tokens=p,
+                                 max_new_tokens=40)
+                        for i, p in enumerate(prompts)]
+                for seq in seqs:
+                    eng.prefill(seq)
+                for _ in range(2):
+                    eng.decode_steps(max_steps=1)
+                    eng.decode_steps()
+                eng.decode_steps_chained(2)
+                got.append([list(s.generated) for s in seqs])
+                for seq in seqs:
+                    eng.release(seq)
+            rid += lanes
+            if got[0] != got[1]:
+                raise AssertionError(f"graphs {label}: {lanes} lanes' "
+                                     "replayed tokens differ from eager: "
+                                     f"{got}")
+        missing = [key for key, n in graphs.replays.items() if n == 0]
+        tel = graph.telemetry
+        if missing or tel.decode_graph_eager.value:
+            raise AssertionError(f"graphs {label}: never replayed {missing}"
+                                 f"; eager {tel.decode_graph_eager.value}")
+        # A replay's decode-kernel launches: layers x K at the rung.
+        seqs = [Sequence(request_id=rid + i, prompt_tokens=[7, 8, 9 + i],
+                         max_new_tokens=40) for i in range(3)]
+        rid += 3
+        for seq in seqs:
+            graph.prefill(seq)
+        pa.reset_counts()
+        graph.decode_steps()
+        want = mcfg.n_layers * k
+        if pa.launches != want or pa.launches_by_batch != {4: want}:
+            raise AssertionError(f"graphs {label}: one replay counted "
+                                 f"{pa.launches} launches "
+                                 f"{pa.launches_by_batch}, not {want}")
+        # Sampled and penalty rows run eager; the greedy batch replays.
+        odd = [Sequence(request_id=rid, prompt_tokens=[1, 2, 3],
+                        max_new_tokens=40, temperature=0.8),
+               Sequence(request_id=rid + 1, prompt_tokens=[4, 5, 6],
+                        max_new_tokens=40, repeat_penalty=1.3)]
+        rid += 2
+        for seq in odd:
+            graph.prefill(seq)
+        replays, eagers = (tel.decode_graph_replays.value,
+                           tel.decode_graph_eager.value)
+        bars = decode_graphs.call_bar(graph._stage_batch(seqs + odd, 8))
+        graph.decode_steps()
+        mixed = (tel.decode_graph_replays.value - replays,
+                 tel.decode_graph_eager.value - eagers)
+        for seq in odd:
+            graph.release(seq)
+        graph.decode_steps()
+        greedy = tel.decode_graph_replays.value - replays - mixed[0]
+        if bars != "sampled rows" or mixed != (0, 0) or greedy != 1:
+            raise AssertionError(f"graphs {label}: mixed batch {bars!r} "
+                                 f"replays/eager {mixed}, then greedy "
+                                 f"replays {greedy}")
+        for seq in seqs:
+            graph.release(seq)
+        graph.check_pool_clean()
+        stats = graph.decode_graph_stats()
+        out[label] = {**stats, "replays": tel.decode_graph_replays.value,
+                      "launches_per_replay": want,
+                      "mixed_batch": bars}
+        log(f"graphs {label}: {stats['decode_graphs']} graphs, pool "
+            f"{stats['decode_graph_pool_bytes']} bytes, captured in "
+            f"{stats['decode_graph_capture_s']:.3f} s; replayed tokens "
+            f"equal eager at rungs 4/8/16, K 1/{k} and chained; a replay "
+            f"counts {want} decode launches; mixed batch eager "
+            f"({bars}), greedy batch replayed")
+        del graph, eager, graphs, params
     return out
 
 
@@ -6417,6 +6558,13 @@ def main() -> int:
         phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
         return out
 
+    if sys.argv[1:] == ["--only", "decode_graphs"]:
+        # The decode-graph lane alone (a first check of a change to it).
+        graph_lane = timed("decode_graphs", decode_graph_phase)
+        print(json.dumps({"ok": True, "decode_graphs": graph_lane,
+                          "phase_s": phase_s}), flush=True)
+        return 0
+
     kernels = timed("kernels", kernel_phase)
     for kind in ("decode", "prefill", "gpt2", "verify"):
         for c in kernels[kind]:
@@ -6453,6 +6601,7 @@ def main() -> int:
     debug_nans = timed("debug_nans", debug_nans_phase)
     log(f"debug-nans: tokens equal with the switch on and off, a NaN in "
         f"layer 1 raised on the first prefill: {json.dumps(debug_nans)}")
+    graph_lane = timed("decode_graphs", decode_graph_phase)
     main_paths = {}
     mp = timed("fleet_tiny", fleet_tiny_phase, card)
     main_paths[mp["label"]] = mp
@@ -6649,7 +6798,7 @@ def main() -> int:
               "main_paths": main_paths, "checkpoint": checkpoint,
               "native_checkpoint": {k: v for k, v in native.items()
                                     if k != "lanes"},
-              "debug_nans": debug_nans,
+              "debug_nans": debug_nans, "decode_graphs": graph_lane,
               "pd_identity": pd_identity, "phase_s": phase_s,
               "tp": {k: v for k, v in tp.items() if k != "lanes"},
               "sp": {k: v for k, v in sp.items() if k != "lanes"},

@@ -22,6 +22,10 @@ PyTorch:
   host array reaches the card through pinned memory and a non-blocking
   copy, each call's tokens come back through a non-blocking copy and a
   CUDA event, and the host waits on the oldest call's event only.
+- **Decode graphs** (engine/decode_graphs.py): on the card, warm-up
+  captures the greedy decode call at every rung and K as a CUDA graph;
+  a greedy, penalty-free call replays it from static inputs, every
+  other call runs the same loop eagerly.
 - **Hybrid steps** (``hybrid_prefill``): one call runs a [1, S_bucket]
   chunk of a long prompt through the prefill kernel, then the [B] K-step
   decode through the decode kernel; the two touch disjoint pages, so the
@@ -118,6 +122,7 @@ import torch
 from tpu_inference_torch import telemetry
 from tpu_inference_torch.config import (WORKER_ROLES, EngineConfig,
                                         ModelConfig, validate_spec_config)
+from tpu_inference_torch.engine import decode_graphs
 from tpu_inference_torch.engine import kv_cache as kvc
 from tpu_inference_torch.engine import numerics
 from tpu_inference_torch.engine.autosize import validate_ladder
@@ -580,6 +585,9 @@ class InferenceEngine:
         # Dispatch-ahead decode pipeline: calls queued on the stream,
         # oldest first (decode_steps_pipelined).
         self._inflight: List[dict] = []
+        # The greedy decode calls captured at warm-up
+        # (capture_decode_graphs); None while every call runs eager.
+        self._decode_graphs: Optional[decode_graphs.DecodeGraphs] = None
         # Speculative decoding counters: positions proposed and accepted;
         # n-gram verify rounds, rounds that ran the plain call (no lane
         # proposed) and lanes throttled to γ=0.
@@ -825,8 +833,15 @@ class InferenceEngine:
         (budget, context cap and page headroom folded in). Returns
         (outs [K, B] int32 with -1 where a slot produced nothing, final
         carry tokens [B], final penalty window [B, W] or None when no
-        lane has a penalty), all on the device."""
-        cfg, ecfg = self.model_cfg, self.engine_cfg
+        lane has a penalty), all on the device.
+
+        A call that ``decode_graphs.call_bar`` lets through replays the
+        graph captured for its (rung, K), when there is one."""
+        if (self._decode_graphs is not None
+                and decode_graphs.call_bar(st) is None):
+            replayed = self._decode_graphs.run(st, k_steps)
+            if replayed is not None:
+                return replayed
         tok = self._to_device(st["tokens"])
         ctx = self._to_device(st["ctx"])
         bts = self._to_device(st["bts"])
@@ -839,9 +854,30 @@ class InferenceEngine:
         rpen, rlast = self._to_device(st["rpens"]), self._to_device(
             st["rlasts"])
         ctx_host = np.asarray(st["ctx"])
+
+        def pick(logits, s, win):
+            # The sampled token sits at absolute index ctx + 1: for an
+            # active lane that is ctx_lens + s + 1, known on the host.
+            return sample(logits, sp, self._generator,
+                          ctx=ctx_host + s + 1, all_greedy=all_greedy,
+                          penalty_window=win, repeat_penalty=rpen,
+                          repeat_last_n=rlast)
+
+        return self._decode_loop(tok, ctx, bts, allow, eos, k_steps, pick,
+                                 win)
+
+    def _decode_loop(self, tok, ctx, bts, allow, eos, k_steps: int, pick,
+                     win=None, nan_checks: bool = True):
+        """The K decode steps of ``_decode_multi_fn`` over device tensors
+        (tokens, ctx, allowed, eos [B]; bts [B, MP]), the body every
+        decode graph captures. ``pick(logits, step, window)`` samples a
+        step's tokens; ``win`` is the penalty window or None;
+        ``nan_checks`` False leaves out ``--debug-nans``'s checks (a
+        capture, whose calls never run with them)."""
+        cfg, ecfg = self.model_cfg, self.engine_cfg
         alive = torch.ones(tok.shape, dtype=torch.bool, device=self.device)
         outs = []
-        check = numerics.layer_check(cfg, "decode")
+        check = numerics.layer_check(cfg, "decode") if nan_checks else None
         for s in range(k_steps):
             act = alive & (allow > s)
             positions = ctx.clamp(max=ecfg.max_context - 1)[:, None]
@@ -853,15 +889,10 @@ class InferenceEngine:
                 self.params, cfg, tok[:, None], positions, self.kv, attn,
                 on_layer=check)
             logits = self.mod.unembed(self.params, cfg, hidden[:, 0])
-            numerics.check_logits(cfg, "decode", logits)
-            # The sampled token sits at absolute index ctx + 1: for an
-            # active lane that is ctx_lens + s + 1, known on the host.
-            new = sample(logits, sp, self._generator,
-                         ctx=ctx_host + s + 1,
-                         all_greedy=all_greedy, penalty_window=win,
-                         repeat_penalty=rpen, repeat_last_n=rlast)
-            new = torch.where(act, new, tok)
-            if use_pen:
+            if nan_checks:
+                numerics.check_logits(cfg, "decode", logits)
+            new = torch.where(act, pick(logits, s, win), tok)
+            if win is not None:
                 win = roll_window(win, new, act)
             outs.append(torch.where(act, new, torch.full_like(new, -1)))
             alive = alive & ((new != eos) | ~act)
@@ -957,9 +988,50 @@ class InferenceEngine:
                 for b in self.ladder:
                     self._hybrid_step_fn(chunk_arrays(1, bucket),
                                          self._decode_warm_arrays(b), k)
+        if (warm_decode and self.device.type == "cuda"
+                and decode_graphs.bar(self) is None):
+            self.capture_decode_graphs()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def decode_graph_stats(self) -> dict:
+        """The stats snapshot's decode-graph fields (zeros without)."""
+        g = self._decode_graphs
+        return {"decode_graphs": 0 if g is None else len(g.graphs),
+                "decode_graph_capture_s": 0.0 if g is None
+                else round(g.capture_s, 3),
+                "decode_graph_pool_bytes": 0 if g is None else g.pool_bytes}
+
+    def capture_decode_graphs(self, graph_type=None) -> Optional[str]:
+        """Capture the greedy decode call at every ladder rung and K in
+        {1, decode_steps_per_call} (decode_graphs.py), the shapes warm-up
+        runs; warm-up calls this on the card. ``graph_type``: the
+        graph's stand-in (``decode_graphs.EagerReplay`` on the CPU), by
+        default ``torch.cuda.CUDAGraph``. Returns None, or why every
+        decode call stays eager (a capture that fails is reported and
+        leaves them eager)."""
+        why = decode_graphs.bar(self)
+        if why is None and graph_type is None and self.device.type != "cuda":
+            why = f"device {self.device} is not a CUDA card"
+        self._decode_graphs = None
+        if why is not None:
+            return why
+        k = max(1, self.engine_cfg.decode_steps_per_call)
+        graphs = decode_graphs.DecodeGraphs(self, graph_type)
+        try:
+            graphs.capture([(b, steps) for b in self.ladder
+                            for steps in sorted({1, k})])
+        except RuntimeError as exc:
+            why = f"decode graph capture failed: {exc}"
+            print(f"[engine] {self.model_cfg.name}: {why}; decode calls "
+                  "run eager", flush=True)
+            return why
+        self._decode_graphs = graphs
+        print(f"[engine] {self.model_cfg.name}: {len(graphs.graphs)} decode "
+              f"graphs captured in {graphs.capture_s:.2f} s, pool "
+              f"{graphs.pool_bytes / 2**20:.1f} MiB", flush=True)
+        return None
 
     def embed(self, token_ids: List[int]) -> np.ndarray:
         """Mean-pooled final hidden state of one token sequence (the
@@ -2030,13 +2102,19 @@ class InferenceEngine:
 
     def _stage_forget(self, seq: Sequence) -> None:
         """Drop a departing sequence's staging rows (every rung), so the
-        buffers never pin finished sequences."""
+        buffers never pin finished sequences, and set their sampling and
+        penalty values back to greedy and off: a freed slot's stale row
+        (never a lane: its ``allowed`` is 0) would otherwise keep every
+        later call at that rung off the greedy graphs."""
+        idle = self._lane_arrays([], 1)
         for buf in self._stage_bufs.values():
             owner = buf["owner"]
             for i, s in enumerate(owner):
                 if s is seq:
                     owner[i] = None
                     buf["bt_key"][i] = None
+                    for k, v in idle.items():
+                        buf[k][i] = v[0]
 
     _STAGED = ("tokens", "ctx", "bts", "temps", "top_ps", "top_ks", "seeds",
                "rpens", "rlasts", "windows")

@@ -154,6 +154,9 @@ class SchedulerStats:
             "quant": ecfg.quant,
             "kv_quant": ecfg.kv_quant,
             "decode_pipeline_depth": ecfg.decode_pipeline_depth,
+            # The greedy decode graphs captured at warm-up: how many, the
+            # seconds the captures took and their memory pool's bytes.
+            **engine.decode_graph_stats(),
             "decode_call_s": self._decode_call_percentiles(
                 ecfg.decode_pipeline_depth > 1),
             "device": str(engine.device),

@@ -22,13 +22,16 @@ inside that launch) and nothing else; ``launches_by_variant`` splits
 them by pool kind (``f32``, ``bf16``, ``int8``, ``int4``) and
 ``launches_by_batch`` by batch width (the decode ladder's rungs) and
 ``launches_by_heads`` by ``"Hq/Hkv"`` (a tp shard's head counts).
+Inside ``recording()`` (a CUDA graph's capture) launches are listed,
+not counted; ``count_launches`` counts such a list once per replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +54,8 @@ _lib = None
 # kv-head) resets its own), so one zeroed buffer serves every launch on
 # that stream, and a CUDA graph can capture the call.
 _counters: dict = {}
+# The launches of the capture under way: (variant, batch, "Hq/Hkv").
+_recording: Optional[List[tuple]] = None
 
 
 def reset_counts() -> None:
@@ -61,6 +66,29 @@ def reset_counts() -> None:
         launches_by_variant[k] = 0
     launches_by_batch.clear()
     launches_by_heads.clear()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[tuple]]:
+    """List the launches made inside the block (a graph capture, whose
+    launches run only when it is replayed) instead of counting them."""
+    global _recording
+    _recording = listed = []
+    try:
+        yield listed
+    finally:
+        _recording = None
+
+
+def count_launches(times: dict) -> None:
+    """Count launches by key (variant, batch, "Hq/Hkv"): ``times`` maps
+    each to its number (one replay: the Counter of a ``recording``)."""
+    global launches
+    for (variant, b, heads), n in times.items():
+        launches += n
+        launches_by_variant[variant] += n
+        launches_by_batch[b] = launches_by_batch.get(b, 0) + n
+        launches_by_heads[heads] = launches_by_heads.get(heads, 0) + n
 
 
 def _library() -> ctypes.CDLL:
@@ -165,7 +193,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     and only their pages are read.
     Returns [B, Hq, D] in q.dtype.
     """
-    global launches
     variant = _pool.check_pool("paged_attention", q, k_pages, v_pages,
                                k_scale, v_scale)
     if q.device.type == "cpu":
@@ -217,9 +244,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         d, num_pages, pg, mp, int(sliding_window), 1.0 / math.sqrt(d), ns,
         pps, stream)
     _build.check(lib, err, "paged_attention")
-    launches += 1
-    launches_by_variant[variant] += 1
-    launches_by_batch[b] = launches_by_batch.get(b, 0) + 1
-    heads = f"{hq}/{hkv}"
-    launches_by_heads[heads] = launches_by_heads.get(heads, 0) + 1
+    key = (variant, b, f"{hq}/{hkv}")
+    if _recording is not None:
+        _recording.append(key)
+    else:
+        count_launches({key: 1})
     return out

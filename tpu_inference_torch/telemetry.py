@@ -305,13 +305,16 @@ PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 # The series this package builds that the reference has no twin of: the
 # decode call's launch split, the card's dispatch and gap time from CUDA
-# events, and the HTTP stream's lag (PERF.md section 3 names each).
+# events, the HTTP stream's lag, and the decode calls served by a graph
+# replay or eager though eligible (PERF.md section 3 names each).
 PORT_SERIES = (
     "tpu_inf_decode_launch_seconds",
     "tpu_inf_decode_launch_cpu_seconds_total",
     "tpu_inf_device_dispatch_seconds_total",
     "tpu_inf_device_gap_seconds_total",
     "tpu_inf_stream_lag_seconds",
+    "tpu_inf_decode_graph_replays_total",
+    "tpu_inf_decode_graph_eager_total",
 )
 
 # JSON phases key (stats snapshot) -> histogram attribute.
@@ -1787,7 +1790,8 @@ class EngineTelemetry:
                          "hybrid_steps", "spec_gamma_g",
                          "kv_offload_pages", "kv_restore_pages",
                          "kv_offload_bytes", "kv_restore_bytes",
-                         "decode_launch_s", "decode_launch_cpu"):
+                         "decode_launch_s", "decode_launch_cpu",
+                         "decode_graph_replays", "decode_graph_eager"):
                 setattr(self, attr, NULL_METRIC)
             return
         register_span_ring(r, self.recorder)
@@ -1828,6 +1832,15 @@ class EngineTelemetry:
             "calls' launch walls; below the wall the thread was off the "
             "CPU while launching (GIL wait, descheduled or a blocking "
             "CUDA call): how long, not why")
+        self.decode_graph_replays = r.counter(
+            "tpu_inf_decode_graph_replays_total",
+            "Decode calls served by replaying a captured CUDA graph "
+            "(engine/decode_graphs.py)")
+        self.decode_graph_eager = r.counter(
+            "tpu_inf_decode_graph_eager_total",
+            "Decode calls eligible for a graph (greedy, no penalty, on "
+            "an engine with graphs) that ran eager: no graph was "
+            "captured for their (rung, steps)")
         self.kv_swap_s = r.histogram(
             "tpu_inf_kv_swap_seconds",
             "Host wall of one device<->host KV page-batch swap (both "
