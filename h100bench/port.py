@@ -2,11 +2,11 @@
 
 The only module of the benchmark that imports ``tpu_inference_torch``.
 It maps a configuration file's published keys onto the port's
-``ModelConfig``, sizes the engine as the port's CLI does for
-``--max-batch-size auto --num-pages auto --decode-ladder auto``
-(engine/autosize.py), and builds ``InferenceServer`` around an
-``InferenceEngine`` given the benchmark's own weights (weights.py), on
-127.0.0.1 at a free port.
+``ModelConfig`` through the configuration's family (families/), sizes
+the engine as the port's CLI does for ``--max-batch-size auto
+--num-pages auto --decode-ladder auto`` (engine/autosize.py), and
+builds ``InferenceServer`` around an ``InferenceEngine`` given the
+benchmark's own weights (weights.py), on 127.0.0.1 at a free port.
 """
 
 from __future__ import annotations
@@ -20,23 +20,17 @@ from tpu_inference_torch.engine import autosize
 from tpu_inference_torch.engine.engine import InferenceEngine
 from tpu_inference_torch.server.http import InferenceServer
 
-from h100bench.spec import model_shape
+from h100bench import families
 from h100bench.weights import DTYPES
 
 
 def model_config(config: dict) -> ModelConfig:
-    s = model_shape(config)
-    port = config.get("port", {})
-    return ModelConfig(
-        name=config["name"], family="mixtral" if s["experts"] else "llama",
-        vocab_size=s["vocab"], d_model=s["d"], n_layers=s["layers"],
-        n_heads=s["heads"], n_kv_heads=s["kv_heads"], d_ff=s["d_ff"],
-        max_seq_len=s["max_context"], rope_theta=s["rope_theta"],
-        norm_eps=s["eps"], n_experts=s["experts"],
-        n_experts_per_tok=s["top_k"] or 2,
-        expert_capacity_factor=float(port.get("expert_capacity_factor",
-                                              2.0)),
-        sliding_window=s["window"], dtype=DTYPES[config["torch_dtype"]])
+    """The port's ModelConfig of a configuration file: its family's
+    fields (families/), its name and its served type."""
+    fam = families.of_config(config)
+    return ModelConfig(name=config["name"],
+                       dtype=DTYPES[config["torch_dtype"]],
+                       **fam.port_fields(fam.shape(config), config))
 
 
 def engine_config(config: dict, mcfg: ModelConfig) -> EngineConfig:

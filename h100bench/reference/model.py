@@ -1,18 +1,16 @@
-"""Mistral-7B and Mixtral-8x7B forward passes in plain float32 PyTorch.
+"""The plain reference's forward pass in float32 PyTorch, and the blocks
+that every family's layer is built from.
 
-Written from the published description (the models' ``config.json``
-and the Mistral and Mixtral papers, arXiv:2310.06825 and
-arXiv:2401.04088): RMSNorm, rotary embeddings (the rotate-half pairing
-of the published checkpoints), grouped-query attention with a causal
-mask and, for Mistral, a sliding window in which a query sees itself and
-the ``window - 1`` positions before it; Mistral's SwiGLU MLP; Mixtral's
-router, whose top-2 logits are softmaxed into weights that sum to 1, and
-its experts, every routed pair computed (the published model drops
-none). Departures from the description:
+The blocks: ``Linear`` (float32, or the bf16 witness's and the float8
+control's rounding), RMSNorm, rotary embeddings (the rotate-half pairing
+of the published checkpoints), causal attention in blocks of queries
+with an optional sliding window in which a query sees itself and the
+``window - 1`` positions before it, the SwiGLU MLP, and the residual
+stream. Each family's layer (``h100bench/families/<model_type>.py``)
+is written from its published description with them and lists its own
+departures. Departures common to every family:
 
 - weights are random (``h100bench/weights.py``), not trained;
-- the Mixtral configuration is the first 16 of 32 layers with the
-  unembedding kept (configs/mixtral-8x7b-bf16-16l.json says why);
 - everything is float32 with TF32 off, where the published checkpoints
   are bf16.
 
@@ -36,7 +34,7 @@ import math
 
 import torch
 
-from h100bench import weights
+from h100bench import families, weights
 
 Q_BLOCK = 1024
 ROW_BLOCK = 2048
@@ -110,14 +108,14 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int) -> torch.Tensor:
-    """Causal attention of q [T, H, D] over k, v [T, Hkv, D], in blocks
-    of queries; ``window`` > 0 lets a query see itself and the
-    window - 1 positions before it."""
+    """Causal attention of q [T, H, D] over k [T, Hkv, D] and v [T, Hkv,
+    Dv], in blocks of queries; ``window`` > 0 lets a query see itself and
+    the window - 1 positions before it."""
     t, h, d = q.shape
     rep = h // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
-    out = torch.empty_like(q)
+    out = q.new_empty(t, h, v.shape[-1])
     scale = 1.0 / math.sqrt(d)
     for lo in range(0, t, Q_BLOCK):
         hi = min(t, lo + Q_BLOCK)
@@ -134,64 +132,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def route(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
-    """Mixtral's router: (expert ids [T, k], weights [T, k]); the weights
-    are the softmax over the k largest router logits."""
-    logits = x @ w_router.float()
-    vals, idx = torch.topk(logits, top_k, dim=-1)
-    return idx, torch.softmax(vals, dim=-1)
-
-
-def _swiglu(x, gate: Linear, up: Linear, down: Linear) -> torch.Tensor:
+def swiglu(x: torch.Tensor, gate: Linear, up: Linear,
+           down: Linear) -> torch.Tensor:
+    """The SwiGLU MLP: down(silu(gate(x)) * up(x))."""
     return down(torch.nn.functional.silu(gate(x)) * up(x))
 
 
-class Layer:
-    """One decoder layer's weights in float32 (or rounded to
-    ``precision``)."""
-
-    def __init__(self, shape: dict, w: dict, precision: str):
-        self.shape, self.precision = shape, precision
-        self.attn_norm, self.ffn_norm = w["attn_norm"], w["ffn_norm"]
-        self.wq, self.wk, self.wv, self.wo = (
-            Linear(w[n], precision) for n in ("wq", "wk", "wv", "wo"))
-        if shape["experts"]:
-            self.w_router = w["w_router"].float()
-            self.experts = [
-                tuple(Linear(w[n][e], precision)
-                      for n in ("w_gate", "w_up", "w_down"))
-                for e in range(shape["experts"])]
-        else:
-            self.mlp = tuple(Linear(w[n], precision)
-                             for n in ("w_gate", "w_up", "w_down"))
-
-    def ffn(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.shape["experts"]:
-            return _swiglu(x, *self.mlp)
-        idx, wts = route(x, self.w_router, self.shape["top_k"])
-        out = torch.zeros_like(x)
-        for e, mats in enumerate(self.experts):
-            rows, slot = torch.nonzero(idx == e, as_tuple=True)
-            if rows.numel():
-                out.index_add_(0, rows, _swiglu(x[rows], *mats)
-                               * wts[rows, slot][:, None])
-        return out
-
-    def _stream(self, x: torch.Tensor) -> torch.Tensor:
-        """The residual stream: bf16 in the bf16 witness."""
-        return _bf16(x) if self.precision == "bf16" else x
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.shape
-        t, hd = x.shape[0], s["head_dim"]
-        h = rms_norm(x, self.attn_norm, s["eps"])
-        q = rope(self.wq(h).view(t, s["heads"], hd), s["rope_theta"])
-        k = rope(self.wk(h).view(t, s["kv_heads"], hd), s["rope_theta"])
-        v = self.wv(h).view(t, s["kv_heads"], hd)
-        a = attention(q, k, v, s["window"]).reshape(t, -1)
-        x = self._stream(x + self.wo(a))
-        return self._stream(x + self.ffn(rms_norm(x, self.ffn_norm,
-                                                  s["eps"])))
+def residual(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """The residual stream after a sublayer adds to it: bf16 in the bf16
+    witness, float32 otherwise."""
+    return _bf16(x) if precision == "bf16" else x
 
 
 def forward_logits(shape: dict, seed: int, seqs: list, device,
@@ -204,9 +154,11 @@ def forward_logits(shape: dict, seed: int, seqs: list, device,
         top = weights.top_weights(shape, seed, device)
         xs = [top["embed"][torch.as_tensor(s, device=device)].float()
               for s in seqs]
+        fam = families.of(shape)
         for i in range(shape["layers"]):
-            layer = Layer(shape, weights.layer_weights(shape, seed, i,
-                                                       device), precision)
+            layer = fam.reference_layer(
+                shape, i, weights.layer_weights(shape, seed, i, device),
+                precision)
             xs = [layer(x) for x in xs]
             del layer
         head = Linear(top["lm_head"], precision)

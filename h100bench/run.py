@@ -74,14 +74,15 @@ def _start_loadgen(plan: dict, port: int, t0: float) -> subprocess.Popen:
     return child
 
 
-def _stop_loadgen(child: subprocess.Popen) -> list:
+def _stop_loadgen(child: subprocess.Popen) -> dict:
+    """The generator's log line: ``requests`` and ``sessions_cut``."""
     try:
         out, _ = child.communicate("stop\n", timeout=LOADGEN_WAIT_S)
     finally:
         if child.poll() is None:
             child.kill()
             child.wait()
-    return json.loads(out.strip().splitlines()[-1])["requests"]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def _sleep_until(t: float) -> None:
@@ -89,13 +90,14 @@ def _sleep_until(t: float) -> None:
 
 
 def _open_window(cell, served, plan: dict, t0: float) -> float:
-    """The window's opening: an open loop's ``window_start``; a closed
-    loop's first moment, after ``ramp_s``, at which the decode calls of
-    FULL_POLLS polls in a row each surfaced FULL_SHARE of a full batch's
-    tokens (the port's tpu_inf_tokens_per_dispatch)."""
+    """The window's opening: an open or sessions loop's
+    ``window_start``; a closed loop's first moment, after ``ramp_s``, at
+    which the decode calls of FULL_POLLS polls in a row each surfaced
+    FULL_SHARE of a full batch's tokens (the port's
+    tpu_inf_tokens_per_dispatch)."""
     from h100bench.readers import parse_prometheus
 
-    if plan["loop"] == "open":
+    if plan["loop"] != "closed":
         w0 = t0 + plan["window_start"]
         _sleep_until(w0)
         return w0
@@ -169,7 +171,7 @@ def drive(cell, served, plan: dict, seconds: float, trace: bool) -> dict:
             slice_ = (s0, s0 + slice_s)
         _sleep_until(w1)
         after = readers.parse_prometheus(served.scrape())
-        requests = _stop_loadgen(child)
+        out = _stop_loadgen(child)
         child = None
     finally:
         if child is not None:
@@ -177,7 +179,8 @@ def drive(cell, served, plan: dict, seconds: float, trace: bool) -> dict:
             child.wait()
     trace_out = (tr.reduce_profile(prof, slice_[1] - slice_[0])
                  if prof is not None else None)
-    return {"log": requests, "window": (w0, w1), "slice": slice_,
+    return {"log": out["requests"], "sessions_cut": out["sessions_cut"],
+            "window": (w0, w1), "slice": slice_,
             "clean": (w0, slice_[0]) if slice_ else (w0, w1),
             "counters": (before, clean or after),
             "window_counters": (before, after), "trace": trace_out,
@@ -196,8 +199,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
     ecfg = served.engine_cfg
     try:
         plan = traffic.build_plan(cell.traffic, seed, seconds)
-        log(f"plan: {plan['loop']} loop, {len(plan['requests'])} "
-            f"requests, {plan['clipped']} prompts clipped to the context")
+        log(f"plan: {traffic.describe(plan)}")
         raw = drive(cell, served, plan, seconds, trace)
         peak = (torch.cuda.max_memory_allocated() if device == "cuda"
                 else 0)
@@ -216,13 +218,17 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
 
 
 def finished(raw: dict) -> list:
-    """Finished requests with their prompt's token ids (BOS, then one
-    token per byte), as the reference reads them."""
-    prompts = {r["id"]: r["prompt"] for r in raw["plan"]["requests"]}
+    """Finished requests with their prompt's token ids, as the client sent
+    them and the reference reads them: BOS, then one token per UTF-8 byte
+    of the plan's prompt or of a session's first turn; a later turn's
+    bytes after the context it continued."""
+    prompts = {r["id"]: r["prompt"]
+               for r in raw["plan"].get("requests", [])}
     out = []
     for r in raw["log"]:
         if r["done"] and r.get("generated"):
-            ids = [256] + list(prompts[r["id"]].encode("ascii"))
+            text = r["prompt"] if "prompt" in r else prompts[r["id"]]
+            ids = r.get("context", [256]) + list(text.encode("utf-8"))
             out.append({"id": r["id"], "prompt_ids": ids,
                         "generated": r["generated"]})
     return out
@@ -271,6 +277,7 @@ def window_summary(raw: dict) -> dict:
     w0, w1 = raw["window"]
     log_ = raw["log"]
     ctx = {"counters": raw["window_counters"]}
+    timed = raw["plan"]["loop"] != "closed"
     calls = readers.delta(ctx, "tpu_inf_tokens_per_dispatch_count") or 0
     toks = readers.delta(ctx, "tpu_inf_tokens_per_dispatch_sum") or 0
     return {
@@ -285,27 +292,29 @@ def window_summary(raw: dict) -> dict:
         "decode_tokens_per_call": toks / calls if calls else None,
         "prefill_dispatches": readers.delta(
             ctx, "tpu_inf_prefill_dispatches_total"),
-        "ttft_p50_s": (stats.ttft_p50_s(log_, w0, w1)
-                       if raw["plan"]["loop"] == "open" else None),
-        "ttft_p90_s": (stats.ttft_p90_s(log_, w0, w1)
-                       if raw["plan"]["loop"] == "open" else None),
+        "ttft_p50_s": stats.ttft_p50_s(log_, w0, w1) if timed else None,
+        "ttft_p90_s": stats.ttft_p90_s(log_, w0, w1) if timed else None,
         "tok_s_before_trace": _tok_s(log_, [raw["clean"]]),
         "tok_s_in_trace": (_tok_s(log_, [raw["slice"]]) if raw["slice"]
                            else None),
+        **(stats.sessions_summary(log_, w0, w1, raw["sessions_cut"])
+           if raw["plan"]["loop"] == "sessions" else {}),
     }
 
 
 def trace_slowdown(raw: dict) -> dict:
     """How far tracing slowed the port in a --trace 1 run: decode steps a
-    second before the slice (the port's counters) and in it (the decode
-    kernel's runs in the trace, one a layer a step), and their ratio."""
-    from h100bench import readers
+    second before the slice (the port's counters) and in it (the runs of
+    the family's decode attention kernel in the trace, one a layer a
+    step), and their ratio."""
+    from h100bench import families, readers
 
     a, b = raw["clean"]
     calls = readers.delta({"counters": raw["counters"]},
                           "tpu_inf_decode_dispatches_total") or 0.0
     before = calls * raw["engine"]["decode_steps_per_call"] / (b - a)
-    steps = readers.decode_steps(raw, "paged_decode_kernel")
+    steps = readers.decode_steps(
+        raw, families.of(raw["shape"]).DECODE_KERNEL)
     inside = steps / raw["trace"]["window_s"]
     return {"decode_steps_per_s_before": before,
             "decode_steps_per_s_in": inside,

@@ -1,5 +1,6 @@
-"""Find a cell's configuration, traffic mix, cell parameters and metric
-readers by the names that ``BENCHMARK.json`` gives them.
+"""Find a cell's configuration, traffic mix, cell parameters, metric
+readers and model family by the names that ``BENCHMARK.json`` and the
+configuration file give them.
 
 Nothing here imports the port: the reference and the CPU tests read the
 same files.
@@ -11,6 +12,8 @@ import importlib.util
 import json
 import os
 from dataclasses import dataclass
+
+from h100bench import families
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -49,6 +52,7 @@ def load_cell(name: str, bench_path: str = "BENCHMARK.json") -> Cell:
     w = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     config = read_json(os.path.join(root, configs[w["config"]]["file"]))
+    families.of_config(config)
     traffic = read_json(os.path.join(HERE, "traffic", f"{w['traffic']}.json"))
     cell_file = os.path.join(HERE, "cells", f"{name}.json")
     if os.path.exists(cell_file):
@@ -73,23 +77,6 @@ def metric_reader(name: str):
 
 def model_shape(config: dict) -> dict:
     """The sizes the reference, the flops count and the weights need,
-    from a configuration file's published keys (Hugging Face names)."""
-    experts = int(config.get("num_local_experts") or 0)
-    heads = int(config["num_attention_heads"])
-    d = int(config["hidden_size"])
-    return {
-        "vocab": int(config["vocab_size"]),
-        "d": d,
-        "layers": int(config["num_hidden_layers"]),
-        "heads": heads,
-        "kv_heads": int(config["num_key_value_heads"]),
-        "head_dim": int(config.get("head_dim") or d // heads),
-        "d_ff": int(config["intermediate_size"]),
-        "experts": experts,
-        "top_k": int(config.get("num_experts_per_tok") or 0),
-        "window": int(config.get("sliding_window") or 0),
-        "rope_theta": float(config["rope_theta"]),
-        "eps": float(config["rms_norm_eps"]),
-        "max_context": int(config["max_position_embeddings"]),
-        "dtype": config.get("torch_dtype", "bfloat16"),
-    }
+    from a configuration file's published keys (Hugging Face names), by
+    the family of its ``model_type`` (families/)."""
+    return families.of_config(config).shape(config)

@@ -76,11 +76,44 @@ def output_tok_s(log: list, w0: float, w1: float) -> float:
 
 
 def attempted(log: list, w0: float, w1: float, loop: str) -> list:
-    """The requests a run answers for: due in the window (open loop), or
-    sent in it (closed loop)."""
-    if loop == "open":
-        return due_in(log, w0, w1)
-    return [r for r in log if "sent" in r and w0 <= r["sent"] < w1]
+    """The requests a run answers for: due in the window (open and
+    sessions loops), or sent in it (closed loop)."""
+    if loop == "closed":
+        return [r for r in log if "sent" in r and w0 <= r["sent"] < w1]
+    return due_in(log, w0, w1)
+
+
+def sessions_in_flight(log: list, t: float) -> int:
+    """Sessions whose first turn was due by ``t`` and whose last turn
+    sent had not ended by then (its last token, or never), think times
+    between turns included."""
+    spans: dict = {}
+    for r in log:
+        if "session" not in r:
+            continue
+        end = r["tokens"][-1] if r["tokens"] else INF
+        a, b = spans.get(r["session"], (INF, -INF))
+        spans[r["session"]] = (min(a, r["due"]), max(b, end))
+    return sum(1 for a, b in spans.values() if a <= t < b)
+
+
+def sessions_summary(log: list, w0: float, w1: float, cut: int) -> dict:
+    """For the log of a sessions loop: sessions in flight at the ramp's
+    midpoint, the window's opening and the window's midpoint (at its
+    close, sessions that would send another turn do not); turns due in
+    the window by turn index; the longest context due in it; and how many
+    sessions ended before a turn that would pass the context."""
+    due = due_in(log, w0, w1)
+    turns: dict = {}
+    for r in due:
+        turns[r["turn"]] = turns.get(r["turn"], 0) + 1
+    mid_ramp = (min(r["due"] for r in log) + w0) / 2
+    return {"sessions_in_flight": [sessions_in_flight(log, t) for t in
+                                   (mid_ramp, w0, (w0 + w1) / 2)],
+            "turns_due": dict(sorted(turns.items())),
+            "longest_context_due": max((r["prompt_tokens"] + r["num_predict"]
+                                        for r in due), default=0),
+            "sessions_cut": cut}
 
 
 def lateness(log: list) -> dict:

@@ -1,15 +1,17 @@
-"""The knee sweep of an open-loop cell: one set-up, several rates.
+"""The knee sweep of an open-loop or sessions cell: one set-up, several
+rates (requests or sessions a second).
 
     python3 -m h100bench.sweep --workload <cell> --seed <n> \\
         --seconds <s> --rates 2,3,4,5
 
 serves the cell's configuration once and drives its traffic at each
-mean rate in turn (the cell's ramp, then a window of ``--seconds``; the
-seed plus the rate's index draws its prompts), printing one JSON line a
-rate: the end-to-end tails, the tokens per
-second completed, the generator's lateness, and the backlog, the median
-time to first token of the window's last third over its first third (it
-grows past 1 where requests queue faster than they are served). The
+mean rate in turn (``traffic.RATE_KEYS`` names the loop's rate key; the
+cell's ramp, then a window of ``--seconds``; the seed plus the rate's
+index draws its prompts), printing one JSON line a rate: the end-to-end
+tails, the tokens per second completed, the generator's lateness, and
+the backlog, the median time to first token of the window's last third
+over its first third (it grows past 1 where requests queue faster than
+they are served); a sessions loop adds its sessions in flight. The
 server drains between rates. The knee is the highest rate with no
 growing backlog and both tails under the limits PERF.md records; a cell
 runs at a fixed rate below it, written in its file.
@@ -66,7 +68,8 @@ def main(argv=None) -> int:
     try:
         for i, rate in enumerate(float(r) for r in args.rates.split(",")):
             # A seed of its own per rate: no prompt repeats across rates.
-            plan = traffic.build_plan({**cell.traffic, "rate_rps": rate},
+            key = traffic.RATE_KEYS[cell.traffic["loop"]]
+            plan = traffic.build_plan({**cell.traffic, key: rate},
                                       args.seed + i, args.seconds)
             raw = run.drive(cell, served, plan, args.seconds, False)
             w0, w1 = raw["window"]
@@ -83,7 +86,9 @@ def main(argv=None) -> int:
                 "output_tok_s": stats.output_tok_s(log, w0, w1),
                 "backlog": backlog(log, w0, w1),
                 "failed": sum(1 for r in log if r["error"]),
-                "lateness": stats.lateness(log)}), flush=True)
+                "lateness": stats.lateness(log),
+                **(stats.sessions_summary(log, w0, w1, raw["sessions_cut"])
+                   if plan["loop"] == "sessions" else {})}), flush=True)
             drain(served)
     finally:
         served.close()

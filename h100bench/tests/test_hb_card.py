@@ -17,7 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 SEED = 2**31 + 4242
 
 
-@pytest.mark.parametrize("cell", ["mistral7b.chat", "mixtral8x7b.batch"])
+@pytest.mark.parametrize("cell", ["mistral7b.chat", "mixtral8x7b.batch",
+                                  "mistral7b.sessions"])
 def test_control_fails_the_limit_the_port_keeps(cell):
     import torch
 

@@ -24,7 +24,7 @@ def test_mixtral_decode_step_counts_active_parameters_only():
     ffn = 2 * 3 * d * f                             # top-2 of 8 experts
     router = d * 8
     per_layer = attn + ffn + router
-    assert flops.layer_matmul_params(s) == per_layer
+    assert flops.matmul_params(s) == 16 * per_layer
     kv_len = 1000
     expect = (2 * (16 * per_layer + d * v)
               + 4 * 32 * 128 * kv_len * 16)
@@ -46,16 +46,21 @@ def test_decode_attention_bytes_stop_at_the_window():
 
 
 def test_prefill_pairs_are_causal_and_windowed():
-    s = {"window": 0}
-    assert flops.prefill_pairs(s, 4) == 1 + 2 + 3 + 4
-    assert flops.prefill_pairs(s, 4, cached=2) == 3 + 4
-    w = {"window": 3}
-    assert flops.prefill_pairs(w, 5) == 1 + 2 + 3 + 3 + 3
+    assert flops.prefill_pairs(0, 4) == 1 + 2 + 3 + 4
+    assert flops.prefill_pairs(0, 4, cached=2) == 3 + 4
+    assert flops.prefill_pairs(3, 5) == 1 + 2 + 3 + 3 + 3
+    # The closed form against the sum it replaces, query by query.
+    for window in (0, 1, 2, 3, 7, 64):
+        for prompt in range(40):
+            for cached in range(prompt + 1):
+                assert flops.prefill_pairs(window, prompt, cached) == sum(
+                    min(q + 1, window or q + 1)
+                    for q in range(cached, prompt))
 
 
 def test_prefill_logits_only_for_the_last_position():
     s = _shape("mistral-7b-bf16")
     one = flops.prefill_flops(s, 1)
     two = flops.prefill_flops(s, 2)
-    layer = 2 * flops.layer_matmul_params(s) * 32
-    assert two - one == layer + flops.attn_flops(s, 2)
+    layer = 2 * flops.matmul_params(s)
+    assert two - one == layer + 4 * 32 * 128 * 2 * 32

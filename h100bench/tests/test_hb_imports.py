@@ -1,7 +1,8 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the port. Names are compared by their
-top-level part whole: ``tpu_inference_torch`` is the port, allowed
-outside the reference; ``tpu_inference`` is the JAX package."""
+reference and the model families import nothing of the port. Names are
+compared by their top-level part whole: ``tpu_inference_torch`` is the
+port, allowed outside the reference and the families;
+``tpu_inference`` is the JAX package."""
 
 import ast
 import json
@@ -40,10 +41,14 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    ref = os.path.join(BENCH, "reference")
+    dirs = [os.path.join(BENCH, d) for d in
+            ("reference", "families", os.path.join("tests", "families"))]
+    seen = 0
     for path in _modules():
-        if path.startswith(ref + os.sep):
+        if any(path.startswith(d + os.sep) for d in dirs):
             assert PORT not in set(_imported_tops(path)), path
+            seen += 1
+    assert seen >= 6
 
 
 def _dry_import(names):
@@ -70,5 +75,7 @@ def test_a_dry_import_of_every_module_loads_no_jax():
 
 def test_a_dry_import_of_the_reference_loads_nothing_of_the_port():
     loaded = _dry_import(["h100bench.reference.model",
-                          "h100bench.reference.check"])
+                          "h100bench.reference.check",
+                          "h100bench.families.mistral",
+                          "h100bench.families.mixtral"])
     assert PORT not in loaded and not loaded & FORBIDDEN

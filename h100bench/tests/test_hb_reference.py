@@ -10,7 +10,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from h100bench import spec, weights  # noqa: E402
+from h100bench import families, spec, weights  # noqa: E402
 from h100bench.reference import check, model  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -64,7 +64,7 @@ def test_top2_routing_weights_sum_to_one_and_pick_the_largest():
     torch.manual_seed(0)
     x = torch.randn(50, 32)
     w = torch.randn(32, 8)
-    idx, wts = model.route(x, w, 2)
+    idx, wts = families.load("mixtral").route(x, w, 2)
     assert torch.allclose(wts.sum(-1), torch.ones(50))
     logits = x @ w
     assert torch.equal(idx, logits.topk(2, dim=-1).indices)
@@ -88,7 +88,7 @@ def test_reference_agrees_with_the_ports_plain_float32_forward(name):
     mcfg = port.model_config(cfg)
     params = weights.port_params(s, 5, "cpu")
     toks = _toks(150)
-    mod = mixtral if s["experts"] else llama
+    mod = {"llama": llama, "mixtral": mixtral}[mcfg.family]
     got, _ = mod.forward(params, mcfg, torch.tensor([toks]),
                          torch.arange(150)[None], None,
                          common.make_dense_attn(s["window"]))

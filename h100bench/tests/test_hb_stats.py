@@ -68,3 +68,20 @@ def test_closed_loop_attempts_are_the_requests_sent_in_the_window():
            {"sent": 11.0, "tokens": [], "error": None},
            {"tokens": [], "error": None}]
     assert len(stats.attempted(log, 0, 10, "closed")) == 1
+
+
+def test_sessions_in_flight_span_think_times_and_the_window_counts_turns():
+    def turn(session, k, due, tokens, prompt=100, n=10):
+        return {**_req(due, tokens), "session": session, "turn": k,
+                "prompt_tokens": prompt, "num_predict": n}
+    log = [turn(0, 0, 1.0, [1.5, 2.0]), turn(0, 1, 4.0, [4.5, 6.0]),
+           turn(1, 0, 3.0, [3.5, 9.0], prompt=5000, n=100),
+           turn(2, 0, 7.0, [])]                     # never answered
+    assert [stats.sessions_in_flight(log, t) for t in (0.5, 3.0, 5.0,
+                                                       6.5, 9.5)] == \
+        [0, 2, 2, 1, 1]
+    got = stats.sessions_summary(log, 3.5, 10.0, cut=1)
+    assert got["turns_due"] == {0: 1, 1: 1}
+    assert got["longest_context_due"] == 110
+    assert got["sessions_cut"] == 1
+    assert stats.attempted(log, 3.5, 10.0, "sessions") == log[1:2] + log[3:]

@@ -9,7 +9,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from h100bench import spec, traffic  # noqa: E402
+from h100bench import loadgen, spec, traffic  # noqa: E402
 
 BIG = 2**31 + 12345
 
@@ -93,3 +93,92 @@ def test_chat_window_reaches_past_the_sliding_window():
                       for r in plan["requests"]
                       if r["due"] >= plan["window_start"])
         assert longest > window
+
+
+def _sessions(seed, seconds=51):
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cell = spec.load_cell("mistral7b.sessions",
+                          os.path.join(root, "BENCHMARK.json"))
+    return cell, traffic.build_plan(cell.traffic, seed, seconds)
+
+
+def _play(plan, served):
+    """Every turn the load generator would send, each turn served
+    ``served(turn)`` tokens: (session, turn, prompt, tokens, ids), ids as
+    the client sends them and the reference reads them (run.finished)."""
+    out = []
+    for s in plan["sessions"]:
+        context = None
+        for k, turn in enumerate(s["turns"]):
+            got = loadgen.session_turn(plan, s, k, context)
+            if got is None:
+                break
+            ids = (context or [256]) + list(got[0].encode())
+            out.append((s, k, *got, ids))
+            context = ids + [31999] * served(turn)
+    return out
+
+
+def test_sessions_plan_same_seed_same_plan_same_schedule_for_every_seed():
+    """The seed draws every prompt's bytes; the sessions, their arrivals,
+    turns, sizes and think times are the block's, so every seed puts the
+    same work in the window."""
+    _, a = _sessions(BIG)
+    _, b = _sessions(BIG)
+    _, c = _sessions(BIG + 1)
+    assert a == b and a != c
+
+    def schedule(plan):
+        return [(s["due"], s["system"], [
+            (len(t["user"]), t["num_predict"], t["think_s"])
+            for t in s["turns"]]) for s in plan["sessions"]]
+    assert schedule(a) == schedule(c)
+    assert a["systems"] != c["systems"]
+    w0 = a["window_start"]
+    dues = [s["due"] for s in a["sessions"]]
+    assert dues == sorted(dues) and dues[0] == 0.0 and w0 in dues
+    assert max(dues) < w0 + 51
+
+
+def test_sessions_share_system_prompts_and_stay_under_the_context():
+    cell, plan = _sessions(BIG)
+    tr = cell.traffic
+    assert len(set(plan["systems"])) == tr["system_prompts"] == 4
+    assert all(len(x) == tr["system_tokens"] == 1536
+               for x in plan["systems"])
+    assert {s["system"] for s in plan["sessions"]} == set(range(4))
+    assert all(tr["turns"][0] <= len(s["turns"]) <= tr["turns"][1]
+               for s in plan["sessions"])
+    for served in (lambda t: 1, lambda t: t["num_predict"]):
+        sent = _play(plan, served)
+        for s, k, prompt, n, ids in sent:
+            user = s["turns"][k]["user"]
+            if k == 0:
+                assert prompt == (f"system: {plan['systems'][s['system']]}"
+                                  f"\nuser: {user}\nassistant:")
+            else:
+                assert prompt == f"\nuser: {user}\nassistant:"
+            assert n == len(ids)
+            assert n + s["turns"][k]["num_predict"] <= 8192
+        # The window holds a turn whose context passes Mistral's window.
+        assert any(s["due"] >= plan["window_start"] and
+                   n + s["turns"][k]["num_predict"] > 4096
+                   for s, k, _, n, _ in sent)
+
+
+def test_a_later_turn_continues_the_previous_turns_context():
+    """Turn k >= 1 sends the previous final record's context, served ids
+    included, and only the transcript's next lines as text."""
+    _, plan = _sessions(3)
+    s = plan["sessions"][0]
+    p0, n0 = loadgen.session_turn(plan, s, 0, None)
+    assert n0 == 1 + len(p0.encode())
+    context = [256] + list(p0.encode()) + [31999, 300, 4000]
+    p1, n1 = loadgen.session_turn(plan, s, 1, context)
+    assert p1 == "\nuser: " + s["turns"][1]["user"] + "\nassistant:"
+    assert n1 == len(context) + len(p1.encode())
+    room = plan["max_context"] - s["turns"][1]["num_predict"] - n1
+    assert loadgen.session_turn(plan, s, 1, context + [7] * room) is not None
+    assert loadgen.session_turn(plan, s, 1,
+                                context + [7] * (room + 1)) is None

@@ -9,7 +9,7 @@ order: the rows of a fixed block, rotated by an offset drawn from the
 seed. Prompts are printable bytes drawn from the seed; the byte
 tokenizer makes each byte one token, after a BOS token.
 
-Two loops:
+Three loops:
 
 - ``open``: a ramp block, then a window block, each rescaled so that its
   rows arrive at the cell's mean rate (``rate_rps``), the trace's own
@@ -17,6 +17,21 @@ Two loops:
   request is due when the window opens.
 - ``closed``: ``clients`` clients, each sending the next row of the
   block (cycled, every prompt drawn afresh) as soon as its reply ends.
+- ``sessions``: multi-turn chat sessions arriving as a Poisson process
+  at ``sessions_per_s``, a ramp block and a window block as in the open
+  loop. Each opens with one of ``system_prompts`` shared system prompts
+  of ``system_tokens`` tokens and has ``turns`` [lo, hi] turns, uniform;
+  each turn is the next row of the block: its prompt length is the user
+  message's, its reply length the turn's ``num_predict``. A turn is
+  sent ``think_mean_s`` (exponential mean) after the previous reply
+  ended, continuing the previous turn's context, so with the whole
+  history, served replies included (loadgen.py ``session_turn``); a
+  session ends before a turn that would pass ``max_context``. The
+  sessions, their arrivals, turns, sizes, system prompts and think times
+  are fixed by the block (``start_row``); the seed draws the bytes of
+  every prompt. Rotating the sessions, as the open loop rotates its
+  rows, would change which turns fall inside the window, and with them
+  the window's work.
 """
 
 from __future__ import annotations
@@ -25,6 +40,8 @@ import csv
 import os
 
 import numpy as np
+
+from h100bench import loadgen
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PRINTABLE = (32, 127)
@@ -94,7 +111,10 @@ def _requests(prompt, reply, due, seed: int) -> list:
 def build_plan(traffic: dict, seed: int, seconds: float) -> dict:
     """The requests of one run: ``{"loop", "requests", ...}``. An open
     plan gives each request ``due`` (seconds after the plan starts) and
-    ``window_start``; a closed plan gives ``clients``."""
+    ``window_start``; a closed plan gives ``clients``; a sessions plan
+    gives ``sessions`` in place of requests (each with its ``due``, its
+    system prompt's index into ``systems`` and its ``turns``) and
+    ``window_start``."""
     t, p, q = read_trace(os.path.join(HERE, traffic["trace"]))
     start = int(traffic["start_row"])
     max_ctx = int(traffic["max_context"])
@@ -126,4 +146,66 @@ def build_plan(traffic: dict, seed: int, seconds: float) -> dict:
         return {"loop": "closed", "clients": int(traffic["clients"]),
                 "rows": block.tolist(), "clipped": clipped,
                 "requests": _requests(prompt, reply, None, seed)}
+    if traffic["loop"] == "sessions":
+        return _sessions_plan(traffic, seed, seconds, p, q)
     raise ValueError(f"unknown loop {traffic['loop']!r}")
+
+
+# The rate key of each loop that offers load at a fixed rate.
+RATE_KEYS = {"open": "rate_rps", "sessions": "sessions_per_s"}
+
+
+def _sessions_plan(traffic: dict, seed: int, seconds: float, p, q) -> dict:
+    """The sessions of a ramp block and a window block, with prompt bytes
+    drawn from ``seed``."""
+    rate = float(traffic["sessions_per_s"])
+    ramp = float(traffic["ramp_s"])
+    lo_turns, hi_turns = (int(x) for x in traffic["turns"])
+    n_sys = int(traffic["system_prompts"])
+    max_ctx = int(traffic["max_context"])
+    text_rng = np.random.default_rng([int(seed), 7])
+    systems = [prompt_text(text_rng, int(traffic["system_tokens"]) + 1)
+               for _ in range(n_sys)]
+    row = int(traffic["start_row"])
+    sessions, rows, clipped = [], [], 0
+    for salt, (n, t0, span) in enumerate(
+            ((max(1, round(rate * ramp)), 0.0, ramp),
+             (max(1, round(rate * seconds)), ramp, seconds))):
+        fixed = np.random.default_rng([int(traffic["start_row"]), 11, salt])
+        turns = fixed.integers(lo_turns, hi_turns + 1, size=n)
+        system = fixed.integers(0, n_sys, size=n)
+        think = fixed.exponential(float(traffic["think_mean_s"]),
+                                  size=(n, hi_turns))
+        gaps = rescale(fixed.exponential(1.0, size=n), span)
+        block = []
+        for i in range(n):
+            idx = np.arange(row, row + turns[i])
+            row += turns[i]
+            rows += idx.tolist()
+            user, reply, _ = clip_lengths(p[idx], q[idx], max_ctx)
+            first = loadgen.prompt_tokens(loadgen.chat_transcript(
+                [("system", systems[system[i]]), ("user", "")]))
+            room = max_ctx - int(reply[0]) - first
+            clipped += int(user[0] > room)
+            user[0] = max(1, min(int(user[0]), room))
+            block.append({"system": int(system[i]), "turns": [
+                {"user": prompt_text(text_rng, int(u) + 1),
+                 "num_predict": int(r), "think_s": float(think[i, k])}
+                for k, (u, r) in enumerate(zip(user, reply))]})
+        due = t0 + np.concatenate([[0.0], np.cumsum(gaps)[:-1]])
+        for j, sess in enumerate(block):
+            sessions.append({"id": len(sessions), "due": float(due[j]),
+                             **sess})
+    return {"loop": "sessions", "window_start": ramp,
+            "max_context": max_ctx, "systems": systems,
+            "sessions": sessions, "rows": rows, "clipped": clipped}
+
+
+def describe(plan: dict) -> str:
+    """One line on what a plan sends, for the run's log."""
+    if plan["loop"] == "sessions":
+        return (f"sessions loop, {len(plan['sessions'])} sessions of "
+                f"{sum(len(s['turns']) for s in plan['sessions'])} turns, "
+                f"{plan['clipped']} first prompts clipped to the context")
+    return (f"{plan['loop']} loop, {len(plan['requests'])} requests, "
+            f"{plan['clipped']} prompts clipped to the context")
